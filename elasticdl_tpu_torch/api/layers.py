@@ -1,5 +1,5 @@
-"""User-facing layers: `Embedding`, and the `Dense` layer the zoo models
-use in place of `flax.linen.Dense`.
+"""User-facing layers: `Embedding`, and the `Dense`, `LayerNorm` and
+`Embed` layers the zoo models use in place of flax's.
 
 Counterpart of `elasticdl_tpu/api/layers.py`. Parameters are float32, created
 empty; `reset_parameters(generator)` draws them from the same
@@ -91,3 +91,61 @@ class Dense(nn.Module):
         dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         y = torch.nn.functional.linear(x.to(dtype), self.weight.to(dtype))
         return y + self.bias.to(dtype)
+
+
+class LayerNorm(nn.Module):
+    """`flax.linen.LayerNorm` over the last axis: epsilon 1e-6, float32
+    `scale` (ones) and `bias` (zeros).
+
+    As in flax, the statistics are float32 and use the fast variance,
+    E[x^2] - E[x]^2 clamped at 0; y = (x - mean) * (rsqrt(var + eps) *
+    scale) + bias is computed in float32 and cast to `dtype` once, at the
+    end. dtype None keeps the input's dtype promoted with float32."""
+
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None,
+                 epsilon: float = 1e-6):
+        super().__init__()
+        self.features = int(features)
+        self.dtype = dtype
+        self.epsilon = float(epsilon)
+        self.scale = nn.Parameter(torch.empty((self.features,)))
+        self.bias = nn.Parameter(torch.empty((self.features,)))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        del generator
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.to(torch.float32)
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = torch.clamp_min(
+            (x32 * x32).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        y = (x32 - mean) * mul + self.bias
+        return y.to(self.dtype or torch.promote_types(x.dtype, torch.float32))
+
+
+class Embed(nn.Module):
+    """`flax.linen.Embed`: a float32 (num_embeddings, features) table
+    `embedding` drawn from N(0, 1/features) (flax's
+    variance_scaling(1.0, 'fan_in', 'normal', out_axis=0)); the lookup is
+    `F.embedding`, so its gradient is a plain dense scatter, not kernel
+    K1."""
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__()
+        self.num_embeddings = int(num_embeddings)
+        self.features = int(features)
+        self.embedding = nn.Parameter(
+            torch.empty((self.num_embeddings, self.features)))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            nn.init.normal_(self.embedding, 0.0,
+                            math.sqrt(1.0 / self.features),
+                            generator=generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return torch.nn.functional.embedding(ids, self.embedding)

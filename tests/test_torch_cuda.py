@@ -1,6 +1,6 @@
 """Tests of the port that need the card: the hand-written CUDA kernels
-against their plain versions, and the train step on the GPU against the
-same step on the CPU. They skip where no CUDA device is present.
+against their plain versions, and the train steps on the GPU against the
+same steps on the CPU. They skip where no CUDA device is present.
 
 This file imports torch and the port only, so it also runs on a GPU
 machine without JAX:
@@ -11,6 +11,14 @@ Tolerance for K1 against its plain version: the two sum the same f32
 values in different orders (the kernel in stream order, `index_add_` with
 atomics), so each entry is held to 1e-6 + 1e-5 x the sum of the
 magnitudes of its terms — the scale that summation rounding grows with.
+
+Tolerances for K2-K4 (flash attention) against their plain versions, the
+reference's own for its kernel against its naive path: float32 out and
+lse 2e-5, gradients 5e-5 with atol 5e-5 of the largest value (the kernels
+sum tile by tile, the plain versions whole rows). In bfloat16 both sides
+compute in float32 from the same inputs and round each output once, so
+they differ by at most one bf16 ulp (2**-7 of the value) plus float32
+noise: rtol 2**-7 with atol 1e-2 of the output's rms.
 """
 
 import os
@@ -20,17 +28,19 @@ import pytest
 import torch
 
 from elasticdl_tpu_torch.ops import embedding as emb
+from elasticdl_tpu_torch.ops import flash_attention as fa
 from elasticdl_tpu_torch.ops import placement
 
 pytestmark = pytest.mark.cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BF16 = (2 ** -7, 0.0, 1e-2)     # rtol, atol of max, atol of rms
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1 is a CUDA kernel with no "
+        pytest.skip("needs a CUDA device: K1-K4 are CUDA kernels with no "
                     "interpret mode")
     return torch.device("cuda")
 
@@ -143,6 +153,148 @@ def case_deepfm_grads_on_the_card_match_cpu(cuda):
                                    atol=1e-6 * np.abs(w).max(), err_msg=k)
 
 
+def _attn_inputs(cuda, b, tq, tk, h, d, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    return (rand(b, tq, h, d), rand(b, tk, h, d), rand(b, tk, h, d),
+            rand(b, tq, h, d), torch.randn((b, h, tq), generator=g,
+                                           device=cuda))
+
+
+def _close(got, want, what, rtol, atol_of_max=0.0, atol_of_rms=0.0):
+    got, want = got.float(), want.float()
+    atol = 0.0
+    if want.numel():
+        atol = (atol_of_max * float(want.abs().max())
+                + atol_of_rms * float(want.square().mean().sqrt()))
+    err = (got - want).abs()
+    assert bool((err <= atol + rtol * want.abs()).all()), \
+        (what, float(err.max()))
+
+
+def case_flash_kernels_match_plain(cuda, dtype, d, tq, tk, causal, q_off,
+                                   kv_off, with_glse):
+    q, k, v, dout, glse = _attn_inputs(cuda, 2, tq, tk, 3, d, dtype)
+    glse = glse if with_glse else None
+    args = (causal, q_off, kv_off)
+    out, lse = fa.flash_fwd(q, k, v, *args)
+    want_out, want_lse = fa.flash_fwd_plain(q, k, v, *args)
+    dq = fa.flash_bwd_dq(q, k, v, out, dout, lse, glse, *args)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, out, dout, lse, glse, *args)
+    torch.cuda.synchronize()
+    want_dq = fa.flash_bwd_dq_plain(q, k, v, out, dout, lse, glse, *args)
+    want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse, glse,
+                                              *args)
+    assert out.dtype == dtype and dq.dtype == dk.dtype == dv.dtype == dtype
+    f32 = dtype == torch.float32
+    _close(out, want_out, "out", *((2e-5, 2e-5) if f32 else BF16))
+    _close(lse, want_lse, "lse", 2e-5, 2e-5)
+    for name, g, w in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                       ("dv", dv, want_dv)):
+        _close(g, w, name, *((5e-5, 5e-5) if f32 else BF16))
+
+
+def case_full_attention_takes_the_kernels_at_any_length(cuda):
+    """Lengths with no power-of-two block (24, 100, 1000) launch K2 on
+    the card, as every length does; EDL_FLASH=0 and a head dim past 256
+    raise there, since the card has only the kernels."""
+    from elasticdl_tpu_torch.ops import attention
+
+    for t in (24, 100, 1000):
+        q, k, v, _, _ = _attn_inputs(cuda, 1, t, t, 2, 64, torch.bfloat16)
+        before = fa.launches[fa.FWD]
+        out = attention.full_attention(q, k, v)
+        assert fa.launches[fa.FWD] == before + 1
+        _close(out, fa.flash_fwd_plain(q, k, v)[0], f"out T={t}", *BF16)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("EDL_FLASH", "0")
+        with pytest.raises(ValueError, match="no attention kernel"):
+            attention.full_attention(q, k, v)
+    wide = torch.zeros((1, 8, 1, 257), device=cuda)
+    with pytest.raises(ValueError, match="no attention kernel"):
+        attention.full_attention(wide, wide, wide)
+
+
+def case_flash_fully_masked_is_zero(cuda):
+    """q before every kv position: every tile is skipped; and a row fully
+    masked inside a live tile (kv_offset 8) is 0 too."""
+    q, k, v, dout, _ = _attn_inputs(cuda, 2, 64, 64, 2, 64, torch.float32)
+    for kv_off, rows in ((1024, 64), (8, 8)):
+        out, lse = fa.flash_fwd(q, k, v, True, 0, kv_off)
+        dq = fa.flash_bwd_dq(q, k, v, out, dout, lse, None, True, 0, kv_off)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, out, dout, lse, None, True, 0,
+                                  kv_off)
+        assert bool((out[:, :rows] == 0).all())
+        assert bool((lse[:, :, :rows] <= -1e29).all())
+        assert bool((dq[:, :rows] == 0).all())
+        for g in (dq, dk, dv):
+            assert bool(torch.isfinite(g).all())
+            if kv_off == 1024:
+                assert bool((g == 0).all())
+
+
+def case_flash_is_deterministic_and_counts_launches(cuda):
+    q, k, v, dout, glse = _attn_inputs(cuda, 2, 256, 256, 4, 64,
+                                       torch.bfloat16, seed=1)
+    before = dict(fa.launches)
+    outs = []
+    for _ in range(2):
+        out, lse = fa.flash_fwd(q, k, v)
+        outs.append((out, lse, fa.flash_bwd_dq(q, k, v, out, dout, lse, glse),
+                     *fa.flash_bwd_dkv(q, k, v, out, dout, lse, glse)))
+    assert fa.launches == {n: before[n] + 2 for n in before}
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def case_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v, _, _ = _attn_inputs(cuda, 1, 32, 32, 2, 16, torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="on cuda"):
+        fa.flash_fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q, k.transpose(1, 3).contiguous().transpose(1, 3), v)
+    big = torch.zeros((1, 8, 1, 257), device=cuda)
+    with pytest.raises(ValueError, match="D <= 256"):
+        fa.flash_fwd(big, big, big)
+
+
+def case_lm_grads_on_the_card_match_cpu(cuda):
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.training.model_spec import ModelSpec
+    from elasticdl_tpu_torch.training.trainer import Trainer
+
+    cfg = JobConfig.from_argv([
+        "--model_zoo", os.path.join(REPO, "elasticdl_tpu_torch", "model_zoo"),
+        "--model_def", "transformer.transformer_lm.custom_model",
+        "--model_params", "vocab=64;num_layers=2;dim=64;heads=4;max_len=64",
+        "--compute_dtype", "float32"])
+    r = np.random.RandomState(6)
+    toks = r.randint(0, 64, (8, 33)).astype(np.int32)
+    batch = {"features": toks[:, :-1], "labels": toks[:, 1:],
+             "mask": np.ones((8,), np.float32)}
+    results, weights = [], None
+    for dev in ("cpu", None):
+        tr = Trainer(ModelSpec.from_config(cfg), device=dev)
+        state = tr.init_state(batch)
+        if weights is None:
+            weights = {n: t.detach().clone()
+                       for n, t in tr.model.state_dict().items()}
+        tr.model.load_state_dict(weights)
+        loss, grads = tr.compute_grads(state, batch)
+        results.append((float(loss), {n: g.cpu() for n, g in grads.items()}))
+    assert results[1][0] == pytest.approx(results[0][0], rel=5e-5)
+    for n, want in results[0][1].items():
+        got = results[1][1][n]
+        if n.endswith(".k.bias"):       # 0 in exact arithmetic
+            continue
+        _close(got, want, n, 5e-5, 5e-5)
+
+
 def test_kernels_on_the_card(cuda):
     """Every case above, in one collected test (ROADMAP.md, conventions:
     one collected test per port test file)."""
@@ -154,3 +306,18 @@ def test_kernels_on_the_card(cuda):
     case_k1_wrapper_rejects_what_the_kernel_does_not_take(cuda)
     case_lookup_backward_on_the_card_matches_cpu(cuda)
     case_deepfm_grads_on_the_card_match_cpu(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (16, 64, 96, 128, 256):
+            case_flash_kernels_match_plain(cuda, dtype, d, 100, 100, True, 0,
+                                           0, False)
+        for tq, tk, causal, q_off, kv_off, glse in (
+                (64, 64, True, 32, 0, False), (64, 64, True, 16, 0, True),
+                (64, 64, True, 64, 32, False), (32, 96, False, 0, 0, True),
+                (200, 130, True, 70, 0, True)):
+            case_flash_kernels_match_plain(cuda, dtype, 64, tq, tk, causal,
+                                           q_off, kv_off, glse)
+    case_full_attention_takes_the_kernels_at_any_length(cuda)
+    case_flash_fully_masked_is_zero(cuda)
+    case_flash_is_deterministic_and_counts_launches(cuda)
+    case_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda)
+    case_lm_grads_on_the_card_match_cpu(cuda)

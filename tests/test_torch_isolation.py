@@ -21,11 +21,16 @@ before = set(sys.modules)
 from elasticdl_tpu_torch.common.config import JobConfig
 from elasticdl_tpu_torch.training.model_spec import ModelSpec
 from elasticdl_tpu_torch.training.trainer import Trainer
-from elasticdl_tpu_torch.ops import embedding, native, placement
+from elasticdl_tpu_torch.ops import (
+    attention, embedding, flash_attention, native, placement)
 from elasticdl_tpu_torch import convert
 spec = ModelSpec.from_config(JobConfig.from_argv([
     "--model_zoo", sys.argv[1], "--model_def", "deepfm.deepfm.custom_model",
     "--model_params", "field_vocab=100;hidden=8"]))
+lm = ModelSpec.from_config(JobConfig.from_argv([
+    "--model_zoo", sys.argv[1], "--model_def",
+    "transformer.transformer_lm.custom_model",
+    "--model_params", "vocab=64;num_layers=1;dim=32;heads=2;max_len=16"]))
 print(json.dumps(sorted(set(sys.modules) - before)))
 """
 
@@ -44,7 +49,9 @@ def case_port_loads_no_jax_or_reference_module():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "deepfm.deepfm" in loaded and "torch" in loaded
+    for name in ("deepfm.deepfm", "transformer.transformer_lm", "torch",
+                 "elasticdl_tpu_torch.ops.flash_attention"):
+        assert name in loaded, name
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -60,7 +67,7 @@ def _imports(path: Path):
 
 def case_no_source_file_of_the_port_imports_them():
     files = sorted(PORT.rglob("*.py"))
-    assert len(files) >= 15
+    assert len(files) >= 20
     bad = {str(f.relative_to(REPO)): m for f in files for m in _imports(f)
            if _forbidden(m)}
     assert bad == {}

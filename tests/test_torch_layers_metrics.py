@@ -1,11 +1,15 @@
-"""The port's `Embedding` layer and streaming metrics against the
-reference, on the CPU.
+"""The port's layers (`Embedding`, and `LayerNorm` and `Embed` against
+flax's) and streaming metrics against the reference, on the CPU.
 
 Metric states must be identical float32 arrays (the master merges raw
 states from any worker); the inputs are chosen so every sum is exact in
 float32, which makes "identical" a fair demand of two libraries.
+LayerNorm is held to rtol 1e-6 in float32 (the same float32 statistics
+and one rounding, in another summation order) and to one bf16 ulp (rtol
+2**-8) when it casts to bfloat16 at the end.
 """
 
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +18,7 @@ import torch
 
 from elasticdl_tpu.api.layers import Embedding as JEmbedding
 from elasticdl_tpu.training import metrics as jm
-from elasticdl_tpu_torch.api.layers import Dense, Embedding
+from elasticdl_tpu_torch.api.layers import Dense, Embed, Embedding, LayerNorm
 from elasticdl_tpu_torch.training import metrics as tm
 
 
@@ -50,6 +54,42 @@ def case_initializers_follow_flax_distributions():
     assert abs(w.std().item() - (1 / 400) ** 0.5) < 2e-3
     assert w.abs().max().item() <= 2 * (1 / 400) ** 0.5 / 0.8796256610342398
     assert not dense.bias.detach().any()
+    embed = Embed(5000, 64)
+    embed.reset_parameters(g)
+    e = embed.embedding.detach()
+    assert abs(e.mean().item()) < 2e-3
+    assert abs(e.std().item() - (1 / 64) ** 0.5) < 2e-3   # N(0, 1/features)
+    norm = LayerNorm(64)
+    norm.reset_parameters(g)
+    assert bool((norm.scale == 1).all()) and not norm.bias.detach().any()
+
+
+def case_layernorm_and_embed_match_flax(dtype):
+    r = np.random.RandomState(1)
+    x = (r.randn(4, 7, 64) * 3 + 1.5).astype(np.float32)
+    scale = r.randn(64).astype(np.float32)
+    bias = r.randn(64).astype(np.float32)
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jx = jnp.asarray(x, jdt)
+    want = nn.LayerNorm(dtype=jdt).apply(
+        {"params": {"scale": scale, "bias": bias}}, jx)
+    layer = LayerNorm(64, dtype=tdt)
+    layer.load_state_dict({"scale": torch.from_numpy(scale),
+                           "bias": torch.from_numpy(bias)})
+    got = layer(torch.from_numpy(np.array(jx, np.float32)).to(tdt))
+    assert got.dtype == tdt
+    rtol = 1e-6 if dtype == "float32" else 2.0 ** -8
+    np.testing.assert_allclose(got.to(torch.float32).detach().numpy(),
+                               np.asarray(want, np.float32), rtol=rtol,
+                               atol=rtol * np.abs(np.asarray(want)).max())
+    table = r.randn(50, 8).astype(np.float32)
+    ids = r.randint(0, 50, (3, 5)).astype(np.int32)
+    want = nn.Embed(50, 8).apply({"params": {"embedding": table}}, ids)
+    embed = Embed(50, 8)
+    embed.load_state_dict({"embedding": torch.from_numpy(table)})
+    np.testing.assert_array_equal(
+        embed(torch.from_numpy(ids)).detach().numpy(), np.asarray(want))
 
 
 def _metric_batches():
@@ -104,6 +144,8 @@ def test_layers_and_metrics_against_the_reference():
     for combiner in (None, "sum", "mean", "sqrtn"):
         case_embedding_forward_matches_with_converted_table(combiner)
     case_initializers_follow_flax_distributions()
+    for dtype in ("float32", "bfloat16"):
+        case_layernorm_and_embed_match_flax(dtype)
     for name in ("mean", "accuracy", "accuracy_probs", "auc"):
         case_metric_states_identical(name)
     case_accuracy_multiclass_state_identical()
