@@ -4,14 +4,19 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
 Two main paths: the DeepFM train step (kernel K1) and the transformer LM
-train step (flash-attention kernels K2-K4). Phases, each printing one JSON
-line; any failure raises and exits non-zero (no phase's error is caught):
+train step (flash-attention kernels: for its bfloat16 D 64 attention the
+Hopper kernels K2', K4' and the delta pass, with K3; K2 and K4 for every
+other input, such as the float32 LM). Phases, each printing one JSON line;
+any failure raises and exits non-zero (no phase's error is caught):
 
 1. env     torch/CUDA versions, `nvcc --version`, the card's name and
            power limit (also printed raw, as nvidia-smi gives them).
 2. build   compile every kernel of both paths from
            `elasticdl_tpu_torch/csrc` (one nvcc per source, all at once),
-           with ptxas's registers and spills for each kernel.
+           with ptxas's registers and spills for each kernel, the dynamic
+           shared memory each Hopper kernel's launch asks for, and the
+           HGMMA (wgmma) instructions in each kernel's SASS (`cuobjdump
+           --dump-sass`): K2' and K4' must have some.
 3. kernel  K1 (`place_sorted_grads`) against its plain version on the card
            over the DeepFM shape (uniform hashed ids, D=17 and 16), a
            stream with 30% of its slots on one id, one with out-of-range
@@ -32,37 +37,45 @@ line; any failure raises and exits non-zero (no phase's error is caught):
            launched once per train step.
 6. profile torch.profiler over three more full-width steps: the device's
            busy share, kernels launched per step, the top kernels.
-7. attn_kernel  K2 (flash forward), K3 (dQ) and K4 (dK, dV) against their
-           plain versions on the card: at the LM's full shape (B8 T1024 H8
-           D64, causal; out, lse, then the backward) in bf16 and in
-           float32, and on small float32 cases (offsets (32,0), (16,0),
-           (64,32); not causal with Tq 32, Tk 96; a fully masked
-           geometry, q_offset 0 and kv_offset 1024, where out and every
-           gradient must be 0 and finite; lse with a random g_lse).
-           Tolerances: float32 out and lse 2e-5, gradients 5e-5 with atol
-           5e-5 of the largest value (the reference's own for its
-           kernel); bf16 rtol 2**-7 (one bf16 ulp: both sides compute in
-           float32 from the same inputs and round once) with atol 1e-2
-           of the output's rms. Times at the bf16 full shape beside the
-           bound and the scaled_dot_product_attention (flash backend)
-           yardstick.
+7. attn_kernel  the flash kernels against their plain versions on the
+           card, each case through the routing wrappers, which must take
+           the Hopper kernels for bf16 at D 64 and 128 (K4' at D 64 only)
+           and K2-K4 elsewhere: at the LM's full shape (B8 T1024 H8,
+           causal; out, lse, then the backward) in bf16 at D 64 and 128
+           and in float32 at D 64; on small float32 cases at D 16 and
+           their bf16 twins at D 64 (offsets (32,0), (16,0), (64,32); not
+           causal with Tq 32, Tk 96 (bf16: Tq 100, Tk 230, tails); a fully
+           masked geometry, q_offset 0 and kv_offset 1024, where out and
+           every gradient must be 0 and finite; lse with a random g_lse).
+           Every bf16 case on the Hopper route also holds the delta pass
+           to (dout . out).sum(-1) - g_lse. Tolerances: float32 out, lse
+           and delta 2e-5, gradients 5e-5 with atol 5e-5 of the largest
+           value (the reference's own for its kernel); bf16 rtol 2**-7
+           (one bf16 ulp: both sides compute in float32 from the same
+           inputs and round once) with atol 1e-2 of the output's rms.
+           Times at the bf16 full shape (D 64) beside the bound and the
+           scaled_dot_product_attention (flash backend) yardstick, with
+           K2 and K4 timed on the same bf16 inputs through their launchers.
 8. lm_parity  a small LM (vocab 64, 2 layers, dim 64, 4 heads, float32,
            T 32) on the card and on the CPU from the same weights: loss
            rtol 5e-5, every gradient rtol 5e-5 with atol 5e-5 of its
            largest value (the k biases, 0 in exact arithmetic, within 1e-6
-           of the largest gradient entry of 0).
+           of the largest gradient entry of 0). This float32 LM is the
+           main path that launches K2 and K4 (D 16).
 9. lm_train  the LM at the width bench.py benchmarks it (vocab 8192, 4
            layers, dim 512, 8 heads, bf16, 8 x 1024 random tokens): 20
            train steps (one warm-up), eval_step, predict_step. Losses must
-           be finite and fall; K2, K3 and K4 must each launch 4 times (one
-           per layer) in every train step, and K2 4 times in each of eval
-           and predict. Then its profile, as in 6.
+           be finite and fall; K2', K3, K4' and the delta pass must each
+           launch 4 times (one per layer) in every train step and K2 and
+           K4 never, and K2' 4 times in each of eval and predict. Then its
+           profile, as in 6.
 Then the `kernels` line, the nvidia-smi line, and last the `ok` line.
 
 It exits non-zero without a result where CUDA is unavailable, and where
 the port's package is absent.
 """
 
+import ctypes
 import json
 import os
 import re
@@ -344,33 +357,68 @@ def phase_profile(trainer, state, batch, step_ms, steps=3):
                "name": name[:100]} for name, (us, n) in top])
 
 
-ATTN_REPLACES = {
-    "flash_fwd": "elasticdl_tpu/ops/pallas_attention.py:256",
-    "flash_bwd_dq": "elasticdl_tpu/ops/pallas_attention.py:404",
-    "flash_bwd_dkv": "elasticdl_tpu/ops/pallas_attention.py:433",
+PALLAS = "elasticdl_tpu/ops/pallas_attention.py"
+CSRC = "elasticdl_tpu_torch/csrc"
+# name: (source, the TPU kernel's pallas_call it replaces)
+ATTN_KERNELS = {
+    "flash_fwd": (f"{CSRC}/flash_attention.cu", f"{PALLAS}:256"),
+    "flash_fwd_sm90": (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:256"),
+    "flash_bwd_dq": (f"{CSRC}/flash_attention.cu", f"{PALLAS}:404"),
+    "flash_bwd_dkv": (f"{CSRC}/flash_attention.cu", f"{PALLAS}:433"),
+    "flash_bwd_dkv_sm90": (f"{CSRC}/flash_attention_sm90.cu",
+                           f"{PALLAS}:433"),
+    "flash_bwd_delta_sm90": (f"{CSRC}/flash_attention_sm90.cu",
+                             f"{PALLAS}:433"),
 }
 
 
+def short_name(mangled):
+    """A kernel's entry name with its template arguments, from the mangled
+    symbol."""
+    k = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(\w+?)Li(\d+)E",
+                  mangled)
+    if k:
+        dtype = "bf16" if "bfloat16" in k.group(2) else "f32"
+        return f"{k.group(1)}<{dtype},G={k.group(3)}>"
+    k = re.search(r"(flash_(?:fwd|bwd_dkv|bwd_delta)_sm90_kernel)ILi(\d+)E",
+                  mangled)
+    if k:
+        return f"{k.group(1)}<D={k.group(2)}>"
+    if "place_sorted_grads_kernel" in mangled:
+        return "place_sorted_grads_kernel"
+    return mangled
+
+
 def ptxas_summary(log):
-    """{kernel: "N registers, spills ..."} from nvcc's -Xptxas -v log,
-    with each entry function's mangled name shortened to its kernel and
-    template arguments."""
+    """{kernel: "N registers, spills, shared memory ..."} from nvcc's
+    -Xptxas -v log, with each entry function's mangled name shortened to
+    its kernel and template arguments."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            name = m.group(1)
-            k = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(\w+?)"
-                          r"Li(\d+)E", name)
-            if k:
-                dtype = "bf16" if "bfloat16" in k.group(2) else "f32"
-                name = f"{k.group(1)}<{dtype},G={k.group(3)}>"
-            elif "place_sorted_grads_kernel" in name:
-                name = "place_sorted_grads_kernel"
+            name = short_name(m.group(1))
         elif name and ("registers" in ln or "spill" in ln):
             text = ln.split("ptxas info    :")[-1].strip()
             out[name] = (out[name] + "; " + text) if name in out else text
     return out
+
+
+def hgmma_counts(path):
+    """{kernel: HGMMA instructions in its SASS} of a built library."""
+    from elasticdl_tpu_torch.ops import native
+
+    cuobjdump = os.path.join(os.path.dirname(native.nvcc()), "cuobjdump")
+    sass = run([cuobjdump, "--dump-sass", path])
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = short_name(m.group(1))
+            counts[name] = 0
+        elif name and "HGMMA" in ln:
+            counts[name] += 1
+    return counts
 
 
 def attn_inputs(dev, b, tq, tk, h, d, dtype, seed):
@@ -391,78 +439,117 @@ def over_tol(got, want, rtol, atol_of_max=0.0, atol_of_rms=0.0):
     is atol_of_max x max|want| + atol_of_rms x rms(want) + rtol x |want|."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    atol = (atol_of_max * float(want.abs().max())
-            + atol_of_rms * float(want.square().mean().sqrt()))
+    atol = atol_of_max * float(want.abs().max())
+    if atol_of_rms:                     # rms of -1e30 entries is inf
+        atol += atol_of_rms * float(want.square().mean().sqrt())
     tol = atol + rtol * want.abs()
     return float(err.max()), float((err / tol.clamp_min(1e-30)).max())
 
 
 def attn_bound(b, t, h, d, itemsize, kernel):
     """(bound ms, "operations" or "bytes") of one causal call at the full
-    shape: FLOPs 4, 6 or 8 x B.H.T^2.D / 2 (K2, K3, K4) at the bf16 peak,
-    bytes of each input read once and each output written once."""
+    shape: FLOPs 4, 6 or 8 x B.H.T^2.D / 2 (forward, dQ, dK/dV) at the
+    bf16 peak, bytes of each input read once and each output written once.
+    K4' reads delta where K4 reads O; the delta pass does 2 B.T.H.D FLOPs
+    on float32 (the CUDA cores' peak)."""
     act = b * t * h * d * itemsize
     rows = b * h * t * 4
-    flops, moved = {
-        "flash_fwd": (4, 3 * act + act + rows),       # q k v -> out, lse
-        "flash_bwd_dq": (6, 5 * act + rows + act),    # q k v o do lse -> dq
-        "flash_bwd_dkv": (8, 5 * act + rows + 2 * act),  # ... -> dk, dv
-    }[kernel]
-    flops = flops * b * h * t * t * d / 2
-    by_ops, by_bytes = flops / BF16_FLOPS, moved / HBM_BYTES_PER_S
+    flops, moved, peak = {
+        "flash_fwd": (4, 3 * act + act + rows, BF16_FLOPS),  # q k v -> out lse
+        "flash_bwd_dq": (6, 5 * act + rows + act, BF16_FLOPS),  # +o do lse
+        "flash_bwd_dkv": (8, 5 * act + rows + 2 * act, BF16_FLOPS),
+        "flash_bwd_dkv_sm90": (8, 4 * act + 2 * rows + 2 * act, BF16_FLOPS),
+        "flash_bwd_delta_sm90": (0, 2 * act + rows, F32_FLOPS),
+    }[kernel.replace("flash_fwd_sm90", "flash_fwd")]
+    flops = (flops * b * h * t * t * d / 2 if flops
+             else 2 * b * t * h * d)
+    by_ops, by_bytes = flops / peak, moved / HBM_BYTES_PER_S
     return max(by_ops, by_bytes) * 1e3, (
         "operations" if by_ops >= by_bytes else "bytes")
 
 
+def ran(before, after):
+    """The flash kernels launched between two snapshots of the counters."""
+    return sorted(n for n in after if after[n] > before[n])
+
+
 def phase_attn_kernel(dev):
-    """K2-K4 against their plain versions; times at the full shape."""
+    """The flash kernels against their plain versions through the routing
+    wrappers, which must take the route `_sm90` names; returns the cases'
+    report and each kernel's worst (max abs error, share of tolerance)."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
 
     f32, bf16 = torch.float32, torch.bfloat16
     full = (LM_BATCH, LM_T, LM_T, 8, 64, bf16)
+    small, twin = (2, 32, 32, 2, 16, f32), (2, 32, 32, 2, 64, bf16)
     cases = [  # name, (B, Tq, Tk, H, D, dtype), causal, q_off, kv_off, g_lse
         ("full_b8_t1024_h8_d64_bf16_causal", full, True, 0, 0, False),
+        ("full_b8_t1024_h8_d128_bf16_causal", full[:4] + (128, bf16), True,
+         0, 0, False),
         ("full_b8_t1024_h8_d64_f32_causal", full[:5] + (f32,), True, 0, 0,
          False),
-        ("f32_offsets_32_0", (2, 32, 32, 2, 16, f32), True, 32, 0, False),
-        ("f32_offsets_16_0", (2, 32, 32, 2, 16, f32), True, 16, 0, False),
-        ("f32_offsets_64_32", (2, 32, 32, 2, 16, f32), True, 64, 32, False),
+        ("f32_offsets_32_0", small, True, 32, 0, False),
+        ("f32_offsets_16_0", small, True, 16, 0, False),
+        ("f32_offsets_64_32", small, True, 64, 32, False),
         ("f32_not_causal_tq32_tk96", (2, 32, 96, 2, 16, f32), False, 0, 0,
          False),
-        ("f32_fully_masked_kv_offset_1024", (2, 32, 32, 2, 16, f32), True, 0,
-         1024, False),
+        ("f32_fully_masked_kv_offset_1024", small, True, 0, 1024, False),
         ("f32_lse_with_g_lse", (2, 64, 64, 2, 16, f32), True, 0, 0, True),
+        ("bf16_offsets_32_0", twin, True, 32, 0, False),
+        ("bf16_offsets_16_0", twin, True, 16, 0, False),
+        ("bf16_offsets_64_32", twin, True, 64, 32, False),
+        ("bf16_not_causal_tq100_tk230", (2, 100, 230, 2, 64, bf16), False, 0,
+         0, False),
+        ("bf16_fully_masked_kv_offset_1024", twin, True, 0, 1024, False),
+        ("bf16_lse_with_g_lse", (2, 64, 64, 2, 64, bf16), True, 0, 0, True),
     ]
-    worst = {fa.FWD: [0.0, 0.0], fa.BWD_DQ: [0.0, 0.0], fa.BWD_DKV: [0.0, 0.0]}
+    worst = {name: [0.0, 0.0] for name in ATTN_KERNELS}
     report = {}
+    bf16_tol = (2 ** -7, 0.0, 1e-2)     # rtol, atol of max, of rms
     for seed, (name, shape, causal, q_off, kv_off, with_glse) in \
             enumerate(cases):
         b, tq, tk, h, d, dtype = shape
         q, k, v, dout, glse = attn_inputs(dev, b, tq, tk, h, d, dtype, seed)
         glse = glse if with_glse else None
         args = (causal, q_off, kv_off)
+        before = dict(fa.launches)
         out, lse = fa.flash_fwd(q, k, v, *args)
+        fwd = ran(before, fa.launches)
         dq = fa.flash_bwd_dq(q, k, v, out, dout, lse, glse, *args)
+        before = dict(fa.launches)
         dk, dv = fa.flash_bwd_dkv(q, k, v, out, dout, lse, glse, *args)
+        dkv = ran(before, fa.launches)
         torch.cuda.synchronize()
+        hopper_fwd = fa._sm90(dtype, d)
+        hopper_dkv = fa._sm90(dtype, d, fa.BWD_DKV_SM90)
+        want_route = ([fa.FWD_SM90] if hopper_fwd else [fa.FWD],
+                      sorted([fa.BWD_DELTA_SM90, fa.BWD_DKV_SM90])
+                      if hopper_dkv else [fa.BWD_DKV])
+        if (fwd, dkv) != want_route:
+            raise AssertionError(f"{name}: launched {fwd} and {dkv}, the "
+                                 f"route wants {want_route}")
         want_out, want_lse = fa.flash_fwd_plain(q, k, v, *args)
         want_dq = fa.flash_bwd_dq_plain(q, k, v, out, dout, lse, glse, *args)
         want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse,
                                                   glse, *args)
         is_f32 = dtype == f32
-        bf16_tol = (2 ** -7, 0.0, 1e-2)     # rtol, atol of max, of rms
         out_tol = (2e-5, 2e-5) if is_f32 else bf16_tol
         grad_tol = (5e-5, 5e-5) if is_f32 else bf16_tol
         checks = {
-            fa.FWD: [over_tol(out, want_out, *out_tol),
+            fwd[0]: [over_tol(out, want_out, *out_tol),
                      over_tol(lse, want_lse, 2e-5, 2e-5)],
             fa.BWD_DQ: [over_tol(dq, want_dq, *grad_tol)],
-            fa.BWD_DKV: [over_tol(dk, want_dk, *grad_tol),
-                         over_tol(dv, want_dv, *grad_tol)],
+            (fa.BWD_DKV_SM90 if hopper_dkv else fa.BWD_DKV):
+                [over_tol(dk, want_dk, *grad_tol),
+                 over_tol(dv, want_dv, *grad_tol)],
         }
+        if hopper_dkv:
+            delta = fa.flash_bwd_delta(out, dout, glse)
+            checks[fa.BWD_DELTA_SM90] = [over_tol(
+                delta, fa.flash_bwd_delta_plain(out, dout, glse), 2e-5, 2e-5)]
         entry = {"shape": [b, tq, tk, h, d], "dtype": str(dtype)[6:],
                  "causal": causal, "q_offset": q_off, "kv_offset": kv_off,
-                 "g_lse": with_glse}
+                 "g_lse": with_glse, "route": fwd + dkv}
         ok = True
         for kernel, results in checks.items():
             err = max(r[0] for r in results)
@@ -480,39 +567,85 @@ def phase_attn_kernel(dev):
         report[name] = entry
         if not ok:
             emit("attn_kernel", cases=report)
-            raise AssertionError(f"K2-K4 disagree with the plain versions on "
-                                 f"{name}")
+            raise AssertionError(f"the flash kernels disagree with the plain "
+                                 f"versions on {name}")
+    return report, worst
 
-    # times at the full shape
-    b, t, _, h, d, dtype = full
-    q, k, v, dout, _ = attn_inputs(dev, b, t, t, h, d, dtype, 0)
+
+def attn_times(dev, report, worst):
+    """Every flash kernel at the bf16 full shape (D 64): K2' and K2, K4'
+    (alone, and with the delta pass) and K4 on the same inputs, through
+    their launchers; K2 and K4 are held to the plain versions there too."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, d = LM_BATCH, LM_T, 8, 64
+    q, k, v, dout, _ = attn_inputs(dev, b, t, t, h, d, torch.bfloat16, 0)
     out, lse = fa.flash_fwd(q, k, v)
-    calls = {
-        fa.FWD: (lambda: fa.flash_fwd(q, k, v),
-                 lambda: fa.flash_fwd_plain(q, k, v)),
+    delta = fa.flash_bwd_delta(out, dout)
+    want_out, _ = fa.flash_fwd_plain(q, k, v)
+    want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse)
+    bf16_tol = (2 ** -7, 0.0, 1e-2)
+    old_out, _ = fa.launch_fwd(q, k, v, True, 0, 0, False)
+    old_dk, old_dv = fa.launch_bwd_dkv(q, k, v, out, dout, lse, None, True,
+                                       0, 0, False)
+    for kernel, results in (
+            (fa.FWD, [over_tol(old_out, want_out, *bf16_tol)]),
+            (fa.BWD_DKV, [over_tol(old_dk, want_dk, *bf16_tol),
+                          over_tol(old_dv, want_dv, *bf16_tol)])):
+        err, ratio = max(r[0] for r in results), max(r[1] for r in results)
+        if ratio > 1.0:
+            raise AssertionError(f"{kernel} disagrees with its plain version "
+                                 f"at the bf16 full shape ({ratio})")
+        worst[kernel] = [max(worst[kernel][0], err),
+                         max(worst[kernel][1], ratio)]
+    plain_fwd = lambda: fa.flash_fwd_plain(q, k, v)
+    plain_dkv = lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse)
+    calls = {   # kernel: (its launch, its plain version)
+        fa.FWD_SM90: (lambda: fa.launch_fwd(q, k, v, True, 0, 0, True),
+                      plain_fwd),
+        fa.FWD: (lambda: fa.launch_fwd(q, k, v, True, 0, 0, False),
+                 plain_fwd),
         fa.BWD_DQ: (lambda: fa.flash_bwd_dq(q, k, v, out, dout, lse),
                     lambda: fa.flash_bwd_dq_plain(q, k, v, out, dout, lse)),
-        fa.BWD_DKV: (lambda: fa.flash_bwd_dkv(q, k, v, out, dout, lse),
-                     lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse)),
+        fa.BWD_DKV_SM90: (lambda: fa.launch_dkv_sm90(q, k, v, dout, lse,
+                                                     delta, True, 0, 0),
+                          plain_dkv),
+        fa.BWD_DELTA_SM90: (lambda: fa.flash_bwd_delta(out, dout),
+                            lambda: fa.flash_bwd_delta_plain(out, dout)),
+        fa.BWD_DKV: (lambda: fa.launch_bwd_dkv(q, k, v, out, dout, lse, None,
+                                               True, 0, 0, False),
+                     plain_dkv),
     }
     lib_fwd, lib_bwd = sdpa_ms(q, k, v, dout)
     result = {}
     for kernel, (run_kernel, run_plain) in calls.items():
         bound_ms, bound_by = attn_bound(b, t, h, d, q.element_size(), kernel)
+        fwd = kernel in (fa.FWD, fa.FWD_SM90)
         result[kernel] = {
             "max_abs_err": worst[kernel][0],
             "err_over_tol": worst[kernel][1],
             "ms": time_ms(run_kernel),
             "plain_ms": time_ms(run_plain, groups=5, per_group=3),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_fwd if kernel == fa.FWD else lib_bwd,
-            "library": ("scaled_dot_product_attention forward, flash backend"
-                        if kernel == fa.FWD else
+            "library_ms": (None if kernel == fa.BWD_DELTA_SM90
+                           else lib_fwd if fwd else lib_bwd),
+            "library": (None if kernel == fa.BWD_DELTA_SM90 else
+                        "scaled_dot_product_attention forward, flash backend"
+                        if fwd else
                         "scaled_dot_product_attention backward (dq, dk and "
                         "dv in one call), flash backend"),
         }
+    result[fa.BWD_DKV_SM90]["ms_with_delta_pass"] = time_ms(
+        lambda: fa.launch_bwd_dkv(q, k, v, out, dout, lse, None, True, 0, 0,
+                                  True))
+    faster = {
+        "k2_prime_under_k2": result[fa.FWD_SM90]["ms"] < result[fa.FWD]["ms"],
+        "k4_prime_with_delta_under_k4":
+            result[fa.BWD_DKV_SM90]["ms_with_delta_pass"]
+            < result[fa.BWD_DKV]["ms"],
+    }
     emit("attn_kernel", cases=report, timed_shape=[b, t, h, d],
-         timed_dtype="bfloat16", kernels=result)
+         timed_dtype="bfloat16", kernels=result, faster=faster)
     return result
 
 
@@ -543,7 +676,18 @@ def lm_batch(seed, b=LM_BATCH, t=LM_T, vocab=LM_VOCAB):
             "mask": np.ones((b,), np.float32)}
 
 
+def reset_launches():
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    for name in fa.launches:
+        fa.launches[name] = 0
+
+
 def phase_lm_parity():
+    """The float32 LM on the card against the CPU; returns the flash
+    kernels' launches in its card step (K2, K3 and K4: float32 takes the
+    CUDA-core kernels)."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
     from elasticdl_tpu_torch.training.trainer import Trainer
 
     r = np.random.RandomState(21)
@@ -561,8 +705,16 @@ def phase_lm_parity():
             weights = {n: t.detach().clone()
                        for n, t in tr.model.state_dict().items()}
         tr.model.load_state_dict(weights)
+        reset_launches()
         loss, grads = tr.compute_grads(state, batch)
         results.append((float(loss), {n: g.cpu() for n, g in grads.items()}))
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    layers = 2                          # LM_SMALL's num_layers
+    if launches != {**{n: 0 for n in launches}, fa.FWD: layers,
+                    fa.BWD_DQ: layers, fa.BWD_DKV: layers}:
+        raise AssertionError(f"flash launches in the float32 LM's step: "
+                             f"{launches}")
     (cpu_loss, cpu_grads), (gpu_loss, gpu_grads) = results
     largest = max(float(g.abs().max()) for g in cpu_grads.values())
     worst = 0.0
@@ -582,7 +734,9 @@ def phase_lm_parity():
         raise AssertionError(
             f"LM loss {gpu_loss} on cuda vs {cpu_loss} on cpu")
     emit("lm_parity", loss_cuda=gpu_loss, loss_cpu=cpu_loss,
-         params=len(cpu_grads), worst_grad_err_over_tol=worst)
+         params=len(cpu_grads), worst_grad_err_over_tol=worst,
+         launches=launches)
+    return launches
 
 
 def phase_lm_train():
@@ -590,10 +744,6 @@ def phase_lm_train():
     launches over the train, eval and predict steps."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
     from elasticdl_tpu_torch.training.trainer import Trainer
-
-    def reset():
-        for name in fa.launches:
-            fa.launches[name] = 0
 
     spec = load_spec(LM_PARAMS,
                      model_def="transformer.transformer_lm.custom_model")
@@ -604,7 +754,7 @@ def phase_lm_train():
     torch.cuda.reset_peak_memory_stats()
     state = trainer.init_state(batch)
 
-    reset()
+    reset_launches()
     losses = []
     state, logs = trainer.train_step(state, batch)      # warm-up step
     losses.append(logs["loss"])
@@ -621,12 +771,12 @@ def phase_lm_train():
     host_s = time.perf_counter() - t0
     step_ms = start.elapsed_time(end) / (STEPS - 1)
     train = dict(fa.launches)
-    reset()
+    reset_launches()
     metric_states = trainer.eval_step(state, batch,
                                       trainer.new_metric_states())
     torch.cuda.synchronize()
     evaluate = dict(fa.launches)
-    reset()
+    reset_launches()
     preds = trainer.predict_step(state, batch)
     torch.cuda.synchronize()
     predict = dict(fa.launches)
@@ -635,12 +785,13 @@ def phase_lm_train():
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"LM losses not finite and falling: {losses}")
     per_step = LM_LAYERS * STEPS
-    if train != {fa.FWD: per_step, fa.BWD_DQ: per_step,
-                 fa.BWD_DKV: per_step}:
+    none = {name: 0 for name in fa.launches}
+    if train != {**none, fa.FWD_SM90: per_step, fa.BWD_DQ: per_step,
+                 fa.BWD_DKV_SM90: per_step, fa.BWD_DELTA_SM90: per_step}:
         raise AssertionError(f"flash launches in {STEPS} train steps of "
                              f"{LM_LAYERS} layers: {train}")
     for what, counts in (("eval", evaluate), ("predict", predict)):
-        if counts != {fa.FWD: LM_LAYERS, fa.BWD_DQ: 0, fa.BWD_DKV: 0}:
+        if counts != {**none, fa.FWD_SM90: LM_LAYERS}:
             raise AssertionError(f"flash launches in {what}: {counts}")
     want_shape = (LM_BATCH, LM_T, LM_VOCAB)
     if tuple(preds.shape) != want_shape or not bool(
@@ -675,17 +826,31 @@ def main():
          nvcc=run([native.nvcc(), "--version"]).splitlines()[-1])
 
     t0 = time.perf_counter()
-    built = native.build([placement.KERNEL, fa.LIBRARY])
-    emit("build", seconds=time.perf_counter() - t0,
+    built = native.build([placement.KERNEL, fa.LIBRARY, fa.LIBRARY_SM90])
+    seconds = time.perf_counter() - t0
+    hgmma = hgmma_counts(built[fa.LIBRARY_SM90]["path"])
+    sm90 = ctypes.CDLL(built[fa.LIBRARY_SM90]["path"])
+    shared = {f"{name}<D={d}>": sm90.flash_sm90_shared_bytes(which, d)
+              for which, name, d in ((0, "flash_fwd_sm90_kernel", 64),
+                                     (0, "flash_fwd_sm90_kernel", 128),
+                                     (1, "flash_bwd_dkv_sm90_kernel", 64))}
+    emit("build", seconds=seconds,
          kernels={k: {"path": os.path.relpath(v["path"], REPO),
                       "seconds": v["seconds"],
                       "ptxas": ptxas_summary(v["log"])}
-                  for k, v in built.items()})
+                  for k, v in built.items()},
+         hgmma=hgmma, dynamic_shared_bytes=shared)
+    for kernel in ("flash_fwd_sm90_kernel<D=64>",
+                   "flash_fwd_sm90_kernel<D=128>",
+                   "flash_bwd_dkv_sm90_kernel<D=64>"):
+        if not hgmma.get(kernel):
+            raise AssertionError(f"{kernel} has no HGMMA instruction")
 
     k1 = phase_kernel(dev)
-    attn = phase_attn_kernel(dev)
+    report, worst = phase_attn_kernel(dev)
+    attn = attn_times(dev, report, worst)
     phase_parity()
-    phase_lm_parity()
+    f32_lm_launches = phase_lm_parity()
     launches = phase_train()
     lm_launches = phase_lm_train()
 
@@ -705,11 +870,17 @@ def main():
     }] + [{
         "name": name,
         "route": "cuda",
-        "source": "elasticdl_tpu_torch/csrc/flash_attention.cu",
-        "replaces": ATTN_REPLACES[name],
-        "launches": lm_launches[name],
+        "source": ATTN_KERNELS[name][0],
+        "replaces": ATTN_KERNELS[name][1],
+        # K2 and K4 serve the float32 LM (lm_parity); the others the bf16
+        # LM's train, eval and predict steps (lm_train)
+        "launches": (f32_lm_launches[name] if name in (fa.FWD, fa.BWD_DKV)
+                     else lm_launches[name]),
+        "launches_in": ("lm_parity" if name in (fa.FWD, fa.BWD_DKV)
+                        else "lm_train"),
         **attn[name],
-    } for name in (fa.FWD, fa.BWD_DQ, fa.BWD_DKV)]}), flush=True)
+    } for name in (fa.FWD, fa.FWD_SM90, fa.BWD_DQ, fa.BWD_DKV,
+                   fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

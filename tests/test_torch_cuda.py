@@ -12,13 +12,16 @@ values in different orders (the kernel in stream order, `index_add_` with
 atomics), so each entry is held to 1e-6 + 1e-5 x the sum of the
 magnitudes of its terms — the scale that summation rounding grows with.
 
-Tolerances for K2-K4 (flash attention) against their plain versions, the
-reference's own for its kernel against its naive path: float32 out and
-lse 2e-5, gradients 5e-5 with atol 5e-5 of the largest value (the kernels
-sum tile by tile, the plain versions whole rows). In bfloat16 both sides
-compute in float32 from the same inputs and round each output once, so
-they differ by at most one bf16 ulp (2**-7 of the value) plus float32
-noise: rtol 2**-7 with atol 1e-2 of the output's rms.
+Tolerances for the flash kernels (K2-K4, and for bfloat16 at D 64 / 128
+the Hopper kernels K2', K4' and the delta pass) against their plain
+versions, the reference's own for its kernel against its naive path:
+float32 out, lse and delta 2e-5, gradients 5e-5 with atol 5e-5 of the
+largest value (the kernels sum tile by tile, the plain versions whole
+rows). In bfloat16 both sides compute in float32 from the same inputs
+(K2' and K4' split the float32 p and ds into bf16 hi + lo, which carries
+them to ~2**-17) and round each output once, so they differ by at most one
+bf16 ulp (2**-7 of the value) plus float32 noise: rtol 2**-7 with atol
+1e-2 of the output's rms.
 """
 
 import os
@@ -168,30 +171,60 @@ def _close(got, want, what, rtol, atol_of_max=0.0, atol_of_rms=0.0):
     got, want = got.float(), want.float()
     atol = 0.0
     if want.numel():
-        atol = (atol_of_max * float(want.abs().max())
-                + atol_of_rms * float(want.square().mean().sqrt()))
+        atol = atol_of_max * float(want.abs().max())
+        if atol_of_rms:                 # the rms of -1e30 entries is inf
+            atol += atol_of_rms * float(want.square().mean().sqrt())
     err = (got - want).abs()
     assert bool((err <= atol + rtol * want.abs()).all()), \
         (what, float(err.max()))
 
 
+def _route(dtype, d):
+    """The launches one forward and backward should add, by `_sm90`."""
+    fwd = fa.FWD_SM90 if fa._sm90(dtype, d) else fa.FWD
+    dkv = ([fa.BWD_DELTA_SM90, fa.BWD_DKV_SM90]
+           if fa._sm90(dtype, d, fa.BWD_DKV_SM90) else [fa.BWD_DKV])
+    return {n: int(n in [fwd, fa.BWD_DQ] + dkv) for n in fa.launches}
+
+
 def case_flash_kernels_match_plain(cuda, dtype, d, tq, tk, causal, q_off,
-                                   kv_off, with_glse):
-    q, k, v, dout, glse = _attn_inputs(cuda, 2, tq, tk, 3, d, dtype)
+                                   kv_off, with_glse, views=False):
+    """Each kernel the route picks against its plain version; with
+    `views`, q, k and v are slices of one (B, T, 3, H, D) tensor."""
+    if views:
+        assert tq == tk
+        g = torch.Generator(device=cuda).manual_seed(2)
+        qkv = torch.randn((2, tq, 3, 3, d), generator=g,
+                          device=cuda).to(dtype)
+        q, k, v = qkv.unbind(2)
+        _, _, _, dout, glse = _attn_inputs(cuda, 2, tq, tk, 3, d, dtype)
+    else:
+        q, k, v, dout, glse = _attn_inputs(cuda, 2, tq, tk, 3, d, dtype)
     glse = glse if with_glse else None
     args = (causal, q_off, kv_off)
+    before = dict(fa.launches)
     out, lse = fa.flash_fwd(q, k, v, *args)
     want_out, want_lse = fa.flash_fwd_plain(q, k, v, *args)
     dq = fa.flash_bwd_dq(q, k, v, out, dout, lse, glse, *args)
     dk, dv = fa.flash_bwd_dkv(q, k, v, out, dout, lse, glse, *args)
     torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in before} == \
+        _route(dtype, d)
+    if fa._sm90(dtype, d, fa.BWD_DKV_SM90):
+        _close(fa.flash_bwd_delta(out, dout, glse),
+               fa.flash_bwd_delta_plain(out, dout, glse), "delta", 2e-5,
+               2e-5)
     want_dq = fa.flash_bwd_dq_plain(q, k, v, out, dout, lse, glse, *args)
     want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse, glse,
                                               *args)
     assert out.dtype == dtype and dq.dtype == dk.dtype == dv.dtype == dtype
     f32 = dtype == torch.float32
     _close(out, want_out, "out", *((2e-5, 2e-5) if f32 else BF16))
-    _close(lse, want_lse, "lse", 2e-5, 2e-5)
+    # rows that see no key have lse ~ NEG_BIG; the others are held to
+    # 2e-5 of their own largest value
+    masked = want_lse <= -1e29
+    assert bool((lse[masked] <= -1e29).all())
+    _close(lse[~masked], want_lse[~masked], "lse", 2e-5, 2e-5)
     for name, g, w in (("dq", dq, want_dq), ("dk", dk, want_dk),
                        ("dv", dv, want_dv)):
         _close(g, w, name, *((5e-5, 5e-5) if f32 else BF16))
@@ -205,9 +238,9 @@ def case_full_attention_takes_the_kernels_at_any_length(cuda):
 
     for t in (24, 100, 1000):
         q, k, v, _, _ = _attn_inputs(cuda, 1, t, t, 2, 64, torch.bfloat16)
-        before = fa.launches[fa.FWD]
+        before = fa.launches[fa.FWD_SM90]
         out = attention.full_attention(q, k, v)
-        assert fa.launches[fa.FWD] == before + 1
+        assert fa.launches[fa.FWD_SM90] == before + 1
         _close(out, fa.flash_fwd_plain(q, k, v)[0], f"out T={t}", *BF16)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("EDL_FLASH", "0")
@@ -245,7 +278,9 @@ def case_flash_is_deterministic_and_counts_launches(cuda):
         out, lse = fa.flash_fwd(q, k, v)
         outs.append((out, lse, fa.flash_bwd_dq(q, k, v, out, dout, lse, glse),
                      *fa.flash_bwd_dkv(q, k, v, out, dout, lse, glse)))
-    assert fa.launches == {n: before[n] + 2 for n in before}
+    route = _route(torch.bfloat16, 64)
+    assert route[fa.FWD_SM90] and route[fa.BWD_DKV_SM90]
+    assert fa.launches == {n: before[n] + 2 * route[n] for n in before}
     for a, b in zip(*outs):
         assert torch.equal(a, b)
 
@@ -261,6 +296,23 @@ def case_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     big = torch.zeros((1, 8, 1, 257), device=cuda)
     with pytest.raises(ValueError, match="D <= 256"):
         fa.flash_fwd(big, big, big)
+
+
+def case_hopper_wrapper_rejects_strides_tma_cannot_take(cuda):
+    """A bf16 D 64 view whose h stride is 68 elements (136 bytes, not a
+    multiple of 16) is on the Hopper route, which raises before any launch
+    rather than falling back to the CUDA-core kernels."""
+    wide = torch.randn((1, 32, 2, 68), device=cuda).to(torch.bfloat16)
+    q = wide[..., :64]
+    before = dict(fa.launches)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_fwd(q, q, q)
+    out, lse = fa.flash_fwd(*(q.contiguous() for _ in range(3)))
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_bwd_dkv(q, q, q, out, out, lse)
+    assert fa.launches[fa.FWD] == before[fa.FWD]
+    assert fa.launches[fa.BWD_DKV] == before[fa.BWD_DKV]
+    assert fa.launches[fa.BWD_DELTA_SM90] == before[fa.BWD_DELTA_SM90]
 
 
 def case_lm_grads_on_the_card_match_cpu(cuda):
@@ -316,8 +368,19 @@ def test_kernels_on_the_card(cuda):
                 (200, 130, True, 70, 0, True)):
             case_flash_kernels_match_plain(cuda, dtype, 64, tq, tk, causal,
                                            q_off, kv_off, glse)
+    for d in (64, 128):         # the Hopper route's tails, offsets, g_lse
+        for tq, tk, causal, q_off, kv_off, glse in (
+                (130, 130, True, 0, 0, True), (200, 200, True, 0, 0, False),
+                (100, 230, False, 0, 0, True), (130, 200, True, 70, 0, True),
+                (200, 130, True, 0, 64, False), (100, 100, True, 0, 1024,
+                                                 False)):
+            case_flash_kernels_match_plain(cuda, torch.bfloat16, d, tq, tk,
+                                           causal, q_off, kv_off, glse)
+        case_flash_kernels_match_plain(cuda, torch.bfloat16, d, 200, 200,
+                                       True, 0, 0, True, views=True)
     case_full_attention_takes_the_kernels_at_any_length(cuda)
     case_flash_fully_masked_is_zero(cuda)
     case_flash_is_deterministic_and_counts_launches(cuda)
     case_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda)
+    case_hopper_wrapper_rejects_strides_tma_cannot_take(cuda)
     case_lm_grads_on_the_card_match_cpu(cuda)

@@ -262,6 +262,50 @@ def case_materialized_path_matches_the_reference(dtype):
         tatt.sequence_parallel_attention(*_torch(q, k, v), axis_name="seq")
 
 
+def case_hopper_route_by_dtype_and_head_dim():
+    """`_sm90` decides the route before any launch: K2' takes bfloat16 at
+    D 64 and 128, K4' (with its delta pass) bfloat16 at D 64; everything
+    else goes to the CUDA-core kernels."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (16, 64, 100, 128, 256):
+            bf16 = dtype == torch.bfloat16
+            assert tflash._sm90(dtype, d) == (bf16 and d in (64, 128))
+            assert tflash._sm90(dtype, d, tflash.BWD_DKV_SM90) == (
+                bf16 and d == 64)
+
+
+def case_hi_lo_split_keeps_float32_p():
+    """The hi + lo split of K2' and K4' in plain torch, at the LM's tile
+    (64 q rows, 64 kv rows, D 64, bf16 inputs): p and ds from
+    `flash_fwd_plain`'s own inputs and lse, split into hi = bf16(x) and
+    lo = bf16(x - hi), each product formed in float32 (exact for bf16
+    operands, as on wgmma). P.V, P^T.dO and dS^T.Q from the split stay
+    within 1e-2 of the one-ulp bf16 bound (rtol 2**-7, atol 1e-2 of the
+    rms) of the unsplit float32 product. One bf16 rounding of p or ds, for
+    contrast, spends far more of that bound."""
+    r = np.random.RandomState(11)
+    q, k, v, do = (torch.from_numpy(r.randn(1, 64, 1, 64).astype(np.float32))
+                   .to(torch.bfloat16) for _ in range(4))
+    out, lse = tflash.flash_fwd_plain(q, k, v, causal=True)
+    p, ds = tflash._p_and_ds(q, k, v, out, do, lse, None, True, 0, 0)
+    p, ds = p[0, 0], ds[0, 0]
+    q32, v32, do32 = (t[0, :, 0].to(torch.float32) for t in (q, v, do))
+
+    def share_of_bound(got, want):
+        tol = 2 ** -7 * want.abs() + 1e-2 * want.square().mean().sqrt()
+        return float(((got - want).abs() / tol).max())
+
+    for name, x, b in (("p.v", p, v32), ("p^T.do", p.T, do32),
+                       ("ds^T.q", ds.T, q32)):
+        want = x @ b
+        hi = x.to(torch.bfloat16).to(torch.float32)
+        lo = (x - hi).to(torch.bfloat16).to(torch.float32)
+        split = share_of_bound(hi @ b + lo @ b, want)
+        single = share_of_bound(hi @ b, want)
+        assert split <= 1e-2, (name, split)
+        assert single > 10 * split and single > 1e-2, (name, single, split)
+
+
 def test_flash_attention_against_the_reference():
     """Every case above, in one collected test (ROADMAP.md, conventions:
     one collected test per port test file)."""
@@ -279,3 +323,5 @@ def test_flash_attention_against_the_reference():
         case_wrappers_reject_what_no_version_takes()
         for dtype in ("float32", "bfloat16"):
             case_materialized_path_matches_the_reference(dtype)
+        case_hopper_route_by_dtype_and_head_dim()
+        case_hi_lo_split_keeps_float32_p()
