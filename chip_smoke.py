@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Two main paths: the DeepFM train step (kernel K1) and the transformer LM
-train step (flash-attention kernels: for its bfloat16 D 64 attention the
-Hopper kernels K2', K4' and the delta pass, with K3; K2 and K4 for every
+Two main paths: the DeepFM train step (kernel K1: its zero pass and its
+placement pass) and the transformer LM train step (flash-attention
+kernels: for its bfloat16 D 64 attention the Hopper kernels K2', K3', K4'
+and the delta pass, which runs once a backward; K2, K3 and K4 for every
 other input, such as the float32 LM). Phases, each printing one JSON line;
 any failure raises and exits non-zero (no phase's error is caught):
 
@@ -16,15 +17,17 @@ any failure raises and exits non-zero (no phase's error is caught):
            with ptxas's registers and spills for each kernel, the dynamic
            shared memory each Hopper kernel's launch asks for, and the
            HGMMA (wgmma) instructions in each kernel's SASS (`cuobjdump
-           --dump-sass`): K2' and K4' must have some.
+           --dump-sass`): K2', K3' and K4' must have some.
 3. kernel  K1 (`place_sorted_grads`) against its plain version on the card
            over the DeepFM shape (uniform hashed ids, D=17 and 16), a
-           stream with 30% of its slots on one id, one with out-of-range
-           and negative sentinels, and an empty one. Each entry is held to
-           1e-6 + 1e-5 x the sum of the magnitudes of its terms: only the
-           summation order differs. Times with CUDA events (median of 21
-           groups of 10 launches, after warm-up), beside the bound and the
-           `index_add_` yardstick.
+           stream with 30% of its slots on one id, one with all of them on
+           one id, one with out-of-range and negative sentinels, and an
+           empty one. Each entry is held to 1e-6 + 1e-5 x the sum of the
+           magnitudes of its terms (only the summation order differs), and
+           a second call must give the same bits. Every stream's time with
+           CUDA events (median of 21 groups of 10 calls, after warm-up)
+           and its device time from torch.profiler, beside the bound, the
+           plain version and the `index_add_` yardstick.
 4. parity  a small DeepFM (field_vocab=1000, hidden=32,32, float32
            compute) on the card and on the CPU from the same weights:
            loss rtol 1e-5, every gradient rtol 1e-5 with atol 1e-6 of its
@@ -33,41 +36,45 @@ any failure raises and exits non-zero (no phase's error is caught):
            hidden 400,400, bf16 tower, batch 8192): JobConfig -> ModelSpec
            -> Trainer (device defaulted, so the GPU) -> init_state ->
            train_step x STEPS on one repeated batch -> eval_step ->
-           predict_step. Losses must be finite and fall, and K1 must have
-           launched once per train step.
+           predict_step. Losses must be finite and fall, and K1's two
+           kernels must have launched once each per train step.
 6. profile torch.profiler over three more full-width steps: the device's
            busy share, kernels launched per step, the top kernels.
 7. attn_kernel  the flash kernels against their plain versions on the
-           card, each case through the routing wrappers, which must take
-           the Hopper kernels for bf16 at D 64 and 128 (K4' at D 64 only)
-           and K2-K4 elsewhere: at the LM's full shape (B8 T1024 H8,
-           causal; out, lse, then the backward) in bf16 at D 64 and 128
-           and in float32 at D 64; on small float32 cases at D 16 and
-           their bf16 twins at D 64 (offsets (32,0), (16,0), (64,32); not
-           causal with Tq 32, Tk 96 (bf16: Tq 100, Tk 230, tails); a fully
-           masked geometry, q_offset 0 and kv_offset 1024, where out and
-           every gradient must be 0 and finite; lse with a random g_lse).
-           Every bf16 case on the Hopper route also holds the delta pass
-           to (dout . out).sum(-1) - g_lse. Tolerances: float32 out, lse
-           and delta 2e-5, gradients 5e-5 with atol 5e-5 of the largest
-           value (the reference's own for its kernel); bf16 rtol 2**-7
-           (one bf16 ulp: both sides compute in float32 from the same
-           inputs and round once) with atol 1e-2 of the output's rms.
-           Times at the bf16 full shape (D 64) beside the bound and the
-           scaled_dot_product_attention (flash backend) yardstick, with
-           K2 and K4 timed on the same bf16 inputs through their launchers.
+           card, each case through the routing wrappers (the forward, then
+           the whole backward `flash_bwd`), which must take the Hopper
+           kernels for bf16 at D 64 and 128 (K4' at D 64 only; one delta
+           pass a backward) and K2-K4 elsewhere: at the LM's full shape (B8
+           T1024 H8, causal) in bf16 at D 64 and 128 and in float32 at
+           D 64; on small float32 cases at D 16 and their bf16 twins at
+           D 64 (offsets (32,0), (16,0), (64,32); not causal with Tq 32,
+           Tk 96 (bf16: Tq 100, Tk 230, tails); a fully masked geometry,
+           q_offset 0 and kv_offset 1024, where out and every gradient
+           must be 0 and finite; lse with a random g_lse). A second
+           backward must give the same bits. Every bf16 case on the Hopper
+           route also holds the delta pass to (dout . out).sum(-1) -
+           g_lse. Tolerances: float32 out, lse and delta 2e-5, gradients
+           5e-5 with atol 5e-5 of the largest value (the reference's own
+           for its kernel); bf16 rtol 2**-7 (one bf16 ulp: both sides
+           compute in float32 from the same inputs and round once) with
+           atol 1e-2 of the output's rms. Times at the bf16 full shape
+           (D 64) beside the bound and the scaled_dot_product_attention
+           (flash backend) yardstick, with K2, K3 and K4 timed on the same
+           bf16 inputs through their launchers, the Hopper kernels' device
+           times from torch.profiler, and the whole backward against
+           SDPA's backward in turns over 7 rounds.
 8. lm_parity  a small LM (vocab 64, 2 layers, dim 64, 4 heads, float32,
            T 32) on the card and on the CPU from the same weights: loss
            rtol 5e-5, every gradient rtol 5e-5 with atol 5e-5 of its
            largest value (the k biases, 0 in exact arithmetic, within 1e-6
            of the largest gradient entry of 0). This float32 LM is the
-           main path that launches K2 and K4 (D 16).
+           main path that launches K2, K3 and K4 (D 16).
 9. lm_train  the LM at the width bench.py benchmarks it (vocab 8192, 4
            layers, dim 512, 8 heads, bf16, 8 x 1024 random tokens): 20
            train steps (one warm-up), eval_step, predict_step. Losses must
-           be finite and fall; K2', K3, K4' and the delta pass must each
-           launch 4 times (one per layer) in every train step and K2 and
-           K4 never, and K2' 4 times in each of eval and predict. Then its
+           be finite and fall; K2', K3', K4' and the delta pass must each
+           launch 4 times (one per layer) in every train step and K2-K4
+           never, and K2' 4 times in each of eval and predict. Then its
            profile, as in 6.
 Then the `kernels` line, the nvidia-smi line, and last the `ok` line.
 
@@ -163,6 +170,7 @@ def k1_streams(dev):
 
     skewed = ids.clone()
     skewed[torch.randperm(n, generator=gen, device=dev)[: (3 * n) // 10]] = 12345
+    one_id = torch.full_like(ids, 12345)
     oob = ids.clone()
     oob[::7] = emb.OOB_ID
     oob[1::11] = -1
@@ -171,6 +179,7 @@ def k1_streams(dev):
     for name, i, d in (("deepfm_uniform_d17", ids, 17),
                        ("deepfm_uniform_d16", ids, 16),
                        ("skewed_30pct_one_id", skewed, 17),
+                       ("one_id_100pct", one_id, 17),
                        ("oob_and_negative_sentinels", oob, 17)):
         out.append((name, torch.sort(i, stable=True)[0].contiguous(),
                     rows(d), num_rows))
@@ -179,47 +188,85 @@ def k1_streams(dev):
     return out
 
 
+def device_ms(fn, names, calls=20):
+    """{name: device ms a call} of each kernel whose symbol contains one of
+    `names`, from torch.profiler over `calls` calls of `fn` after one
+    warm-up; "not measured" where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = {name: 0.0 for name in names}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name in names:
+            if name in e.name:
+                us[name] += e.time_range.elapsed_us()
+    return {name: (t / 1e3 / calls if t else "not measured")
+            for name, t in us.items()}
+
+
+K1_SYMBOLS = ("place_zero_kernel", "place_sorted_grads_kernel")
+
+
 def phase_kernel(dev):
     from elasticdl_tpu_torch.ops import placement
 
     report, worst_abs, worst_rel = {}, 0.0, 0.0
-    timed = None
     for name, ids, rows, num_rows in k1_streams(dev):
         got = placement.place_sorted_grads(ids, rows, num_rows)
+        again = placement.place_sorted_grads(ids, rows, num_rows)
         torch.cuda.synchronize()
         want = placement.place_sorted_grads_plain(ids, rows, num_rows)
         mag = placement.place_sorted_grads_plain(ids, rows.abs(), num_rows)
         err = (got - want).abs()
-        ok = bool((err <= 1e-6 + 1e-5 * mag).all())
+        same = bool(torch.equal(got, again))
+        ok = bool((err <= 1e-6 + 1e-5 * mag).all()) and same
         max_abs = float(err.max()) if err.numel() else 0.0
         max_rel = float((err / mag.clamp_min(1e-30)).max()) if err.numel() else 0.0
         worst_abs, worst_rel = max(worst_abs, max_abs), max(worst_rel, max_rel)
-        entry = {"n": ids.numel(), "d": rows.shape[1], "num_rows": num_rows,
-                 "max_abs_err": max_abs, "max_rel_err": max_rel, "ok": ok}
-        if ids.numel():
+        n, d = rows.shape
+        entry = {"n": n, "d": d, "num_rows": num_rows,
+                 "max_abs_err": max_abs, "max_rel_err": max_rel,
+                 "bit_identical_rerun": same, "ok": ok}
+        if n:
+            ids64 = ids.to(torch.int64)
             entry["ms"] = time_ms(
                 lambda: placement.place_sorted_grads(ids, rows, num_rows))
+            entry["device_ms"] = device_ms(
+                lambda: placement.place_sorted_grads(ids, rows, num_rows),
+                K1_SYMBOLS)
+            # index_add_ takes in-range ids only (it asserts on the rest)
+            if bool(((ids >= 0) & (ids < num_rows)).all()):
+                entry["library_ms"] = time_ms(
+                    lambda: torch.zeros((num_rows, d), device=dev)
+                    .index_add_(0, ids64, rows))
+            entry["plain_ms"] = time_ms(
+                lambda: placement.place_sorted_grads_plain(ids, rows,
+                                                           num_rows),
+                groups=5, per_group=3)
+            bytes_moved = n * 4 + n * d * 4 + num_rows * d * 4
+            entry["bound_ms"] = max(bytes_moved / HBM_BYTES_PER_S,
+                                    n * d / F32_FLOPS) * 1e3
         report[name] = entry
         if not ok:
             emit("kernel", streams=report)
-            raise AssertionError(f"K1 disagrees with its plain version on {name}")
-        if name == "deepfm_uniform_d17":
-            timed = (ids, rows, num_rows)
-
-    ids, rows, num_rows = timed
-    n, d = rows.shape
-    ids64 = ids.to(torch.int64)
-    plain_ms = time_ms(
-        lambda: placement.place_sorted_grads_plain(ids, rows, num_rows))
-    library_ms = time_ms(
-        lambda: torch.zeros((num_rows, d), device=dev).index_add_(0, ids64, rows))
-    bytes_moved = n * 4 + n * d * 4 + num_rows * d * 4
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, n * d / F32_FLOPS) * 1e3
-    emit("kernel", streams=report, bytes=bytes_moved, bound_ms=bound_ms,
-         plain_ms=plain_ms, library_ms=library_ms)
+            raise AssertionError(f"K1 disagrees with its plain version (or "
+                                 f"with itself) on {name}")
+    emit("kernel", streams=report, passes_a_call=placement.PASSES)
+    timed = report["deepfm_uniform_d17"]
     return {
-        "ms": report["deepfm_uniform_d17"]["ms"], "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": bound_ms,
+        "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+        "library_ms": timed["library_ms"], "bound_ms": timed["bound_ms"],
+        "device_ms": timed["device_ms"],
+        "skewed_ms": report["skewed_30pct_one_id"]["ms"],
         "max_abs_err": worst_abs, "max_rel_err": worst_rel,
     }
 
@@ -304,8 +351,9 @@ def phase_train():
     results = trainer.metric_results(metric_states)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite and falling: {losses}")
-    if launches != STEPS:
-        raise AssertionError(f"K1 launched {launches} times in {STEPS} steps")
+    if launches != placement.PASSES * STEPS:
+        raise AssertionError(f"K1 launched {launches} kernels in {STEPS} "
+                             f"steps, want {placement.PASSES} a step")
     if tuple(preds.shape) != (BATCH,) or not bool(torch.isfinite(preds).all()):
         raise AssertionError(f"predictions {tuple(preds.shape)} not finite")
     emit("train", table=list(table.shape), batch=BATCH, steps=STEPS,
@@ -364,11 +412,14 @@ ATTN_KERNELS = {
     "flash_fwd": (f"{CSRC}/flash_attention.cu", f"{PALLAS}:256"),
     "flash_fwd_sm90": (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:256"),
     "flash_bwd_dq": (f"{CSRC}/flash_attention.cu", f"{PALLAS}:404"),
+    "flash_bwd_dq_sm90": (f"{CSRC}/flash_attention_sm90.cu",
+                          f"{PALLAS}:404"),
     "flash_bwd_dkv": (f"{CSRC}/flash_attention.cu", f"{PALLAS}:433"),
     "flash_bwd_dkv_sm90": (f"{CSRC}/flash_attention_sm90.cu",
                            f"{PALLAS}:433"),
+    # the delta fold of both backward kernels (pallas_attention.py:302-307)
     "flash_bwd_delta_sm90": (f"{CSRC}/flash_attention_sm90.cu",
-                             f"{PALLAS}:433"),
+                             f"{PALLAS}:404"),
 }
 
 
@@ -380,12 +431,14 @@ def short_name(mangled):
     if k:
         dtype = "bf16" if "bfloat16" in k.group(2) else "f32"
         return f"{k.group(1)}<{dtype},G={k.group(3)}>"
-    k = re.search(r"(flash_(?:fwd|bwd_dkv|bwd_delta)_sm90_kernel)ILi(\d+)E",
-                  mangled)
+    k = re.search(
+        r"(flash_(?:fwd|bwd_dq|bwd_dkv|bwd_delta)_sm90_kernel)ILi(\d+)E",
+        mangled)
     if k:
         return f"{k.group(1)}<D={k.group(2)}>"
-    if "place_sorted_grads_kernel" in mangled:
-        return "place_sorted_grads_kernel"
+    for name in K1_SYMBOLS:
+        if name in mangled:
+            return name
     return mangled
 
 
@@ -448,17 +501,21 @@ def over_tol(got, want, rtol, atol_of_max=0.0, atol_of_rms=0.0):
 
 def attn_bound(b, t, h, d, itemsize, kernel):
     """(bound ms, "operations" or "bytes") of one causal call at the full
-    shape: FLOPs 4, 6 or 8 x B.H.T^2.D / 2 (forward, dQ, dK/dV) at the
-    bf16 peak, bytes of each input read once and each output written once.
-    K4' reads delta where K4 reads O; the delta pass does 2 B.T.H.D FLOPs
-    on float32 (the CUDA cores' peak)."""
+    shape: FLOPs 4, 6 or 8 x B.H.T^2.D / 2 (forward, dQ, dK/dV; 14 for
+    the whole backward) at the bf16 peak, bytes of each input read once
+    and each output written once. K3' and K4' read delta where K3 and K4
+    read O; the delta pass does 2 B.T.H.D FLOPs on float32 (the CUDA
+    cores' peak)."""
     act = b * t * h * d * itemsize
     rows = b * h * t * 4
     flops, moved, peak = {
         "flash_fwd": (4, 3 * act + act + rows, BF16_FLOPS),  # q k v -> out lse
         "flash_bwd_dq": (6, 5 * act + rows + act, BF16_FLOPS),  # +o do lse
         "flash_bwd_dkv": (8, 5 * act + rows + 2 * act, BF16_FLOPS),
+        "flash_bwd_dq_sm90": (6, 4 * act + 2 * rows + act, BF16_FLOPS),
         "flash_bwd_dkv_sm90": (8, 4 * act + 2 * rows + 2 * act, BF16_FLOPS),
+        # q k v o do lse -> dq dk dv
+        "flash_bwd": (14, 5 * act + rows + 3 * act, BF16_FLOPS),
         "flash_bwd_delta_sm90": (0, 2 * act + rows, F32_FLOPS),
     }[kernel.replace("flash_fwd_sm90", "flash_fwd")]
     flops = (flops * b * h * t * t * d / 2 if flops
@@ -515,19 +572,24 @@ def phase_attn_kernel(dev):
         before = dict(fa.launches)
         out, lse = fa.flash_fwd(q, k, v, *args)
         fwd = ran(before, fa.launches)
-        dq = fa.flash_bwd_dq(q, k, v, out, dout, lse, glse, *args)
         before = dict(fa.launches)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, out, dout, lse, glse, *args)
-        dkv = ran(before, fa.launches)
+        dq, dk, dv = fa.flash_bwd(q, k, v, out, dout, lse, glse, *args)
+        bwd = {n: fa.launches[n] - before[n] for n in before
+               if fa.launches[n] > before[n]}
+        again = fa.flash_bwd(q, k, v, out, dout, lse, glse, *args)
         torch.cuda.synchronize()
         hopper_fwd = fa._sm90(dtype, d)
+        hopper_dq = fa._sm90(dtype, d, fa.BWD_DQ_SM90)
         hopper_dkv = fa._sm90(dtype, d, fa.BWD_DKV_SM90)
-        want_route = ([fa.FWD_SM90] if hopper_fwd else [fa.FWD],
-                      sorted([fa.BWD_DELTA_SM90, fa.BWD_DKV_SM90])
-                      if hopper_dkv else [fa.BWD_DKV])
-        if (fwd, dkv) != want_route:
-            raise AssertionError(f"{name}: launched {fwd} and {dkv}, the "
+        want_bwd = {fa.BWD_DQ_SM90 if hopper_dq else fa.BWD_DQ: 1,
+                    fa.BWD_DKV_SM90 if hopper_dkv else fa.BWD_DKV: 1}
+        if hopper_dq or hopper_dkv:
+            want_bwd[fa.BWD_DELTA_SM90] = 1
+        want_route = ([fa.FWD_SM90] if hopper_fwd else [fa.FWD], want_bwd)
+        if (fwd, bwd) != want_route:
+            raise AssertionError(f"{name}: launched {fwd} and {bwd}, the "
                                  f"route wants {want_route}")
+        same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
         want_out, want_lse = fa.flash_fwd_plain(q, k, v, *args)
         want_dq = fa.flash_bwd_dq_plain(q, k, v, out, dout, lse, glse, *args)
         want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse,
@@ -538,19 +600,21 @@ def phase_attn_kernel(dev):
         checks = {
             fwd[0]: [over_tol(out, want_out, *out_tol),
                      over_tol(lse, want_lse, 2e-5, 2e-5)],
-            fa.BWD_DQ: [over_tol(dq, want_dq, *grad_tol)],
+            (fa.BWD_DQ_SM90 if hopper_dq else fa.BWD_DQ):
+                [over_tol(dq, want_dq, *grad_tol)],
             (fa.BWD_DKV_SM90 if hopper_dkv else fa.BWD_DKV):
                 [over_tol(dk, want_dk, *grad_tol),
                  over_tol(dv, want_dv, *grad_tol)],
         }
-        if hopper_dkv:
+        if hopper_dq:
             delta = fa.flash_bwd_delta(out, dout, glse)
             checks[fa.BWD_DELTA_SM90] = [over_tol(
                 delta, fa.flash_bwd_delta_plain(out, dout, glse), 2e-5, 2e-5)]
         entry = {"shape": [b, tq, tk, h, d], "dtype": str(dtype)[6:],
                  "causal": causal, "q_offset": q_off, "kv_offset": kv_off,
-                 "g_lse": with_glse, "route": fwd + dkv}
-        ok = True
+                 "g_lse": with_glse, "route": fwd + sorted(bwd),
+                 "bwd_bit_identical_rerun": same}
+        ok = same
         for kernel, results in checks.items():
             err = max(r[0] for r in results)
             ratio = max(r[1] for r in results)
@@ -573,9 +637,12 @@ def phase_attn_kernel(dev):
 
 
 def attn_times(dev, report, worst):
-    """Every flash kernel at the bf16 full shape (D 64): K2' and K2, K4'
-    (alone, and with the delta pass) and K4 on the same inputs, through
-    their launchers; K2 and K4 are held to the plain versions there too."""
+    """Every flash kernel at the bf16 full shape (D 64): K2' and K2, K3'
+    and K4' (alone, and each with the delta pass) and K3 and K4 on the same
+    inputs, through their launchers; K2, K3 and K4 are held to the plain
+    versions there too, and K3' to itself over two runs. Device times of
+    the Hopper kernels from the profiler beside the CUDA-event times, and
+    the whole backward against SDPA's in turns."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
 
     b, t, h, d = LM_BATCH, LM_T, 8, 64
@@ -583,13 +650,23 @@ def attn_times(dev, report, worst):
     out, lse = fa.flash_fwd(q, k, v)
     delta = fa.flash_bwd_delta(out, dout)
     want_out, _ = fa.flash_fwd_plain(q, k, v)
+    want_dq = fa.flash_bwd_dq_plain(q, k, v, out, dout, lse)
     want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse)
     bf16_tol = (2 ** -7, 0.0, 1e-2)
     old_out, _ = fa.launch_fwd(q, k, v, True, 0, 0, False)
+    old_dq = fa.launch_bwd_dq(q, k, v, out, dout, lse, None, True, 0, 0,
+                              False)
     old_dk, old_dv = fa.launch_bwd_dkv(q, k, v, out, dout, lse, None, True,
                                        0, 0, False)
+    new_dq = [fa.launch_dq_sm90(q, k, v, dout, lse, delta, True, 0, 0)
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    if not torch.equal(*new_dq):
+        raise AssertionError("K3' differs between two runs at the full shape")
     for kernel, results in (
             (fa.FWD, [over_tol(old_out, want_out, *bf16_tol)]),
+            (fa.BWD_DQ, [over_tol(old_dq, want_dq, *bf16_tol)]),
+            (fa.BWD_DQ_SM90, [over_tol(new_dq[0], want_dq, *bf16_tol)]),
             (fa.BWD_DKV, [over_tol(old_dk, want_dk, *bf16_tol),
                           over_tol(old_dv, want_dv, *bf16_tol)])):
         err, ratio = max(r[0] for r in results), max(r[1] for r in results)
@@ -599,14 +676,17 @@ def attn_times(dev, report, worst):
         worst[kernel] = [max(worst[kernel][0], err),
                          max(worst[kernel][1], ratio)]
     plain_fwd = lambda: fa.flash_fwd_plain(q, k, v)
+    plain_dq = lambda: fa.flash_bwd_dq_plain(q, k, v, out, dout, lse)
     plain_dkv = lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse)
     calls = {   # kernel: (its launch, its plain version)
         fa.FWD_SM90: (lambda: fa.launch_fwd(q, k, v, True, 0, 0, True),
                       plain_fwd),
         fa.FWD: (lambda: fa.launch_fwd(q, k, v, True, 0, 0, False),
                  plain_fwd),
-        fa.BWD_DQ: (lambda: fa.flash_bwd_dq(q, k, v, out, dout, lse),
-                    lambda: fa.flash_bwd_dq_plain(q, k, v, out, dout, lse)),
+        fa.BWD_DQ_SM90: (lambda: fa.launch_dq_sm90(q, k, v, dout, lse, delta,
+                                                   True, 0, 0), plain_dq),
+        fa.BWD_DQ: (lambda: fa.launch_bwd_dq(q, k, v, out, dout, lse, None,
+                                             True, 0, 0, False), plain_dq),
         fa.BWD_DKV_SM90: (lambda: fa.launch_dkv_sm90(q, k, v, dout, lse,
                                                      delta, True, 0, 0),
                           plain_dkv),
@@ -616,7 +696,8 @@ def attn_times(dev, report, worst):
                                                True, 0, 0, False),
                      plain_dkv),
     }
-    lib_fwd, lib_bwd = sdpa_ms(q, k, v, dout)
+    lib_fwd = sdpa_fwd_ms(q, k, v)
+    bwd = whole_backward(q, k, v, out, dout, lse)
     result = {}
     for kernel, (run_kernel, run_plain) in calls.items():
         bound_ms, bound_by = attn_bound(b, t, h, d, q.element_size(), kernel)
@@ -628,43 +709,87 @@ def attn_times(dev, report, worst):
             "plain_ms": time_ms(run_plain, groups=5, per_group=3),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": (None if kernel == fa.BWD_DELTA_SM90
-                           else lib_fwd if fwd else lib_bwd),
+                           else lib_fwd if fwd else bwd["sdpa_ms"]),
             "library": (None if kernel == fa.BWD_DELTA_SM90 else
                         "scaled_dot_product_attention forward, flash backend"
                         if fwd else
                         "scaled_dot_product_attention backward (dq, dk and "
                         "dv in one call), flash backend"),
         }
-    result[fa.BWD_DKV_SM90]["ms_with_delta_pass"] = time_ms(
-        lambda: fa.launch_bwd_dkv(q, k, v, out, dout, lse, None, True, 0, 0,
-                                  True))
+    for kernel in (fa.FWD_SM90, fa.BWD_DQ_SM90, fa.BWD_DKV_SM90,
+                   fa.BWD_DELTA_SM90):
+        symbol = f"{kernel}_kernel"
+        result[kernel]["device_ms"] = device_ms(calls[kernel][0],
+                                                (symbol,))[symbol]
+    for kernel, launch in ((fa.BWD_DQ_SM90, fa.launch_bwd_dq),
+                           (fa.BWD_DKV_SM90, fa.launch_bwd_dkv)):
+        result[kernel]["ms_with_delta_pass"] = time_ms(
+            lambda: launch(q, k, v, out, dout, lse, None, True, 0, 0, True))
     faster = {
         "k2_prime_under_k2": result[fa.FWD_SM90]["ms"] < result[fa.FWD]["ms"],
+        "k3_prime_under_k3":
+            result[fa.BWD_DQ_SM90]["ms_with_delta_pass"]
+            < result[fa.BWD_DQ]["ms"],
         "k4_prime_with_delta_under_k4":
             result[fa.BWD_DKV_SM90]["ms_with_delta_pass"]
             < result[fa.BWD_DKV]["ms"],
+        "whole_backward_under_sdpa": bwd["ms"] < bwd["sdpa_ms"],
     }
     emit("attn_kernel", cases=report, timed_shape=[b, t, h, d],
-         timed_dtype="bfloat16", kernels=result, faster=faster)
+         timed_dtype="bfloat16", kernels=result, whole_backward=bwd,
+         faster=faster)
     return result
 
 
-def sdpa_ms(q, k, v, dout):
-    """Forward and backward ms of scaled_dot_product_attention (flash
-    backend, causal) on the same inputs, in its (B, H, T, D) layout: the
-    library yardstick. The port never calls it."""
+def whole_backward(q, k, v, out, dout, lse, rounds=7):
+    """The port's whole backward (`flash_bwd`: the delta pass, K3' and K4')
+    against SDPA's backward (flash backend, the same dq, dk and dv; the
+    port never calls it) on the same inputs, alternating the two over `rounds` rounds: each one's
+    median and spread (ms), its device time from the profiler, and the
+    bound of the whole backward."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
-                       for x in (q, k, v, dout))
+    b, t, h, d = q.shape
+    ours = lambda: fa.flash_bwd(q, k, v, out, dout, lse)
+    qg, kg, vg = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = dout.transpose(1, 2).contiguous()
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
-        qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
         o = sdpa(qg, kg, vg, is_causal=True)
-        bwd = time_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), dot,
-                                                  retain_graph=True))
-    return fwd, bwd
+        theirs = lambda: torch.autograd.grad(o, (qg, kg, vg), dot,
+                                             retain_graph=True)
+        times = {"ours": [], "sdpa": []}
+        for _ in range(rounds):
+            for name, fn in (("ours", ours), ("sdpa", theirs),
+                             ("sdpa", theirs), ("ours", ours)):
+                times[name].append(time_ms(fn, groups=5))
+    ours_dev = device_ms(ours, ("flash_bwd_delta_sm90_kernel",
+                                "flash_bwd_dq_sm90_kernel",
+                                "flash_bwd_dkv_sm90_kernel"))
+    bound_ms, bound_by = attn_bound(b, t, h, d, q.element_size(),
+                                    "flash_bwd")
+    return {
+        "ms": statistics.median(times["ours"]),
+        "ms_spread": [min(times["ours"]), max(times["ours"])],
+        "sdpa_ms": statistics.median(times["sdpa"]),
+        "sdpa_ms_spread": [min(times["sdpa"]), max(times["sdpa"])],
+        "rounds": rounds, "device_ms": ours_dev,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def sdpa_fwd_ms(q, k, v):
+    """ms of scaled_dot_product_attention's forward (flash backend,
+    causal) on the same inputs, in its (B, H, T, D) layout: the library
+    yardstick. The port never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        return time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
 
 
 def lm_batch(seed, b=LM_BATCH, t=LM_T, vocab=LM_VOCAB):
@@ -786,7 +911,7 @@ def phase_lm_train():
         raise AssertionError(f"LM losses not finite and falling: {losses}")
     per_step = LM_LAYERS * STEPS
     none = {name: 0 for name in fa.launches}
-    if train != {**none, fa.FWD_SM90: per_step, fa.BWD_DQ: per_step,
+    if train != {**none, fa.FWD_SM90: per_step, fa.BWD_DQ_SM90: per_step,
                  fa.BWD_DKV_SM90: per_step, fa.BWD_DELTA_SM90: per_step}:
         raise AssertionError(f"flash launches in {STEPS} train steps of "
                              f"{LM_LAYERS} layers: {train}")
@@ -830,19 +955,20 @@ def main():
     seconds = time.perf_counter() - t0
     hgmma = hgmma_counts(built[fa.LIBRARY_SM90]["path"])
     sm90 = ctypes.CDLL(built[fa.LIBRARY_SM90]["path"])
+    hopper = ((0, "flash_fwd_sm90_kernel", 64),
+              (0, "flash_fwd_sm90_kernel", 128),
+              (1, "flash_bwd_dkv_sm90_kernel", 64),
+              (2, "flash_bwd_dq_sm90_kernel", 64),
+              (2, "flash_bwd_dq_sm90_kernel", 128))
     shared = {f"{name}<D={d}>": sm90.flash_sm90_shared_bytes(which, d)
-              for which, name, d in ((0, "flash_fwd_sm90_kernel", 64),
-                                     (0, "flash_fwd_sm90_kernel", 128),
-                                     (1, "flash_bwd_dkv_sm90_kernel", 64))}
+              for which, name, d in hopper}
     emit("build", seconds=seconds,
          kernels={k: {"path": os.path.relpath(v["path"], REPO),
                       "seconds": v["seconds"],
                       "ptxas": ptxas_summary(v["log"])}
                   for k, v in built.items()},
          hgmma=hgmma, dynamic_shared_bytes=shared)
-    for kernel in ("flash_fwd_sm90_kernel<D=64>",
-                   "flash_fwd_sm90_kernel<D=128>",
-                   "flash_bwd_dkv_sm90_kernel<D=64>"):
+    for kernel in shared:
         if not hgmma.get(kernel):
             raise AssertionError(f"{kernel} has no HGMMA instruction")
 
@@ -854,15 +980,20 @@ def main():
     launches = phase_train()
     lm_launches = phase_lm_train()
 
+    f32_lm = (fa.FWD, fa.BWD_DQ, fa.BWD_DKV)
     print(json.dumps({"kernels": [{
         "name": placement.KERNEL,
         "route": "cuda",
         "source": "elasticdl_tpu_torch/csrc/place_sorted_grads.cu",
         "replaces": "elasticdl_tpu/ops/pallas_scatter.py:150",
+        # two kernels a call: the zero pass and the placement pass
         "launches": launches,
+        "launches_in": "train",
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"],
         "ms": k1["ms"],
+        "device_ms": k1["device_ms"],
+        "skewed_30pct_one_id_ms": k1["skewed_ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
         "bound_by": "bytes",
@@ -872,15 +1003,15 @@ def main():
         "route": "cuda",
         "source": ATTN_KERNELS[name][0],
         "replaces": ATTN_KERNELS[name][1],
-        # K2 and K4 serve the float32 LM (lm_parity); the others the bf16
-        # LM's train, eval and predict steps (lm_train)
-        "launches": (f32_lm_launches[name] if name in (fa.FWD, fa.BWD_DKV)
+        # K2-K4 serve the float32 LM (lm_parity); the Hopper kernels the
+        # bf16 LM's train, eval and predict steps (lm_train)
+        "launches": (f32_lm_launches[name] if name in f32_lm
                      else lm_launches[name]),
-        "launches_in": ("lm_parity" if name in (fa.FWD, fa.BWD_DKV)
-                        else "lm_train"),
+        "launches_in": "lm_parity" if name in f32_lm else "lm_train",
         **attn[name],
-    } for name in (fa.FWD, fa.FWD_SM90, fa.BWD_DQ, fa.BWD_DKV,
-                   fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90)]}), flush=True)
+    } for name in (fa.FWD, fa.FWD_SM90, fa.BWD_DQ, fa.BWD_DQ_SM90,
+                   fa.BWD_DKV, fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90)]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

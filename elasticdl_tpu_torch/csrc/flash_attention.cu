@@ -4,7 +4,10 @@
 // Replaces elasticdl_tpu/ops/pallas_attention.py: `_fwd_kernel` (launched
 // by `_flash_fwd`), `_bwd_dq_kernel` and `_bwd_dkv_kernel` (launched by
 // `_flash_bwd`), the Pallas TPU kernels behind every attention of the
-// transformer LM.
+// transformer LM, for the inputs the tensor-core kernels of
+// csrc/flash_attention_sm90.cu do not take: float32 at any head dim, and
+// bfloat16 at head dims other than 64 (other than 64 and 128 for K2).
+// bfloat16 at D 64, the LM's attention, runs K2', K3' and K4' there.
 //
 // Contract (see ops/flash_attention.py): q (B, Tq, H, D), k and v
 // (B, Tk, H, D), out and dout like q, all float32 or all bfloat16, read in
@@ -44,7 +47,8 @@
 //   delta = rowsum(dO . O) - g_lse in the kernel.
 // - Causal tiles wholly above the diagonal are not visited: the loop
 //   bounds come from the offsets at run time.
-// wgmma, TMA and a pipelined tile ring are left for later work.
+// The Hopper kernels (wgmma, TMA, a pipelined tile ring) are in
+// csrc/flash_attention_sm90.cu.
 
 #include <cmath>
 

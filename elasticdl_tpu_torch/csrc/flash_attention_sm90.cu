@@ -1,11 +1,11 @@
-// Flash attention on Hopper's tensor cores: the forward (K2') for
-// bfloat16 with D = 64 or 128, dK/dV (K4') for bfloat16 with D = 64, and
-// the pass that writes the delta K4' reads.
+// Flash attention on Hopper's tensor cores: the forward (K2') and dQ (K3')
+// for bfloat16 with D = 64 or 128, dK/dV (K4') for bfloat16 with D = 64,
+// and the pass that writes the delta K3' and K4' read.
 //
 // Replaces, for those inputs, elasticdl_tpu/ops/pallas_attention.py
-// `_fwd_kernel` (`pallas_call` at 256) and `_bwd_dkv_kernel` (`pallas_call`
-// at 433). csrc/flash_attention.cu keeps every other case (float32, other
-// head dims) and dQ (K3).
+// `_fwd_kernel` (`pallas_call` at 256), `_bwd_dq_kernel` (`pallas_call` at
+// 404) and `_bwd_dkv_kernel` (`pallas_call` at 433). csrc/flash_attention.cu
+// keeps every other case (float32, other head dims).
 //
 // Contract: that of ops/flash_attention.py, unchanged. q (B, Tq, H, D),
 // k and v (B, Tk, H, D), dout like q, read in place through (b, t, h)
@@ -16,37 +16,48 @@
 // is 0 with lse = NEG_BIG + log(1e-30) under any tiling. p and ds stay
 // float32 as the reference keeps them.
 //
-// What bounds them. Causal K2 does 4·B·H·T²·D/2 FLOPs and K4 8·B·H·T²·D/2
-// on ~4 and ~6 B·T·H·D elements. At the LM's shape (B8 T1024 H8 D64) the
-// card's least time is set by bytes at 3.35 TB/s, a little above the FLOPs
-// at the bf16 tensor-core peak (K2 10.1 us against 8.7 us). The kernels of
-// csrc/flash_attention.cu run every product as float32 FMAs on the CUDA
-// cores, 70x under that bound; here every product runs on `wgmma`.
+// What bounds them. Causal K2 does 4·B·H·T²·D/2 FLOPs, K3 6· and K4 8·, on
+// ~4 to ~6 B·T·H·D elements. At the LM's shape (B8 T1024 H8 D64) the card's
+// least time is set by bytes at 3.35 TB/s for K2 (10.1 us against 8.7 us of
+// FLOPs at the bf16 tensor-core peak) and by FLOPs for K3' and K4', which
+// read delta (1 MB) where K3 and K4 read O (16.8 MB): K3' 13.0 us of FLOPs
+// against 12.7 us of bytes. The kernels of csrc/flash_attention.cu run
+// every product as float32 FMAs on the CUDA cores, 50-70x under that
+// bound; here every product runs on `wgmma`.
 //
 // Design.
 // - Precision. A bf16 x bf16 product is exact in float32. Q.K^T
 //   (q, k) and dO.V^T (dout, v) have bf16 operands and run on `wgmma` as
-//   they are. The float32 operand of P.V, P^T.dO and dS^T.Q is split into
-//   hi = bf16(x) and lo = bf16(x - hi), which carry x to ~2^-17, and two
-//   `wgmma`s accumulate hi.B and lo.B into one float32 accumulator: the
+//   they are. The float32 operand of P.V, P^T.dO, dS^T.Q and dS.K is split
+//   into hi = bf16(x) and lo = bf16(x - hi), which carry x to ~2^-17, and
+//   two `wgmma`s accumulate hi.B and lo.B into one float32 accumulator: the
 //   float32 product the reference forms, at twice the tensor work of those
-//   three products.
-// - Blocks. Two consumer warpgroups of 64 rows each (q rows in K2', kv
-//   rows in K4') and one producer warp, which brings the streamed tiles
-//   (K, V in K2'; Q, dO in K4') in by TMA, 64 rows a tile, into a ring of
-//   kStages stages guarded by full/empty mbarriers. Tiles land with the
-//   128-byte swizzle the wgmma descriptors read; D = 64 bf16 is one
-//   128-byte row, D = 128 two such column blocks. Tails past T come as
-//   zeros from TMA's out-of-bounds fill and are masked.
+//   four products.
+// - Blocks. Two consumer warpgroups of 64 rows each (q rows in K2' and
+//   K3', kv rows in K4') and one producer warp, which brings the streamed
+//   tiles (K, V in K2' and K3'; Q, dO in K4') in by TMA, 64 rows a tile,
+//   into a ring of kStages stages guarded by full/empty mbarriers. Tiles
+//   land with the 128-byte swizzle the wgmma descriptors read; D = 64 bf16
+//   is one 128-byte row, D = 128 two such column blocks. Tails past T come
+//   as zeros from TMA's out-of-bounds fill and are masked.
 // - Registers. ptxas gives 168 a thread to a block of this size. K2'
-//   needs ~2 x 32 (D 64) or 32 + 64 (D 128) floats of accumulators, K4'
-//   at D 64 4 x 32; K4' at D 128 would need 2 x 64 + 2 x 32 and spills, so
-//   it is not built: bfloat16 at D 128 takes K4 for dK/dV.
+//   needs ~2 x 32 (D 64) or 32 + 64 (D 128) floats of accumulators, K3'
+//   3 x 32 (D 64) or 2 x 32 + 64 (D 128), K4' at D 64 4 x 32; all of these
+//   fit. K4' at D 128 would need 2 x 64 + 2 x 32 beside the split
+//   fragments and spills, so it is not built: bfloat16 at D 128 takes K4
+//   for dK/dV.
 // - K2'. S = Q.K^T (shared-memory A and B, both K-major) into registers;
 //   the online softmax runs on the accumulator's own layout (a thread holds
 //   two rows, quad shuffles reduce them); p goes straight into register A
 //   fragments as hi and lo; O += P.V reads V MN-major through the transpose
 //   bit. O / l is rounded to bf16 once.
+// - K3'. K2''s loop with one product more: a block owns 128 q rows (Q and
+//   dO loaded once), lse and delta of its rows sit in registers, and the
+//   K and V tiles stream through the ring. S = Q.K^T and dP = dO.V^T on
+//   wgmma (all K-major); p = exp(s - lse), ds = p (dp - delta) on the
+//   accumulator layout; dQ += dS.K with dS as split register A fragments
+//   and K MN-major through the transpose bit, as V in K2''s P.V. dQ times
+//   the scale is rounded to bf16 once; each row has one writer.
 // - K4'. A block owns 128 kv rows (K, V loaded once) and walks the q tiles
 //   from the first one the causal mask lets through. S^T = K.Q^T and
 //   dP^T = V.dO^T on wgmma; p^T = exp(s^T - lse), ds^T = p^T (dp^T - delta);
@@ -54,11 +65,11 @@
 //   registers and each output row has one writer: no atomics, runs are
 //   bit-reproducible.
 // - delta = rowsum(dO . O) - g_lse is computed once a row by
-//   flash_bwd_delta_sm90, not once a kv tile inside K4' (which re-read O
-//   for every q tile it visited).
+//   flash_bwd_delta_sm90, once a backward, and read by both K3' and K4'
+//   (K3 and K4 recompute it from O in every block).
 // - Causal tiles wholly above the diagonal are not visited: the bounds come
-//   from the runtime offsets. K2' starts the blocks with the most tiles
-//   first.
+//   from the runtime offsets. K2' and K3' start the blocks with the most
+//   tiles first.
 // Tensor maps are built on the host over each tensor's strides; the
 // encoder comes from the CUDA runtime's entry-point lookup (no -lcuda).
 
@@ -768,12 +779,182 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------------------------------ K3'
+
+template <int kD>
+struct DqLayout {
+  static constexpr int kQBytes = kBlockRows * kD * 2;
+  static constexpr int kTileBytes = kTileRows * kD * 2;
+  static constexpr int kBytes =
+      1024 + 2 * kQBytes + 2 * kStages * kTileBytes + 8 * (1 + 2 * kStages);
+};
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dq, Strides sdq, int H,
+                         int Tq, int Tk, int q_off, int kv_off, bool causal,
+                         float scale) {
+  using L = DqLayout<kD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align_1024(smem_raw);             // kD/64 blocks [128][64]
+  uint8_t* dos = qs + L::kQBytes;
+  uint8_t* ks = dos + L::kQBytes;                 // [stage] kD/64 [64][64]
+  uint8_t* vs = ks + kStages * L::kTileBytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + kStages * L::kTileBytes);
+  uint64_t* q_bar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y - b * H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockRows;
+  const int n_tiles =
+      (kv_rows_seen(min(Tq, q0 + kBlockRows), Tk, q_off, kv_off, causal) +
+       kTileRows - 1) / kTileRows;
+
+  if (threadIdx.x == 0) init_barriers(bars);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  if (wg == kConsumers) {  // the producer warp: one thread starts the loads
+    if (lane != 0 || n_tiles == 0) return;
+    mbar_expect_tx(q_bar, 2 * L::kQBytes);
+#pragma unroll
+    for (int a = 0; a < kD / 64; ++a) {
+      tma_load(qs + a * kBlockRows * 128, &tq, q_bar, 64 * a, q0, h, b);
+      tma_load(dos + a * kBlockRows * 128, &tdo, q_bar, 64 * a, q0, h, b);
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
+      mbar_expect_tx(&full[s], 2 * L::kTileBytes);
+#pragma unroll
+      for (int a = 0; a < kD / 64; ++a) {
+        const int at = s * L::kTileBytes + a * kTileRows * 128;
+        tma_load(ks + at, &tk, &full[s], 64 * a, j * kTileRows, h, b);
+        tma_load(vs + at, &tv, &full[s], 64 * a, j * kTileRows, h, b);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: q rows row0 .. row0 + 63
+  const int tw = threadIdx.x % 128;
+  const int r0 = (tw / 32) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const int row0 = q0 + wg * 64;
+  const long long qpos = static_cast<long long>(q_off) + row0 + r0;
+  const int n_mine =
+      row0 < Tq ? (kv_rows_seen(min(Tq, row0 + 64), Tk, q_off, kv_off,
+                                causal) + kTileRows - 1) / kTileRows
+                : 0;
+  // lse and delta of this thread's two rows; rows past Tq are never stored
+  const long long lse_row = static_cast<long long>(blockIdx.y) * Tq;
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r0 + 8 * r;
+    row_lse[r] = row < Tq ? lse[lse_row + row] : 0.0f;
+    row_delta[r] = row < Tq ? delta[lse_row + row] : 0.0f;
+  }
+
+  float dq_acc[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dq_acc[i] = 0.0f;
+  if (n_tiles > 0) mbar_wait(q_bar, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    mbar_wait(&full[s], (j / kStages) & 1);
+    if (j < n_mine) {
+      const uint8_t* kt = ks + s * L::kTileBytes;
+      const uint8_t* vt = vs + s * L::kTileBytes;
+      float sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.0f;
+      pin(sc);
+      pin(dp);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        wgmma_ss_n64(sc, desc(kstep(qs, kBlockRows, kk) + wg * 64 * 128, 16),
+                     desc(kstep(kt, kTileRows, kk), 16), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        wgmma_ss_n64(dp, desc(kstep(dos, kBlockRows, kk) + wg * 64 * 128, 16),
+                     desc(kstep(vt, kTileRows, kk), 16), 1);
+      }
+      wg_commit();
+      wg_wait_all();
+      pin(sc);
+      pin(dp);
+
+      const int j0 = j * kTileRows;
+      const bool edge =
+          j0 + kTileRows > Tk ||
+          (causal && static_cast<long long>(kv_off) + j0 + kTileRows - 1 >
+                         static_cast<long long>(q_off) + row0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        bool ok = true;
+        if (edge) {
+          const int kv = j0 + acc_col(i, c0);
+          ok = kv < Tk && (!causal || static_cast<long long>(kv_off) + kv <=
+                                          qpos + 8 * acc_half(i));
+        }
+        const float p =
+            ok ? expf(sc[i] * scale - row_lse[acc_half(i)]) : 0.0f;
+        dp[i] = p * (dp[i] - row_delta[acc_half(i)]);
+      }
+
+      uint32_t hi[4][4], lo[4][4];
+      split(dp, hi, lo);
+      pin(dq_acc);
+      pin(hi);
+      pin(lo);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t bk = desc(kt + kk * 16 * 128, kTileRows * 128);
+        wgmma_rs<kD>(dq_acc, hi[kk], bk);
+        wgmma_rs<kD>(dq_acc, lo[kk], bk);
+      }
+      wg_commit();
+      wg_wait_all();
+      pin(dq_acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long row = row0 + r0 + 8 * r;
+    if (row >= Tq) continue;
+    __nv_bfloat16* dst = dq + b * sdq.b + row * sdq.t + h * sdq.h + c0;
+#pragma unroll
+    for (int g = 0; g < kD / 8; ++g) {
+      const int i = 4 * g + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * g) =
+          __floats2bfloat162_rn(dq_acc[i] * scale, dq_acc[i + 1] * scale);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ launch
 
 // Everything a launch needs; pointers a kernel does not take stay null.
 struct Args {
   const void *q, *k, *v, *o, *dout, *lse, *glse, *delta;
-  void *out0, *out1;  // K2': out, lse; K4': dk, dv; delta pass: delta
+  void *out0, *out1;  // K2': out, lse; K3': dq; K4': dk, dv; delta: delta
   const long long* strides;  // (b, t, h) of each tensor, in argument order
   int B, H, Tq, Tk, D, q_off, kv_off;
   bool causal;
@@ -887,6 +1068,27 @@ cudaError_t run_dkv(const Args& a) {
 }
 
 template <int kD>
+cudaError_t run_dq(const Args& a) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map(&mq, a.q, a.at(0), a.B, a.Tq, a.H, kD, kBlockRows) ||
+      !make_map(&mk, a.k, a.at(1), a.B, a.Tk, a.H, kD, kTileRows) ||
+      !make_map(&mv, a.v, a.at(2), a.B, a.Tk, a.H, kD, kTileRows) ||
+      !make_map(&mdo, a.dout, a.at(3), a.B, a.Tq, a.H, kD, kBlockRows)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = flash_bwd_dq_sm90_kernel<kD>;
+  constexpr int smem = DqLayout<kD>::kBytes;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tq + kBlockRows - 1) / kBlockRows, a.B * a.H);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.out0),
+      a.at(4), a.H, a.Tq, a.Tk, a.q_off, a.kv_off, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <int kD>
 cudaError_t run_delta(const Args& a) {
   const long long rows = static_cast<long long>(a.B) * a.Tq * a.H;
   const long long threads = rows * (kD / 8);
@@ -924,7 +1126,7 @@ extern "C" {
 // Each launcher enqueues one kernel on `stream` and returns its
 // cudaError_t (0 on success). `strides` holds the (b, t, h) element
 // strides of the tensors in argument order. dtype must be 1 (bfloat16) and
-// D 64 (or 128, for the forward).
+// D 64 (or 128, for all but K4').
 
 int flash_fwd_sm90(int dtype, const void* q, const void* k, const void* v,
                    void* out, void* lse, const long long* strides, int B,
@@ -945,7 +1147,7 @@ int flash_bwd_delta_sm90(int dtype, const void* out, const void* dout,
   const Args a{nullptr, nullptr, nullptr, out, dout, nullptr, glse, nullptr,
                delta, nullptr, strides, B, H, Tq, 0, D, 0, 0,
                false, 0.0f, static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, a, run_delta<64>, nullptr);
+  return dispatch(dtype, a, run_delta<64>, run_delta<128>);
 }
 
 // dK, dV from q, k, v, dout, lse and the delta pass's output. Strides: q,
@@ -961,13 +1163,29 @@ int flash_bwd_dkv_sm90(int dtype, const void* q, const void* k, const void* v,
   return dispatch(dtype, a, run_dkv<64>, nullptr);
 }
 
-// Dynamic shared memory a launch of K2' (kernel 0) or K4' (kernel 1) asks
-// for at head dim D, or -1 where that kernel is not built. ptxas does not
-// report dynamic shared memory; chip_smoke.py prints this beside it.
+// dQ from q, k, v, dout, lse and the delta pass's output. Strides: q, k, v,
+// dout, dq.
+int flash_bwd_dq_sm90(int dtype, const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, const long long* strides, int B, int H,
+                      int Tq, int Tk, int D, int q_off, int kv_off,
+                      int causal, void* stream) {
+  const Args a{q, k, v, nullptr, dout, lse, nullptr, delta,
+               dq, nullptr, strides, B, H, Tq, Tk, D, q_off, kv_off,
+               causal != 0, scale_of(D), static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, a, run_dq<64>, run_dq<128>);
+}
+
+// Dynamic shared memory a launch of K2' (kernel 0), K4' (kernel 1) or K3'
+// (kernel 2) asks for at head dim D, or -1 where that kernel is not built.
+// ptxas does not report dynamic shared memory; chip_smoke.py prints this
+// beside it.
 int flash_sm90_shared_bytes(int kernel, int D) {
   if (kernel == 0 && D == 64) return FwdLayout<64>::kBytes;
   if (kernel == 0 && D == 128) return FwdLayout<128>::kBytes;
   if (kernel == 1 && D == 64) return DkvLayout<64>::kBytes;
+  if (kernel == 2 && D == 64) return DqLayout<64>::kBytes;
+  if (kernel == 2 && D == 128) return DqLayout<128>::kBytes;
   return -1;
 }
 

@@ -9,22 +9,25 @@ Counterpart of `elasticdl_tpu/ops/pallas_attention.py`:
 
 Two CUDA C++ sources hold the kernels (see the notes in each):
 - `csrc/flash_attention_sm90.cu`, on Hopper's tensor cores (`wgmma`, TMA):
-  K2' `flash_fwd_sm90` for bfloat16 at D 64 and 128, K4'
-  `flash_bwd_dkv_sm90` and the delta pass `flash_bwd_delta_sm90` that it
-  reads for bfloat16 at D 64 (`_sm90`): the LM's attention;
-- `csrc/flash_attention.cu`, float32 FMAs on the CUDA cores: K2 and K4 for
-  every other input, and K3 for all.
+  K2' `flash_fwd_sm90` and K3' `flash_bwd_dq_sm90` for bfloat16 at D 64
+  and 128, K4' `flash_bwd_dkv_sm90` at D 64, and the delta pass
+  `flash_bwd_delta_sm90` that K3' and K4' read (`_sm90`): the LM's
+  attention;
+- `csrc/flash_attention.cu`, float32 FMAs on the CUDA cores: K2, K3 and K4
+  for every other input (float32, other head dims).
 The route is decided by dtype and D alone, before any launch; a failed
-launch raises and is never retried on the other kernels.
+launch raises and is never retried on the other kernels. The autograd
+backward (`flash_bwd`) launches the delta pass once and hands it to both
+K3' and K4'.
 
 The contract, shared by kernel and plain version:
 - scores s = (q . k) * D**-0.5 in float32, with the causal mask taken in
   GLOBAL positions: kv_offset + j <= q_offset + i;
 - out = softmax(s) . v with p kept in float32 and v cast to float32, out
   rounded to q's dtype once; lse = m + log(max(l, 1e-30)). On the
-  tensor cores (K2', K4') the float32 p and ds are split into bf16
-  hi + lo, each product exact in float32, so P.V, P^T.dO and dS^T.Q are
-  the float32 products to ~2**-17 of p and ds, well under one bf16 ulp of
+  tensor cores (K2', K3', K4') the float32 p and ds are split into bf16
+  hi + lo, each product exact in float32, so P.V, P^T.dO, dS^T.Q and dS.K
+  are the float32 products to ~2**-17 of p and ds, well under one bf16 ulp of
   the output; q.k and dO.v have bf16 operands on that route and are exact
   as they are;
 - a masked score gives p = 0. A fully masked row returns 0 with lse ~
@@ -32,14 +35,14 @@ The contract, shared by kernel and plain version:
   for such a row when it lies in a live block of its tiling);
 - the backward recomputes p = exp(s - lse) and folds the lse cotangent
   into delta = rowsum(dO . O) - g_lse (K3 and K4 compute it themselves,
-  K4' reads it from the delta pass); dq, dk, dv, dp are float32 and
-  rounded to the inputs' dtype once.
+  K3' and K4' read it from the delta pass); dq, dk, dv, dp are float32
+  and rounded to the inputs' dtype once.
 
 Each wrapper runs its plain version for a tensor on the CPU, launches its
 kernel for a CUDA tensor (or raises), and raises for any other device.
 `launches` counts kernel launches by kernel name, not plain-version calls.
-The split computes the same function, so K2' and K4' share K2's and K4's
-plain versions.
+The split computes the same function, so K2', K3' and K4' share K2's,
+K3's and K4's plain versions.
 
 The reference transposes to (B, H, T, D) and lane-broadcasts lse to 128
 only because Mosaic tiles need it; neither is ported, and neither is its
@@ -61,16 +64,18 @@ NEG_BIG = -1e30  # finite "-inf", matches ops.attention
 LIBRARY, LIBRARY_SM90 = "flash_attention", "flash_attention_sm90"
 FWD, BWD_DQ, BWD_DKV = "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"
 FWD_SM90, BWD_DKV_SM90 = "flash_fwd_sm90", "flash_bwd_dkv_sm90"
-BWD_DELTA_SM90 = "flash_bwd_delta_sm90"
-launches = {FWD: 0, BWD_DQ: 0, BWD_DKV: 0, FWD_SM90: 0, BWD_DKV_SM90: 0,
-            BWD_DELTA_SM90: 0}
-_SM90_HEAD_DIMS = {FWD_SM90: (64, 128), BWD_DKV_SM90: (64,)}
+BWD_DQ_SM90, BWD_DELTA_SM90 = "flash_bwd_dq_sm90", "flash_bwd_delta_sm90"
+launches = {FWD: 0, BWD_DQ: 0, BWD_DKV: 0, FWD_SM90: 0, BWD_DQ_SM90: 0,
+            BWD_DKV_SM90: 0, BWD_DELTA_SM90: 0}
+_SM90_HEAD_DIMS = {FWD_SM90: (64, 128), BWD_DQ_SM90: (64, 128),
+                   BWD_DKV_SM90: (64,)}
 _KERNELS = {LIBRARY: (FWD, BWD_DQ, BWD_DKV),
-            LIBRARY_SM90: (FWD_SM90, BWD_DKV_SM90, BWD_DELTA_SM90)}
+            LIBRARY_SM90: (FWD_SM90, BWD_DQ_SM90, BWD_DKV_SM90,
+                           BWD_DELTA_SM90)}
 # pointer arguments of each launcher, then the int arguments before the
 # stream: B H Tq Tk D q_off kv_off causal (the delta pass: B H Tq D)
 _SIGNATURES = {FWD: (5, 8), BWD_DQ: (8, 8), BWD_DKV: (9, 8),
-               FWD_SM90: (5, 8), BWD_DKV_SM90: (8, 8),
+               FWD_SM90: (5, 8), BWD_DQ_SM90: (7, 8), BWD_DKV_SM90: (8, 8),
                BWD_DELTA_SM90: (4, 4)}
 
 MAX_HEAD_DIM = 256
@@ -213,9 +218,9 @@ def _on_card(x: torch.Tensor) -> bool:
 
 def _sm90(dtype, d, kernel: str = FWD_SM90) -> bool:
     """True where the Hopper kernel `kernel` takes the inputs: bfloat16
-    with head dim 64 or 128 for K2' (`FWD_SM90`), 64 for K4' and its
-    delta pass (`BWD_DKV_SM90`): at 128 the dK and dV accumulators of K4'
-    (2 x 64 floats a thread) would spill."""
+    with head dim 64 or 128 for K2' (`FWD_SM90`) and K3' (`BWD_DQ_SM90`),
+    64 for K4' (`BWD_DKV_SM90`): at 128 its dK and dV accumulators (2 x 64
+    floats a thread) would spill. K3' and K4' read the delta pass."""
     return dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS[kernel]
 
 
@@ -304,12 +309,26 @@ def _check_residuals(q, lse, g_lse):
 
 def flash_bwd_dq(q, k, v, out, dout, lse, g_lse=None, causal=True,
                  q_offset=0, kv_offset=0):
-    """K3: dQ in q's dtype. g_lse (B, H, Tq) float32 or None (zero)."""
+    """K3 (the delta pass, then K3', for bfloat16 at D 64 or 128): dQ in
+    q's dtype. g_lse (B, H, Tq) float32 or None (zero)."""
     _validate(q, k, v, out, dout)
     _check_residuals(q, lse, g_lse)
     if not _on_card(q):
         return flash_bwd_dq_plain(q, k, v, out, dout, lse, g_lse, causal,
                                   q_offset, kv_offset)
+    return launch_bwd_dq(q, k, v, out, dout, lse, g_lse, causal, q_offset,
+                         kv_offset, _sm90(q.dtype, q.shape[3], BWD_DQ_SM90))
+
+
+def launch_bwd_dq(q, k, v, out, dout, lse, g_lse, causal, q_offset,
+                  kv_offset, hopper: bool):
+    """Launch the delta pass and K3' (`hopper`), or K3, on validated CUDA
+    tensors; see `launch_fwd`."""
+    if hopper:
+        _check_tma(q, k, v, dout)
+        return launch_dq_sm90(q, k, v, dout, lse,
+                              _launch_delta(out, dout, g_lse), causal,
+                              q_offset, kv_offset)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     _launch(BWD_DQ, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
@@ -319,10 +338,22 @@ def flash_bwd_dq(q, k, v, out, dout, lse, g_lse=None, causal=True,
     return dq
 
 
+def launch_dq_sm90(q, k, v, dout, lse, delta, causal, q_offset, kv_offset):
+    """Launch K3' alone on validated CUDA tensors, with `delta` from the
+    delta pass."""
+    _check_tma(q, k, v, dout)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _launch(BWD_DQ_SM90, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            _strides(q, k, v, dout, dq),
+            *_dims(q, k, causal, q_offset, kv_offset))
+    return dq
+
+
 def flash_bwd_dkv(q, k, v, out, dout, lse, g_lse=None, causal=True,
                   q_offset=0, kv_offset=0):
-    """K4 (the delta pass, then K4', for bfloat16 at D 64 or 128): (dK,
-    dV) in k's and v's dtypes."""
+    """K4 (the delta pass, then K4', for bfloat16 at D 64): (dK, dV) in
+    k's and v's dtypes."""
     _validate(q, k, v, out, dout)
     _check_residuals(q, lse, g_lse)
     if not _on_card(q):
@@ -374,17 +405,45 @@ def _launch_delta(out, dout, g_lse):
 
 
 def flash_bwd_delta(out, dout, g_lse=None):
-    """The delta pass of K4': rowsum(dO . O) - g_lse, (B, H, Tq) float32.
-    It serves K4' only, so a CUDA tensor K4' does not take raises."""
+    """The delta pass of K3' and K4': rowsum(dO . O) - g_lse, (B, H, Tq)
+    float32. It serves them only, so a CUDA tensor neither takes raises."""
     _validate(out, dout, dout)
     _check_residuals(out, g_lse, None)
     if not _on_card(out):
         return flash_bwd_delta_plain(out, dout, g_lse)
-    if not _sm90(out.dtype, out.shape[3], BWD_DKV_SM90):
-        raise ValueError(f"the delta pass serves K4' only, which takes "
-                         f"bfloat16 at D {_SM90_HEAD_DIMS[BWD_DKV_SM90]}; "
-                         f"got {out.dtype} D {out.shape[3]}")
+    d = out.shape[3]
+    if not (_sm90(out.dtype, d, BWD_DQ_SM90)
+            or _sm90(out.dtype, d, BWD_DKV_SM90)):
+        raise ValueError(f"the delta pass serves K3' and K4' only, which "
+                         f"take bfloat16 at D {_SM90_HEAD_DIMS[BWD_DQ_SM90]}; "
+                         f"got {out.dtype} D {d}")
     return _launch_delta(out, dout, g_lse)
+
+
+def flash_bwd(q, k, v, out, dout, lse, g_lse=None, causal=True, q_offset=0,
+              kv_offset=0):
+    """The whole backward: (dQ, dK, dV). Where K3' and K4' take the inputs
+    the delta pass runs once and both read it; elsewhere K3 and K4 run
+    (on the CPU, their plain versions)."""
+    _validate(q, k, v, out, dout)
+    _check_residuals(q, lse, g_lse)
+    args = (causal, q_offset, kv_offset)
+    if not _on_card(q):
+        return (flash_bwd_dq_plain(q, k, v, out, dout, lse, g_lse, *args),
+                *flash_bwd_dkv_plain(q, k, v, out, dout, lse, g_lse, *args))
+    d = q.shape[3]
+    hopper_dq = _sm90(q.dtype, d, BWD_DQ_SM90)
+    hopper_dkv = _sm90(q.dtype, d, BWD_DKV_SM90)
+    delta = None
+    if hopper_dq or hopper_dkv:
+        _check_tma(q, k, v, dout)
+        delta = _launch_delta(out, dout, g_lse)
+    dq = (launch_dq_sm90(q, k, v, dout, lse, delta, *args) if hopper_dq
+          else launch_bwd_dq(q, k, v, out, dout, lse, g_lse, *args, False))
+    dk, dv = (launch_dkv_sm90(q, k, v, dout, lse, delta, *args)
+              if hopper_dkv else
+              launch_bwd_dkv(q, k, v, out, dout, lse, g_lse, *args, False))
+    return dq, dk, dv
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -407,9 +466,9 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """(out, lse) with K2 forward and K3 + K4 backward. An unused lse
-    (the out-only `flash_attention`) reaches the backward as None, which
-    the kernels read as g_lse = 0."""
+    """(out, lse) with the forward kernel and `flash_bwd`'s backward, both
+    routed by `_sm90`. An unused lse (the out-only `flash_attention`)
+    reaches the backward as None, which the kernels read as g_lse = 0."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, kv_offset):
@@ -426,8 +485,7 @@ class _FlashAttention(torch.autograd.Function):
                  else g_out.contiguous())
         if g_lse is not None:
             g_lse = g_lse.to(torch.float32).contiguous()
-        dq = flash_bwd_dq(q, k, v, out, g_out, lse, g_lse, *ctx.args)
-        dk, dv = flash_bwd_dkv(q, k, v, out, g_out, lse, g_lse, *ctx.args)
+        dq, dk, dv = flash_bwd(q, k, v, out, g_out, lse, g_lse, *ctx.args)
         return dq, dk, dv, None, None, None
 
 

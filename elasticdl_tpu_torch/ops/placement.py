@@ -6,14 +6,19 @@ is r; ids outside [0, num_rows) drop. It replaces
 `elasticdl_tpu/ops/pallas_scatter.py:place_sorted_grads`, the Pallas TPU
 kernel of the reference's embedding backward.
 
-On a CUDA tensor it launches the hand-written kernel of
-`csrc/place_sorted_grads.cu` (see the note there: it is bound by bytes —
-~192 MB at the DeepFM shape, the dense 177 MB write dominating — and makes
-that write one coalesced pass). It launches or raises: there is no
+On a CUDA tensor it launches the hand-written kernels of
+`csrc/place_sorted_grads.cu` (see the note there: K1 is bound by bytes —
+~192 MB at the DeepFM shape, the dense 177 MB write dominating). A zero
+pass writes the table's zeros with 16-byte stores and sums the fixed
+chunks of hot segments into a scratch buffer this wrapper allocates; a
+placement pass then writes the sum of each id's segment into its row,
+a segment of SPLIT_ROWS or more rows summed by a whole block. The sums
+are taken in a fixed order that does not change between runs (not stream
+order), with no float atomics. It launches or raises: there is no
 fallback. On a CPU tensor it runs `place_sorted_grads_plain`.
 
-`launches` counts kernel launches (not plain-version calls), so a run can
-show that its main path went through the kernel.
+`launches` counts kernel launches (PASSES a call; not plain-version
+calls), so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -25,6 +30,11 @@ import torch
 from elasticdl_tpu_torch.ops import native
 
 KERNEL = "place_sorted_grads"
+PASSES = 2             # kernels a call launches: zero pass, placement
+# as kSplit and kChunk of csrc/place_sorted_grads.cu: a segment of
+# SPLIT_ROWS ids or more is summed by a whole block, and its full
+# CHUNK_ROWS-aligned chunks by the zero pass
+SPLIT_ROWS, CHUNK_ROWS = 32, 256
 launches = 0
 
 _INT_MAX = 2**31 - 1
@@ -80,13 +90,15 @@ def place_sorted_grads(sorted_ids: torch.Tensor, rows: torch.Tensor,
     if num_rows == 0:
         return out
     lib = _library()
+    scratch = torch.empty((lib.place_sorted_grads_scratch(n, d),),
+                          dtype=torch.float32, device=rows.device)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         code = lib.place_sorted_grads(
             sorted_ids.data_ptr(), rows.data_ptr(), out.data_ptr(),
-            n, num_rows, d, stream)
+            scratch.data_ptr(), n, num_rows, d, stream)
     native.check(lib, code, KERNEL)
-    launches += 1
+    launches += PASSES
     return out
 
 
@@ -96,8 +108,10 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         # c_void_p for every pointer and the stream: without argtypes
         # ctypes passes Python ints as 32-bit C ints and cuts pointers
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        size = lib.place_sorted_grads_scratch
+        size.argtypes = [ctypes.c_int] * 2
+        size.restype = ctypes.c_longlong
     return lib

@@ -8,17 +8,18 @@ machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerance for K1 against its plain version: the two sum the same f32
-values in different orders (the kernel in stream order, `index_add_` with
-atomics), so each entry is held to 1e-6 + 1e-5 x the sum of the
-magnitudes of its terms — the scale that summation rounding grows with.
+values in different orders (the kernel in a fixed order of its own,
+`index_add_` with atomics), so each entry is held to 1e-6 + 1e-5 x the
+sum of the magnitudes of its terms — the scale that summation rounding
+grows with.
 
 Tolerances for the flash kernels (K2-K4, and for bfloat16 at D 64 / 128
-the Hopper kernels K2', K4' and the delta pass) against their plain
+the Hopper kernels K2', K3', K4' and the delta pass) against their plain
 versions, the reference's own for its kernel against its naive path:
 float32 out, lse and delta 2e-5, gradients 5e-5 with atol 5e-5 of the
 largest value (the kernels sum tile by tile, the plain versions whole
 rows). In bfloat16 both sides compute in float32 from the same inputs
-(K2' and K4' split the float32 p and ds into bf16 hi + lo, which carries
+(K2', K3' and K4' split the float32 p and ds into bf16 hi + lo, which carries
 them to ~2**-17) and round each output once, so they differ by at most one
 bf16 ulp (2**-7 of the value) plus float32 noise: rtol 2**-7 with atol
 1e-2 of the output's rms.
@@ -63,18 +64,50 @@ def _stream(kind, n, d, num_rows, seed=0):
 
 
 def _assert_matches_plain(ids, rows, num_rows):
+    """K1 against its plain version, and against itself: a second call
+    must give the same bits."""
     got = placement.place_sorted_grads(ids, rows, num_rows)
+    again = placement.place_sorted_grads(ids, rows, num_rows)
     torch.cuda.synchronize()
     want = placement.place_sorted_grads_plain(ids, rows, num_rows)
     mag = placement.place_sorted_grads_plain(ids, rows.abs(), num_rows)
     err = (got - want).abs()
     assert bool((err <= 1e-6 + 1e-5 * mag).all()), float(err.max())
+    assert torch.equal(got, again)
     return got
 
 
 def case_k1_matches_plain(cuda, kind, d):
     ids, rows = _stream(kind, 20_000, d, 50_001)
     _assert_matches_plain(ids.to(cuda), rows.to(cuda), 50_001)
+
+
+def case_k1_hot_segments(cuda, d):
+    """Segments around the length at which a block sums them together
+    (SPLIT_ROWS) and around the zero pass's chunks (CHUNK_ROWS); one id
+    holding every slot; a hot id at the first and at the last row; a long
+    run of sentinels; tables whose rows are no multiple of a block's."""
+    r = np.random.RandomState(d)
+    split, chunk = placement.SPLIT_ROWS, placement.CHUNK_ROWS
+    num_rows = 9_973
+    streams = []
+    for length in (split - 1, split, split + 1, chunk - 1, chunk, chunk + 1,
+                   2 * chunk - 1, 2 * chunk, 2 * chunk + 1):
+        streams.append((np.r_[r.randint(0, num_rows, 3_000),
+                              np.full(length, 4_321)], num_rows))
+    for hot in (0, num_rows - 1):
+        streams.append((np.r_[r.randint(0, num_rows, 2_000),
+                              np.full(3 * chunk + 7, hot)], num_rows))
+    streams.append((np.full(5_000, 77), num_rows))
+    streams.append((np.r_[r.randint(0, num_rows, 2_000),
+                          np.full(4 * chunk + 3, emb.OOB_ID),
+                          np.full(2 * chunk + 5, -1)], num_rows))
+    for rows_in_table in (1, 3, 4_801, 100_003):
+        streams.append((r.randint(0, rows_in_table, 6_000), rows_in_table))
+    for ids, rows_in_table in streams:
+        ids = torch.from_numpy(np.sort(ids).astype(np.int32))
+        rows = torch.from_numpy(r.randn(ids.numel(), d).astype(np.float32))
+        _assert_matches_plain(ids.to(cuda), rows.to(cuda), rows_in_table)
 
 
 def case_k1_empty_stream_and_empty_table(cuda):
@@ -91,7 +124,7 @@ def case_k1_is_deterministic_and_counts_launches(cuda):
     before = placement.launches
     a = placement.place_sorted_grads(ids, rows, 10_000)
     b = placement.place_sorted_grads(ids, rows, 10_000)
-    assert placement.launches == before + 2
+    assert placement.launches == before + 2 * placement.PASSES
     assert torch.equal(a, b)
 
 
@@ -180,11 +213,17 @@ def _close(got, want, what, rtol, atol_of_max=0.0, atol_of_rms=0.0):
 
 
 def _route(dtype, d):
-    """The launches one forward and backward should add, by `_sm90`."""
+    """The launches one forward and one whole backward (`flash_bwd`)
+    should add, by `_sm90`: on the Hopper route the delta pass once, read
+    by K3' and K4'."""
     fwd = fa.FWD_SM90 if fa._sm90(dtype, d) else fa.FWD
-    dkv = ([fa.BWD_DELTA_SM90, fa.BWD_DKV_SM90]
-           if fa._sm90(dtype, d, fa.BWD_DKV_SM90) else [fa.BWD_DKV])
-    return {n: int(n in [fwd, fa.BWD_DQ] + dkv) for n in fa.launches}
+    dq = fa.BWD_DQ_SM90 if fa._sm90(dtype, d, fa.BWD_DQ_SM90) else fa.BWD_DQ
+    dkv = (fa.BWD_DKV_SM90 if fa._sm90(dtype, d, fa.BWD_DKV_SM90)
+           else fa.BWD_DKV)
+    bwd = [dq, dkv]
+    if fa.BWD_DQ_SM90 in bwd or fa.BWD_DKV_SM90 in bwd:
+        bwd.append(fa.BWD_DELTA_SM90)
+    return {n: int(n in [fwd] + bwd) for n in fa.launches}
 
 
 def case_flash_kernels_match_plain(cuda, dtype, d, tq, tk, causal, q_off,
@@ -205,12 +244,16 @@ def case_flash_kernels_match_plain(cuda, dtype, d, tq, tk, causal, q_off,
     before = dict(fa.launches)
     out, lse = fa.flash_fwd(q, k, v, *args)
     want_out, want_lse = fa.flash_fwd_plain(q, k, v, *args)
-    dq = fa.flash_bwd_dq(q, k, v, out, dout, lse, glse, *args)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, out, dout, lse, glse, *args)
+    dq, dk, dv = fa.flash_bwd(q, k, v, out, dout, lse, glse, *args)
     torch.cuda.synchronize()
     assert {n: fa.launches[n] - before[n] for n in before} == \
         _route(dtype, d)
-    if fa._sm90(dtype, d, fa.BWD_DKV_SM90):
+    # the single-gradient wrappers take the same kernels
+    assert torch.equal(fa.flash_bwd_dq(q, k, v, out, dout, lse, glse, *args),
+                       dq)
+    assert all(torch.equal(a, b) for a, b in zip(
+        fa.flash_bwd_dkv(q, k, v, out, dout, lse, glse, *args), (dk, dv)))
+    if fa._sm90(dtype, d, fa.BWD_DQ_SM90):
         _close(fa.flash_bwd_delta(out, dout, glse),
                fa.flash_bwd_delta_plain(out, dout, glse), "delta", 2e-5,
                2e-5)
@@ -276,10 +319,11 @@ def case_flash_is_deterministic_and_counts_launches(cuda):
     outs = []
     for _ in range(2):
         out, lse = fa.flash_fwd(q, k, v)
-        outs.append((out, lse, fa.flash_bwd_dq(q, k, v, out, dout, lse, glse),
-                     *fa.flash_bwd_dkv(q, k, v, out, dout, lse, glse)))
+        outs.append((out, lse,
+                     *fa.flash_bwd(q, k, v, out, dout, lse, glse)))
     route = _route(torch.bfloat16, 64)
-    assert route[fa.FWD_SM90] and route[fa.BWD_DKV_SM90]
+    assert route[fa.FWD_SM90] and route[fa.BWD_DQ_SM90]
+    assert route[fa.BWD_DKV_SM90] and route[fa.BWD_DELTA_SM90] == 1
     assert fa.launches == {n: before[n] + 2 * route[n] for n in before}
     for a, b in zip(*outs):
         assert torch.equal(a, b)
@@ -300,17 +344,19 @@ def case_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 def case_hopper_wrapper_rejects_strides_tma_cannot_take(cuda):
     """A bf16 D 64 view whose h stride is 68 elements (136 bytes, not a
-    multiple of 16) is on the Hopper route, which raises before any launch
-    rather than falling back to the CUDA-core kernels."""
+    multiple of 16) is on the Hopper route (K2', K3', K4'), which raises
+    before any launch rather than falling back to the CUDA-core kernels."""
     wide = torch.randn((1, 32, 2, 68), device=cuda).to(torch.bfloat16)
     q = wide[..., :64]
     before = dict(fa.launches)
     with pytest.raises(ValueError, match="TMA"):
         fa.flash_fwd(q, q, q)
     out, lse = fa.flash_fwd(*(q.contiguous() for _ in range(3)))
-    with pytest.raises(ValueError, match="TMA"):
-        fa.flash_bwd_dkv(q, q, q, out, out, lse)
+    for backward in (fa.flash_bwd_dkv, fa.flash_bwd_dq, fa.flash_bwd):
+        with pytest.raises(ValueError, match="TMA"):
+            backward(q, q, q, out, out, lse)
     assert fa.launches[fa.FWD] == before[fa.FWD]
+    assert fa.launches[fa.BWD_DQ] == before[fa.BWD_DQ]
     assert fa.launches[fa.BWD_DKV] == before[fa.BWD_DKV]
     assert fa.launches[fa.BWD_DELTA_SM90] == before[fa.BWD_DELTA_SM90]
 
@@ -353,6 +399,7 @@ def test_kernels_on_the_card(cuda):
     for d in (1, 16, 17, 33):
         for kind in ("uniform", "skewed", "oob"):
             case_k1_matches_plain(cuda, kind, d)
+        case_k1_hot_segments(cuda, d)
     case_k1_empty_stream_and_empty_table(cuda)
     case_k1_is_deterministic_and_counts_launches(cuda)
     case_k1_wrapper_rejects_what_the_kernel_does_not_take(cuda)

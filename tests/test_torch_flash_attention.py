@@ -263,23 +263,43 @@ def case_materialized_path_matches_the_reference(dtype):
 
 
 def case_hopper_route_by_dtype_and_head_dim():
-    """`_sm90` decides the route before any launch: K2' takes bfloat16 at
-    D 64 and 128, K4' (with its delta pass) bfloat16 at D 64; everything
-    else goes to the CUDA-core kernels."""
+    """`_sm90` decides the route before any launch: K2' and K3' take
+    bfloat16 at D 64 and 128, K4' bfloat16 at D 64 (K3' and K4' read the
+    delta pass); everything else goes to the CUDA-core kernels."""
     for dtype in (torch.bfloat16, torch.float32):
         for d in (16, 64, 100, 128, 256):
             bf16 = dtype == torch.bfloat16
             assert tflash._sm90(dtype, d) == (bf16 and d in (64, 128))
+            assert tflash._sm90(dtype, d, tflash.BWD_DQ_SM90) == (
+                bf16 and d in (64, 128))
             assert tflash._sm90(dtype, d, tflash.BWD_DKV_SM90) == (
                 bf16 and d == 64)
 
 
+def case_whole_backward_is_the_single_wrappers():
+    """`flash_bwd`, the autograd backward, gives on the CPU what
+    `flash_bwd_dq` and `flash_bwd_dkv` give, launching nothing."""
+    q, k, v = _torch(*_qkv(seed=12))
+    do = _torch(np.random.RandomState(13).randn(B, T, H, D)
+                .astype(np.float32))[0]
+    g_lse = torch.from_numpy(np.random.RandomState(14).randn(B, H, T)
+                             .astype(np.float32))
+    before = dict(tflash.launches)
+    out, lse = tflash.flash_fwd(q, k, v, True, 16, 0)
+    args = (q, k, v, out, do, lse, g_lse, True, 16, 0)
+    dq, dk, dv = tflash.flash_bwd(*args)
+    assert torch.equal(dq, tflash.flash_bwd_dq(*args))
+    want_dk, want_dv = tflash.flash_bwd_dkv(*args)
+    assert torch.equal(dk, want_dk) and torch.equal(dv, want_dv)
+    assert tflash.launches == before
+
+
 def case_hi_lo_split_keeps_float32_p():
-    """The hi + lo split of K2' and K4' in plain torch, at the LM's tile
-    (64 q rows, 64 kv rows, D 64, bf16 inputs): p and ds from
+    """The hi + lo split of K2', K3' and K4' in plain torch, at the LM's
+    tile (64 q rows, 64 kv rows, D 64, bf16 inputs): p and ds from
     `flash_fwd_plain`'s own inputs and lse, split into hi = bf16(x) and
     lo = bf16(x - hi), each product formed in float32 (exact for bf16
-    operands, as on wgmma). P.V, P^T.dO and dS^T.Q from the split stay
+    operands, as on wgmma). P.V, P^T.dO, dS^T.Q and dS.K from the split stay
     within 1e-2 of the one-ulp bf16 bound (rtol 2**-7, atol 1e-2 of the
     rms) of the unsplit float32 product. One bf16 rounding of p or ds, for
     contrast, spends far more of that bound."""
@@ -289,14 +309,15 @@ def case_hi_lo_split_keeps_float32_p():
     out, lse = tflash.flash_fwd_plain(q, k, v, causal=True)
     p, ds = tflash._p_and_ds(q, k, v, out, do, lse, None, True, 0, 0)
     p, ds = p[0, 0], ds[0, 0]
-    q32, v32, do32 = (t[0, :, 0].to(torch.float32) for t in (q, v, do))
+    q32, k32, v32, do32 = (t[0, :, 0].to(torch.float32)
+                           for t in (q, k, v, do))
 
     def share_of_bound(got, want):
         tol = 2 ** -7 * want.abs() + 1e-2 * want.square().mean().sqrt()
         return float(((got - want).abs() / tol).max())
 
     for name, x, b in (("p.v", p, v32), ("p^T.do", p.T, do32),
-                       ("ds^T.q", ds.T, q32)):
+                       ("ds^T.q", ds.T, q32), ("ds.k", ds, k32)):
         want = x @ b
         hi = x.to(torch.bfloat16).to(torch.float32)
         lo = (x - hi).to(torch.bfloat16).to(torch.float32)
@@ -324,4 +345,5 @@ def test_flash_attention_against_the_reference():
         for dtype in ("float32", "bfloat16"):
             case_materialized_path_matches_the_reference(dtype)
         case_hopper_route_by_dtype_and_head_dim()
+        case_whole_backward_is_the_single_wrappers()
         case_hi_lo_split_keeps_float32_p()
