@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Two main paths: the DeepFM train step (kernel K1: its zero pass and its
-placement pass) and the transformer LM train step (flash-attention
+Three main paths: the DeepFM job (master, worker, data, checkpoint,
+eval, export) and its train step (kernel K1: its zero pass and its
+placement pass), and the transformer LM train step (flash-attention
 kernels: for its bfloat16 D 64 attention the Hopper kernels K2', K3', K4'
 and the delta pass, which runs once a backward; K2, K3 and K4 for every
 other input, such as the float32 LM). Phases, each printing one JSON line;
@@ -76,7 +77,33 @@ any failure raises and exits non-zero (no phase's error is caught):
            launch 4 times (one per layer) in every train step and K2-K4
            never, and K2' 4 times in each of eval and predict. Then its
            profile, as in 6.
-Then the `kernels` line, the nvidia-smi line, and last the `ok` line.
+10. job   the job path in one process, at DeepFM's full width
+           (field_vocab=100000, hidden 400,400, minibatch 8192): the
+           port's Master and its Worker (on a thread, device defaulted:
+           the card) run `synthetic://criteo?n=65536&shards=4` in 4
+           training tasks of 2 steps (16384 records a task), an eval job
+           at epoch end over 16384 records, checkpoints every 4 steps
+           (2 kept), the final SAVE_MODEL and the export. Asserts 4
+           finished tasks and none failed, a finite eval AUC and loss,
+           K1 launched exactly 2 x the worker's 8 train steps (its count
+           set to 0 just before the job), checkpoint steps 4 and 8 with
+           the newest restoring a fresh state to the final one exactly,
+           and the export loading on the card and predicting as the final
+           state does (atol 1e-6 on float32 logits). Prints samples/s
+           over the train steps, the host ms a step, the per-step ms the
+           reader and parser (data_wait) and the prefetcher (h2d) took,
+           and which parser ran, beside the card's name and power limit.
+11. job_cli  the same job at a smaller depth (16384 records in 2 tasks)
+           through the CLI, `python -m elasticdl_tpu_torch.client.main
+           train`: run_local -> ProcessManager -> one
+           `elasticdl_tpu_torch.worker.main` subprocess on the card, with
+           an explicit environment (no cohort variables, no device
+           request). Asserts exit 0, a checkpoint step on disk, an export
+           that loads and predicts finite values on the card, and a
+           worker log that names a cuda device; prints the log's tail if
+           any check fails.
+Then the `kernels` line (K1's `launches` are the job's), the nvidia-smi
+line, and last the `ok` line.
 
 It exits non-zero without a result where CUDA is unavailable, and where
 the port's package is absent.
@@ -86,9 +113,12 @@ import ctypes
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -106,6 +136,12 @@ BF16_FLOPS = 989e12              # H100 SXM dense bf16
 LM_PARAMS = "vocab=8192;num_layers=4;dim=512;heads=8;max_len=1024"
 LM_LAYERS, LM_BATCH, LM_T, LM_VOCAB = 4, 8, 1024, 8192
 LM_SMALL = "vocab=64;num_layers=2;dim=64;heads=4;max_len=64"
+# the job phases: Criteo records per training task, and the variables a
+# polluted environment can carry that would make a spawned worker a member
+# of a cohort that never forms
+JOB_TASK = 16384
+COHORT_ENV = ("EDL_PROCESS_ID", "EDL_NUM_PROCESSES",
+              "EDL_PROCESS_ID_FROM_HOSTNAME", "EDL_COORDINATOR_ADDR")
 
 
 def emit(phase, **fields):
@@ -935,6 +971,200 @@ def phase_lm_train():
             for name in train}
 
 
+def job_argv(out, n, shards):
+    """The DeepFM job at full width: `n` synthetic Criteo records in
+    `shards` shards and tasks of JOB_TASK records, eval at epoch end over
+    16384 records, interval checkpoints every 4 steps (2 kept), SAVE_MODEL
+    and the export under `out`."""
+    return [
+        "--model_zoo", ZOO, "--model_def", "deepfm.deepfm.custom_model",
+        "--model_params", f"field_vocab={FIELD_VOCAB};hidden=400,400",
+        "--minibatch_size", str(BATCH),
+        "--training_data", f"synthetic://criteo?n={n}&shards={shards}",
+        "--records_per_task", str(JOB_TASK),
+        "--validation_data", "synthetic://criteo?n=16384&shards=2",
+        "--checkpoint_dir", os.path.join(out, "ckpt"),
+        "--checkpoint_steps", "4", "--keep_checkpoint_max", "2",
+        "--output", os.path.join(out, "export"),
+        "--worker_heartbeat_s", "2",
+    ]
+
+
+def export_matches(out, want_fn, batch):
+    """`load_model` on the card from the export under `out`; returns the
+    largest difference of its float32 outputs on `batch` from `want_fn`'s
+    (or the outputs themselves when want_fn is None)."""
+    from elasticdl_tpu_torch.training.export import load_model
+
+    model, _ = load_model(os.path.join(out, "export"), ZOO, device="cuda")
+    with torch.no_grad():
+        got = model({k: torch.from_numpy(v).cuda()
+                     for k, v in batch["features"].items()}, training=False)
+    if got.dtype != torch.float32 or tuple(got.shape) != (len(batch["labels"]),):
+        raise AssertionError(f"export predicts {got.dtype} {tuple(got.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("export predicts non-finite values")
+    if want_fn is None:
+        return got
+    return float((got - want_fn(batch)).abs().max())
+
+
+def states_equal(a, b):
+    """Params, optimizer slots and step of two TrainStates, exactly."""
+    if a.step != b.step or list(a.params) != list(b.params):
+        return False
+    if not all(torch.equal(a.params[k], b.params[k]) for k in a.params):
+        return False
+    sa, sb = (s.optimizer.state_dict()["state"] for s in (a, b))
+    return sa.keys() == sb.keys() and all(
+        sa[i].keys() == sb[i].keys()
+        and all(torch.equal(sa[i][k].cpu(), sb[i][k].cpu()) for k in sa[i])
+        for i in sa)
+
+
+def phase_job(smi):
+    """The job path in one process: the port's Master and its Worker (on
+    a thread, device defaulted: the card) run the DeepFM job at full
+    width; returns K1's launches in it."""
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.common.net import free_port
+    from elasticdl_tpu_torch.data import parsing
+    from elasticdl_tpu_torch.master.main import Master
+    from elasticdl_tpu_torch.observability import profile
+    from elasticdl_tpu_torch.observability.registry import default_registry
+    from elasticdl_tpu_torch.ops import placement
+    from elasticdl_tpu_torch.training.checkpoint import CheckpointManager
+    from elasticdl_tpu_torch.training.model_spec import ModelSpec
+    from elasticdl_tpu_torch.training.trainer import Trainer
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    with tempfile.TemporaryDirectory() as out:
+        cfg = JobConfig.from_argv(job_argv(out, 4 * JOB_TASK, 4) + [
+            "--master_addr", f"localhost:{free_port()}"])
+        master = Master(cfg)
+        master.start()
+        worker = Worker(cfg)                # device defaulted: the GPU
+        if worker.device.type != "cuda":
+            raise AssertionError(f"Worker defaulted to {worker.device}")
+        reg = default_registry()
+        before = reg.snapshot()
+        profile.get_profiler().reset()
+        rc = []
+        thread = threading.Thread(target=lambda: rc.append(worker.run()),
+                                  name="job-worker", daemon=True)
+        placement.launches = 0
+        t0 = time.perf_counter()
+        thread.start()
+        try:
+            finished = master.wait(poll_s=0.2, timeout_s=600)
+            counts = master.dispatcher.counts()
+            results = master.evaluation.latest_results()
+        finally:
+            master.shutdown(grace_s=1)
+            thread.join(300)
+        wall_s = time.perf_counter() - t0
+        launches = placement.launches
+        after = reg.snapshot()
+        phases = profile.get_profiler().snapshot(update_memory=False)
+
+        steps = worker._global_step
+        if not finished or rc != [0] or thread.is_alive():
+            raise AssertionError(f"job did not finish cleanly: finished "
+                                 f"{finished}, worker exit {rc}")
+        if counts["finished_training"] != 4 or counts["failed_permanently"]:
+            raise AssertionError(f"dispatcher counts {counts}")
+        if not all(np.isfinite(results.get(k, np.nan))
+                   for k in ("auc", "loss")):
+            raise AssertionError(f"eval results {results}")
+        if steps != 8 or launches != placement.PASSES * steps:
+            raise AssertionError(f"K1 launched {launches} kernels in {steps} "
+                                 f"train steps, want {placement.PASSES} a "
+                                 "step over 8 steps")
+        final = worker._state
+        mngr = CheckpointManager(cfg.checkpoint_dir)
+        if mngr.all_steps() != [4, 8]:
+            raise AssertionError(f"checkpoint steps {mngr.all_steps()}")
+        fresh = Trainer(ModelSpec.from_config(cfg)).init_state(None)
+        if states_equal(fresh, final):
+            raise AssertionError("a fresh state already equals the final one")
+        if mngr.restore(fresh) is not fresh or not states_equal(fresh, final):
+            raise AssertionError("newest checkpoint does not restore the "
+                                 "final state")
+        del fresh
+        batch = criteo_batch(7)
+        export_err = export_matches(
+            out, lambda b: worker._trainer.predict_step(final, b), batch)
+        if export_err > 1e-6:
+            raise AssertionError(f"export predicts {export_err} off the "
+                                 "final state")
+
+    def delta(name):
+        return after.get(name, 0.0) - before.get(name, 0.0)
+
+    step_s = delta("edl_train_step_seconds_sum")
+    records = delta("edl_train_records_total")
+    lib = parsing._load()
+    emit("job", card=smi, params=f"field_vocab={FIELD_VOCAB};hidden=400,400",
+         batch=BATCH, tasks=counts["finished_training"], train_steps=steps,
+         records=records, counts=counts, eval=results, wall_s=wall_s,
+         samples_per_s=records / step_s,
+         host_ms_per_step=step_s * 1e3 / steps,
+         data_wait_ms_per_step=phases.get("phase_data_wait_ms", 0.0),
+         h2d_ms_per_step=phases.get("phase_h2d_ms", 0.0),
+         compute_ms_per_step=phases.get("phase_compute_ms", 0.0),
+         parser=("native " + os.path.relpath(lib._name, REPO)) if lib
+         else "python", k1_launches=launches, checkpoint_steps=[4, 8],
+         export_max_abs_err=export_err)
+    return launches
+
+
+def phase_job_cli(smi):
+    """The same job at a smaller depth through the CLI: `python -m
+    elasticdl_tpu_torch.client.main train` -> run_local -> ProcessManager
+    -> one `elasticdl_tpu_torch.worker.main` subprocess on the card."""
+    from elasticdl_tpu_torch.training.checkpoint import CheckpointManager
+
+    with tempfile.TemporaryDirectory() as out:
+        argv = job_argv(out, JOB_TASK, 2) + ["--master_addr", "localhost:0"]
+        # an explicit environment: no cohort variables, no device request
+        env = {k: v for k, v in os.environ.items()
+               if k not in COHORT_ENV + ("EDL_TORCH_DEVICE",)}
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (REPO, env.get("PYTHONPATH")) if p)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "elasticdl_tpu_torch.client.main",
+             "train", *argv], cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        try:
+            log, _ = proc.communicate(timeout=600)
+        finally:
+            # the launcher and the worker it spawned share the session
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        wall_s = time.perf_counter() - t0
+        problems = []
+        if proc.returncode != 0:
+            problems.append(f"exit {proc.returncode}")
+        steps = CheckpointManager(os.path.join(out, "ckpt")).all_steps()
+        if not steps:
+            problems.append("no checkpoint step on disk")
+        device = re.search(r"registered as worker 0 .* on (\S+)", log)
+        if not device or not device.group(1).startswith("cuda"):
+            problems.append("the worker's log names no cuda device")
+        try:
+            export_matches(out, None, criteo_batch(8))
+        except Exception as e:     # reported with the log below
+            problems.append(f"export does not load: {e!r}")
+        if problems:
+            print(log[-8000:], file=sys.stderr, flush=True)
+            raise AssertionError("job_cli: " + "; ".join(problems))
+    emit("job_cli", card=smi, exit=proc.returncode, wall_s=wall_s,
+         checkpoint_steps=steps, device=device.group(1),
+         finished=re.findall(r"job finished: (.*)", log)[-1:])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -979,6 +1209,8 @@ def main():
     f32_lm_launches = phase_lm_parity()
     launches = phase_train()
     lm_launches = phase_lm_train()
+    job_launches = phase_job(smi)
+    phase_job_cli(smi)
 
     f32_lm = (fa.FWD, fa.BWD_DQ, fa.BWD_DKV)
     print(json.dumps({"kernels": [{
@@ -986,9 +1218,11 @@ def main():
         "route": "cuda",
         "source": "elasticdl_tpu_torch/csrc/place_sorted_grads.cu",
         "replaces": "elasticdl_tpu/ops/pallas_scatter.py:150",
-        # two kernels a call: the zero pass and the placement pass
-        "launches": launches,
-        "launches_in": "train",
+        # two kernels a call: the zero pass and the placement pass; the
+        # job path's count (the slice's main path), and the train step's
+        "launches": job_launches,
+        "launches_in": "job",
+        "train_launches": launches,
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"],
         "ms": k1["ms"],

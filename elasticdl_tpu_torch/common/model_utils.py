@@ -1,9 +1,10 @@
-"""Model-zoo module loading (a copy of `elasticdl_tpu.common.model_utils`).
+"""Model-zoo module loading.
 
-Resolve the user's model by dotted path (`--model_def=deepfm.deepfm.
-custom_model`), add the model-zoo root to sys.path, and find the companion
-functions (`loss`, `optimizer`, `dataset_fn`, `eval_metrics_fn`,
-`callbacks`) in the same module, each overridable by its own flag.
+Reference parity: elasticdl/python/common/model_utils.py — resolve the user's
+model by dotted path (`--model_def=mnist.mnist_cnn.custom_model`), add the
+model-zoo root to sys.path, and find the companion functions
+(`loss`, `optimizer`, `dataset_fn`, `eval_metrics_fn`, `callbacks`) in the
+same module, each overridable by its own flag.
 """
 
 from __future__ import annotations
@@ -39,8 +40,8 @@ def get_module_attr(
 ) -> Optional[Callable[..., Any]]:
     """Fetch a contract function from the model module.
 
-    `override` is a flag like `--loss=my_loss`: either a bare name looked
-    up in the same module, or a fully dotted path to elsewhere.
+    `override` is a flag like the reference's `--loss=my_loss`: either a bare
+    name looked up in the same module, or a fully dotted path to elsewhere.
     """
     if override:
         if "." in override:

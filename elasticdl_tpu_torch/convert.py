@@ -18,10 +18,17 @@ transformer LM (`model_zoo/transformer/transformer_lm.py`, a tree with
   block_i/LayerNorm_{0,1}/{scale,bias}    -> block_i.LayerNorm_{0,1}.*
   LayerNorm_0/{scale,bias}, lm_head/...   -> the same names
 
-for <dense> in q, k, v, proj, mlp_in, mlp_out, kernels transposed. The
-optimizer's slots start at zero on both sides, so only parameters cross.
-Any array type that numpy can read (flax's jax arrays included) is
-accepted.
+for <dense> in q, k, v, proj, mlp_in, mlp_out, kernels transposed.
+
+`train_state_from_flax(params, mu, nu, count, step)` carries a whole
+reference TrainState across: the params as above, Adam's first and second
+moments (`mu`, `nu`: trees shaped like the params, mapped the same way),
+its update count and the global step. `load_train_state(state, converted)`
+installs the result in a port TrainState built by `Trainer.init_state`
+(its params, the optimizer's `exp_avg`, `exp_avg_sq` and `step` slots,
+and its step), so a reference job and a port job can start from one
+state. Any array type that numpy can read (flax's jax arrays included) is
+accepted; the caller hands the trees over as numpy.
 """
 
 from __future__ import annotations
@@ -57,6 +64,53 @@ def params_from_flax(
     if expected is not None:
         _check_against(out, expected)
     return out
+
+
+def train_state_from_flax(
+    params: Mapping[str, Any],
+    mu: Mapping[str, Any],
+    nu: Mapping[str, Any],
+    count: Any,
+    step: Any,
+    expected: Optional[Mapping[str, torch.Tensor]] = None,
+) -> Dict[str, Any]:
+    """The port's counterpart of a reference TrainState whose optimizer is
+    Adam: {"params", "exp_avg", "exp_avg_sq": state_dicts, "count",
+    "step": ints}. Raises ValueError on a missing or extra key or a shape
+    mismatch, in the params (against `expected` when given) and in the
+    moments (against the params)."""
+    out_params = params_from_flax(params, expected)
+    moments = {}
+    for what, tree in (("exp_avg", mu), ("exp_avg_sq", nu)):
+        try:
+            moments[what] = params_from_flax(tree, out_params)
+        except ValueError as e:
+            raise ValueError(f"Adam {what}: {e}") from e
+    return {"params": out_params, **moments,
+            "count": int(np.asarray(count)), "step": int(np.asarray(step))}
+
+
+def load_train_state(state: Any, converted: Mapping[str, Any]) -> Any:
+    """Install `train_state_from_flax`'s output in the port TrainState
+    `state` (in place; returned): parameters copied into the live
+    tensors, the Adam slots of each parameter set to the reference's
+    moments with its update count, and the global step."""
+    names = list(state.params)
+    _check_against(converted["params"], {k: p for k, p in state.params.items()})
+    with torch.no_grad():
+        for name in names:
+            state.params[name].copy_(converted["params"][name])
+    sd = state.optimizer.state_dict()
+    if len(sd["state"]) and set(sd["state"]) != set(range(len(names))):
+        raise ValueError("optimizer slots do not match the parameters")
+    sd["state"] = {
+        i: {"step": torch.tensor(float(converted["count"])),
+            "exp_avg": converted["exp_avg"][name].clone(),
+            "exp_avg_sq": converted["exp_avg_sq"][name].clone()}
+        for i, name in enumerate(names)}
+    state.optimizer.load_state_dict(sd)
+    state.step = int(converted["step"])
+    return state
 
 
 def _deepfm_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -141,5 +141,37 @@ def optimizer(**kwargs):
         betas=(0.9, 0.999), eps=1e-8)
 
 
+def dataset_fn(mode, metadata):
+    """Batch-parse Criteo records with the port's parsers
+    (`data/parsing.py`, the reference's batch-parser contract): fixed-width
+    binary `.cbin` shards when the reader's metadata says so, else TSV
+    (label, 13 ints, 26 hex categoricals) through the native C++ parser."""
+    from elasticdl_tpu_torch.data import parsing
+
+    if metadata and "record_bytes" in metadata:
+        expect = parsing.criteo_bin_record_bytes(NUM_DENSE, NUM_CAT)
+        if metadata["record_bytes"] != expect:
+            raise ValueError(
+                f"binary reader record_bytes={metadata['record_bytes']} does "
+                f"not match the Criteo layout ({expect})"
+            )
+        return parsing.criteo_bin_batch_parser(NUM_DENSE, NUM_CAT)
+    return parsing.criteo_batch_parser(num_dense=NUM_DENSE, num_cat=NUM_CAT)
+
+
+def prediction_outputs_processor():
+    """Prediction-job hook: streams each minibatch's outputs to
+    EDL_PREDICT_OUT (default ./predictions) as per-worker .npy files."""
+    import os
+
+    from elasticdl_tpu_torch.worker.prediction_outputs_processor import (
+        NpyPredictionOutputsProcessor,
+    )
+
+    return NpyPredictionOutputsProcessor(
+        os.environ.get("EDL_PREDICT_OUT", "predictions")
+    )
+
+
 def eval_metrics_fn():
     return {"auc": metrics_lib.AUC(), "accuracy": metrics_lib.Accuracy()}

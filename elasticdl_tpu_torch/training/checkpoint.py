@@ -1,0 +1,389 @@
+"""Checkpointing of the port's TrainState.
+
+Counterpart of `elasticdl_tpu/training/checkpoint.py` (`CheckpointManager`):
+versioned checkpoints every `--checkpoint_steps`, keep
+`--keep_checkpoint_max`, restore on restart. The reference writes orbax
+checkpoints; the port has a format of its own, and reading an orbax
+checkpoint is out of scope (a reference state crosses over through
+`convert.train_state_from_flax` instead). One step is one directory:
+
+  <dir>/<step>/state.pt     torch.save of {"format", "step", "params"
+                            (name -> tensor), "optimizer" (the optimizer's
+                            state_dict), "generator" (RNG state)}
+  <dir>/embedding_geometry.json   the vocab-padding rule of the build that
+                            wrote the newest steps (ops/embedding.py)
+
+Hardening, as in the reference:
+
+- A save is atomic: the state is written into a hidden temporary
+  directory, the file and the directory are fsynced, and the directory is
+  renamed into place, so a crash mid-save never leaves a step that
+  `latest_step()` shows. The write runs on a background thread after the
+  state has been copied to host memory (the counterpart of orbax's async
+  save); `wait()` blocks until it is durable.
+- `restore()` with no explicit step walks BACK past a newest step that is
+  corrupt or partially written, restoring the newest step that loads and
+  warning about every step skipped.
+- A restore whose parameter shapes disagree with the model raises a
+  `CheckpointGeometryError` that names the vocab-padding rule the
+  checkpoint was written under, instead of walking back.
+- Fault-injection sites `ckpt.save`, `ckpt.save.commit` and `ckpt.restore`
+  (common/faults.py) sit in front of both operations.
+
+The live-handoff saves of the elastic path (`save_overlapped`,
+`restore_or_handoff`) wait for ROADMAP item 18, and the embedding tier's
+shard files for item 20 (slice 5); they raise.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from elasticdl_tpu_torch.common import faults
+from elasticdl_tpu_torch.common.log_utils import default_logger
+from elasticdl_tpu_torch.observability import tracing
+from elasticdl_tpu_torch.observability.registry import default_registry
+
+logger = default_logger(__name__)
+
+_reg = default_registry()
+_CKPT_SAVES = _reg.counter(
+    "edl_ckpt_saves_total", "checkpoint saves initiated")
+_CKPT_RESTORES = _reg.counter(
+    "edl_ckpt_restores_total", "successful checkpoint restores")
+_CKPT_WALKBACKS = _reg.counter(
+    "edl_ckpt_restore_walkbacks_total",
+    "corrupt/partial steps skipped during restore")
+_CKPT_SAVE_S = _reg.histogram(
+    "edl_ckpt_save_seconds", "save initiation wall time (async part excl.)")
+
+GEOMETRY_FILE = "embedding_geometry.json"
+STATE_FILE = "state.pt"
+FORMAT = "elasticdl-tpu-torch-ckpt-v1"
+
+
+class CheckpointGeometryError(RuntimeError):
+    """A checkpoint cannot restore into this model because the embedding
+    vocab-padding geometry changed between write and restore."""
+
+
+def _current_geometry() -> Optional[dict]:
+    from elasticdl_tpu_torch.ops import embedding as emb_ops
+
+    return emb_ops.geometry_descriptor()
+
+
+def _host_copy(tree: Any) -> Any:
+    """A host-memory snapshot of a state_dict-like tree: tensors copied to
+    the CPU, everything else as it is."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return tree
+
+
+def _fsync_dir(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep: int = 3):
+        self._dir = os.path.abspath(directory)
+        os.makedirs(self._dir, exist_ok=True)
+        self._keep = int(keep)
+        self._writer: Optional[threading.Thread] = None
+        self._write_error: Optional[BaseException] = None
+        self.last_restored_step: Optional[int] = None
+
+    # ------------------------------------------------------------------ #
+    # geometry metadata
+
+    def _geometry_path(self) -> str:
+        return os.path.join(self._dir, GEOMETRY_FILE)
+
+    def _record_geometry(self) -> None:
+        """Write the embedding padding rule beside the checkpoints,
+        refreshing a stale sidecar. Best-effort: a failed sidecar write must
+        not fail the save that carries the actual training state."""
+        geo = _current_geometry()
+        stored = self.stored_geometry()
+        if stored == geo:
+            return
+        if stored is not None:
+            logger.warning(
+                "embedding geometry sidecar is stale (%s); rewriting as %s "
+                "— steps saved from here on carry the current geometry",
+                stored, geo,
+            )
+        path = self._geometry_path()
+        try:
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(geo, f, indent=2)
+            os.replace(tmp, path)
+        except OSError:
+            logger.exception("embedding geometry sidecar write failed")
+
+    def stored_geometry(self) -> Optional[dict]:
+        try:
+            with open(self._geometry_path()) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def _raise_geometry_error(self, step: int, err: BaseException) -> None:
+        """Turn a shape mismatch into an error naming the alignment to
+        rebuild with."""
+        stored = self.stored_geometry()
+        current = _current_geometry()
+        if stored is not None and stored != current:
+            align = stored.get("vocab_align", 256)
+            raise CheckpointGeometryError(
+                f"checkpoint step {step} in {self._dir} was written under "
+                f"embedding geometry {stored} but this build pads with "
+                f"{current}. Rebuild the model with the checkpoint's "
+                f"alignment — padded_vocab(v, align={align}) — or re-export "
+                "the model under the new geometry."
+            ) from err
+        if stored is None:
+            raise CheckpointGeometryError(
+                f"checkpoint step {step} in {self._dir} does not match the "
+                "model's parameter shapes and records no geometry metadata. "
+                f"Original error: {err}"
+            ) from err
+        raise CheckpointGeometryError(
+            f"checkpoint step {step} in {self._dir} does not match the "
+            f"model's parameter shapes: {err}. The recorded padding rule "
+            f"({stored}) matches this build, so this checkpoint belongs to "
+            "a different model."
+        ) from err
+
+    # ------------------------------------------------------------------ #
+    # saving
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self._dir, str(int(step)))
+
+    def save(self, state: Any, step: Optional[int] = None, wait: bool = False) -> int:
+        """Snapshot `state` to host memory and write it as step `step`
+        (default: its model version) on the background writer. A step
+        that is already on disk is kept as it is: a model version names
+        one state."""
+        step = int(state.model_version if step is None else step)
+        with tracing.span("ckpt.save", step=step, wait=wait) as sp:
+            t0 = time.perf_counter()
+            faults.fire("ckpt.save")
+            self.wait()          # one write in flight at a time
+            self._record_geometry()
+            if os.path.isdir(self._step_dir(step)):
+                logger.info("checkpoint step %d already saved", step)
+            else:
+                payload = {
+                    "format": FORMAT,
+                    "step": step,
+                    "params": _host_copy(
+                        {k: p for k, p in state.params.items()}),
+                    "optimizer": _host_copy(state.optimizer.state_dict()),
+                    "generator": state.generator.get_state(),
+                }
+                self._writer = threading.Thread(
+                    target=self._write, args=(step, payload),
+                    name=f"edl-ckpt-save-{step}", daemon=True)
+                self._writer.start()
+            if wait:
+                self.wait()
+            _CKPT_SAVES.inc()
+            _CKPT_SAVE_S.observe(time.perf_counter() - t0)
+            sp.set(dir=self._dir)
+        logger.info("checkpoint step %d -> %s", step, self._dir)
+        return step
+
+    def _write(self, step: int, payload: Dict[str, Any]) -> None:
+        tmp = os.path.join(self._dir, f".tmp-{step}-{os.getpid()}")
+        try:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            with open(os.path.join(tmp, STATE_FILE), "wb") as f:
+                torch.save(payload, f)
+                f.flush()
+                os.fsync(f.fileno())
+            _fsync_dir(tmp)
+            # chaos hook: a crash here dies with the step unpublished
+            faults.fire("ckpt.save.commit")
+            os.replace(tmp, self._step_dir(step))
+            _fsync_dir(self._dir)
+            self._gc()
+        except Exception as e:   # the writer thread's boundary: wait() raises it
+            self._write_error = e
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def _gc(self) -> None:
+        if self._keep <= 0:
+            return
+        for old in self.all_steps()[:-self._keep]:
+            shutil.rmtree(self._step_dir(old), ignore_errors=True)
+
+    def save_overlapped(self, state: Any, overlap_fn, step: Optional[int] = None) -> int:
+        raise NotImplementedError(
+            "save_overlapped (the rescale drain's overlapped final save) "
+            "comes with the elastic cohort, ROADMAP item 18")
+
+    def restore_or_handoff(self, abstract_state: Any, handoff, new_mesh,
+                           step: Optional[int] = None) -> Optional[Any]:
+        raise NotImplementedError(
+            "restore_or_handoff (live state handoff) comes with the elastic "
+            "cohort, ROADMAP item 18")
+
+    # ------------------------------------------------------------------ #
+    # reading
+
+    def latest_step(self, refresh: bool = False) -> Optional[int]:
+        """The newest durable step. The port reads the directory on every
+        call, so `refresh` (which the reference needs to see steps written
+        by other processes) changes nothing."""
+        del refresh
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def all_steps(self) -> List[int]:
+        try:
+            names = os.listdir(self._dir)
+        except OSError:
+            return []
+        return sorted(
+            int(n) for n in names
+            if n.isdigit() and os.path.isfile(
+                os.path.join(self._dir, n, STATE_FILE)))
+
+    def restore(self, state: Any, step: Optional[int] = None) -> Optional[Any]:
+        """Restore into the live `state` (its params, optimizer slots,
+        generator and step are overwritten in place) and return it, or
+        None when there is no checkpoint.
+
+        With an explicit `step`, that step is tried alone. Otherwise steps
+        are tried newest-first: a corrupt or partial newest step is skipped
+        with a loud warning and the previous one restored. Shape
+        mismatches are not walked past (every step shares the model's
+        geometry): they raise CheckpointGeometryError."""
+        with tracing.span("ckpt.restore", step=step) as restore_span:
+            return self._restore_traced(state, step, restore_span)
+
+    def _restore_traced(self, state, step, restore_span):
+        faults.fire("ckpt.restore")
+        self.wait()
+        candidates = [step] if step is not None else sorted(
+            self.all_steps(), reverse=True)
+        if not candidates:
+            restore_span.set(outcome="no_checkpoint")
+            return None
+        last_err: Optional[BaseException] = None
+        for i, cand in enumerate(candidates):
+            try:
+                payload = torch.load(
+                    os.path.join(self._step_dir(cand), STATE_FILE),
+                    map_location="cpu", weights_only=True)
+                if payload.get("format") != FORMAT:
+                    raise ValueError(f"unknown format {payload.get('format')!r}")
+            except Exception as e:  # noqa: BLE001 — corrupt/partial: walk back
+                last_err = e
+                _CKPT_WALKBACKS.inc()
+                remaining = len(candidates) - i - 1
+                logger.warning(
+                    "checkpoint step %d in %s failed to restore (%s: %s); "
+                    "%s", cand, self._dir, type(e).__name__, e,
+                    f"falling back to step {candidates[i + 1]}"
+                    if remaining else "no older step left",
+                )
+                continue
+            self._check_shapes(cand, state, payload["params"])
+            self._apply(state, payload)
+            if i > 0:
+                logger.warning(
+                    "restored FALLBACK checkpoint step %d (skipped %d newer "
+                    "corrupt/partial step(s): %s)", cand, i, candidates[:i])
+            else:
+                logger.info("restored checkpoint step %d from %s",
+                            cand, self._dir)
+            self.last_restored_step = cand
+            _CKPT_RESTORES.inc()
+            restore_span.set(restored_step=cand, walked_back=i)
+            return state
+        raise RuntimeError(
+            f"every checkpoint step in {self._dir} failed to restore "
+            f"(tried {candidates})"
+        ) from last_err
+
+    def _check_shapes(self, step: int, state, saved: Dict[str, Any]) -> None:
+        want = {k: tuple(p.shape) for k, p in state.params.items()}
+        have = {k: tuple(t.shape) for k, t in saved.items()}
+        problems = [
+            f"{k}: model wants {want[k]}, checkpoint holds {have[k]}"
+            for k in sorted(set(want) & set(have)) if want[k] != have[k]]
+        problems += [f"{k}: missing from checkpoint"
+                     for k in sorted(set(want) - set(have))]
+        problems += [f"{k}: not a parameter of the model"
+                     for k in sorted(set(have) - set(want))]
+        if problems:
+            self._raise_geometry_error(step, ValueError("; ".join(problems)))
+
+    @staticmethod
+    def _apply(state, payload: Dict[str, Any]) -> None:
+        with torch.no_grad():
+            for name, p in state.params.items():
+                p.copy_(payload["params"][name])
+        state.optimizer.load_state_dict(payload["optimizer"])
+        state.generator.set_state(payload["generator"])
+        state.step = int(payload["step"])
+
+    # ------------------------------------------------------------------ #
+    # embedding tier shards (slice 5)
+
+    def save_embedding_tier(self, store, tables=None) -> int:
+        raise NotImplementedError(
+            "embedding-tier shard checkpoints come with the tier's device "
+            "mode, ROADMAP item 20 (slice 5)")
+
+    def restore_embedding_tier(self, store) -> int:
+        raise NotImplementedError(
+            "embedding-tier shard checkpoints come with the tier's device "
+            "mode, ROADMAP item 20 (slice 5)")
+
+    @property
+    def directory(self) -> str:
+        return self._dir
+
+    def wait(self) -> None:
+        """Block until the in-flight save is durable; re-raise its error."""
+        writer, self._writer = self._writer, None
+        if writer is not None:
+            writer.join()
+        err, self._write_error = self._write_error, None
+        if err is not None:
+            raise RuntimeError(f"checkpoint write failed: {err}") from err
+
+    def delete(self, step: int) -> None:
+        """Discard a saved step (drain checkpoints whose retirement report
+        the master rejected must not be restored)."""
+        try:
+            self.wait()
+            shutil.rmtree(self._step_dir(step))
+            logger.info("deleted checkpoint step %d", step)
+        except Exception:
+            logger.exception("failed to delete checkpoint step %d", step)
+
+    def close(self) -> None:
+        self.wait()

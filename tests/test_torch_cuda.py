@@ -1,6 +1,8 @@
 """Tests of the port that need the card: the hand-written CUDA kernels
-against their plain versions, and the train steps on the GPU against the
-same steps on the CPU. They skip where no CUDA device is present.
+against their plain versions, the train steps on the GPU against the
+same steps on the CPU, and the DeepFM job path (master, worker,
+checkpoint, export) on the card. They skip where no CUDA device is
+present.
 
 This file imports torch and the port only, so it also runs on a GPU
 machine without JAX:
@@ -393,7 +395,83 @@ def case_lm_grads_on_the_card_match_cpu(cuda):
         _close(got, want, n, 5e-5, 5e-5)
 
 
-def test_kernels_on_the_card(cuda):
+def case_job_on_the_card(cuda, tmp):
+    """The job path at a small width: the port's master and worker in this
+    process (the worker on a thread, device defaulted: the card), K1
+    launched twice a train step, the newest checkpoint restoring the final
+    state exactly on the card, and the export loading on the card and
+    predicting as the final state does (atol 1e-6, float32 logits)."""
+    import threading
+
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.common.net import free_port
+    from elasticdl_tpu_torch.master.main import Master
+    from elasticdl_tpu_torch.training import export
+    from elasticdl_tpu_torch.training.checkpoint import CheckpointManager
+    from elasticdl_tpu_torch.training.model_spec import ModelSpec
+    from elasticdl_tpu_torch.training.trainer import Trainer
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    zoo = os.path.join(REPO, "elasticdl_tpu_torch", "model_zoo")
+    cfg = JobConfig.from_argv([
+        "--model_zoo", zoo, "--model_def", "deepfm.deepfm.custom_model",
+        "--model_params", "field_vocab=1000;hidden=32,32",
+        "--minibatch_size", "256", "--records_per_task", "512",
+        "--training_data", "synthetic://criteo?n=2048&shards=4",
+        "--validation_data", "synthetic://criteo?n=512&shards=2",
+        "--checkpoint_dir", os.path.join(tmp, "ckpt"),
+        "--checkpoint_steps", "4", "--keep_checkpoint_max", "2",
+        "--output", os.path.join(tmp, "export"),
+        "--master_addr", f"localhost:{free_port()}",
+        "--worker_heartbeat_s", "1"])
+    master = Master(cfg)
+    master.start()
+    worker = Worker(cfg)
+    assert worker.device.type == "cuda"
+    rc = []
+    thread = threading.Thread(target=lambda: rc.append(worker.run()))
+    placement.launches = 0
+    thread.start()
+    try:
+        assert master.wait(poll_s=0.1, timeout_s=120)
+        counts = master.dispatcher.counts()
+        results = master.evaluation.latest_results()
+    finally:
+        master.shutdown(grace_s=0.5)
+        thread.join(60)
+    assert rc == [0]
+    assert counts["finished_training"] == 4 and not counts["failed_permanently"]
+    assert np.isfinite(results["auc"]) and np.isfinite(results["loss"])
+    assert worker._global_step == 8
+    assert placement.launches == placement.PASSES * 8
+
+    final = worker._state
+    mngr = CheckpointManager(cfg.checkpoint_dir)
+    assert mngr.all_steps() == [4, 8]
+    fresh = Trainer(ModelSpec.from_config(cfg)).init_state(None)
+    assert mngr.restore(fresh) is fresh and fresh.step == final.step
+    for name, p in final.params.items():
+        assert fresh.params[name].device.type == "cuda"
+        assert torch.equal(fresh.params[name], p), name
+    for i, slots in final.optimizer.state_dict()["state"].items():
+        got = fresh.optimizer.state_dict()["state"][i]
+        for k, v in slots.items():
+            assert torch.equal(got[k].cpu(), v.cpu()), (i, k)
+
+    model, _ = export.load_model(cfg.output, zoo)
+    r = np.random.RandomState(3)
+    batch = {"features": {
+        "dense": r.rand(256, 13).astype(np.float32),
+        "cat": r.randint(0, 1 << 30, (256, 26)).astype(np.int32)}}
+    with torch.no_grad():
+        got = model({k: torch.from_numpy(v).to(cuda)
+                     for k, v in batch["features"].items()})
+    want = worker._trainer.predict_step(final, batch)
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_kernels_on_the_card(cuda, tmp_path):
     """Every case above, in one collected test (ROADMAP.md, conventions:
     one collected test per port test file)."""
     for d in (1, 16, 17, 33):
@@ -431,3 +509,4 @@ def test_kernels_on_the_card(cuda):
     case_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda)
     case_hopper_wrapper_rejects_strides_tma_cannot_take(cuda)
     case_lm_grads_on_the_card_match_cpu(cuda)
+    case_job_on_the_card(cuda, str(tmp_path))

@@ -244,8 +244,11 @@ def case_job_config_parses_like_the_reference(argv):
               "loss", "optimizer", "dataset_fn", "eval_metrics_fn",
               "prediction_outputs_processor"):
         assert getattr(got, f) == getattr(want, f), f
-    with pytest.raises(ValueError, match="Unknown flags"):
-        JobConfig.from_argv(["--num_workers", "2"])
+    # the port's JobConfig is the reference's whole one (a copy since the
+    # job path): both reject a flag neither knows
+    for cls in (JobConfig, JJobConfig):
+        with pytest.raises(ValueError, match="Unknown flags"):
+            cls.from_argv(["--no_such_flag", "2"])
 
 
 def case_lr_rules_match_the_reference():

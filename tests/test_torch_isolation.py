@@ -1,5 +1,7 @@
 """The port stands alone: it imports no JAX stack and nothing of the
-reference package, and it never falls back to the CPU on its own."""
+reference package (the train step, the job path's worker, master,
+launcher, data path, checkpoint and export included), and it never falls
+back to the CPU on its own."""
 
 import ast
 import json
@@ -24,6 +26,13 @@ from elasticdl_tpu_torch.training.trainer import Trainer
 from elasticdl_tpu_torch.ops import (
     attention, embedding, flash_attention, native, placement)
 from elasticdl_tpu_torch import convert
+from elasticdl_tpu_torch.client import api, local, main as client_main
+from elasticdl_tpu_torch.data import nativelib, parsing, prefetch, reader, recordio
+from elasticdl_tpu_torch.master import main as master_main, process_manager
+from elasticdl_tpu_torch.training import checkpoint, export
+from elasticdl_tpu_torch.worker import (
+    main as worker_main, prediction_outputs_processor, task_data_service,
+    worker)
 spec = ModelSpec.from_config(JobConfig.from_argv([
     "--model_zoo", sys.argv[1], "--model_def", "deepfm.deepfm.custom_model",
     "--model_params", "field_vocab=100;hidden=8"]))
@@ -50,7 +59,13 @@ def case_port_loads_no_jax_or_reference_module():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("deepfm.deepfm", "transformer.transformer_lm", "torch",
-                 "elasticdl_tpu_torch.ops.flash_attention"):
+                 "elasticdl_tpu_torch.ops.flash_attention",
+                 "elasticdl_tpu_torch.worker.worker",
+                 "elasticdl_tpu_torch.master.main",
+                 "elasticdl_tpu_torch.client.local",
+                 "elasticdl_tpu_torch.data.prefetch",
+                 "elasticdl_tpu_torch.training.checkpoint",
+                 "elasticdl_tpu_torch.proto.service"):
         assert name in loaded, name
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -67,7 +82,7 @@ def _imports(path: Path):
 
 def case_no_source_file_of_the_port_imports_them():
     files = sorted(PORT.rglob("*.py"))
-    assert len(files) >= 20
+    assert len(files) >= 60
     bad = {str(f.relative_to(REPO)): m for f in files for m in _imports(f)
            if _forbidden(m)}
     assert bad == {}
@@ -92,12 +107,45 @@ def case_trainer_without_device_raises_where_cuda_is_absent():
     assert Trainer(spec, device="cpu").device.type == "cpu"
 
 
+def start_worker_without_device():
+    """The job path's worker with no device request, started on its own:
+    a subprocess that runs while the other cases do. The master address is
+    a port nothing listens on. The cohort variables are cleared too: a
+    test earlier in this process may have left them set (ROADMAP queue 3),
+    and they would make the worker a cohort member."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("EDL_TORCH_DEVICE", "EDL_PROCESS_ID",
+                        "EDL_NUM_PROCESSES", "EDL_PROCESS_ID_FROM_HOSTNAME",
+                        "EDL_COORDINATOR_ADDR")}
+    env["PYTHONPATH"] = str(REPO)
+    return subprocess.Popen(
+        [sys.executable, "-m", "elasticdl_tpu_torch.worker.main",
+         "--model_zoo", str(PORT / "model_zoo"),
+         "--model_def", "deepfm.deepfm.custom_model",
+         "--training_data", "synthetic://criteo?n=64",
+         "--master_addr", "localhost:9", "--master_unreachable_timeout_s",
+         "5"], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def case_worker_without_device_exits_where_cuda_is_absent(proc):
+    """No card and no explicit request for another device is an error
+    before the worker registers, never a CPU run."""
+    _, stderr = proc.communicate(timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device is available" in stderr
+    assert "registered as worker" not in stderr
+
+
 def test_port_stands_alone():
     """Every case above, in one collected test (ROADMAP.md, conventions:
     one collected test per port test file)."""
+    no_device = (None if torch.cuda.is_available()
+                 else start_worker_without_device())
     case_port_loads_no_jax_or_reference_module()
     case_no_source_file_of_the_port_imports_them()
     case_chip_smoke_imports_no_jax()
     if not torch.cuda.is_available():
         # where a card is present, Trainer(spec) runs there instead
         case_trainer_without_device_raises_where_cuda_is_absent()
+        case_worker_without_device_exits_where_cuda_is_absent(no_device)
