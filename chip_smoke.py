@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Three main paths: the DeepFM job (master, worker, data, checkpoint,
-eval, export) and its train step (kernel K1: its zero pass and its
-placement pass), and the transformer LM train step (flash-attention
+The main paths: the DeepFM job (master, worker, data, checkpoint, eval,
+export) and its train step (kernel K1: its zero pass and its placement
+pass), the transformer LM's train step and its job (flash-attention
 kernels: for its bfloat16 D 64 attention the Hopper kernels K2', K3', K4'
 and the delta pass, which runs once a backward; K2, K3 and K4 for every
-other input, such as the float32 LM). Phases, each printing one JSON line;
-any failure raises and exits non-zero (no phase's error is caught):
+other input, such as the float32 LM), and the trainer's knobs (remat,
+gradient accumulation, grouped steps) over both. Phases, each printing
+one JSON line; any failure raises and exits non-zero (no phase's error is
+caught):
 
 1. env     torch/CUDA versions, `nvcc --version`, the card's name and
            power limit (also printed raw, as nvidia-smi gives them).
@@ -102,14 +104,46 @@ any failure raises and exits non-zero (no phase's error is caught):
            that loads and predicts finite values on the card, and a
            worker log that names a cuda device; prints the log's tail if
            any check fails.
-Then the `kernels` line (K1's `launches` are the job's), the nvidia-smi
-line, and last the `ok` line.
+12. knobs  the LM at 9's width: one train step from one cloned state for
+           each of base, `remat_policy=dots`, `remat_policy=nothing`,
+           `grad_accum=2` and `grad_accum=2` with `dots` (after a warm-up
+           step). Each reports its loss, largest parameter difference
+           from base, peak device memory, flash launches, the first
+           step's ms and the ms of each of 3 steps after it.
+           Remat's loss and parameters must equal the step without it
+           bit for bit; accumulation 2's loss within rel 1e-4 of base's,
+           its gradients within 5e-2 of each one's norm and its
+           parameters within 2 x lr of base's (see `phase_knobs`); the
+           peaks of `nothing` and of accumulation 2 below base's; K2' 4,
+           8, 8, 8 and 16 launches, K3', K4' and the delta pass 4, 4, 4,
+           8 and 8.
+13. grouped  DeepFM at 5's width over 8 distinct batches: 8 train_steps,
+           then from a cloned state 2 `train_many` groups of 4; equal
+           losses and parameters bit for bit, K1 launched 16 times in
+           each; host ms a step of each path, first in the checked run
+           and then in 8-step runs in turns (steps, groups, groups,
+           steps).
+14. lm_job  the bf16 LM of 9 through the job path in one process:
+           `synthetic://lm` with 256 records of 1024 tokens in 4 tasks of
+           8 steps, `--steps_per_dispatch 4`, eval at epoch end over 64
+           records, and a `--profile_dir` window of 4 steps from step 8.
+           Asserts 4 finished tasks and none failed, a finite token
+           accuracy in [0, 1], the last group's mean loss below the
+           first's, K2', K3', K4' and the delta pass launched 4 times a
+           train step and K2' also 4 times an eval step, and a trace that
+           names `flash_fwd_sm90_kernel`. Prints the wall time, host ms a
+           group and a step, and data_wait and h2d a step.
+Then the `kernels` line (K1's `launches` are the job's, with the
+`grouped` phase's beside them; the Hopper kernels' are `lm_train`'s,
+with `lm_job`'s beside them), the nvidia-smi line, and last the `ok`
+line.
 
 It exits non-zero without a result where CUDA is unavailable, and where
 the port's package is absent.
 """
 
 import ctypes
+import gc
 import json
 import os
 import re
@@ -971,6 +1005,167 @@ def phase_lm_train():
             for name in train}
 
 
+# ---------------------------------------------------------------- knobs
+
+
+def _variant_trainer(weights, **knobs):
+    """A full-width bf16 LM trainer on the card with `knobs`, its params
+    loaded from `weights` (one cloned state for every variant)."""
+    from elasticdl_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(load_spec(LM_PARAMS,
+                                model_def="transformer.transformer_lm."
+                                "custom_model"), **knobs)
+    state = trainer.init_state(None)
+    if weights is not None:
+        trainer.model.load_state_dict(weights)
+    return trainer, state
+
+
+# the variants of the `knobs` phase: (name, Trainer knobs, K2' launches a
+# layer, K3' / K4' / delta launches a layer)
+KNOB_VARIANTS = (
+    ("base", {}, 1, 1),
+    ("remat_dots", {"remat_policy": "dots"}, 2, 1),
+    ("remat_nothing", {"remat_policy": "nothing"}, 2, 1),
+    ("accum2", {"grad_accum": 2}, 2, 2),
+    ("accum2_dots", {"grad_accum": 2, "remat_policy": "dots"}, 4, 2),
+)
+LM_LR = 3e-4                    # the zoo's AdamW learning rate
+KNOB_TIMED_STEPS = 3
+# the most of the entries that accum2's first step may move more than 1e-6
+# apart from base's; a step over one of its two micro-batches alone must
+# move more (the phase measures both)
+KNOB_PARAM_SHARE = 0.02
+
+
+def phase_knobs():
+    """One train step of the full-width bf16 LM under each of the
+    trainer's HBM knobs, from one cloned state. Remat runs the same
+    kernels on the same inputs, so its parameters must equal base's bit
+    for bit; accumulation 2 sums two micro-batches' float32 gradients, so
+    its loss is held to rel 1e-4 and each gradient's error norm to 5e-2 of
+    its norm (bf16 products round differently at half the batch; the k
+    biases, 0 in exact arithmetic, excepted), and its parameters within
+    2 x lr + 1e-6 of base's: a first AdamW step moves every entry by
+    ~lr x sign(g), so a gradient near 0 can flip. That bound holds for
+    any gradient, so the share of entries moved apart is held too: at
+    most KNOB_PARAM_SHARE, which a step over one micro-batch alone must
+    exceed. The peaks of
+    `remat_nothing` and `accum2` must fall below base's."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    batch = lm_batch(300)
+    # warm-up on a throwaway trainer: cuBLAS handles, the kernels' first
+    # launches and the allocator's pools are not a variant's cost
+    trainer, state = _variant_trainer(None)
+    weights = {n: t.detach().to("cpu", copy=True)
+               for n, t in trainer.model.state_dict().items()}
+    trainer.train_step(state, batch)
+    # what a step that lost one of accum2's micro-batches would give: the
+    # step over micro-batch 0 alone, for the share check below
+    trainer, state = _variant_trainer(weights)
+    trainer.train_step(state, {k: v[0::2] for k, v in batch.items()})
+    lost = {n: p.detach().to("cpu", copy=True)
+            for n, p in state.params.items()}
+    del trainer, state
+    gc.collect()
+    torch.cuda.synchronize()
+
+    report, params, grads = {}, {}, {}
+    for name, knobs, fwd, bwd in KNOB_VARIANTS:
+        trainer, state = _variant_trainer(weights, **knobs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        state, logs = trainer.train_step(state, batch)
+        loss = float(logs["loss"])
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(fa.launches)
+        # kept on the host, so that no variant's peak holds another's
+        params[name] = {n: p.detach().to("cpu", copy=True)
+                        for n, p in state.params.items()}
+        grads[name] = {n: p.grad.detach().to("cpu", copy=True)
+                       for n, p in state.params.items()}
+        # the step's time past its first call (Adam's slots, new blocks)
+        t0 = time.perf_counter()
+        for _ in range(KNOB_TIMED_STEPS):
+            state, logs = trainer.train_step(state, batch)
+            float(logs["loss"])
+        step_ms = (time.perf_counter() - t0) * 1e3 / KNOB_TIMED_STEPS
+        del trainer, state, logs
+        gc.collect()
+        want = {**{k: 0 for k in launches},
+                fa.FWD_SM90: fwd * LM_LAYERS,
+                fa.BWD_DQ_SM90: bwd * LM_LAYERS,
+                fa.BWD_DKV_SM90: bwd * LM_LAYERS,
+                fa.BWD_DELTA_SM90: bwd * LM_LAYERS}
+        if launches != want:
+            raise AssertionError(f"knobs {name}: flash launches {launches}, "
+                                 f"want {want}")
+        report[name] = {"knobs": knobs, "loss": loss,
+                        "first_step_ms": first_ms, "step_ms": step_ms,
+                        "peak_mem_gib": peak / 2**30,
+                        "launches": {k: v for k, v in launches.items() if v}}
+    base = params["base"]
+    for name in report:
+        report[name]["max_param_diff"] = max(
+            float((params[name][n] - base[n]).abs().max()) for n in base)
+    # remat recomputes with the same kernels on the same inputs: the same
+    # bits as the step without it
+    for name, against in (("remat_dots", "base"), ("remat_nothing", "base"),
+                          ("accum2_dots", "accum2")):
+        differ = [n for n in base
+                  if not torch.equal(params[name][n], params[against][n])]
+        if differ or report[name]["loss"] != report[against]["loss"]:
+            raise AssertionError(f"{name}: loss or params {differ[:4]} "
+                                 f"differ from {against}'s")
+    accum, want = report["accum2"], report["base"]
+    if abs(accum["loss"] - want["loss"]) > 1e-4 * abs(want["loss"]):
+        raise AssertionError(f"accum2 loss {accum['loss']} vs base "
+                             f"{want['loss']}")
+    worst = 0.0
+    for n, g in grads["base"].items():
+        if n.endswith(".k.bias"):
+            continue
+        ratio = float((grads["accum2"][n] - g).norm() / g.norm())
+        worst = max(worst, ratio)
+        if ratio > 5e-2:
+            raise AssertionError(f"accum2 gradient of {n} is {ratio} of its "
+                                 "norm off base's")
+    accum["worst_grad_err_over_norm"] = worst
+    if accum["max_param_diff"] > 2 * LM_LR + 1e-6:
+        raise AssertionError(f"accum2 params {accum['max_param_diff']} off "
+                             f"base's, over 2 x lr")
+    # A first AdamW step moves each entry by about lr x sign(gradient)
+    # whatever the gradient's size, so the bound above holds for any
+    # gradient; the entries that moved apart are those whose gradient
+    # changed sign (or fell near Adam's eps). Rounding flips few signs,
+    # a wrong accumulation (a lost or doubled micro-batch) many.
+    def moved_share(got):
+        return sum(int(((got[n] - base[n]).abs() > 1e-6).sum())
+                   for n in base) / sum(p.numel() for p in base.values())
+
+    share, lost_share = moved_share(params["accum2"]), moved_share(lost)
+    accum["params_over_1e-6_share"] = share
+    accum["lost_micro_batch_share"] = lost_share
+    if not share <= KNOB_PARAM_SHARE < lost_share:
+        raise AssertionError(
+            f"accum2 moved {share} of the entries apart from base's, and "
+            f"a step over one micro-batch {lost_share}: the bound "
+            f"{KNOB_PARAM_SHARE} must lie between them")
+    for name in ("remat_nothing", "accum2"):
+        if not report[name]["peak_mem_gib"] < want["peak_mem_gib"]:
+            raise AssertionError(
+                f"{name} peak {report[name]['peak_mem_gib']} GiB not below "
+                f"base's {want['peak_mem_gib']}")
+    emit("knobs", params=LM_PARAMS, batch=[LM_BATCH, LM_T],
+         compute_dtype="bfloat16", variants=report)
+
+
 def job_argv(out, n, shards):
     """The DeepFM job at full width: `n` synthetic Criteo records in
     `shards` shards and tasks of JOB_TASK records, eval at epoch end over
@@ -1118,6 +1313,219 @@ def phase_job(smi):
     return launches
 
 
+# ---------------------------------------------------------------- grouped
+
+
+def phase_grouped():
+    """DeepFM at full width over 8 distinct batches: 8 train_steps, then
+    from a cloned state 2 train_many groups of 4. The parameters must be
+    equal bit for bit (the same kernels on the same batches) and K1 must
+    launch twice a step in each path. Then host ms a step of each path
+    over 8 more steps in turns (steps, groups, groups, steps), each step
+    ending in its readback (a step's loss, a group's losses) as the
+    worker reads them, the host-to-device copy of the batches included.
+    Returns K1's launches in the grouped run."""
+    from elasticdl_tpu_torch.ops import placement
+    from elasticdl_tpu_torch.training.trainer import Trainer, stack_batches
+
+    batches = []
+    for i in range(8):
+        b = criteo_batch(200 + i)
+        b["mask"] = np.ones((BATCH,), np.float32)
+        batches.append(b)
+
+    def run(trainer, state, grouped):
+        """8 steps; (state, losses, host ms a step, K1 launches)."""
+        torch.cuda.synchronize()
+        placement.launches = 0
+        losses = []
+        t0 = time.perf_counter()
+        if grouped:
+            for g in range(2):
+                state, logs = trainer.train_many(
+                    state, stack_batches(batches[4 * g:4 * g + 4],
+                                         trainer.device))
+                losses += logs["loss"].tolist()
+        else:
+            for b in batches:
+                state, logs = trainer.train_step(state, b)
+                losses.append(float(logs["loss"]))
+        host_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        return state, losses, host_ms, placement.launches
+
+    paths, weights = {}, None
+    for grouped in (False, True):
+        trainer = Trainer(load_spec(f"field_vocab={FIELD_VOCAB};"
+                                    "hidden=400,400"))
+        state = trainer.init_state(None)
+        if weights is None:
+            weights = {n: t.detach().clone()
+                       for n, t in trainer.model.state_dict().items()}
+        trainer.model.load_state_dict(weights)
+        paths[grouped] = (trainer, state)
+    checked = {g: run(*paths[g], g) for g in (False, True)}
+    (single, single_losses, _, single_k1), \
+        (group, group_losses, _, group_k1) = checked[False], checked[True]
+    if single_k1 != group_k1 or group_k1 != placement.PASSES * 8:
+        raise AssertionError(f"K1 launched {single_k1} (steps) and "
+                             f"{group_k1} (groups) kernels in 8 steps")
+    if single_losses != group_losses or (single.step, group.step) != (8, 8):
+        raise AssertionError(f"losses {single_losses} vs {group_losses}")
+    differ = [n for n in single.params
+              if not torch.equal(single.params[n], group.params[n])]
+    if differ:
+        raise AssertionError(f"train_many params differ from train_step's: "
+                             f"{differ}")
+    states = {False: single, True: group}
+    timed = {False: [], True: []}
+    for g in (False, True, True, False):
+        states[g], _, ms, _ = run(paths[g][0], states[g], g)
+        timed[g].append(ms)
+    emit("grouped", params=f"field_vocab={FIELD_VOCAB};hidden=400,400",
+         batch=BATCH, steps=8, group=4, losses=group_losses,
+         first_host_ms_per_step={"train_step": checked[False][2],
+                                 "train_many": checked[True][2]},
+         host_ms_per_step={"train_step": timed[False],
+                           "train_many": timed[True]},
+         k1_launches={"train_step": single_k1, "train_many": group_k1})
+    del paths, states, single, group
+    gc.collect()
+    return group_k1
+
+
+# ---------------------------------------------------------------- lm_job
+
+LM_JOB_STEPS, LM_JOB_EVAL_STEPS, LM_JOB_GROUP = 32, 8, 4
+
+
+def lm_job_argv(out):
+    """The full-width bf16 LM through the job path: 256 synthetic-lm
+    records of 1024 tokens in 4 tasks of 64 (8 steps of 8 each), groups of
+    4 steps, eval at epoch end over 64 records, and a profiler window of
+    4 steps from step 8."""
+    return [
+        "--model_zoo", ZOO,
+        "--model_def", "transformer.transformer_lm.custom_model",
+        "--model_params", LM_PARAMS, "--minibatch_size", str(LM_BATCH),
+        "--training_data",
+        f"synthetic://lm?n=256&shards=4&vocab={LM_VOCAB}&seq_len={LM_T}",
+        "--records_per_task", "64",
+        "--validation_data",
+        f"synthetic://lm?n=64&shards=1&vocab={LM_VOCAB}&seq_len={LM_T}",
+        "--steps_per_dispatch", str(LM_JOB_GROUP),
+        "--profile_dir", os.path.join(out, "profile"),
+        "--profile_start_step", "8", "--profile_steps", "4",
+        "--worker_heartbeat_s", "2",
+    ]
+
+
+def phase_lm_job(smi):
+    """The bf16 LM's job in one process: the port's Master and its Worker
+    (on a thread, device defaulted: the card). Returns the flash kernels'
+    launches in it."""
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.common.net import free_port
+    from elasticdl_tpu_torch.master.main import Master
+    from elasticdl_tpu_torch.observability import profile
+    from elasticdl_tpu_torch.observability.registry import default_registry
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.training.trainer import Trainer
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    group_losses = []
+    train_many = Trainer.train_many
+
+    def recorded(self, state, stacked):
+        state, logs = train_many(self, state, stacked)
+        group_losses.append(logs["loss"])
+        return state, logs
+
+    with tempfile.TemporaryDirectory() as out:
+        cfg = JobConfig.from_argv(lm_job_argv(out) + [
+            "--master_addr", f"localhost:{free_port()}"])
+        master = Master(cfg)
+        master.start()
+        worker = Worker(cfg)                # device defaulted: the GPU
+        if worker.device.type != "cuda":
+            raise AssertionError(f"Worker defaulted to {worker.device}")
+        reg = default_registry()
+        before = reg.snapshot()
+        profile.get_profiler().reset()
+        rc = []
+        thread = threading.Thread(target=lambda: rc.append(worker.run()),
+                                  name="lm-job-worker", daemon=True)
+        reset_launches()
+        Trainer.train_many = recorded
+        t0 = time.perf_counter()
+        thread.start()
+        try:
+            finished = master.wait(poll_s=0.2, timeout_s=600)
+            counts = master.dispatcher.counts()
+            results = master.evaluation.latest_results()
+        finally:
+            master.shutdown(grace_s=1)
+            thread.join(300)
+            Trainer.train_many = train_many
+        wall_s = time.perf_counter() - t0
+        launches = dict(fa.launches)
+        after = reg.snapshot()
+        phases = profile.get_profiler().snapshot(update_memory=False)
+        traces = os.listdir(cfg.profile_dir)
+        names = set()
+        for trace in traces:
+            with open(os.path.join(cfg.profile_dir, trace)) as f:
+                events = json.load(f).get("traceEvents", [])
+            names |= {e.get("name", "") for e in events
+                      if e.get("cat") == "kernel"}
+
+    steps = worker._global_step
+    if not finished or rc != [0] or thread.is_alive():
+        raise AssertionError(f"LM job did not finish cleanly: finished "
+                             f"{finished}, worker exit {rc}")
+    if counts["finished_training"] != 4 or counts["failed_permanently"]:
+        raise AssertionError(f"dispatcher counts {counts}")
+    acc = results.get("token_accuracy", np.nan)
+    if not (np.isfinite(acc) and 0.0 <= acc <= 1.0):
+        raise AssertionError(f"eval results {results}")
+    means = [float(x.mean()) for x in group_losses]
+    if (steps != LM_JOB_STEPS or len(means) != LM_JOB_STEPS // LM_JOB_GROUP
+            or not all(np.isfinite(means)) or not means[-1] < means[0]):
+        raise AssertionError(f"{steps} train steps; group mean losses "
+                             f"{means} not finite and falling")
+    per_train = {fa.BWD_DQ_SM90: LM_LAYERS, fa.BWD_DKV_SM90: LM_LAYERS,
+                 fa.BWD_DELTA_SM90: LM_LAYERS}
+    want = {**{k: 0 for k in launches},
+            **{k: v * LM_JOB_STEPS for k, v in per_train.items()},
+            fa.FWD_SM90: LM_LAYERS * (LM_JOB_STEPS + LM_JOB_EVAL_STEPS)}
+    if launches != want:
+        raise AssertionError(f"flash launches in the LM job {launches}, "
+                             f"want {want}")
+    kernel = "flash_fwd_sm90_kernel"
+    if len(traces) != 1 or not any(kernel in n for n in names):
+        raise AssertionError(f"profiler traces {traces} name no {kernel} "
+                             f"among {len(names)} device kernels")
+
+    def delta(name):
+        return after.get(name, 0.0) - before.get(name, 0.0)
+
+    # grouped mode observes group seconds / group size once a group
+    step_s = delta("edl_train_step_seconds_sum")
+    groups = delta("edl_train_step_seconds_count")
+    emit("lm_job", card=smi, params=LM_PARAMS, compute_dtype="bfloat16",
+         batch=[LM_BATCH, LM_T], steps_per_dispatch=LM_JOB_GROUP,
+         tasks=counts["finished_training"], train_steps=steps,
+         counts=counts, eval=results, group_mean_losses=means,
+         wall_s=wall_s, host_ms_per_step=step_s * 1e3 / groups,
+         host_ms_per_group=step_s * 1e3 / groups * LM_JOB_GROUP,
+         tokens_per_s=LM_BATCH * LM_T * groups / step_s,
+         data_wait_ms_per_step=phases.get("phase_data_wait_ms", 0.0),
+         h2d_ms_per_step=phases.get("phase_h2d_ms", 0.0),
+         compute_ms_per_step=phases.get("phase_compute_ms", 0.0),
+         launches={k: v for k, v in launches.items() if v},
+         trace=traces[0], trace_kernels=len(names))
+    return launches
+
+
 def phase_job_cli(smi):
     """The same job at a smaller depth through the CLI: `python -m
     elasticdl_tpu_torch.client.main train` -> run_local -> ProcessManager
@@ -1209,7 +1617,10 @@ def main():
     f32_lm_launches = phase_lm_parity()
     launches = phase_train()
     lm_launches = phase_lm_train()
+    phase_knobs()
+    grouped_launches = phase_grouped()
     job_launches = phase_job(smi)
+    lm_job_launches = phase_lm_job(smi)
     phase_job_cli(smi)
 
     f32_lm = (fa.FWD, fa.BWD_DQ, fa.BWD_DKV)
@@ -1223,6 +1634,7 @@ def main():
         "launches": job_launches,
         "launches_in": "job",
         "train_launches": launches,
+        "grouped_launches": grouped_launches,
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"],
         "ms": k1["ms"],
@@ -1242,6 +1654,8 @@ def main():
         "launches": (f32_lm_launches[name] if name in f32_lm
                      else lm_launches[name]),
         "launches_in": "lm_parity" if name in f32_lm else "lm_train",
+        **({} if name in f32_lm else
+           {"lm_job_launches": lm_job_launches[name]}),
         **attn[name],
     } for name in (fa.FWD, fa.FWD_SM90, fa.BWD_DQ, fa.BWD_DQ_SM90,
                    fa.BWD_DKV, fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90)]}),

@@ -101,6 +101,8 @@ class DeepFM(nn.Module):
         for i in range(len(self.hidden)):
             x = torch.relu(getattr(self, f"dnn_{i}")(x))
             if training and self.dropout > 0:
+                # drawn from `generator`, which the trainer rewinds for a
+                # remat recompute (`Trainer._forward`)
                 keep = torch.rand(x.shape, generator=generator,
                                   device=x.device) >= self.dropout
                 x = torch.where(keep, x / (1.0 - self.dropout), 0)

@@ -36,6 +36,9 @@ from elasticdl_tpu_torch.training import metrics as metrics_lib
 
 
 def _dropout(x, rate: float, generator: Optional[torch.Generator]):
+    # the mask comes from `generator`; under remat the trainer rewinds it
+    # before the recompute, which so draws the same mask
+    # (`training/trainer.py` `Trainer._forward`)
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), 0)
 

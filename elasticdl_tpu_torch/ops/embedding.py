@@ -71,6 +71,10 @@ def _table_grad(ids: torch.Tensor, ct: torch.Tensor, num_rows: int,
 
 
 class _GatherRows(torch.autograd.Function):
+    """`table[ids]` with K1 in the backward. It saves only the ids, so
+    under a checkpoint the recompute re-runs the gather alone; K1 runs
+    once a backward either way."""
+
     @staticmethod
     def forward(ctx, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(ids)

@@ -468,7 +468,15 @@ def _library(name: str) -> ctypes.CDLL:
 class _FlashAttention(torch.autograd.Function):
     """(out, lse) with the forward kernel and `flash_bwd`'s backward, both
     routed by `_sm90`. An unused lse (the out-only `flash_attention`)
-    reaches the backward as None, which the kernels read as g_lse = 0."""
+    reaches the backward as None, which the kernels read as g_lse = 0.
+
+    Under a non-reentrant `torch.utils.checkpoint` (the trainer's remat)
+    the saved q, k, v, out and lse are dropped and the forward runs again
+    in the backward: the kernel launches once more (and counts in
+    `launches`) into freshly allocated out and lse, which the backward
+    then reads. A selective policy sees only the aten ops around the
+    ctypes launch; out and lse come from `empty_like`/`empty`, which no
+    policy of the trainer saves."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, kv_offset):

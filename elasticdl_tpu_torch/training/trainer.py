@@ -10,19 +10,30 @@ embedding backward goes through the hand-written placement kernel (see
 
 Batches arrive as `{"features", "labels", "mask"}` of numpy arrays (or
 tensors) and move to the trainer's device — the counterpart of the
-reference's `shard_batch`.
+reference's `shard_batch`. `stack_batches` stacks K of them for
+`train_many`, `eval_many` and `predict_many`, the counterpart of
+`shard_batch_stack`; the reference's `lax.scan` over the group is a
+Python loop here.
+
+The HBM knobs are the reference's: `grad_accum` splits a train step's
+batch into strided micro-batches with one micro-batch's activations live
+at a time, and `remat` / `remat_policy` wrap the training forward in
+`torch.utils.checkpoint` (see `resolve_remat_policy`).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from elasticdl_tpu_torch.common import runtime
 from elasticdl_tpu_torch.common.log_utils import default_logger
+from elasticdl_tpu_torch.data.prefetch import tree_map
 from elasticdl_tpu_torch.training import lr_modulation
 from elasticdl_tpu_torch.training import metrics as metrics_lib
 from elasticdl_tpu_torch.training.model_spec import ModelSpec
@@ -68,15 +79,146 @@ def _masked_scalar_loss(loss_fn, labels, outputs, mask) -> torch.Tensor:
     return torch.sum(value * m) / torch.clamp_min(torch.sum(m), 1.0)
 
 
+_warned_scalar_accum = False
+
+
+def _warn_scalar_loss_with_accum() -> None:
+    """A user loss returning a pre-reduced scalar under grad_accum weighs
+    micro-batches equally, which differs from the full-batch masked mean
+    when padding is uneven across micro-batches. Every zoo loss is
+    per-example, so this never fires in-tree; warn once so that a user's
+    scalar loss over masked data is not silently different."""
+    global _warned_scalar_accum
+    if not _warned_scalar_accum:
+        _warned_scalar_accum = True
+        logger.warning(
+            "grad_accum_steps > 1 with a loss that returns a pre-reduced "
+            "scalar: micro-batches are weighed equally, which differs from "
+            "the unaccumulated step when padding/mask density varies across "
+            "micro-batches. Return a per-example loss vector for exact "
+            "full-batch-equivalent gradients."
+        )
+
+
+def _micro_batches(tree, accum: int) -> List[Any]:
+    """`accum` strided micro-batches of a batch pytree: row j*K+k goes to
+    micro-batch k, as the reference's `reshape(b // K, K, ...)
+    .swapaxes(0, 1)` splits it. None leaves stay None."""
+    def split(x, k):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {n: split(v, k) for n, v in x.items()}
+        b = x.shape[0]
+        if b % accum:
+            raise ValueError(
+                f"grad_accum={accum} must divide the batch size {b}")
+        return x[k::accum]
+
+    return [split(tree, k) for k in range(accum)]
+
+
+# The ops whose outputs each named policy saves; everything else the
+# backward recomputes. `dots` keeps every matmul output, `dots_no_batch`
+# only the unbatched ones, `nothing` none. The flash kernels run through
+# ctypes, which TorchDispatchMode does not see: their outputs come from
+# `empty_like`, which no policy saves, so K2 (K2') runs again in the
+# backward under every policy, as the reference's Pallas custom call does
+# under `dots_saveable`.
+_SAVED_OPS = {
+    "dots": ("mm", "addmm", "bmm", "baddbmm"),
+    "dots_no_batch": ("mm", "addmm"),
+    "nothing": (),
+}
+
+
+def resolve_remat_policy(name: str) -> Optional[Callable]:
+    """Map a config-level policy name to the `context_fn` of
+    `torch.utils.checkpoint.checkpoint`: a selective-checkpoint policy
+    for `dots` and `dots_no_batch`, None (recompute everything) for
+    `nothing` and for "" (full remat). Raises ValueError for any other
+    name."""
+    if not name:
+        return None
+    if name not in _SAVED_OPS:
+        raise ValueError(
+            f"unknown remat policy {name!r}; choose from "
+            f"{sorted(_SAVED_OPS)} or '' for full remat"
+        )
+    if not _SAVED_OPS[name]:
+        return None
+    saved = frozenset(getattr(torch.ops.aten, op).default
+                      for op in _SAVED_OPS[name])
+
+    def policy(ctx, op, *args, **kwargs):
+        del ctx, args, kwargs
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in saved
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                             policy)
+
+
+def _stack_tree(items: List[Any]) -> Any:
+    """Stack the same-structured pytrees `items` leaf by leaf along a new
+    leading axis (numpy arrays and tensors become tensors)."""
+    first = items[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: _stack_tree([it[k] for it in items]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack_tree([it[i] for it in items])
+                           for i in range(len(first)))
+    return torch.stack([x if isinstance(x, torch.Tensor)
+                        else torch.from_numpy(np.ascontiguousarray(x))
+                        for x in items])
+
+
+def stack_batches(batches: List[Dict[str, Any]],
+                  device: runtime.DeviceLike = None) -> Dict[str, Any]:
+    """K batches as one batch pytree with a leading step axis, leaves
+    (K, B, ...), on `device` (None: the card; "cpu" to stay on the host)
+    in one copy a leaf: the counterpart of the reference's
+    `mesh.shard_batch_stack`, for `train_many`, `eval_many` and
+    `predict_many`."""
+    dev = runtime.resolve_device(device)
+    return tree_map(lambda t: None if t is None else t.to(dev),
+                    _stack_tree(list(batches)))
+
+
+def _unstack(tree, i: int):
+    return tree_map(lambda t: None if t is None else t[i], tree)
+
+
+def _group_size(stacked: Dict[str, Any]) -> int:
+    leaf = stacked["features"]
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return int(leaf.shape[0])
+
+
 class Trainer:
     """Runs the train/eval/predict steps of one ModelSpec on one device.
 
     device: None means the GPU; with no GPU present that raises rather
     than running on the CPU. Pass device="cpu" to run on the CPU.
+    grad_accum: micro-batches a train step's batch is split into (>= 1).
+    remat, remat_policy: recompute the training forward in the backward;
+    a named policy implies remat (see `resolve_remat_policy`).
     """
 
     def __init__(self, spec: ModelSpec, device: runtime.DeviceLike = None,
-                 seed: int = 0):
+                 seed: int = 0, grad_accum: int = 1, remat: bool = False,
+                 remat_policy: str = ""):
+        # the knobs first: a bad name or count fails at construction, not
+        # at the first train step of a running job
+        self.remat = remat or bool(remat_policy)
+        self._remat_context = (resolve_remat_policy(remat_policy)
+                               or ckpt.noop_context_fn)
+        if grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        self.grad_accum = int(grad_accum)
         self.spec = spec
         self.device = runtime.resolve_device(device)
         runtime.configure_torch_runtime()
@@ -128,19 +270,87 @@ class Trainer:
     # ------------------------------------------------------------------ #
     # Steps
 
+    def _forward(self, state: TrainState, features):
+        """The training forward; under remat, inside a non-reentrant
+        `torch.utils.checkpoint` with the policy's context.
+
+        `checkpoint` restores the global RNG state for the recompute, not
+        a generator passed in, and the models draw dropout from
+        `state.generator`: so the checkpointed function first sets the
+        generator to its state at the forward's entry, and the recompute
+        draws the forward's masks again (the reference's dropout draws
+        from `fold_in(rng, step)` and recomputes the same masks)."""
+        gen = state.generator
+        if not self.remat:
+            return self.model(features, training=True, generator=gen)
+        entry = gen.get_state()
+
+        def forward(feats):
+            gen.set_state(entry)
+            return self.model(feats, training=True, generator=gen)
+
+        return ckpt.checkpoint(forward, features, use_reentrant=False,
+                               context_fn=self._remat_context)
+
+    def _backward(self, state: TrainState, value: torch.Tensor) -> None:
+        """`value.backward()`. Under remat the recompute rewinds the
+        generator and may stop early, so it is put back where the forward
+        left it: the next step draws as it would without remat."""
+        if not self.remat:
+            value.backward()
+            return
+        after = state.generator.get_state()
+        value.backward()
+        state.generator.set_state(after)
+
+    def _accumulated_backward(self, state: TrainState, features, labels,
+                              mask) -> torch.Tensor:
+        """Gradient accumulation: forward and backward over `grad_accum`
+        strided micro-batches, one micro-batch's activations live at a
+        time. Per-example losses accumulate the masked loss SUM and the
+        count, and the summed gradients are divided by the count once at
+        the end, so the result is the full batch's even when the padding
+        falls in one micro-batch. A pre-reduced scalar loss weighs the
+        micro-batches equally (and warns once). Returns the loss."""
+        k = self.grad_accum
+        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        count = torch.zeros((), dtype=torch.float32, device=self.device)
+        for f, l, m in zip(*(_micro_batches(x, k)
+                             for x in (features, labels, mask))):
+            value = self.spec.loss(l, self._forward(state, f))
+            if value.dim() == 0:
+                _warn_scalar_loss_with_accum()
+                s, c = value.to(torch.float32), 1.0
+            else:
+                v = value.reshape(-1).to(torch.float32)
+                mm = (m.to(torch.float32).reshape(-1) if m is not None
+                      else torch.ones_like(v))
+                s, c = torch.sum(v * mm), torch.sum(mm)
+            self._backward(state, s)
+            loss_sum += s.detach()
+            count += c
+        denom = torch.clamp_min(count, 1.0)
+        for p in state.params.values():
+            if p.grad is not None:
+                p.grad.div_(denom)
+        return loss_sum / denom
+
     def compute_grads(
         self, state: TrainState, batch: Dict[str, Any]
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Forward, masked loss and backward of one batch in training
-        mode. Returns (loss, {param name: gradient}); the gradients are
-        also left in each parameter's `.grad` for the optimizer."""
+        mode, under the trainer's remat and accumulation. Returns (loss,
+        {param name: gradient}); the gradients are also left in each
+        parameter's `.grad` for the optimizer."""
         features, labels, mask = self._device_batch(batch)
         self.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        outputs = self.model(features, training=True,
-                             generator=state.generator)
-        loss = _masked_scalar_loss(self.spec.loss, labels, outputs, mask)
-        loss.backward()
+        if self.grad_accum > 1:
+            loss = self._accumulated_backward(state, features, labels, mask)
+        else:
+            outputs = self._forward(state, features)
+            loss = _masked_scalar_loss(self.spec.loss, labels, outputs, mask)
+            self._backward(state, loss)
         return loss.detach(), {n: p.grad for n, p in state.params.items()}
 
     def train_step(self, state: TrainState, batch: Dict[str, Any]):
@@ -151,6 +361,20 @@ class Trainer:
         state.optimizer.step()
         state.step += 1
         return state, {"loss": loss.to(torch.float32)}
+
+    def train_many(self, state: TrainState, stacked_batch):
+        """K train steps over a stacked batch (leaves (K, B, ...), from
+        `stack_batches`): the counterpart of the reference's `lax.scan` of
+        the step, as a Python loop. A group not yet on the device goes
+        there in one copy a leaf, and each step's loss stays there:
+        returns (state, {"loss": (K,) float32 tensor on the device}), read
+        back once a group."""
+        stacked = self._to_device(stacked_batch)
+        losses = []
+        for i in range(_group_size(stacked)):
+            state, logs = self.train_step(state, _unstack(stacked, i))
+            losses.append(logs["loss"])
+        return state, {"loss": torch.stack(losses)}
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch, metric_states):
@@ -171,11 +395,28 @@ class Trainer:
             [loss_value * count, count]).to("cpu", torch.float32).numpy()
         return new_states
 
+    def eval_many(self, state: TrainState, stacked_batch, metric_states):
+        """K eval steps over a stacked batch, the metric states threaded
+        through them (host numpy, as `eval_step` keeps them): equal to K
+        `eval_step` calls."""
+        stacked = self._to_device(stacked_batch)
+        for i in range(_group_size(stacked)):
+            metric_states = self.eval_step(state, _unstack(stacked, i),
+                                           metric_states)
+        return metric_states
+
     @torch.no_grad()
     def predict_step(self, state: TrainState, batch) -> torch.Tensor:
         features, _, _ = self._device_batch(batch)
         self.model.eval()
         return self.model(features, training=False)
+
+    def predict_many(self, state: TrainState, stacked_batch):
+        """K predict steps over a stacked batch; the outputs come back
+        stacked, leaves (K, B, ...)."""
+        stacked = self._to_device(stacked_batch)
+        return _stack_tree([self.predict_step(state, _unstack(stacked, i))
+                            for i in range(_group_size(stacked))])
 
     # ------------------------------------------------------------------ #
     # Control

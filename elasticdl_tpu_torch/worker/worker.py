@@ -12,12 +12,16 @@ The worker runs on one device and has no mesh: the device comes from
 another; no card raises), batches are padded to the minibatch size only,
 and the prefetcher copies them to that device (`data/prefetch.py`).
 
+Grouped dispatch (`--steps_per_dispatch K > 1`) buffers K prefetched
+device batches and runs them through `Trainer.train_many` (eval_many,
+predict_many), with one loss readback a group. Gradient accumulation and
+remat are the Trainer's knobs. `--profile_dir` records a window of worker
+0's steps with `torch.profiler` as a Chrome trace.
+
 What the port does not have yet raises `NotImplementedError` naming its
-ROADMAP item, at construction where the config asks for it: grouped
-dispatch (`steps_per_dispatch > 1`), gradient accumulation and remat
-(item 16), the in-place rescale (`request_rescale`, items 18-19), the
-embedding tier and its data plane (`embedding_shards > 0`, item 20), and
-the profiler trace window (`profile_dir`, item 27).
+ROADMAP item: the in-place rescale (`request_rescale`, items 18-19) and,
+at construction, the embedding tier and its data plane
+(`embedding_shards > 0`, item 20).
 """
 
 from __future__ import annotations
@@ -80,21 +84,10 @@ _RECONNECTS = _reg.counter(
 def check_supported(cfg: JobConfig) -> None:
     """Raise for the options whose code paths the port has not taken over
     yet, before the worker registers with the master."""
-    if cfg.steps_per_dispatch > 1:
-        raise NotImplementedError(
-            "steps_per_dispatch > 1 (grouped dispatch, Trainer.train_many) "
-            "is ROADMAP item 16")
-    if cfg.grad_accum_steps > 1 or cfg.remat or cfg.remat_policy:
-        raise NotImplementedError(
-            "grad_accum_steps > 1 and remat are ROADMAP item 16")
     if cfg.embedding_shards > 0:
         raise NotImplementedError(
             "embedding_shards > 0 (the embedding tier and its data plane) "
             "is ROADMAP item 20 (slice 5)")
-    if cfg.profile_dir:
-        raise NotImplementedError(
-            "profile_dir (the worker's profiler trace window) is ROADMAP "
-            "item 27")
 
 
 class Worker:
@@ -136,6 +129,9 @@ class Worker:
         # to run, drained before the next GetTask poll; cleared on every
         # reconnect handshake.
         self._lease_queue: "deque[pb.Task]" = deque()
+        self._profile_state = "idle"  # idle -> active -> done (torch.profiler)
+        self._profiler = None
+        self._profile_first_step = 0
 
     # ------------------------------------------------------------------ #
     # setup
@@ -252,7 +248,9 @@ class Worker:
         from elasticdl_tpu_torch.training.trainer import Trainer
 
         return Trainer(self._spec, device=self.device,
-                       seed=self.cfg.shuffle_seed)
+                       seed=self.cfg.shuffle_seed, remat=self.cfg.remat,
+                       remat_policy=self.cfg.remat_policy,
+                       grad_accum=self.cfg.grad_accum_steps)
 
     def _data_service(self, task_type: int) -> TaskDataService:
         if task_type not in self._services:
@@ -481,73 +479,148 @@ class Worker:
     # ------------------------------------------------------------------ #
     # task execution
 
-    def _run_training_task(self, task: pb.Task) -> Dict[str, float]:
-        svc = self._data_service(pb.TRAINING)
-        loss_sum, loss_count = 0.0, 0
-        records_done = 0
-        step_time_sum = 0.0
-        interrupted = False
-        self._mid_training_task = True
-        # always-on step profiler: the prefetcher attributes data_wait/h2d;
-        # this loop attributes compute and closes each step's record
-        prof = profile_lib.get_profiler()
-        prefetcher = self._prefetched(
-            svc.batches(task.shard_name, task.start, task.end))
-        while True:
+    def _maybe_profile(self) -> None:
+        """Drive the profiler trace window: worker 0 records steps
+        [profile_start_step, profile_start_step + profile_steps) with
+        `torch.profiler` (host activity, and the card's kernels on a CUDA
+        device) into profile_dir, skipping warm-up. One window per run; a
+        start that fails logs and disables the window."""
+        if not self.cfg.profile_dir or self.worker_id != 0:
+            return
+        if (
+            self._profile_state == "idle"
+            and self._global_step >= self.cfg.profile_start_step
+        ):
             try:
-                batch = next(prefetcher)
-            except StopIteration:
-                break
+                from torch.profiler import ProfilerActivity, profile
+
+                activities = [ProfilerActivity.CPU]
+                if self.device.type == "cuda":
+                    activities.append(ProfilerActivity.CUDA)
+                self._profiler = profile(activities=activities)
+                self._profiler.start()
+                self._profile_state = "active"
+                self._profile_first_step = self._global_step
+                logger.info(
+                    "profiler trace started at step %d -> %s",
+                    self._global_step, self.cfg.profile_dir,
+                )
+            except Exception:
+                logger.exception("profiler start failed; disabled")
+                self._profile_state = "done"
+        elif (
+            self._profile_state == "active"
+            and self._global_step
+            >= self.cfg.profile_start_step + self.cfg.profile_steps
+        ):
+            self._stop_profiler()
+
+    def _stop_profiler(self) -> None:
+        """Close an open trace window and write it as a Chrome trace,
+        `worker-<id>.steps-<first>-<last>.pt.trace.json`."""
+        if self._profile_state != "active":
+            return
+        try:
+            self._profiler.stop()
+            os.makedirs(self.cfg.profile_dir, exist_ok=True)
+            path = os.path.join(
+                self.cfg.profile_dir,
+                f"worker-{self.worker_id}.steps-{self._profile_first_step}"
+                f"-{self._global_step}.pt.trace.json")
+            self._profiler.export_chrome_trace(path)
+            logger.info("profiler trace stopped at step %d -> %s",
+                        self._global_step, path)
+        except Exception:
+            logger.exception("profiler stop failed")
+        self._profiler = None
+        self._profile_state = "done"
+
+    def _grouped_stream(self, stream, k, interrupted):
+        """The scaffold of the training, eval and prediction task paths:
+        yield lists of device batches, full k-groups and then one trailing
+        partial. Every batch comes through the prefetcher (`_prefetched`:
+        the wire cast, pinned staging and a copy on a side stream ahead
+        of the step), so a group's copies ride behind the steps before
+        it. On shutdown or preemption `interrupted` (a list) gets a True
+        and the stream ends at the group boundary: the trailing partial
+        is NOT yielded, so a drain report covers whole groups only."""
+        buf = []
+        for batch in self._prefetched(stream):
             if self._shutdown.is_set():
-                # preemption mid-task: stop before the next batch; the drain
-                # report hands the unprocessed remainder back
-                interrupted = True
-                break
+                interrupted.append(True)
+                return
             self._ensure_state(batch)
-            t0 = time.perf_counter()
-            # straggler-injection site, inside the timed region
-            faults.fire(f"worker.train_step.{self.worker_id}")
-            self._state, logs = self._trainer.train_step(self._state, batch)
-            # float() waits for the step, so this wall time covers the
-            # whole step (launches + device compute)
-            loss_sum += float(logs["loss"])
-            step_s = time.perf_counter() - t0
-            step_time_sum += step_s
-            _TRAIN_STEP_S.observe(step_s)
-            prof.add("compute", step_s)
-            prof.step_done()
-            loss_count += 1
-            self._global_step += 1
-            self._model_version += 1
-            # the real (non-padding) records this batch applied; the drain
-            # report retires records mid-task, so it is counted per batch
-            batch_records = int(batch["mask"].sum())
-            records_done += batch_records
-            self._step_stats.observe_step(step_s, batch_records)
-        return {
-            "loss_sum": loss_sum,
-            "loss_count": loss_count,
-            "records_done": records_done,
-            "step_time_sum": step_time_sum,
-            "interrupted": interrupted,
-        }
+            buf.append(batch)
+            if len(buf) == k:
+                yield buf
+                buf = []
+        if buf:
+            yield buf
 
-    def _stream(self, task: pb.Task, task_type: int):
-        """Prefetched batches of a task's span, ending early (and saying
-        so through the returned list) at shutdown/preemption."""
-        svc = self._data_service(task_type)
+    def _stacked(self, buf):
+        """A full group's device batches stacked into one batch of leaves
+        (k, B, ...) (`trainer.stack_batches`, a copy on the card), timed
+        as the step profiler's h2d phase."""
+        from elasticdl_tpu_torch.training.trainer import stack_batches
+
+        with profile_lib.get_profiler().phase("h2d"):
+            return stack_batches(buf, self.device)
+
+    def _run_training_task(self, task: pb.Task) -> Dict[str, float]:
+        """Run a training task in groups of k = --steps_per_dispatch
+        batches. A full group of k > 1 goes through `Trainer.train_many`,
+        its losses read back once; a single batch (k == 1) or a trailing
+        partial group runs as train_steps. Exactly-once accounting: a
+        group's records count as applied only after its readback, and
+        preemption stops at a group boundary, so the drain report covers
+        whole groups."""
+        k = max(1, self.cfg.steps_per_dispatch)
+        svc = self._data_service(pb.TRAINING)
+        stats = {"loss_sum": 0.0, "loss_count": 0, "records_done": 0,
+                 "step_time_sum": 0.0, "interrupted": False}
+        self._mid_training_task = True
         interrupted: list = []
+        # always-on step profiler: the prefetcher attributes data_wait/h2d;
+        # this loop attributes compute and closes each group's record
+        prof = profile_lib.get_profiler()
 
-        def gen():
-            for batch in self._prefetched(
-                    svc.batches(task.shard_name, task.start, task.end)):
-                if self._shutdown.is_set():
-                    interrupted.append(True)
-                    return
-                self._ensure_state(batch)
-                yield batch
-
-        return gen(), interrupted
+        for buf in self._grouped_stream(
+            svc.batches(task.shard_name, task.start, task.end), k, interrupted
+        ):
+            self._maybe_profile()
+            stacked = (self._stacked(buf) if len(buf) == k and k > 1
+                       else None)
+            t0 = time.perf_counter()
+            # straggler-injection site, inside the timed region, one a group
+            faults.fire(f"worker.train_step.{self.worker_id}")
+            if stacked is not None:
+                self._state, m = self._trainer.train_many(self._state, stacked)
+                # one readback a group: it waits for the group's k steps
+                stats["loss_sum"] += float(m["loss"].sum())
+            else:
+                for b in buf:
+                    self._state, logs = self._trainer.train_step(self._state, b)
+                    # float() waits for the step, so the wall time covers
+                    # the whole step (launches + device compute)
+                    stats["loss_sum"] += float(logs["loss"])
+            group_s = time.perf_counter() - t0
+            stats["step_time_sum"] += group_s
+            _TRAIN_STEP_S.observe(group_s / len(buf))
+            # one profile record a group, normalized per step in step_done
+            prof.add("compute", group_s)
+            prof.step_done(len(buf))
+            stats["loss_count"] += len(buf)
+            self._global_step += len(buf)
+            self._model_version += len(buf)
+            # the real (non-padding) records the group applied; the drain
+            # report retires records mid-task, so they count per group
+            group_records = int(sum(b["mask"].sum() for b in buf))
+            stats["records_done"] += group_records
+            # one telemetry sample a group, normalized to per-step values
+            self._step_stats.observe_step(
+                group_s / len(buf), group_records / len(buf))
+        stats["interrupted"] = bool(interrupted)
+        return stats
 
     def _report_preempted_task(self, task: pb.Task, stats: Dict[str, float]) -> None:
         """Drain protocol for an interrupted training task (the
@@ -605,11 +678,22 @@ class Worker:
             mngr.delete(drain_step)
 
     def _run_evaluation_task(self, task: pb.Task) -> bool:
-        """Returns True if interrupted by shutdown/preemption (no report)."""
+        """Returns True if interrupted by shutdown/preemption (no report).
+        Full k-groups run through `Trainer.eval_many`; the scaffold is
+        `_grouped_stream`."""
+        svc = self._data_service(pb.EVALUATION)
         states = self._trainer.new_metric_states()
-        batches, interrupted = self._stream(task, pb.EVALUATION)
-        for b in batches:
-            states = self._trainer.eval_step(self._state, b, states)
+        k = max(1, self.cfg.steps_per_dispatch)
+        interrupted: list = []
+        for buf in self._grouped_stream(
+            svc.batches(task.shard_name, task.start, task.end), k, interrupted
+        ):
+            if len(buf) == k and k > 1:
+                states = self._trainer.eval_many(
+                    self._state, self._stacked(buf), states)
+            else:
+                for b in buf:
+                    states = self._trainer.eval_step(self._state, b, states)
         if interrupted:
             return True
         msg = pb.ReportEvaluationMetricsRequest(
@@ -624,20 +708,40 @@ class Worker:
         return False
 
     def _run_prediction_task(self, task: pb.Task) -> bool:
-        """Returns True if interrupted by shutdown/preemption (no report)."""
+        """Returns True if interrupted by shutdown/preemption (no report).
+        Full k-groups run through `Trainer.predict_many`, whose stacked
+        outputs go to the processor batch by batch in order; the scaffold
+        is `_grouped_stream`."""
         from elasticdl_tpu_torch.worker.prediction_outputs_processor import (
+            iter_stacked,
             mask_predictions,
         )
 
+        svc = self._data_service(pb.PREDICTION)
         processor = self._spec.prediction_outputs_processor
-        batches, interrupted = self._stream(task, pb.PREDICTION)
-        for b in batches:
-            outputs = self._trainer.predict_step(self._state, b)
-            if processor is not None:
-                # D2H only when someone consumes the outputs
-                valid = b["mask"].cpu().numpy() > 0
-                processor.process(mask_predictions(outputs, valid),
-                                  self.worker_id)
+        k = max(1, self.cfg.steps_per_dispatch)
+        interrupted: list = []
+
+        def process(batch, outputs):
+            if processor is None:
+                return
+            # D2H only when someone consumes the outputs
+            valid = np.asarray(batch["mask"].cpu()) > 0
+            processor.process(mask_predictions(outputs, valid),
+                              self.worker_id)
+
+        for buf in self._grouped_stream(
+            svc.batches(task.shard_name, task.start, task.end), k, interrupted
+        ):
+            if len(buf) == k and k > 1:
+                outs = self._trainer.predict_many(
+                    self._state, self._stacked(buf))
+                if processor is not None:
+                    for b, out in zip(buf, iter_stacked(outs, len(buf))):
+                        process(b, out)
+            else:
+                for b in buf:
+                    process(b, self._trainer.predict_step(self._state, b))
         return bool(interrupted)
 
     # ------------------------------------------------------------------ #
@@ -761,6 +865,10 @@ class Worker:
                         "the requeued lease re-runs it", task.task_id,
                     )
             tasks_done += 1
+
+        # A trace window still open at exit (short job or preemption) must
+        # be written: an unstopped trace writes nothing.
+        self._stop_profiler()
 
         # Preemption-triggered save: SIGTERM'd workers persist progress so
         # the relaunch resumes instead of retraining.

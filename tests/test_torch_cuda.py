@@ -1,6 +1,7 @@
 """Tests of the port that need the card: the hand-written CUDA kernels
 against their plain versions, the train steps on the GPU against the
-same steps on the CPU, and the DeepFM job path (master, worker,
+same steps on the CPU, the trainer's knobs (remat, accumulation, grouped
+steps) through K1-K4', and the DeepFM job path (master, worker,
 checkpoint, export) on the card. They skip where no CUDA device is
 present.
 
@@ -395,6 +396,104 @@ def case_lm_grads_on_the_card_match_cpu(cuda):
         _close(got, want, n, 5e-5, 5e-5)
 
 
+def _card_trainer(model_def, params, dtype, **knobs):
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.training.model_spec import ModelSpec
+    from elasticdl_tpu_torch.training.trainer import Trainer
+
+    cfg = JobConfig.from_argv([
+        "--model_zoo", os.path.join(REPO, "elasticdl_tpu_torch", "model_zoo"),
+        "--model_def", model_def, "--model_params", params,
+        "--compute_dtype", dtype])
+    return Trainer(ModelSpec.from_config(cfg), **knobs)  # device: the card
+
+
+def case_lm_knobs_on_the_card(cuda):
+    """The bf16 LM at D 64 on the card (K2', K3', K4', the delta pass):
+    remat (`dots`, `nothing`) takes the same kernels on the same inputs,
+    so its step equals the plain step's bit for bit, with K2' launched
+    twice a layer (forward and recompute); accumulation 2 runs each
+    micro-batch's forward and backward (K2' and K3' twice a layer) and
+    its loss is the plain step's within rel 1e-4."""
+    r = np.random.RandomState(8)
+    toks = r.randint(0, 64, (4, 65)).astype(np.int32)
+    batch = {"features": toks[:, :-1], "labels": toks[:, 1:],
+             "mask": np.array([1, 1, 0, 1], np.float32)}
+    params = "vocab=64;num_layers=2;dim=128;heads=2;max_len=64"
+    weights, runs = None, {}
+    for name, knobs in (("plain", {}), ("dots", {"remat_policy": "dots"}),
+                        ("nothing", {"remat_policy": "nothing"}),
+                        ("accum", {"grad_accum": 2})):
+        tr = _card_trainer("transformer.transformer_lm.custom_model",
+                           params, "bfloat16", **knobs)
+        state = tr.init_state(batch)
+        if weights is None:
+            weights = {n: t.detach().clone()
+                       for n, t in tr.model.state_dict().items()}
+        tr.model.load_state_dict(weights)
+        before = dict(fa.launches)
+        loss, grads = tr.compute_grads(state, batch)
+        torch.cuda.synchronize()
+        runs[name] = (float(loss), {n: g.clone() for n, g in grads.items()},
+                      {k: fa.launches[k] - before[k] for k in before})
+    layers = 2
+    want = {"plain": (1, 1), "dots": (2, 1), "nothing": (2, 1),
+            "accum": (2, 2)}
+    for name, (fwd, bwd) in want.items():
+        got = runs[name][2]
+        assert got[fa.FWD_SM90] == fwd * layers, (name, got)
+        for k in (fa.BWD_DQ_SM90, fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90):
+            assert got[k] == bwd * layers, (name, k, got)
+        assert got[fa.FWD] == got[fa.BWD_DQ] == got[fa.BWD_DKV] == 0
+    plain_loss, plain_grads, _ = runs["plain"]
+    for name in ("dots", "nothing"):
+        assert runs[name][0] == plain_loss, name
+        for n, g in runs[name][1].items():
+            assert torch.equal(g, plain_grads[n]), (name, n)
+    assert runs["accum"][0] == pytest.approx(plain_loss, rel=1e-4)
+
+
+def case_grouped_deepfm_on_the_card(cuda):
+    """`train_many` on the card equals the same steps one by one bit for
+    bit, with K1 launched twice a step in both."""
+    from elasticdl_tpu_torch.training.trainer import stack_batches
+
+    r = np.random.RandomState(9)
+    batches = [{
+        "features": {"dense": r.rand(256, 13).astype(np.float32),
+                     "cat": r.randint(0, 1 << 30, (256, 26)).astype(np.int32)},
+        "labels": r.randint(0, 2, 256).astype(np.int32),
+        "mask": np.ones((256,), np.float32)} for _ in range(4)]
+    states, weights, launches = [], None, []
+    for grouped in (False, True):
+        tr = _card_trainer("deepfm.deepfm.custom_model",
+                           "field_vocab=1000;hidden=32,32", "bfloat16")
+        state = tr.init_state(batches[0])
+        if weights is None:
+            weights = {n: t.detach().clone()
+                       for n, t in tr.model.state_dict().items()}
+        tr.model.load_state_dict(weights)
+        placement.launches = 0
+        if grouped:
+            state, logs = tr.train_many(state,
+                                        stack_batches(batches, cuda))
+            losses = logs["loss"]
+        else:
+            losses = []
+            for b in batches:
+                state, logs = tr.train_step(state, b)
+                losses.append(logs["loss"])
+            losses = torch.stack(losses)
+        torch.cuda.synchronize()
+        launches.append(placement.launches)
+        states.append((state, losses))
+    assert launches == [placement.PASSES * 4] * 2
+    (a, la), (b, lb) = states
+    assert torch.equal(la, lb) and a.step == b.step == 4
+    for n in a.params:
+        assert torch.equal(a.params[n], b.params[n]), n
+
+
 def case_job_on_the_card(cuda, tmp):
     """The job path at a small width: the port's master and worker in this
     process (the worker on a thread, device defaulted: the card), K1
@@ -509,4 +608,6 @@ def test_kernels_on_the_card(cuda, tmp_path):
     case_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda)
     case_hopper_wrapper_rejects_strides_tma_cannot_take(cuda)
     case_lm_grads_on_the_card_match_cpu(cuda)
+    case_lm_knobs_on_the_card(cuda)
+    case_grouped_deepfm_on_the_card(cuda)
     case_job_on_the_card(cuda, str(tmp_path))
