@@ -94,7 +94,9 @@ caught):
            state does (atol 1e-6 on float32 logits). Prints samples/s
            over the train steps, the host ms a step, the per-step ms the
            reader and parser (data_wait) and the prefetcher (h2d) took,
-           and which parser ran, beside the card's name and power limit.
+           samples/s and host ms a step past the first task (its
+           warm-up), and which parser ran, beside the card's name and
+           power limit.
 11. job_cli  the same job at a smaller depth (16384 records in 2 tasks)
            through the CLI, `python -m elasticdl_tpu_torch.client.main
            train`: run_local -> ProcessManager -> one
@@ -133,10 +135,45 @@ caught):
            train step and K2' also 4 times an eval step, and a trace that
            names `flash_fwd_sm90_kernel`. Prints the wall time, host ms a
            group and a step, and data_wait and h2d a step.
+15. manual_shards (runs right after `kernel`)  the manual embedding
+           schedule's per-rank compute at DeepFM's full width (the
+           2,605,056 x 17 float32 table, one batch of 8192 x 26 hashed
+           ids), each simulated rank of N = 2 and 4 in this one process:
+           `embedding.shard_part` (the owned rows, zeros elsewhere) and
+           `embedding.shard_part_grad` (K1 on the shard; the ids the shard
+           does not own go out of range and K1 drops them). The parts must
+           sum to the one-device lookup bit for bit; each shard's gradient
+           must match its plain version within K1's bound of phase 3 and
+           again bit for bit; the shards' gradients concatenated must match
+           the one-device K1 gradient within that bound; K1 must launch 2
+           kernels a shard. Prints K1's ms (CUDA events), device ms
+           (profiler) and its plain version's ms a shard beside the
+           one-device stream's and beside the shard's byte bound
+           (`k1_bound_ms`: the whole stream's ids read once, the owned
+           ids' rows read once, the shard's rows written once).
+16. cohort_job (runs last)  a one-member NCCL cohort through the job
+           path at 10's shape: the port's Master in this process and its
+           ProcessManager spawning `elasticdl_tpu_torch.worker.main` with
+           EDL_PROCESS_ID=0 and EDL_NUM_PROCESSES=1 in its environment and
+           a free `--coordinator_addr`, in two runs. The measured run has
+           8 tasks, interval checkpoints and no profiler (as 10 has none);
+           once its first checkpoint is durable the member is SIGKILLed,
+           and the manager relaunches it and it resumes. Asserts 8
+           finished tasks and none failed, a world line naming nccl on
+           cuda:0 for each process, the resume line, K1's launches (the
+           count each process logs with its task lines: 2 a logged train
+           step), and the export predicting as the newest checkpoint's
+           state does (atol 1e-6). Prints samples/s, host ms a step,
+           data_wait and h2d a step and the wall beside the `job` phase's,
+           and samples/s and host ms a step past each process's first task
+           (its warm-up) beside `job`'s past its first: the cohort
+           machinery's cost on one card. The traced run (one task, a
+           `--profile_dir` window over its first 2 steps) must finish and
+           leave a trace that names both K1 kernels.
 Then the `kernels` line (K1's `launches` are the job's, with the
-`grouped` phase's beside them; the Hopper kernels' are `lm_train`'s,
-with `lm_job`'s beside them), the nvidia-smi line, and last the `ok`
-line.
+`grouped`, `cohort_job` and `manual_shards` phases' beside them; the
+Hopper kernels' are `lm_train`'s, with `lm_job`'s beside them), the
+nvidia-smi line, and last the `ok` line.
 
 It exits non-zero without a result where CUDA is unavailable, and where
 the port's package is absent.
@@ -144,6 +181,7 @@ the port's package is absent.
 
 import ctypes
 import gc
+import glob
 import json
 import os
 import re
@@ -286,6 +324,15 @@ def device_ms(fn, names, calls=20):
 K1_SYMBOLS = ("place_zero_kernel", "place_sorted_grads_kernel")
 
 
+def k1_bound_ms(n, in_range, num_rows, d):
+    """K1's bound over a stream of `n` ids, `in_range` of them inside the
+    table of `num_rows` rows of width `d`: every id read once, the row of
+    each in-range id read once (K1 reads no row of an out-of-range id)
+    and added once, the table written once."""
+    bytes_moved = n * 4 + in_range * d * 4 + num_rows * d * 4
+    return max(bytes_moved / HBM_BYTES_PER_S, in_range * d / F32_FLOPS) * 1e3
+
+
 def phase_kernel(dev):
     from elasticdl_tpu_torch.ops import placement
 
@@ -322,9 +369,8 @@ def phase_kernel(dev):
                 lambda: placement.place_sorted_grads_plain(ids, rows,
                                                            num_rows),
                 groups=5, per_group=3)
-            bytes_moved = n * 4 + n * d * 4 + num_rows * d * 4
-            entry["bound_ms"] = max(bytes_moved / HBM_BYTES_PER_S,
-                                    n * d / F32_FLOPS) * 1e3
+            entry["bound_ms"] = k1_bound_ms(
+                n, int(((ids >= 0) & (ids < num_rows)).sum()), num_rows, d)
         report[name] = entry
         if not ok:
             emit("kernel", streams=report)
@@ -1247,6 +1293,19 @@ def phase_job(smi):
         rc = []
         thread = threading.Thread(target=lambda: rc.append(worker.run()),
                                   name="job-worker", daemon=True)
+        # each training task's (steps, records, seconds in steps), as the
+        # cohort's task lines give them
+        tasks = []
+        run_task = worker._run_training_task
+
+        def recorded(task):
+            stats = run_task(task)
+            tasks.append((int(stats["loss_count"]),
+                          int(stats["records_done"]),
+                          float(stats["step_time_sum"])))
+            return stats
+
+        worker._run_training_task = recorded
         placement.launches = 0
         t0 = time.perf_counter()
         thread.start()
@@ -1299,18 +1358,20 @@ def phase_job(smi):
     step_s = delta("edl_train_step_seconds_sum")
     records = delta("edl_train_records_total")
     lib = parsing._load()
+    metrics = {"tasks": counts["finished_training"], "wall_s": wall_s,
+               "samples_per_s": records / step_s,
+               "host_ms_per_step": step_s * 1e3 / steps,
+               "data_wait_ms_per_step": phases.get("phase_data_wait_ms", 0.0),
+               "h2d_ms_per_step": phases.get("phase_h2d_ms", 0.0),
+               "past_first_task": steady_state([tasks])}
     emit("job", card=smi, params=f"field_vocab={FIELD_VOCAB};hidden=400,400",
-         batch=BATCH, tasks=counts["finished_training"], train_steps=steps,
-         records=records, counts=counts, eval=results, wall_s=wall_s,
-         samples_per_s=records / step_s,
-         host_ms_per_step=step_s * 1e3 / steps,
-         data_wait_ms_per_step=phases.get("phase_data_wait_ms", 0.0),
-         h2d_ms_per_step=phases.get("phase_h2d_ms", 0.0),
+         batch=BATCH, train_steps=steps,
+         records=records, counts=counts, eval=results, **metrics,
          compute_ms_per_step=phases.get("phase_compute_ms", 0.0),
          parser=("native " + os.path.relpath(lib._name, REPO)) if lib
          else "python", k1_launches=launches, checkpoint_steps=[4, 8],
          export_max_abs_err=export_err)
-    return launches
+    return launches, metrics
 
 
 # ---------------------------------------------------------------- grouped
@@ -1573,6 +1634,305 @@ def phase_job_cli(smi):
          finished=re.findall(r"job finished: (.*)", log)[-1:])
 
 
+# ---------------------------------------------------------------- manual
+
+
+MANUAL_SHARDS = (2, 4)
+
+
+def phase_manual_shards(dev, smi):
+    """The manual schedule's per-rank compute at DeepFM's full width, each
+    simulated rank of N in MANUAL_SHARDS on the card in this one process:
+    its forward part (`embedding.shard_part`) and its backward, K1 on the
+    shard (`embedding.shard_part_grad`). Returns K1's launches in the
+    shards' backward passes (one a shard)."""
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm
+    from elasticdl_tpu_torch.ops import embedding as emb
+    from elasticdl_tpu_torch.ops import placement
+    from elasticdl_tpu_torch.parallel import mesh as mesh_lib
+
+    spec = deepfm.feature_spec(FIELD_VOCAB)
+    num_rows, d = emb.padded_vocab(spec.total_vocab), 17
+    gen = torch.Generator(device=dev).manual_seed(2)
+    table = torch.rand((num_rows, d), generator=gen, device=dev) * 0.05
+    cat = torch.from_numpy(criteo_batch(9, BATCH)["features"]["cat"]).to(dev)
+    ids = spec.device_transform(
+        {"dense": torch.zeros((BATCH, 13), device=dev), "cat": cat}
+    )["cat"].to(torch.int32)                                  # (8192, 26)
+    ct = torch.randn(tuple(ids.shape) + (d,), generator=gen, device=dev)
+    whole = emb.embedding_lookup(table, ids)
+    full_ids, full_rows = emb.sorted_stream(ids, ct)
+    full = placement.place_sorted_grads(full_ids, full_rows, num_rows)
+    full_mag = placement.place_sorted_grads_plain(full_ids, full_rows.abs(),
+                                                  num_rows)
+    n = full_ids.numel()
+    placement.launches = 0
+    grads = {}
+    for count in MANUAL_SHARDS:
+        for r in range(count):
+            rows = mesh_lib.shard_rows(r, count, num_rows)
+            grads[count, r] = emb.shard_part_grad(ids, ct, rows.start,
+                                                  rows.size)
+    torch.cuda.synchronize()
+    launches = placement.launches
+
+    report = {}
+    for count in MANUAL_SHARDS:
+        parts, shards = [], []
+        for r in range(count):
+            rows = mesh_lib.shard_rows(r, count, num_rows)
+            parts.append(emb.shard_part(table[rows.start:rows.stop], ids,
+                                        rows.start))
+            local, owned = emb.shard_ids(ids, rows.start, rows.size)
+            sid, srows = emb.sorted_stream(local, ct)
+            got = grads[count, r]
+            again = placement.place_sorted_grads(sid, srows, rows.size)
+            want = placement.place_sorted_grads_plain(sid, srows, rows.size)
+            mag = placement.place_sorted_grads_plain(sid, srows.abs(),
+                                                     rows.size)
+            err = (got - want).abs()
+            ok = (bool((err <= 1e-6 + 1e-5 * mag).all())
+                  and bool(torch.equal(got, again)))
+            shards.append({
+                "rows": [rows.start, rows.stop], "owned_ids": int(owned.sum()),
+                "max_abs_err": float(err.max()), "ok": ok,
+                "ms": time_ms(lambda: placement.place_sorted_grads(
+                    sid, srows, rows.size)),
+                "device_ms": device_ms(lambda: placement.place_sorted_grads(
+                    sid, srows, rows.size), K1_SYMBOLS),
+                "plain_ms": time_ms(
+                    lambda: placement.place_sorted_grads_plain(
+                        sid, srows, rows.size), groups=5, per_group=3),
+                "bound_ms": k1_bound_ms(n, int(owned.sum()), rows.size,
+                                        d)})
+            if not ok:
+                emit("manual_shards", shards=shards)
+                raise AssertionError(f"K1 on shard {r} of {count} disagrees "
+                                     "with its plain version (or itself)")
+        total = torch.stack(parts).sum(0)
+        forward_equal = bool(torch.equal(total, whole))
+        cat_err = (torch.cat([grads[count, r] for r in range(count)])
+                   - full).abs()
+        if not forward_equal or not bool(
+                (cat_err <= 1e-6 + 1e-5 * full_mag).all()):
+            raise AssertionError(
+                f"{count} shards: forward bit-equal {forward_equal}, "
+                f"gradient off the one-device K1 by {float(cat_err.max())}")
+        report[count] = {"shards": shards,
+                         "max_abs_err_vs_one_device": float(cat_err.max())}
+    if launches != placement.PASSES * sum(MANUAL_SHARDS):
+        raise AssertionError(f"K1 launched {launches} kernels over "
+                             f"{sum(MANUAL_SHARDS)} shards, want "
+                             f"{placement.PASSES} a shard")
+    one = {"ms": time_ms(lambda: placement.place_sorted_grads(
+               full_ids, full_rows, num_rows)),
+           "device_ms": device_ms(lambda: placement.place_sorted_grads(
+               full_ids, full_rows, num_rows), K1_SYMBOLS),
+           "bound_ms": k1_bound_ms(n, n, num_rows, d)}
+    emit("manual_shards", card=smi, table=[num_rows, d], ids=[BATCH, 26],
+         one_device=one, shards=report, k1_launches=launches,
+         forward_bit_equal=True)
+    return launches
+
+
+# ---------------------------------------------------------------- cohort
+
+
+# the world a one-member cohort on the card forms
+COHORT_WORLD = ("nccl", "cuda:0")
+COHORT_TASK_LINE = re.compile(
+    r"cohort task \d+: (\d+) steps, (\d+) records, ([0-9.]+) s in steps, "
+    r"data_wait ([0-9.]+) ms and h2d ([0-9.]+) ms a step, "
+    r"place_sorted_grads launches (\d+)")
+# training tasks of the measured cohort job: past each process's first
+# task, several tasks of steady state on either side of the kill
+COHORT_TASKS = 8
+
+
+def steady_state(processes):
+    """Samples/s and host ms a step over the training tasks past each
+    process's first (its warm-up). `processes` holds each process's
+    (steps, records, seconds in steps) a task, in order."""
+    tasks = [t for p in processes for t in p[1:]]
+    steps = sum(t[0] for t in tasks)
+    if not steps:
+        return "not measured"
+    seconds = sum(t[2] for t in tasks)
+    return {"tasks": len(tasks), "steps": steps,
+            "samples_per_s": sum(t[1] for t in tasks) / seconds,
+            "host_ms_per_step": seconds * 1e3 / steps}
+
+
+def cohort_run(out, tasks, extra=(), kill=False):
+    """A one-member NCCL cohort job of `tasks` training tasks at the `job`
+    phase's shape: the port's Master in this process, its ProcessManager
+    spawning `elasticdl_tpu_torch.worker.main` with EDL_PROCESS_ID=0 and
+    EDL_NUM_PROCESSES=1 (a cohort of one is still a cohort). With `kill`,
+    the member is SIGKILLed once the first interval checkpoint is durable,
+    and the manager relaunches it. Returns the config and a dict of the
+    run: finished, counts, eval, wall_s, killed_at, and the members' logs
+    split at each world line (one entry a process)."""
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.common.net import free_port
+    from elasticdl_tpu_torch.master.main import Master
+    from elasticdl_tpu_torch.master.process_manager import ProcessManager
+    from elasticdl_tpu_torch.training.checkpoint import CheckpointManager
+
+    cfg = JobConfig.from_argv(job_argv(out, tasks * JOB_TASK, tasks) + [
+        "--master_addr", f"localhost:{free_port()}",
+        "--coordinator_addr", f"localhost:{free_port()}", *extra])
+    master = Master(cfg)
+    manager = ProcessManager(
+        cfg, membership=master.membership,
+        extra_env={"EDL_PROCESS_ID": "0", "EDL_NUM_PROCESSES": "1",
+                   "PYTHONPATH": os.pathsep.join(
+                       p for p in (REPO, os.environ.get("PYTHONPATH"))
+                       if p)},
+        log_dir=os.path.join(out, "logs"),
+        job_finished_fn=master.dispatcher.finished)
+    mngr = CheckpointManager(cfg.checkpoint_dir)
+    killed_at = None
+    t0 = time.perf_counter()
+    master.start()
+    manager.start_workers()
+    try:
+        while (not master.dispatcher.finished()
+               and time.perf_counter() - t0 < 600):
+            master.membership.reap()
+            master.dispatcher.poke()
+            if kill and killed_at is None and mngr.latest_step() is not None:
+                manager._procs[0].proc.kill()
+                killed_at = mngr.latest_step()
+            time.sleep(0.2)
+        run = {"finished": master.dispatcher.finished(),
+               "counts": master.dispatcher.counts(),
+               "eval": master.evaluation.latest_results()}
+    finally:
+        master.shutdown(grace_s=1)
+        manager.stop()
+    run["wall_s"] = time.perf_counter() - t0
+    run["killed_at"] = killed_at
+    run["log"] = "\n".join(open(f, errors="replace").read() for f in sorted(
+        glob.glob(os.path.join(out, "logs", "*.log"))))
+    run["processes"] = re.split(r"distributed world v\d+ up",
+                                run["log"])[1:]
+    return cfg, run
+
+
+def cohort_problems(run, tasks):
+    """What a cohort run's dispatcher counts and world lines get wrong."""
+    problems = []
+    counts = run["counts"]
+    if not run["finished"] or counts["finished_training"] != tasks or counts[
+            "failed_permanently"]:
+        problems.append(f"finished {run['finished']}, counts {counts}")
+    worlds = re.findall(r"distributed world v\d+ up: process 0/1, 1 "
+                        r"global devices \(backend (\w+), device (\S+)\)",
+                        run["log"])
+    if (len(worlds) != len(run["processes"])
+            or any(w != COHORT_WORLD for w in worlds)):
+        problems.append(f"world lines {worlds}")
+    return problems, worlds
+
+
+def phase_cohort_job(smi, job):
+    """A one-member NCCL cohort through the job path at the `job` phase's
+    shape, in two runs. The measured run (COHORT_TASKS tasks, no profiler,
+    as `job` has none) is SIGKILLed once its first interval checkpoint is
+    durable, relaunched by the manager, and resumes; the member logs its
+    task lines (steps, records, time, data wait, K1's launches in its
+    process). A short traced run (one task, a `--profile_dir` window over
+    its first 2 steps) must name both K1 kernels. Returns K1's launches
+    over both processes of the measured run."""
+    from elasticdl_tpu_torch.ops import placement
+    from elasticdl_tpu_torch.training.checkpoint import CheckpointManager
+    from elasticdl_tpu_torch.training.model_spec import ModelSpec
+    from elasticdl_tpu_torch.training.trainer import Trainer
+
+    # the member's environment: the manager's variables and nothing a
+    # polluted environment carries
+    for k in COHORT_ENV + ("EDL_TORCH_DEVICE",):
+        os.environ.pop(k, None)
+    with tempfile.TemporaryDirectory() as out:
+        cfg, run = cohort_run(out, COHORT_TASKS, kill=True)
+        problems, worlds = cohort_problems(run, COHORT_TASKS)
+        if run["killed_at"] is None:
+            problems.append("no checkpoint to kill the member after")
+        if len(worlds) < 2:
+            problems.append("no relaunch")
+        resumed = re.findall(r"cohort resumed from checkpoint at step (\d+)",
+                             run["log"])
+        if not resumed:
+            problems.append("no resume line")
+        # K1's launches: each process counts from 0; its last task line
+        # holds its count, 2 a train step
+        launches, processes = 0, []
+        for generation in run["processes"]:
+            lines = COHORT_TASK_LINE.findall(generation)
+            if lines:
+                launches += int(lines[-1][5])
+                processes.append(lines)
+        tasks = [x for p in processes for x in p]
+        steps = sum(int(x[0]) for x in tasks)
+        if not steps or launches != placement.PASSES * steps:
+            problems.append(f"K1 launched {launches} kernels in {steps} "
+                            "logged train steps")
+        export_err = None
+        if run["finished"]:
+            trainer = Trainer(ModelSpec.from_config(cfg))
+            final = trainer.init_state(None)
+            CheckpointManager(cfg.checkpoint_dir).restore(final)
+            export_err = export_matches(
+                out, lambda b: trainer.predict_step(final, b), criteo_batch(7))
+            if export_err > 1e-6:
+                problems.append(f"export predicts {export_err} off the "
+                                "newest checkpoint")
+        if problems:
+            print(run["log"][-8000:], file=sys.stderr, flush=True)
+            raise AssertionError("cohort_job: " + "; ".join(problems))
+    with tempfile.TemporaryDirectory() as out:
+        profile_dir = os.path.join(out, "profile")
+        _, traced = cohort_run(out, 1, extra=(
+            "--profile_dir", profile_dir, "--profile_start_step", "0",
+            "--profile_steps", "2"))
+        problems, _ = cohort_problems(traced, 1)
+        traces = (os.listdir(profile_dir) if os.path.isdir(profile_dir)
+                  else [])
+        names = set()
+        for trace in traces:
+            with open(os.path.join(profile_dir, trace)) as f:
+                names |= {e.get("name", "") for e in json.load(f).get(
+                    "traceEvents", []) if e.get("cat") == "kernel"}
+        if not all(any(k in n for n in names) for k in K1_SYMBOLS):
+            problems.append(f"traces {traces} name no {K1_SYMBOLS}")
+        if problems:
+            print(traced["log"][-8000:], file=sys.stderr, flush=True)
+            raise AssertionError("cohort_job traced run: "
+                                 + "; ".join(problems))
+
+    def per_step(i):
+        return sum(float(x[i]) * int(x[0]) for x in tasks) / steps
+
+    step_s = sum(float(x[2]) for x in tasks)
+    records = sum(int(x[1]) for x in tasks)
+    cohort = {"tasks": COHORT_TASKS, "wall_s": run["wall_s"],
+              "samples_per_s": records / step_s,
+              "host_ms_per_step": step_s * 1e3 / steps,
+              "data_wait_ms_per_step": per_step(3),
+              "h2d_ms_per_step": per_step(4),
+              "past_first_task": steady_state(
+                  [[(int(x[0]), int(x[1]), float(x[2])) for x in p]
+                   for p in processes])}
+    emit("cohort_job", card=smi, worlds=worlds,
+         killed_after_step=run["killed_at"],
+         resumed_at=[int(x) for x in resumed], counts=run["counts"],
+         eval=run["eval"], train_steps=steps, records=records,
+         k1_launches=launches, export_max_abs_err=export_err,
+         traced_run={"wall_s": traced["wall_s"], "trace": traces},
+         cohort=cohort, job={k: job[k] for k in cohort})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1611,6 +1971,7 @@ def main():
             raise AssertionError(f"{kernel} has no HGMMA instruction")
 
     k1 = phase_kernel(dev)
+    manual_shard_launches = phase_manual_shards(dev, smi)
     report, worst = phase_attn_kernel(dev)
     attn = attn_times(dev, report, worst)
     phase_parity()
@@ -1619,9 +1980,10 @@ def main():
     lm_launches = phase_lm_train()
     phase_knobs()
     grouped_launches = phase_grouped()
-    job_launches = phase_job(smi)
+    job_launches, job = phase_job(smi)
     lm_job_launches = phase_lm_job(smi)
     phase_job_cli(smi)
+    cohort_launches = phase_cohort_job(smi, job)
 
     f32_lm = (fa.FWD, fa.BWD_DQ, fa.BWD_DKV)
     print(json.dumps({"kernels": [{
@@ -1635,6 +1997,10 @@ def main():
         "launches_in": "job",
         "train_launches": launches,
         "grouped_launches": grouped_launches,
+        # the one-member NCCL cohort's job (both its processes), and the
+        # per-rank backward of the manual schedule, 2 and 4 shards
+        "cohort_launches": cohort_launches,
+        "manual_shard_launches": manual_shard_launches,
         "max_abs_err": k1["max_abs_err"],
         "max_rel_err": k1["max_rel_err"],
         "ms": k1["ms"],

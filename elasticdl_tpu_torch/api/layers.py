@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from elasticdl_tpu_torch.ops import embedding as emb_ops
+from elasticdl_tpu_torch.parallel import mesh as mesh_lib
 
 # flax's lecun_normal draws a normal truncated to [-2, 2] standard
 # deviations and divides the scale by that truncation's std, so the
@@ -34,6 +35,13 @@ class Embedding(nn.Module):
       the last id axis, with negative ids treated as padding slots.
     mode: 'manual' or 'auto'; on one device both run the auto lookup.
     Initializer: U[0, 0.05) — flax's `uniform(scale=0.05)` is one-sided.
+
+    `shard(mesh)` puts the layer under a mesh of more than one rank: the
+    table parameter then holds this rank's row range, `row_shard` (a
+    `parallel.mesh.RowShard`), the counterpart of the reference's
+    partitioning metadata. The trainer collects the layers' ranges into
+    `TrainState.row_shards`, which checkpoints and export read. The
+    lookup then runs the manual schedule.
     """
 
     def __init__(self, input_dim: int, output_dim: int,
@@ -44,18 +52,50 @@ class Embedding(nn.Module):
         self.output_dim = int(output_dim)
         self.combiner = combiner
         self.mode = mode
-        rows = emb_ops.padded_vocab(self.input_dim, vocab_align)
-        self.table = nn.Parameter(torch.empty((rows, self.output_dim)))
+        self.num_rows = emb_ops.padded_vocab(self.input_dim, vocab_align)
+        self.table = nn.Parameter(torch.empty((self.num_rows, self.output_dim)))
+        self.mesh: Optional[mesh_lib.Mesh] = None
+        self.row_shard: Optional[mesh_lib.RowShard] = None
+
+    def shard(self, mesh: mesh_lib.Mesh) -> None:
+        """Hold only this rank's rows of the table from here on (a mesh of
+        one rank keeps the whole table)."""
+        if mesh.size == 1:
+            return
+        self.mesh = mesh
+        self.row_shard = mesh_lib.table_rows(mesh, self.num_rows)
+        self.table = nn.Parameter(torch.empty(
+            (self.row_shard.size, self.output_dim), device=self.table.device))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Draw the whole table from `generator` and keep this rank's
+        rows, so a state does not depend on the world's size."""
         with torch.no_grad():
-            nn.init.uniform_(self.table, 0.0, 0.05, generator=generator)
+            rows = self.row_shard
+            if rows is None:
+                nn.init.uniform_(self.table, 0.0, 0.05, generator=generator)
+                return
+            full = torch.empty((self.num_rows, self.output_dim),
+                               device=self.table.device)
+            nn.init.uniform_(full, 0.0, 0.05, generator=generator)
+            self.table.copy_(full[rows.start:rows.stop])
 
     def forward(self, ids: torch.Tensor,
                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         ids = ids.to(torch.int32)
-        vectors = emb_ops.embedding_lookup(self.table, ids, mode=self.mode)
+        vectors = emb_ops.embedding_lookup(
+            self.table, ids, mode=self.mode, mesh=self.mesh,
+            rows=self.row_shard)
         return emb_ops.combine(vectors, self.combiner, ids, weights)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout over a batch-major `x`: keep where U[0, 1) >=
+    `rate`, scaled by 1 / (1 - rate). The draw is the global batch's
+    under a mesh (`parallel.mesh.batch_rand`)."""
+    keep = mesh_lib.batch_rand(x.shape, generator, x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0)
 
 
 class Dense(nn.Module):

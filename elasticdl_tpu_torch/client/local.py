@@ -6,7 +6,7 @@ Master runs in-process and its ProcessManager spawns
 (a worker's device can be named through `extra_env`, e.g.
 `{"EDL_TORCH_DEVICE": "cpu"}`). The closed-loop autoscaler's action
 surface is not wired: the port's Master refuses `--autoscale` (ROADMAP
-item 18).
+item 31).
 
 Master crash-restart chaos (`--master_restarts`): when the
 `master_crash` fault site fires its catchable `drop` flavor inside

@@ -32,6 +32,27 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def cohort_device(process_id: int,
+                  device: DeviceLike = None) -> torch.device:
+    """The device of cohort member `process_id`: `device` where the caller
+    names one (the CPU tests ask for "cpu"), else the card
+    `cuda:<process_id>` of this host. Raises, before the member forms its
+    world, where the host has no such card: NCCL refuses two ranks on one
+    card, and a silent share would report one card's numbers as two."""
+    if device is not None:
+        return resolve_device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on "
+            "the CPU explicitly")
+    count = torch.cuda.device_count()
+    if process_id >= count:
+        raise RuntimeError(
+            f"cohort member {process_id} needs card cuda:{process_id}, but "
+            f"this host has {count}: a card takes one rank")
+    return torch.device("cuda", process_id)
+
+
 def configure_torch_runtime() -> None:
     """Apply the process-wide numeric settings (idempotent).
 

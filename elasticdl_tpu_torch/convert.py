@@ -28,7 +28,9 @@ installs the result in a port TrainState built by `Trainer.init_state`
 (its params, the optimizer's `exp_avg`, `exp_avg_sq` and `step` slots,
 and its step), so a reference job and a port job can start from one
 state. Any array type that numpy can read (flax's jax arrays included) is
-accepted; the caller hands the trees over as numpy.
+accepted; the caller hands the trees over as numpy. Given the
+`row_shards` of a TrainState under a mesh, each sharded table and its
+moments are cut to this rank's row range, as that state holds them.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from elasticdl_tpu_torch.parallel import mesh as mesh_lib
 
 _DENSE = re.compile(r"^(dense_linear|dnn_out|dnn_\d+)$")
 _BLOCK = re.compile(r"^block_(\d+)$")
@@ -73,19 +77,26 @@ def train_state_from_flax(
     count: Any,
     step: Any,
     expected: Optional[Mapping[str, torch.Tensor]] = None,
+    row_shards: Optional[Mapping[str, mesh_lib.RowShard]] = None,
 ) -> Dict[str, Any]:
     """The port's counterpart of a reference TrainState whose optimizer is
     Adam: {"params", "exp_avg", "exp_avg_sq": state_dicts, "count",
     "step": ints}. Raises ValueError on a missing or extra key or a shape
-    mismatch, in the params (against `expected` when given) and in the
-    moments (against the params)."""
-    out_params = params_from_flax(params, expected)
+    mismatch, in the params and in the moments (against the params).
+    `row_shards` (a TrainState's) cuts the tables it names to their rows;
+    `expected` is checked after that cut."""
+    out_params = params_from_flax(params)
     moments = {}
     for what, tree in (("exp_avg", mu), ("exp_avg_sq", nu)):
         try:
             moments[what] = params_from_flax(tree, out_params)
         except ValueError as e:
             raise ValueError(f"Adam {what}: {e}") from e
+    for tree in (out_params, *moments.values()):
+        for name, rows in (row_shards or {}).items():
+            tree[name] = tree[name][rows.start:rows.stop].clone()
+    if expected is not None:
+        _check_against(out_params, expected)
     return {"params": out_params, **moments,
             "count": int(np.asarray(count)), "step": int(np.asarray(step))}
 

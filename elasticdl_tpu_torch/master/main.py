@@ -8,7 +8,7 @@ port's copies of the reference's, and the model module it loads for
 metric finalization is the port's zoo. The branches a local DeepFM job
 does not take, and whose modules the port has not taken over, raise
 `NotImplementedError` naming their ROADMAP item: the closed-loop
-autoscaler (`--autoscale`, item 18), the embedding tier's shard map and
+autoscaler (`--autoscale`, item 31), the embedding tier's shard map and
 layout controller (`--embedding_shards`, item 20), zoo `callbacks()`
 (item 28) and the Kubernetes instance manager (`--instance_manager k8s`,
 item 25).
@@ -42,8 +42,8 @@ def check_supported(cfg: JobConfig) -> None:
     over yet, before anything binds or opens."""
     if cfg.autoscale:
         raise NotImplementedError(
-            "--autoscale (the closed-loop autoscaler) comes with the "
-            "elastic cohort, ROADMAP item 18")
+            "--autoscale (the closed-loop autoscaler, deliberate "
+            "resizing) is ROADMAP item 31")
     if cfg.embedding_shards > 0:
         raise NotImplementedError(
             "--embedding_shards (the embedding tier's shard map and layout "

@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from elasticdl_tpu_torch.api import feature_spec as fs
-from elasticdl_tpu_torch.api.layers import Dense, Embedding
+from elasticdl_tpu_torch.api.layers import Dense, Embedding, dropout
 from elasticdl_tpu_torch.training import lr_modulation
 from elasticdl_tpu_torch.training import metrics as metrics_lib
 
@@ -102,10 +102,9 @@ class DeepFM(nn.Module):
             x = torch.relu(getattr(self, f"dnn_{i}")(x))
             if training and self.dropout > 0:
                 # drawn from `generator`, which the trainer rewinds for a
-                # remat recompute (`Trainer._forward`)
-                keep = torch.rand(x.shape, generator=generator,
-                                  device=x.device) >= self.dropout
-                x = torch.where(keep, x / (1.0 - self.dropout), 0)
+                # remat recompute (`Trainer._forward`), for the global
+                # batch under a mesh
+                x = dropout(x, self.dropout, generator)
         dnn_out = self.dnn_out(x).reshape(-1)
 
         return first_order + fm2.to(torch.float32) + dnn_out + self.bias[0]

@@ -29,18 +29,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from elasticdl_tpu_torch.api.layers import Dense, Embed, LayerNorm
+from elasticdl_tpu_torch.api.layers import Dense, Embed, LayerNorm, dropout
 from elasticdl_tpu_torch.ops.attention import sequence_parallel_attention
 from elasticdl_tpu_torch.training import lr_modulation
 from elasticdl_tpu_torch.training import metrics as metrics_lib
-
-
-def _dropout(x, rate: float, generator: Optional[torch.Generator]):
-    # the mask comes from `generator`; under remat the trainer rewinds it
-    # before the recompute, which so draws the same mask
-    # (`training/trainer.py` `Trainer._forward`)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), 0)
 
 
 class Block(nn.Module):
@@ -68,7 +60,10 @@ class Block(nn.Module):
             self.v(h).reshape(shape), causal=True, mode=self.seq_parallel)
         h = self.proj(attn.reshape(B, T, C))
         if training and self.dropout > 0:
-            h = _dropout(h, self.dropout, generator)
+            # the mask comes from `generator`; under remat the trainer
+            # rewinds it before the recompute, which so draws the same
+            # mask (`training/trainer.py` `Trainer._forward`)
+            h = dropout(h, self.dropout, generator)
         x = x + h
         h = F.gelu(self.mlp_in(self.LayerNorm_1(x)), approximate="tanh")
         return x + self.mlp_out(h)

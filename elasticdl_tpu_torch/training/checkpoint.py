@@ -30,9 +30,19 @@ Hardening, as in the reference:
 - Fault-injection sites `ckpt.save`, `ckpt.save.commit` and `ckpt.restore`
   (common/faults.py) sit in front of both operations.
 
-The live-handoff saves of the elastic path (`save_overlapped`,
-`restore_or_handoff`) wait for ROADMAP item 18, and the embedding tier's
-shard files for item 20 (slice 5); they raise.
+Under a mesh (a cohort's TrainState carries one), checkpoints are
+collective. `save` is joined by every rank: each sharded table's row
+ranges, and those of its Adam slots, are gathered to the mesh's leader,
+which writes the one-process format above; the other ranks write
+nothing. `restore` reads the step on every rank, which keeps its own
+rows. So a cohort's checkpoint restores at any world size and in a plain
+worker, and the other way round. `save_overlapped` is the cohort's
+preemption drain: the gather, the write handed to the background writer,
+`overlap_fn` run meanwhile, then a wait for durability.
+
+The live handoff of the in-place rescale (`restore_or_handoff`) waits
+for ROADMAP item 32, and the embedding tier's shard files for item 20
+(slice 5); they raise.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from elasticdl_tpu_torch.common import faults
 from elasticdl_tpu_torch.common.log_utils import default_logger
 from elasticdl_tpu_torch.observability import tracing
 from elasticdl_tpu_torch.observability.registry import default_registry
+from elasticdl_tpu_torch.parallel import mesh as mesh_lib
 
 logger = default_logger(__name__)
 
@@ -90,6 +101,63 @@ def _host_copy(tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(_host_copy(v) for v in tree)
     return tree
+
+
+def _slots(state: Any) -> Dict[int, str]:
+    """The optimizer's slot index of each parameter name."""
+    return {i: name for i, name in enumerate(state.params)}
+
+
+def _whole_payload(state: Any) -> Optional[Dict[str, Any]]:
+    """The one-process payload of `state` in host memory: under a mesh,
+    each sharded table and its optimizer slots gathered whole to the
+    mesh's leader (collective; None on every other rank)."""
+    params = {k: p.detach() for k, p in state.params.items()}
+    optimizer = state.optimizer.state_dict()
+    mesh = state.mesh
+    if mesh is not None:
+        names = _slots(state)
+        for name, rows in state.row_shards.items():
+            params[name] = mesh_lib.gather_rows(mesh, params[name], rows)
+        # state_dict() shares the slot dicts with the live optimizer:
+        # gathered slots go into new ones
+        optimizer["state"] = {
+            i: {key: (mesh_lib.gather_rows(mesh, value,
+                                           state.row_shards[names[i]])
+                      if names[i] in state.row_shards and value.dim()
+                      else value)
+                for key, value in slot.items()}
+            for i, slot in optimizer["state"].items()}
+        if not mesh.is_leader:
+            return None
+    return {
+        "format": FORMAT,
+        "step": int(state.model_version),
+        "params": _host_copy(params),
+        "optimizer": _host_copy(optimizer),
+        "generator": state.generator.get_state(),
+    }
+
+
+def _local_payload(state: Any, payload: Dict[str, Any]) -> Dict[str, Any]:
+    """A one-process payload cut to this rank's rows of each sharded
+    table and of its optimizer slots."""
+    if not state.row_shards:
+        return payload
+    names = _slots(state)
+    params = dict(payload["params"])
+    for name, rows in state.row_shards.items():
+        params[name] = params[name][rows.start:rows.stop]
+    optimizer = dict(payload["optimizer"])
+    optimizer["state"] = {}
+    for i, slot in payload["optimizer"]["state"].items():
+        rows = state.row_shards.get(names[i])
+        optimizer["state"][i] = {
+            key: (value[rows.start:rows.stop]
+                  if rows is not None and value.dim()
+                  and value.shape[0] == rows.rows else value)
+            for key, value in slot.items()}
+    return {**payload, "params": params, "optimizer": optimizer}
 
 
 def _fsync_dir(path: str) -> None:
@@ -182,28 +250,28 @@ class CheckpointManager:
         """Snapshot `state` to host memory and write it as step `step`
         (default: its model version) on the background writer. A step
         that is already on disk is kept as it is: a model version names
-        one state."""
+        one state. Under a mesh every rank calls it; the leader writes."""
         step = int(state.model_version if step is None else step)
         with tracing.span("ckpt.save", step=step, wait=wait) as sp:
             t0 = time.perf_counter()
             faults.fire("ckpt.save")
             self.wait()          # one write in flight at a time
-            self._record_geometry()
-            if os.path.isdir(self._step_dir(step)):
-                logger.info("checkpoint step %d already saved", step)
-            else:
-                payload = {
-                    "format": FORMAT,
-                    "step": step,
-                    "params": _host_copy(
-                        {k: p for k, p in state.params.items()}),
-                    "optimizer": _host_copy(state.optimizer.state_dict()),
-                    "generator": state.generator.get_state(),
-                }
-                self._writer = threading.Thread(
-                    target=self._write, args=(step, payload),
-                    name=f"edl-ckpt-save-{step}", daemon=True)
-                self._writer.start()
+            # under a mesh every rank joins the gather; only the leader
+            # looks at the directory, which a follower may see before the
+            # leader's last write has landed
+            payload = (_whole_payload(state)
+                       if state.mesh is not None else None)
+            if state.mesh is None or state.mesh.is_leader:
+                self._record_geometry()
+                if os.path.isdir(self._step_dir(step)):
+                    logger.info("checkpoint step %d already saved", step)
+                else:
+                    payload = payload or _whole_payload(state)
+                    payload["step"] = step
+                    self._writer = threading.Thread(
+                        target=self._write, args=(step, payload),
+                        name=f"edl-ckpt-save-{step}", daemon=True)
+                    self._writer.start()
             if wait:
                 self.wait()
             _CKPT_SAVES.inc()
@@ -238,15 +306,22 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(old), ignore_errors=True)
 
     def save_overlapped(self, state: Any, overlap_fn, step: Optional[int] = None) -> int:
-        raise NotImplementedError(
-            "save_overlapped (the rescale drain's overlapped final save) "
-            "comes with the elastic cohort, ROADMAP item 18")
+        """The drain's final save: the snapshot (the gather, under a mesh)
+        and the write handed to the background writer, `overlap_fn()` run
+        while it writes, then a wait until the step is durable. Returns
+        the step."""
+        step = self.save(state, step=step)
+        try:
+            overlap_fn()
+        finally:
+            self.wait()
+        return step
 
     def restore_or_handoff(self, abstract_state: Any, handoff, new_mesh,
                            step: Optional[int] = None) -> Optional[Any]:
         raise NotImplementedError(
-            "restore_or_handoff (live state handoff) comes with the elastic "
-            "cohort, ROADMAP item 18")
+            "restore_or_handoff (the in-place rescale's live state handoff) "
+            "is ROADMAP item 32")
 
     # ------------------------------------------------------------------ #
     # reading
@@ -310,7 +385,7 @@ class CheckpointManager:
                 )
                 continue
             self._check_shapes(cand, state, payload["params"])
-            self._apply(state, payload)
+            self._apply(state, _local_payload(state, payload))
             if i > 0:
                 logger.warning(
                     "restored FALLBACK checkpoint step %d (skipped %d newer "
@@ -329,6 +404,8 @@ class CheckpointManager:
 
     def _check_shapes(self, step: int, state, saved: Dict[str, Any]) -> None:
         want = {k: tuple(p.shape) for k, p in state.params.items()}
+        for k, rows in state.row_shards.items():
+            want[k] = (rows.rows,) + want[k][1:]
         have = {k: tuple(t.shape) for k, t in saved.items()}
         problems = [
             f"{k}: model wants {want[k]}, checkpoint holds {have[k]}"

@@ -24,6 +24,7 @@ import torch
 
 from elasticdl_tpu_torch.common import runtime
 from elasticdl_tpu_torch.common.log_utils import default_logger
+from elasticdl_tpu_torch.parallel import mesh as mesh_lib
 from elasticdl_tpu_torch.version import __version__
 
 logger = default_logger(__name__)
@@ -41,13 +42,18 @@ def export_model(
     write_files: bool = True,
 ) -> str:
     """Write a serving export of a trained TrainState. Returns export_dir.
-    `write_files=False` only resolves the directory (the reference's
-    non-leader processes call it so; the port has one process)."""
+    Under a mesh every rank calls it: each sharded table is gathered whole
+    to the mesh's leader, which writes the files. `write_files=False`
+    only resolves the directory (after joining the gather)."""
     export_dir = os.path.abspath(export_dir)
+    params = {k: p.detach() for k, p in state.params.items()}
+    if state.mesh is not None:
+        for name, rows in state.row_shards.items():
+            params[name] = mesh_lib.gather_rows(state.mesh, params[name], rows)
+        write_files = write_files and state.mesh.is_leader
     if not write_files:
         return export_dir
-    params = {k: p.detach().to("cpu", copy=True)
-              for k, p in state.params.items()}
+    params = {k: p.to("cpu", copy=True) for k, p in params.items()}
     os.makedirs(export_dir, exist_ok=True)
     params_path = os.path.join(export_dir, PARAMS_FILE)
     tmp = params_path + ".tmp"

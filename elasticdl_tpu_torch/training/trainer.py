@@ -19,21 +19,36 @@ The HBM knobs are the reference's: `grad_accum` splits a train step's
 batch into strided micro-batches with one micro-batch's activations live
 at a time, and `remat` / `remat_policy` wrap the training forward in
 `torch.utils.checkpoint` (see `resolve_remat_policy`).
+
+Under a mesh (`parallel/mesh.py`) of more than one rank, the step is
+data-parallel, which the reference gets from GSPMD: every rank is handed
+the whole global batch and takes its block along the data axis; its
+masked loss SUM is divided by the global batch's mask count (every rank
+holds the whole mask, so the count needs no collective); the embedding
+tables hold the rank's row range (`Embedding.shard`), whose gradient the
+manual lookup makes whole; the replicated parameters' gradients and the
+loss are summed over the data axis in one flat bucket; and the optimizer
+runs locally, so the replicas stay bit-identical. Dropout draws the
+global batch's mask and keeps the rank's rows, so a step does not depend
+on the world's size. Eval and predict all-gather the outputs over data,
+so every rank updates the metric states with the whole batch.
 """
 
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.utils import checkpoint as ckpt
 
+from elasticdl_tpu_torch.api.layers import Embedding
 from elasticdl_tpu_torch.common import runtime
 from elasticdl_tpu_torch.common.log_utils import default_logger
 from elasticdl_tpu_torch.data.prefetch import tree_map
+from elasticdl_tpu_torch.parallel import mesh as mesh_lib
 from elasticdl_tpu_torch.training import lr_modulation
 from elasticdl_tpu_torch.training import metrics as metrics_lib
 from elasticdl_tpu_torch.training.model_spec import ModelSpec
@@ -53,6 +68,9 @@ class TrainState:
     params: Dict[str, torch.nn.Parameter]
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
+    # under a mesh: the mesh, and the row range each sharded table holds
+    mesh: Optional[mesh_lib.Mesh] = None
+    row_shards: Dict[str, mesh_lib.RowShard] = field(default_factory=dict)
 
     @property
     def model_version(self) -> int:
@@ -206,11 +224,15 @@ class Trainer:
     grad_accum: micro-batches a train step's batch is split into (>= 1).
     remat, remat_policy: recompute the training forward in the backward;
     a named policy implies remat (see `resolve_remat_policy`).
+    mesh: a `parallel.mesh.Mesh` of this process's world; with more than
+    one rank the steps are data-parallel (module docstring). Collective:
+    every rank of the mesh runs the same steps on the same batches.
     """
 
     def __init__(self, spec: ModelSpec, device: runtime.DeviceLike = None,
                  seed: int = 0, grad_accum: int = 1, remat: bool = False,
-                 remat_policy: str = ""):
+                 remat_policy: str = "",
+                 mesh: Optional[mesh_lib.Mesh] = None):
         # the knobs first: a bad name or count fails at construction, not
         # at the first train step of a running job
         self.remat = remat or bool(remat_policy)
@@ -224,6 +246,25 @@ class Trainer:
         runtime.configure_torch_runtime()
         self.seed = seed
         self.model = spec.model
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            extra = set(self.mesh.axis_names) - {
+                mesh_lib.data_axis(self.mesh), mesh_lib.model_axis(self.mesh)}
+            if extra:
+                raise NotImplementedError(
+                    f"mesh axes {sorted(extra)} (sequence, pipeline and "
+                    "expert parallelism) are ROADMAP items 21 and 23")
+            tables = [m for m in self.model.modules()
+                      if isinstance(m, Embedding)]
+            if not tables:
+                # the data-parallel step is held to the reference for
+                # DeepFM, whose tables are `Embedding` layers, only
+                raise NotImplementedError(
+                    "under a mesh the port trains models with "
+                    "`api.layers.Embedding` tables (DeepFM); the LM in a "
+                    "cohort is ROADMAP item 21")
+            for module in tables:
+                module.shard(self.mesh)
         self.metrics: Dict[str, metrics_lib.Metric] = (
             dict(spec.eval_metrics_fn()) if spec.eval_metrics_fn else {}
         )
@@ -264,15 +305,22 @@ class Trainer:
         n = sum(p.numel() for p in params.values())
         logger.info("Initialized model %s: %.3fM params on %s",
                     self.spec.module_name, n / 1e6, self.device)
-        return TrainState(step=0, params=params, optimizer=optimizer,
-                          generator=generator)
+        return TrainState(
+            step=0, params=params, optimizer=optimizer, generator=generator,
+            mesh=self.mesh,
+            row_shards={f"{name}.table": m.row_shard
+                        for name, m in model.named_modules()
+                        if isinstance(m, Embedding)
+                        and m.row_shard is not None})
 
     # ------------------------------------------------------------------ #
     # Steps
 
-    def _forward(self, state: TrainState, features):
+    def _forward(self, state: TrainState, features, block=None):
         """The training forward; under remat, inside a non-reentrant
-        `torch.utils.checkpoint` with the policy's context.
+        `torch.utils.checkpoint` with the policy's context. `block` is
+        (global rows, start, stop) of a rank's block under a mesh, for
+        the randomness the model draws per example.
 
         `checkpoint` restores the global RNG state for the recompute, not
         a generator passed in, and the models draw dropout from
@@ -281,13 +329,20 @@ class Trainer:
         draws the forward's masks again (the reference's dropout draws
         from `fold_in(rng, step)` and recomputes the same masks)."""
         gen = state.generator
+
+        def model(feats):
+            if block is None:
+                return self.model(feats, training=True, generator=gen)
+            with mesh_lib.batch_block_of(*block):
+                return self.model(feats, training=True, generator=gen)
+
         if not self.remat:
-            return self.model(features, training=True, generator=gen)
+            return model(features)
         entry = gen.get_state()
 
         def forward(feats):
             gen.set_state(entry)
-            return self.model(feats, training=True, generator=gen)
+            return model(feats)
 
         return ckpt.checkpoint(forward, features, use_reentrant=False,
                                context_fn=self._remat_context)
@@ -311,21 +366,41 @@ class Trainer:
         count, and the summed gradients are divided by the count once at
         the end, so the result is the full batch's even when the padding
         falls in one micro-batch. A pre-reduced scalar loss weighs the
-        micro-batches equally (and warns once). Returns the loss."""
+        micro-batches equally (and warns once). Returns the loss.
+
+        Under a mesh every step takes this path (grad_accum 1 is one
+        micro-batch): each global micro-batch's mask count, then the
+        forward and backward of this rank's block of it, so the sums
+        over the data axis (`_sum_over_data`) give the global step's."""
         k = self.grad_accum
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         count = torch.zeros((), dtype=torch.float32, device=self.device)
         for f, l, m in zip(*(_micro_batches(x, k)
                              for x in (features, labels, mask))):
-            value = self.spec.loss(l, self._forward(state, f))
+            block = None
+            if self.mesh is not None:
+                # the global micro-batch's count, then this rank's block
+                b = _group_size({"features": f})
+                c_global = (torch.sum(m.to(torch.float32)) if m is not None
+                            else torch.tensor(float(b), device=self.device))
+                block = (b, *mesh_lib.batch_block(self.mesh, b))
+                f, l, m = (mesh_lib.shard_batch(self.mesh, x)
+                           for x in (f, l, m))
+            value = self.spec.loss(l, self._forward(state, f, block))
             if value.dim() == 0:
                 _warn_scalar_loss_with_accum()
                 s, c = value.to(torch.float32), 1.0
+                if self.mesh is not None:
+                    # the data axis's blocks weigh equally, as the
+                    # micro-batches do
+                    s = s / self.mesh.shape[mesh_lib.data_axis(self.mesh)]
             else:
                 v = value.reshape(-1).to(torch.float32)
                 mm = (m.to(torch.float32).reshape(-1) if m is not None
                       else torch.ones_like(v))
                 s, c = torch.sum(v * mm), torch.sum(mm)
+                if self.mesh is not None:
+                    c = c_global
             self._backward(state, s)
             loss_sum += s.detach()
             count += c
@@ -345,13 +420,33 @@ class Trainer:
         features, labels, mask = self._device_batch(batch)
         self.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        if self.grad_accum > 1:
+        if self.grad_accum > 1 or self.mesh is not None:
             loss = self._accumulated_backward(state, features, labels, mask)
         else:
             outputs = self._forward(state, features)
             loss = _masked_scalar_loss(self.spec.loss, labels, outputs, mask)
             self._backward(state, loss)
+        if self.mesh is not None:
+            loss = self._sum_over_data(state, loss.detach())
         return loss.detach(), {n: p.grad for n, p in state.params.items()}
+
+    def _sum_over_data(self, state: TrainState,
+                       loss: torch.Tensor) -> torch.Tensor:
+        """Sum the replicated parameters' gradients and the loss over the
+        data axis, in one flat bucket (a library collective). A sharded
+        table's gradient is already whole. Returns the summed loss."""
+        grads = [p.grad for n, p in state.params.items()
+                 if n not in state.row_shards and p.grad is not None]
+        # float32 whatever the parameters' order: the float32 loss makes
+        # cat promote bfloat16 gradients
+        bucket = torch.cat([g.reshape(-1) for g in grads]
+                           + [loss.reshape(1).float()])
+        mesh_lib.all_reduce(self.mesh, mesh_lib.data_axis(self.mesh), bucket)
+        offset = 0
+        for g in grads:
+            g.copy_(bucket[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return bucket[offset]
 
     def train_step(self, state: TrainState, batch: Dict[str, Any]):
         """One optimizer step. Updates `state` in place (the reference
@@ -382,7 +477,7 @@ class Trainer:
         the master merges them) and the `_loss` [sum, count] pair."""
         features, labels, mask = self._device_batch(batch)
         self.model.eval()
-        outputs = self.model(features, training=False)
+        outputs = self._eval_outputs(features)
         new_states = dict(metric_states)
         for name, metric in self.metrics.items():
             new_states[name] = metric.update(
@@ -405,11 +500,21 @@ class Trainer:
                                            metric_states)
         return metric_states
 
+    def _eval_outputs(self, features):
+        """The model's outputs for the whole batch, in eval mode: under a
+        mesh, this rank's block's, all-gathered over data."""
+        if self.mesh is None:
+            return self.model(features, training=False)
+        out = self.model(mesh_lib.shard_batch(self.mesh, features),
+                         training=False)
+        return mesh_lib.all_gather(self.mesh, mesh_lib.data_axis(self.mesh),
+                                   out)
+
     @torch.no_grad()
     def predict_step(self, state: TrainState, batch) -> torch.Tensor:
         features, _, _ = self._device_batch(batch)
         self.model.eval()
-        return self.model(features, training=False)
+        return self._eval_outputs(features)
 
     def predict_many(self, state: TrainState, stacked_batch):
         """K predict steps over a stacked batch; the outputs come back

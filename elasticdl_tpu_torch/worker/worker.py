@@ -7,10 +7,13 @@ heartbeats with the telemetry payload, interval and drain checkpoints,
 and the final export. It speaks the reference's wire protocol (the
 port's `proto/` is a copy), so it serves either master.
 
-The worker runs on one device and has no mesh: the device comes from
+The worker runs on one device: the device comes from
 `common/runtime.resolve_device` (the card unless the caller names
-another; no card raises), batches are padded to the minibatch size only,
-and the prefetcher copies them to that device (`data/prefetch.py`).
+another; no card raises), and the prefetcher copies batches to it
+(`data/prefetch.py`). Its mesh comes from `parallel.mesh.build_job_mesh`,
+as the reference's does, and has one device: a `--mesh_shape` that names
+more raises, pointing to `--num_processes` (the SPMD cohort,
+`worker/cohort.py`, which subclasses this worker).
 
 Grouped dispatch (`--steps_per_dispatch K > 1`) buffers K prefetched
 device batches and runs them through `Trainer.train_many` (eval_many,
@@ -19,8 +22,8 @@ remat are the Trainer's knobs. `--profile_dir` records a window of worker
 0's steps with `torch.profiler` as a Chrome trace.
 
 What the port does not have yet raises `NotImplementedError` naming its
-ROADMAP item: the in-place rescale (`request_rescale`, items 18-19) and,
-at construction, the embedding tier and its data plane
+ROADMAP item: the in-place rescale (`request_rescale`, items 32 and 19)
+and, at construction, the embedding tier and its data plane
 (`embedding_shards > 0`, item 20).
 """
 
@@ -52,6 +55,7 @@ from elasticdl_tpu_torch.observability.health import (
     encode_stats,
 )
 from elasticdl_tpu_torch.observability.registry import default_registry
+from elasticdl_tpu_torch.parallel import mesh as mesh_lib
 from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
 from elasticdl_tpu_torch.proto.service import (
     RetryingMasterStub,
@@ -91,6 +95,10 @@ def check_supported(cfg: JobConfig) -> None:
 
 
 class Worker:
+    # a shutdown or preemption ends a training task at a group boundary
+    # (a cohort member must not: its peers run the task on)
+    _drains_mid_task = True
+
     def __init__(self, cfg: JobConfig, device: runtime.DeviceLike = None):
         check_supported(cfg)
         self.cfg = cfg
@@ -98,10 +106,12 @@ class Worker:
         # no explicit request for another device) fails here, before it
         # registers with the master
         self.device = runtime.resolve_device(device)
+        self._mesh = self._job_mesh()
         self._trainer = None
         self._state = None
         self._spec: Optional[ModelSpec] = None
         self._services: Dict[int, TaskDataService] = {}
+        self._readers: Dict[int, Any] = {}
         self._stub: Optional[RetryingMasterStub] = None
         self.worker_id = -1
         self._membership_version = -1
@@ -240,6 +250,11 @@ class Worker:
             self._master_unreachable()
             return False
 
+    def _job_mesh(self) -> Optional[mesh_lib.Mesh]:
+        """The job's mesh: one device, raising for a --mesh_shape of more
+        (there is no world to lay them out over)."""
+        return mesh_lib.build_job_mesh(self.cfg)
+
     def _build_trainer(self) -> None:
         self._spec = ModelSpec.from_config(self.cfg)
         self._trainer = self._make_trainer()
@@ -250,7 +265,7 @@ class Worker:
         return Trainer(self._spec, device=self.device,
                        seed=self.cfg.shuffle_seed, remat=self.cfg.remat,
                        remat_policy=self.cfg.remat_policy,
-                       grad_accum=self.cfg.grad_accum_steps)
+                       grad_accum=self.cfg.grad_accum_steps, mesh=self._mesh)
 
     def _data_service(self, task_type: int) -> TaskDataService:
         if task_type not in self._services:
@@ -270,9 +285,13 @@ class Worker:
             if self._spec.dataset_fn is None:
                 raise ValueError("model module must define dataset_fn for data tasks")
             parse = self._spec.dataset_fn(mode, reader.metadata)
-            # one device, no mesh: batches need no multiple of a data axis
+            # a batch splits evenly over the data axis (1 for a plain
+            # worker)
+            multiple = self._mesh.shape[mesh_lib.data_axis(self._mesh)]
+            self._readers[task_type] = reader
             self._services[task_type] = TaskDataService(
-                reader, parse, self.cfg.minibatch_size, batch_multiple=1
+                reader, parse, self.cfg.minibatch_size,
+                batch_multiple=multiple
             )
         return self._services[task_type]
 
@@ -474,7 +493,7 @@ class Worker:
     def request_rescale(self, axis_sizes=None, devices=None) -> None:
         raise NotImplementedError(
             "the in-place rescale (live state handoff onto a new mesh) is "
-            "ROADMAP items 18-19")
+            "ROADMAP items 32 and 19")
 
     # ------------------------------------------------------------------ #
     # task execution
@@ -543,10 +562,11 @@ class Worker:
         of the step), so a group's copies ride behind the steps before
         it. On shutdown or preemption `interrupted` (a list) gets a True
         and the stream ends at the group boundary: the trailing partial
-        is NOT yielded, so a drain report covers whole groups only."""
+        is NOT yielded, so a drain report covers whole groups only (a
+        cohort member runs every task to its end)."""
         buf = []
         for batch in self._prefetched(stream):
-            if self._shutdown.is_set():
+            if self._drains_mid_task and self._shutdown.is_set():
                 interrupted.append(True)
                 return
             self._ensure_state(batch)
@@ -678,8 +698,16 @@ class Worker:
             mngr.delete(drain_step)
 
     def _run_evaluation_task(self, task: pb.Task) -> bool:
-        """Returns True if interrupted by shutdown/preemption (no report).
-        Full k-groups run through `Trainer.eval_many`; the scaffold is
+        """Returns True if interrupted by shutdown/preemption (no report)."""
+        states = self._evaluate(task)
+        if states is None:
+            return True
+        self._report_metrics(task, states)
+        return False
+
+    def _evaluate(self, task: pb.Task):
+        """The task's metric states, or None if interrupted. Full k-groups
+        run through `Trainer.eval_many`; the scaffold is
         `_grouped_stream`."""
         svc = self._data_service(pb.EVALUATION)
         states = self._trainer.new_metric_states()
@@ -694,8 +722,9 @@ class Worker:
             else:
                 for b in buf:
                     states = self._trainer.eval_step(self._state, b, states)
-        if interrupted:
-            return True
+        return None if interrupted else states
+
+    def _report_metrics(self, task: pb.Task, states) -> None:
         msg = pb.ReportEvaluationMetricsRequest(
             worker_id=self.worker_id,
             eval_job_id=task.eval_job_id,
@@ -705,7 +734,9 @@ class Worker:
             arr = np.asarray(state, np.float32)
             msg.states.append(pb.MetricState(name=name, data=arr.tobytes()))
         self._stub.ReportEvaluationMetrics(msg, timeout=30)
-        return False
+
+    def _outputs_processor(self):
+        return self._spec.prediction_outputs_processor
 
     def _run_prediction_task(self, task: pb.Task) -> bool:
         """Returns True if interrupted by shutdown/preemption (no report).
@@ -718,7 +749,7 @@ class Worker:
         )
 
         svc = self._data_service(pb.PREDICTION)
-        processor = self._spec.prediction_outputs_processor
+        processor = self._outputs_processor()
         k = max(1, self.cfg.steps_per_dispatch)
         interrupted: list = []
 

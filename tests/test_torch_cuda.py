@@ -1,8 +1,9 @@
 """Tests of the port that need the card: the hand-written CUDA kernels
 against their plain versions, the train steps on the GPU against the
 same steps on the CPU, the trainer's knobs (remat, accumulation, grouped
-steps) through K1-K4', and the DeepFM job path (master, worker,
-checkpoint, export) on the card. They skip where no CUDA device is
+steps) through K1-K4', the DeepFM job path (master, worker,
+checkpoint, export), the manual schedule's per-rank compute (K1 on a
+shard) and a one-rank NCCL cohort context on the card. They skip where no CUDA device is
 present.
 
 This file imports torch and the port only, so it also runs on a GPU
@@ -155,6 +156,69 @@ def case_lookup_backward_on_the_card_matches_cpu(cuda):
         grads.append(g.cpu())
     np.testing.assert_allclose(grads[1].numpy(), grads[0].numpy(),
                                rtol=1e-5, atol=1e-6)
+
+
+def case_shard_part_on_the_card_matches_plain(cuda):
+    """The manual schedule's per-rank compute with K1 on each shard of a
+    table that 3 ranks do not divide (a short last shard), against its
+    plain version on the CPU: the forward parts sum to the one-device
+    gather bit for bit, each shard's gradient is held to K1's bound, and
+    the shards launch K1 once each."""
+    from elasticdl_tpu_torch.parallel import mesh as mesh_lib
+
+    r = np.random.RandomState(5)
+    V, d, n = 10_000, 17, 3
+    table = torch.from_numpy(r.rand(V, d).astype(np.float32))
+    ids = torch.from_numpy(r.randint(0, V, (512, 26)).astype(np.int32))
+    ids[0, :3] = torch.tensor([-1, V, emb.OOB_ID], dtype=torch.int32)
+    safe = torch.where((ids >= 0) & (ids < V), ids, emb.OOB_ID)
+    ct = torch.from_numpy(r.randn(512, 26, d).astype(np.float32))
+    parts, before = [], placement.launches
+    for i in range(n):
+        rows = mesh_lib.shard_rows(i, n, V)
+        shard = table[rows.start:rows.stop]
+        part = emb.shard_part(shard.to(cuda), safe.to(cuda), rows.start)
+        assert torch.equal(part.cpu(), emb.shard_part(shard, safe, rows.start))
+        parts.append(part.cpu())
+        got = emb.shard_part_grad(safe.to(cuda), ct.to(cuda), rows.start,
+                                  rows.size).cpu()
+        local, _ = emb.shard_ids(safe, rows.start, rows.size)
+        sid, srows = emb.sorted_stream(local, ct)
+        want = placement.place_sorted_grads_plain(sid, srows, rows.size)
+        mag = placement.place_sorted_grads_plain(sid, srows.abs(), rows.size)
+        assert rows.size == (V + n - 1) // n or i == n - 1
+        assert bool(((got - want).abs() <= 1e-6 + 1e-5 * mag).all())
+    assert placement.launches == before + n * placement.PASSES
+    whole = emb.embedding_lookup(table, ids)
+    assert torch.equal(torch.stack(parts).sum(0), whole)
+
+
+def case_one_rank_nccl_cohort(cuda):
+    """A one-rank NCCL world forms, carries int64 values past 2**31 over
+    its control group, gives a mesh of one, and shuts down; a member whose
+    card this host lacks is refused before any world forms."""
+    import socket
+
+    from elasticdl_tpu_torch.common import runtime
+    from elasticdl_tpu_torch.parallel import elastic, mesh as mesh_lib
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = elastic.CohortContext(f"localhost:{port}", 1, 0,
+                                device=runtime.cohort_device(0))
+    ctx.initialize(timeout_s=60)
+    try:
+        assert ctx.backend == "nccl"
+        vec = [4_370_000_000, -1, 2**62 + 3]
+        assert ctx.broadcast_ints(vec).tolist() == vec
+        assert ctx.allgather_ints(vec).tolist() == [vec]
+        ctx.barrier()
+        assert mesh_lib.build_mesh().size == 1
+    finally:
+        ctx.shutdown()
+    with pytest.raises(RuntimeError, match="a card takes one rank"):
+        runtime.cohort_device(torch.cuda.device_count())
 
 
 def case_deepfm_grads_on_the_card_match_cpu(cuda):
@@ -581,6 +645,8 @@ def test_kernels_on_the_card(cuda, tmp_path):
     case_k1_is_deterministic_and_counts_launches(cuda)
     case_k1_wrapper_rejects_what_the_kernel_does_not_take(cuda)
     case_lookup_backward_on_the_card_matches_cpu(cuda)
+    case_shard_part_on_the_card_matches_plain(cuda)
+    case_one_rank_nccl_cohort(cuda)
     case_deepfm_grads_on_the_card_match_cpu(cuda)
     for dtype in (torch.float32, torch.bfloat16):
         for d in (16, 64, 96, 128, 256):

@@ -1,7 +1,7 @@
 """The port stands alone: it imports no JAX stack and nothing of the
-reference package (the train step, the job path's worker, master,
-launcher, data path, checkpoint and export included), and it never falls
-back to the CPU on its own."""
+reference package (the train step, the job path's worker, cohort, mesh,
+master, launcher, data path, checkpoint and export included), and it
+never falls back to the CPU on its own."""
 
 import ast
 import json
@@ -29,10 +29,11 @@ from elasticdl_tpu_torch import convert
 from elasticdl_tpu_torch.client import api, local, main as client_main
 from elasticdl_tpu_torch.data import nativelib, parsing, prefetch, reader, recordio
 from elasticdl_tpu_torch.master import main as master_main, process_manager
+from elasticdl_tpu_torch.parallel import elastic, mesh
 from elasticdl_tpu_torch.training import checkpoint, export
 from elasticdl_tpu_torch.worker import (
-    main as worker_main, prediction_outputs_processor, task_data_service,
-    worker)
+    cohort, main as worker_main, prediction_outputs_processor,
+    task_data_service, worker)
 spec = ModelSpec.from_config(JobConfig.from_argv([
     "--model_zoo", sys.argv[1], "--model_def", "deepfm.deepfm.custom_model",
     "--model_params", "field_vocab=100;hidden=8"]))
@@ -61,6 +62,9 @@ def case_port_loads_no_jax_or_reference_module():
     for name in ("deepfm.deepfm", "transformer.transformer_lm", "torch",
                  "elasticdl_tpu_torch.ops.flash_attention",
                  "elasticdl_tpu_torch.worker.worker",
+                 "elasticdl_tpu_torch.worker.cohort",
+                 "elasticdl_tpu_torch.parallel.mesh",
+                 "elasticdl_tpu_torch.parallel.elastic",
                  "elasticdl_tpu_torch.master.main",
                  "elasticdl_tpu_torch.client.local",
                  "elasticdl_tpu_torch.data.prefetch",
