@@ -5,7 +5,9 @@
 
 The main paths: the DeepFM job (master, worker, data, checkpoint, eval,
 export) and its train step (kernel K1: its zero pass and its placement
-pass), the transformer LM's train step and its job (flash-attention
+pass), the other five zoo models (xDeepFM and Wide & Deep through K1;
+the MNIST CNN, ResNet-20 and ResNet-50 through library convolutions
+and BatchNorm) as steps and, for ResNet-20 and Wide & Deep, as jobs, the transformer LM's train step and its job (flash-attention
 kernels: for its bfloat16 D 64 attention the Hopper kernels K2', K3', K4'
 and the delta pass, which runs once a backward; K2, K3 and K4 for every
 other input, such as the float32 LM), and the trainer's knobs (remat,
@@ -170,6 +172,40 @@ caught):
            machinery's cost on one card. The traced run (one task, a
            `--profile_dir` window over its first 2 steps) must finish and
            leave a trace that names both K1 kernels.
+17. zoo_kernel (runs right after `kernel`)  K1 against its plain version
+           on the streams of the two new recsys models, as `kernel` holds
+           it (the same tolerance, a bit-identical rerun, ms, device ms,
+           bound, plain and `index_add_` times): xDeepFM's 4096 x 26 ids
+           (uniform raw values hashed into 26 fields of 100k, d 17) and
+           Wide & Deep's 4096 x 9 ids from the synthetic census rows
+           hashed by the port's spec (d 9, a table of 512 rows).
+18. zoo_train (after `knobs`)  the five zoo models at their reference
+           bench widths (bench.py:4335-4375), bf16, on one repeated batch:
+           MNIST CNN batch 1024, ResNet-20 batch 512, ResNet-50 at
+           224x224 with 1000 classes and batch 32 (its warm-up cut to 4
+           steps), Wide & Deep batch 4096 (synthetic census rows) and
+           xDeepFM batch 4096 (field_vocab 100000, hidden 400,400, CIN
+           128,128, embedding 16): ZOO_STEPS train steps (the first a
+           warm-up), eval and predict. Asserts finite falling losses, K1
+           launched 2 a step in the two recsys models and never in the
+           CNNs, the first BatchNorm's running averages one hand update
+           (0.9 ra + 0.1 x the step's batch statistics, bit for bit) past
+           the first step, finite predictions, and ResNet-50's remat step
+           equal to its plain step bit for bit under deterministic cuDNN.
+           Prints step ms (CUDA events), host ms a step, samples/s and peak
+           memory a model, and the ResNets' profiles, as in 6.
+19. zoo_job (after `job_cli`)  ResNet-20 on `synthetic://cifar10` (batch
+           512) and Wide & Deep on `synthetic://census` (batch 4096)
+           through the job path in one process, as `job` runs it: 4 tasks
+           of 2 steps, eval at epoch end, checkpoints at steps 4 and 8,
+           SAVE_MODEL and the export. Asserts the tasks, a finite eval
+           metric, K1's launches (2 a step of Wide & Deep, none in
+           ResNet-20), the newest checkpoint restoring the final state
+           exactly (params, BatchNorm's buffers, optimizer slots) and the
+           export on the card predicting as the state does (atol 1e-6).
+           Prints samples/s, host ms, data_wait and h2d a step, the wall
+           and the eval metrics. Then the whole script's wall on a line of
+           its own (`wall`).
 Then the `kernels` line (K1's `launches` are the job's, with the
 `grouped`, `cohort_job` and `manual_shards` phases' beside them; the
 Hopper kernels' are `lm_train`'s, with `lm_job`'s beside them), the
@@ -333,46 +369,57 @@ def k1_bound_ms(n, in_range, num_rows, d):
     return max(bytes_moved / HBM_BYTES_PER_S, in_range * d / F32_FLOPS) * 1e3
 
 
+def k1_stream(ids, rows, num_rows, dev):
+    """K1 against its plain version on one sorted stream: each entry held
+    to 1e-6 + 1e-5 x the sum of the magnitudes of its terms, a second
+    call giving the same bits; its times beside the bound, the plain
+    version and the `index_add_` yardstick. Returns the stream's entry
+    (`ok` false where it disagrees)."""
+    from elasticdl_tpu_torch.ops import placement
+
+    got = placement.place_sorted_grads(ids, rows, num_rows)
+    again = placement.place_sorted_grads(ids, rows, num_rows)
+    torch.cuda.synchronize()
+    want = placement.place_sorted_grads_plain(ids, rows, num_rows)
+    mag = placement.place_sorted_grads_plain(ids, rows.abs(), num_rows)
+    err = (got - want).abs()
+    same = bool(torch.equal(got, again))
+    ok = bool((err <= 1e-6 + 1e-5 * mag).all()) and same
+    max_abs = float(err.max()) if err.numel() else 0.0
+    max_rel = float((err / mag.clamp_min(1e-30)).max()) if err.numel() else 0.0
+    n, d = rows.shape
+    entry = {"n": n, "d": d, "num_rows": num_rows,
+             "max_abs_err": max_abs, "max_rel_err": max_rel,
+             "bit_identical_rerun": same, "ok": ok}
+    if n:
+        ids64 = ids.to(torch.int64)
+        entry["ms"] = time_ms(
+            lambda: placement.place_sorted_grads(ids, rows, num_rows))
+        entry["device_ms"] = device_ms(
+            lambda: placement.place_sorted_grads(ids, rows, num_rows),
+            K1_SYMBOLS)
+        # index_add_ takes in-range ids only (it asserts on the rest)
+        if bool(((ids >= 0) & (ids < num_rows)).all()):
+            entry["library_ms"] = time_ms(
+                lambda: torch.zeros((num_rows, d), device=dev)
+                .index_add_(0, ids64, rows))
+        entry["plain_ms"] = time_ms(
+            lambda: placement.place_sorted_grads_plain(ids, rows, num_rows),
+            groups=5, per_group=3)
+        entry["bound_ms"] = k1_bound_ms(
+            n, int(((ids >= 0) & (ids < num_rows)).sum()), num_rows, d)
+    return entry
+
+
 def phase_kernel(dev):
     from elasticdl_tpu_torch.ops import placement
 
     report, worst_abs, worst_rel = {}, 0.0, 0.0
     for name, ids, rows, num_rows in k1_streams(dev):
-        got = placement.place_sorted_grads(ids, rows, num_rows)
-        again = placement.place_sorted_grads(ids, rows, num_rows)
-        torch.cuda.synchronize()
-        want = placement.place_sorted_grads_plain(ids, rows, num_rows)
-        mag = placement.place_sorted_grads_plain(ids, rows.abs(), num_rows)
-        err = (got - want).abs()
-        same = bool(torch.equal(got, again))
-        ok = bool((err <= 1e-6 + 1e-5 * mag).all()) and same
-        max_abs = float(err.max()) if err.numel() else 0.0
-        max_rel = float((err / mag.clamp_min(1e-30)).max()) if err.numel() else 0.0
-        worst_abs, worst_rel = max(worst_abs, max_abs), max(worst_rel, max_rel)
-        n, d = rows.shape
-        entry = {"n": n, "d": d, "num_rows": num_rows,
-                 "max_abs_err": max_abs, "max_rel_err": max_rel,
-                 "bit_identical_rerun": same, "ok": ok}
-        if n:
-            ids64 = ids.to(torch.int64)
-            entry["ms"] = time_ms(
-                lambda: placement.place_sorted_grads(ids, rows, num_rows))
-            entry["device_ms"] = device_ms(
-                lambda: placement.place_sorted_grads(ids, rows, num_rows),
-                K1_SYMBOLS)
-            # index_add_ takes in-range ids only (it asserts on the rest)
-            if bool(((ids >= 0) & (ids < num_rows)).all()):
-                entry["library_ms"] = time_ms(
-                    lambda: torch.zeros((num_rows, d), device=dev)
-                    .index_add_(0, ids64, rows))
-            entry["plain_ms"] = time_ms(
-                lambda: placement.place_sorted_grads_plain(ids, rows,
-                                                           num_rows),
-                groups=5, per_group=3)
-            entry["bound_ms"] = k1_bound_ms(
-                n, int(((ids >= 0) & (ids < num_rows)).sum()), num_rows, d)
-        report[name] = entry
-        if not ok:
+        entry = report[name] = k1_stream(ids, rows, num_rows, dev)
+        worst_abs = max(worst_abs, entry["max_abs_err"])
+        worst_rel = max(worst_rel, entry["max_rel_err"])
+        if not entry["ok"]:
             emit("kernel", streams=report)
             raise AssertionError(f"K1 disagrees with its plain version (or "
                                  f"with itself) on {name}")
@@ -483,7 +530,7 @@ def phase_train():
     return launches
 
 
-def phase_profile(trainer, state, batch, step_ms, steps=3):
+def phase_profile(trainer, state, batch, step_ms, steps=3, **labels):
     """Where a full-width step's time goes: torch.profiler over `steps`
     train steps (after the counted run), device activity summed by name.
     Prints device ms per step, the device's busy share of the unprofiled
@@ -511,7 +558,7 @@ def phase_profile(trainer, state, batch, step_ms, steps=3):
     kernels = sum(n for name, (_, n) in by_name.items()
                   if not name.startswith(("Memcpy", "Memset"))) / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit("profile", steps=steps,
+    emit("profile", **labels, steps=steps,
          profiled_wall_ms_per_step=wall_ms / steps,
          device_ms_per_step=device_ms if by_name else "not measured",
          device_busy_share=device_ms / step_ms if by_name
@@ -1251,10 +1298,17 @@ def export_matches(out, want_fn, batch):
 
 
 def states_equal(a, b):
-    """Params, optimizer slots and step of two TrainStates, exactly."""
+    """Params, buffers, optimizer slots and groups (a schedule's count)
+    and step of two TrainStates, exactly."""
     if a.step != b.step or list(a.params) != list(b.params):
         return False
     if not all(torch.equal(a.params[k], b.params[k]) for k in a.params):
+        return False
+    if a.buffers.keys() != b.buffers.keys() or not all(
+            torch.equal(a.buffers[k], b.buffers[k]) for k in a.buffers):
+        return False
+    ga, gb = (s.optimizer.state_dict()["param_groups"] for s in (a, b))
+    if ga != gb:
         return False
     sa, sb = (s.optimizer.state_dict()["state"] for s in (a, b))
     return sa.keys() == sb.keys() and all(
@@ -1933,7 +1987,370 @@ def phase_cohort_job(smi, job):
     return launches
 
 
+# ---------------------------------------------------------------- the zoo
+
+# the five models at their reference bench widths (bench.py:4335-4375),
+# bf16 compute: (name, model_def, model_params, batch, recsys)
+ZOO_MODELS = (
+    ("mnist", "mnist.mnist_cnn.custom_model", "", 1024, False),
+    ("resnet20", "cifar10.resnet.custom_model", "depth=20", 512, False),
+    # the warm-up cut from 500 steps to 4, so the phase's steps train at
+    # a learning rate that moves the loss (the first still at 0)
+    ("resnet50", "resnet50.resnet50.custom_model",
+     "num_classes=1000;warmup_steps=4", 32, False),
+    ("wide_deep", "census.wide_deep.custom_model", "", 4096, True),
+    ("xdeepfm", "deepfm.xdeepfm.custom_model",
+     f"field_vocab={FIELD_VOCAB};hidden=400,400;cin_sizes=128,128;"
+     "embedding_dim=16", 4096, True),
+)
+ZOO_STEPS = 12
+ZOO_BATCH = 4096
+
+
+def census_features(n, seed=0):
+    """`n` synthetic census rows (the reader's `census` kind) through the
+    port's Wide & Deep parser: the features, hashed by its spec, and the
+    labels."""
+    from elasticdl_tpu_torch.data import parsing
+    from elasticdl_tpu_torch.data.reader import SyntheticDataReader
+    from elasticdl_tpu_torch.model_zoo.census import wide_deep
+
+    reader = SyntheticDataReader(kind="census", num_records=n, seed=seed)
+    records = list(reader.read_records("synthetic-census-0", 0, n))
+    return parsing.as_batch_parser(wide_deep.dataset_fn("training", None))(
+        records)
+
+
+def zoo_batch(name, b, seed=0):
+    r = np.random.RandomState(seed)
+    if name == "mnist":
+        feats, classes = r.rand(b, 28, 28, 1).astype(np.float32), 10
+    elif name == "resnet20":
+        feats, classes = r.rand(b, 32, 32, 3).astype(np.float32), 10
+    elif name == "resnet50":
+        feats, classes = r.rand(b, 224, 224, 3).astype(np.float32), 1000
+    elif name == "wide_deep":
+        feats, labels = census_features(b, seed)
+        return {"features": feats, "labels": labels}
+    else:
+        return criteo_batch(seed, b)
+    return {"features": feats,
+            "labels": r.randint(0, classes, (b,)).astype(np.int32)}
+
+
+def phase_zoo_kernel(dev):
+    """K1 on the streams of the two new recsys models: xDeepFM's 4096 x 26
+    ids (uniform raw values hashed into 26 fields of 100k, d 17) and Wide
+    & Deep's 4096 x 9 ids from the synthetic census rows hashed by the
+    port's spec (a table of a few hundred rows, d 9: nearly every segment
+    is hot)."""
+    from elasticdl_tpu_torch.model_zoo.census import wide_deep
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm
+    from elasticdl_tpu_torch.ops import embedding as emb
+
+    spec = deepfm.feature_spec(FIELD_VOCAB)
+    cat = torch.from_numpy(criteo_batch(8, ZOO_BATCH)["features"]["cat"])
+    xdeepfm_ids = spec.device_transform(
+        {"dense": torch.zeros((ZOO_BATCH, 13)), "cat": cat})["cat"]
+    census_ids = torch.from_numpy(census_features(ZOO_BATCH)[0]["cat"])
+    gen = torch.Generator(device=dev).manual_seed(1)
+    report = {}
+    for name, ids, d, rows in (
+            ("xdeepfm_d17", xdeepfm_ids, 17,
+             emb.padded_vocab(spec.total_vocab)),
+            ("wide_deep_d9", census_ids, 9,
+             emb.padded_vocab(wide_deep.TOTAL_VOCAB))):
+        ids = torch.sort(ids.reshape(-1).to(dev, torch.int32),
+                         stable=True)[0].contiguous()
+        cot = torch.randn((ids.numel(), d), generator=gen, device=dev)
+        entry = report[name] = k1_stream(ids, cot, rows, dev)
+        entry["distinct_ids"] = int(torch.unique(ids).numel())
+        if not entry["ok"]:
+            emit("zoo_kernel", streams=report)
+            raise AssertionError(f"K1 disagrees with its plain version (or "
+                                 f"with itself) on {name}")
+    emit("zoo_kernel", streams=report)
+    return report
+
+
+def bn_hand_update(model, batch, step):
+    """One train step's update of the model's first BatchNorm against a
+    hand update from that step's batch statistics (a forward hook reads
+    them): ra' = 0.9 ra + 0.1 batch, applied once. Returns the largest
+    difference (0.0 when exact)."""
+    from elasticdl_tpu_torch.api.layers import BatchNorm
+
+    bn = next(m for m in model.modules() if isinstance(m, BatchNorm))
+    seen = []
+    hook = bn.register_forward_hook(lambda m, i, o: seen.append(m.pending))
+    before = (bn.mean.clone(), bn.var.clone())
+    try:
+        step(batch)
+    finally:
+        hook.remove()
+    if not seen:
+        raise AssertionError("the BatchNorm hook saw no training forward")
+    mean, var = seen[0]
+    want = (0.9 * before[0] + (1 - 0.9) * mean,
+            0.9 * before[1] + (1 - 0.9) * var)
+    return max(float((bn.mean - want[0]).abs().max()),
+               float((bn.var - want[1]).abs().max()))
+
+
+def clone_state(state, trainer):
+    """A second trainer's state from `state`: params, buffers, optimizer."""
+    import copy
+
+    other = trainer.init_state(None)
+    with torch.no_grad():
+        for k, p in other.params.items():
+            p.copy_(state.params[k])
+        for k, b in other.buffers.items():
+            b.copy_(state.buffers[k])
+    other.optimizer.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+    other.step = state.step
+    return other
+
+
+def remat_equal(spec_fn, state, batch):
+    """ResNet-50: one step with remat and one without from one cloned
+    state, under deterministic cuDNN: params and buffers bit for bit."""
+    from elasticdl_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        out = []
+        for knobs in ({}, {"remat": True}):
+            trainer = Trainer(spec_fn(), **knobs)
+            s = clone_state(state, trainer)
+            s, logs = trainer.train_step(s, batch)
+            torch.cuda.synchronize()
+            out.append((float(logs["loss"]),
+                        {k: p.detach().clone() for k, p in s.params.items()},
+                        {k: b.clone() for k, b in s.buffers.items()}))
+            del trainer, s
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (l0, p0, b0), (l1, p1, b1) = out
+    diff = max([float((p0[k] - p1[k]).abs().max()) for k in p0]
+               + [float((b0[k] - b1[k]).abs().max()) for k in b0])
+    return {"loss_equal": l0 == l1, "max_abs_diff": diff,
+            "bit_equal": l0 == l1 and diff == 0.0}
+
+
+def phase_zoo_train(smi):
+    """Each zoo model at its bench width on one repeated batch: ZOO_STEPS
+    train steps (the first a warm-up), then eval and predict. Returns K1's
+    launches a model."""
+    from elasticdl_tpu_torch.ops import placement
+    from elasticdl_tpu_torch.training.trainer import Trainer
+
+    launches, report = {}, {}
+    for name, model_def, params, b, recsys in ZOO_MODELS:
+        def spec_fn():
+            return load_spec(params, "bfloat16", model_def=model_def)
+
+        trainer = Trainer(spec_fn())
+        batch = zoo_batch(name, b)
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer.init_state(None)
+        placement.launches = 0
+        bn_err = None
+        losses = []
+        if state.buffers:
+            bn_err = bn_hand_update(
+                trainer.model, batch,
+                lambda x: losses.append(trainer.train_step(state, x)[1]["loss"]))
+        else:
+            losses.append(trainer.train_step(state, batch)[1]["loss"])
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(ZOO_STEPS - 1):
+            losses.append(trainer.train_step(state, batch)[1]["loss"])
+        end.record()
+        end.synchronize()
+        host_s = time.perf_counter() - t0
+        n = launches[name] = placement.launches
+        step_ms = start.elapsed_time(end) / (ZOO_STEPS - 1)
+        if name in ("resnet20", "resnet50"):
+            phase_profile(trainer, state, batch, step_ms, model=name)
+        metric_states = trainer.eval_step(state, batch,
+                                          trainer.new_metric_states())
+        preds = trainer.predict_step(state, batch)
+        torch.cuda.synchronize()
+        losses = [float(x) for x in losses]
+        entry = {"batch": b, "params": params, "steps": ZOO_STEPS,
+                 "losses": losses, "step_ms": step_ms,
+                 "host_ms_per_step": host_s * 1e3 / (ZOO_STEPS - 1),
+                 "samples_per_s": b / (step_ms / 1e3),
+                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "k1_launches": n, "eval": trainer.metric_results(metric_states),
+                 "predict_shape": list(preds.shape),
+                 "bn_hand_update_max_abs_diff": bn_err}
+        if name == "resnet50":
+            entry["remat"] = remat_equal(spec_fn, state, batch)
+        report[name] = entry
+        want = placement.PASSES * ZOO_STEPS if recsys else 0
+        problems = []
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            problems.append(f"losses not finite and falling: {losses}")
+        if n != want:
+            problems.append(f"K1 launched {n} kernels in {ZOO_STEPS} steps, "
+                            f"want {want}")
+        if bn_err is not None and bn_err != 0.0:
+            problems.append(f"BatchNorm's running averages are {bn_err} off "
+                            "one hand update")
+        if not bool(torch.isfinite(preds).all()) or preds.shape[0] != b:
+            problems.append(f"predictions {tuple(preds.shape)} not finite")
+        if name == "resnet50" and not entry["remat"]["bit_equal"]:
+            problems.append(f"remat differs from base: {entry['remat']}")
+        if problems:
+            emit("zoo_train", card=smi, models=report)
+            raise AssertionError(f"{name}: {problems}")
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("zoo_train", card=smi, models=report)
+    return launches
+
+
+def zoo_job_argv(out, model_def, params, batch, data, n, per_task, eval_data):
+    return [
+        "--model_zoo", ZOO, "--model_def", model_def,
+        "--model_params", params, "--minibatch_size", str(batch),
+        "--training_data", data.format(n=n),
+        "--records_per_task", str(per_task),
+        "--validation_data", eval_data,
+        "--checkpoint_dir", os.path.join(out, "ckpt"),
+        "--checkpoint_steps", "4", "--keep_checkpoint_max", "2",
+        "--output", os.path.join(out, "export"),
+        "--worker_heartbeat_s", "2",
+    ]
+
+
+# (name, model_def, model_params, batch, training data, records, records a
+# task, validation data, metric)
+ZOO_JOBS = (
+    ("resnet20", "cifar10.resnet.custom_model", "depth=20", 512,
+     "synthetic://cifar10?n={n}&shards=2", 4096, 1024,
+     "synthetic://cifar10?n=1024&shards=1", "accuracy"),
+    ("wide_deep", "census.wide_deep.custom_model", "", 4096,
+     "synthetic://census?n={n}&shards=2", 32768, 8192,
+     "synthetic://census?n=8192&shards=1", "auc"),
+)
+
+
+def phase_zoo_job(smi):
+    """ResNet-20 on `synthetic://cifar10` and Wide & Deep on
+    `synthetic://census` through the job path in one process (the port's
+    Master, its Worker on a thread on the card): 4 training tasks of 2
+    steps, eval at epoch end, checkpoints every 4 steps, SAVE_MODEL and
+    the export. Returns K1's launches a job."""
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.common.net import free_port
+    from elasticdl_tpu_torch.master.main import Master
+    from elasticdl_tpu_torch.observability import profile
+    from elasticdl_tpu_torch.observability.registry import default_registry
+    from elasticdl_tpu_torch.ops import placement
+    from elasticdl_tpu_torch.training.checkpoint import CheckpointManager
+    from elasticdl_tpu_torch.training.export import load_model
+    from elasticdl_tpu_torch.training.model_spec import ModelSpec
+    from elasticdl_tpu_torch.training.trainer import Trainer
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    launches, report = {}, {}
+    for (name, model_def, params, b, data, n, per_task, eval_data,
+         metric) in ZOO_JOBS:
+        with tempfile.TemporaryDirectory() as out:
+            cfg = JobConfig.from_argv(
+                zoo_job_argv(out, model_def, params, b, data, n, per_task,
+                             eval_data)
+                + ["--master_addr", f"localhost:{free_port()}"])
+            master = Master(cfg)
+            master.start()
+            worker = Worker(cfg)
+            reg = default_registry()
+            before = reg.snapshot()
+            profile.get_profiler().reset()
+            rc = []
+            thread = threading.Thread(target=lambda: rc.append(worker.run()),
+                                      name=f"zoo-job-{name}", daemon=True)
+            placement.launches = 0
+            t0 = time.perf_counter()
+            thread.start()
+            try:
+                finished = master.wait(poll_s=0.2, timeout_s=600)
+                counts = master.dispatcher.counts()
+                results = master.evaluation.latest_results()
+            finally:
+                master.shutdown(grace_s=1)
+                thread.join(300)
+            wall_s = time.perf_counter() - t0
+            after = reg.snapshot()
+            phases = profile.get_profiler().snapshot(update_memory=False)
+            steps = worker._global_step
+            k1 = launches[name] = placement.launches
+            problems = []
+            if not finished or rc != [0] or thread.is_alive():
+                problems.append(f"job did not finish cleanly: finished "
+                                f"{finished}, worker exit {rc}")
+            if counts["finished_training"] != 4 or counts["failed_permanently"]:
+                problems.append(f"dispatcher counts {counts}")
+            if not all(np.isfinite(results.get(k, np.nan))
+                       for k in (metric, "loss")):
+                problems.append(f"eval results {results}")
+            want = placement.PASSES * steps if name == "wide_deep" else 0
+            if steps != 8 or k1 != want:
+                problems.append(f"K1 launched {k1} kernels in {steps} train "
+                                f"steps, want {want} over 8")
+            final = worker._state
+            mngr = CheckpointManager(cfg.checkpoint_dir)
+            fresh = Trainer(ModelSpec.from_config(cfg)).init_state(None)
+            if mngr.all_steps() != [4, 8]:
+                problems.append(f"checkpoint steps {mngr.all_steps()}")
+            elif mngr.restore(fresh) is not fresh or not states_equal(
+                    fresh, final):
+                problems.append("newest checkpoint does not restore the "
+                                "final state (params, buffers, slots)")
+            del fresh
+            batch = zoo_batch(name, b, seed=5)
+            model, _ = load_model(os.path.join(out, "export"), ZOO,
+                                  device="cuda")
+            feats = worker._trainer._to_device(batch["features"])
+            with torch.no_grad():
+                got = model(feats, training=False)
+            export_err = float(
+                (got - worker._trainer.predict_step(final, batch)).abs().max())
+            if export_err > 1e-6:
+                problems.append(f"export predicts {export_err} off the "
+                                "final state")
+            if problems:
+                raise AssertionError(f"zoo_job {name}: {problems}")
+
+        def delta(key):
+            return after.get(key, 0.0) - before.get(key, 0.0)
+
+        step_s = delta("edl_train_step_seconds_sum")
+        records = delta("edl_train_records_total")
+        report[name] = {
+            "params": params, "batch": b, "train_steps": steps,
+            "records": records, "counts": counts, "eval": results,
+            "wall_s": wall_s, "samples_per_s": records / step_s,
+            "host_ms_per_step": step_s * 1e3 / steps,
+            "data_wait_ms_per_step": phases.get("phase_data_wait_ms", 0.0),
+            "h2d_ms_per_step": phases.get("phase_h2d_ms", 0.0),
+            "k1_launches": k1, "checkpoint_steps": [4, 8],
+            "export_max_abs_err": export_err}
+    emit("zoo_job", card=smi, jobs=report)
+    return launches
+
+
 def main():
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1971,6 +2388,7 @@ def main():
             raise AssertionError(f"{kernel} has no HGMMA instruction")
 
     k1 = phase_kernel(dev)
+    zoo_streams = phase_zoo_kernel(dev)
     manual_shard_launches = phase_manual_shards(dev, smi)
     report, worst = phase_attn_kernel(dev)
     attn = attn_times(dev, report, worst)
@@ -1979,11 +2397,14 @@ def main():
     launches = phase_train()
     lm_launches = phase_lm_train()
     phase_knobs()
+    zoo_train_launches = phase_zoo_train(smi)
     grouped_launches = phase_grouped()
     job_launches, job = phase_job(smi)
     lm_job_launches = phase_lm_job(smi)
     phase_job_cli(smi)
+    zoo_job_launches = phase_zoo_job(smi)
     cohort_launches = phase_cohort_job(smi, job)
+    emit("wall", seconds=time.perf_counter() - started)
 
     f32_lm = (fa.FWD, fa.BWD_DQ, fa.BWD_DKV)
     print(json.dumps({"kernels": [{
@@ -2001,8 +2422,14 @@ def main():
         # per-rank backward of the manual schedule, 2 and 4 shards
         "cohort_launches": cohort_launches,
         "manual_shard_launches": manual_shard_launches,
-        "max_abs_err": k1["max_abs_err"],
-        "max_rel_err": k1["max_rel_err"],
+        # the zoo's recsys models: 2 a train step of xDeepFM and Wide &
+        # Deep, none in the CNNs
+        "zoo_train_launches": zoo_train_launches,
+        "zoo_job_launches": zoo_job_launches,
+        "max_abs_err": max([k1["max_abs_err"]] + [
+            e["max_abs_err"] for e in zoo_streams.values()]),
+        "max_rel_err": max([k1["max_rel_err"]] + [
+            e["max_rel_err"] for e in zoo_streams.values()]),
         "ms": k1["ms"],
         "device_ms": k1["device_ms"],
         "skewed_30pct_one_id_ms": k1["skewed_ms"],
@@ -2010,6 +2437,10 @@ def main():
         "bound_ms": k1["bound_ms"],
         "bound_by": "bytes",
         "library_ms": k1["library_ms"],
+        "zoo_streams": {name: {k: e[k] for k in (
+            "n", "d", "num_rows", "distinct_ids", "max_abs_err", "ms",
+            "device_ms", "plain_ms", "bound_ms", "library_ms")}
+            for name, e in zoo_streams.items()},
     }] + [{
         "name": name,
         "route": "cuda",

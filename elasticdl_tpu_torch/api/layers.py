@@ -1,19 +1,25 @@
-"""User-facing layers: `Embedding`, and the `Dense`, `LayerNorm` and
-`Embed` layers the zoo models use in place of flax's.
+"""User-facing layers: `Embedding`, and the `Dense`, `LayerNorm`, `Embed`,
+`Conv` and `BatchNorm` layers (and `max_pool`) the zoo models use in place
+of flax's.
 
 Counterpart of `elasticdl_tpu/api/layers.py`. Parameters are float32, created
 empty; `reset_parameters(generator)` draws them from the same
 distributions as the reference's flax initializers, from an explicit
-`torch.Generator`.
+`torch.Generator` (`reset_tree` does so for every layer of a model).
+
+Images are NCHW here where flax's are NHWC: `Conv`'s weight is OIHW (flax's
+kernel is HWIO, and `convert.py` permutes it), and a model that flattens a
+feature map permutes it to NHWC first, so the flattened order is flax's.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from elasticdl_tpu_torch.ops import embedding as emb_ops
 from elasticdl_tpu_torch.parallel import mesh as mesh_lib
@@ -189,3 +195,183 @@ class Embed(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return torch.nn.functional.embedding(ids, self.embedding)
+
+
+def reset_tree(model: nn.Module,
+               generator: Optional[torch.Generator] = None) -> None:
+    """Draw every parameter (and reset every buffer) of `model`'s layers:
+    `reset_parameters(generator)` of each submodule that has one, in
+    registration order."""
+    for module in model.modules():
+        if module is not model and hasattr(module, "reset_parameters"):
+            module.reset_parameters(generator)
+
+
+Padding = Union[str, Sequence[Tuple[int, int]]]
+
+
+def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """XLA's SAME padding of one spatial axis: the output has
+    ceil(size / stride) positions and the pad, low half first, is split
+    (total // 2, total - total // 2), so a stride-2 3x3 conv over an even
+    side pads (0, 1) where torch's padding=1 would pad (1, 1)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """`flax.linen.Conv` over NCHW inputs, 2-D: `weight` (out, in, kh, kw),
+    optional `bias`; padding "SAME" (flax's default, XLA's rule: see
+    `_same_pads`), "VALID" or explicit ((lo, hi), (lo, hi)).
+
+    dtype: the compute dtype. As in flax, input, weight and bias are cast
+    to it, the convolution's output is rounded to it and the bias added in
+    it. Initializers: truncated lecun_normal over fan_in = in x kh x kw,
+    zero bias (flax's defaults)."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Tuple[int, int], strides: Tuple[int, int] = (1, 1),
+                 padding: Padding = "SAME", use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.in_features = int(in_features)
+        self.features = int(features)
+        self.kernel_size = tuple(int(k) for k in kernel_size)
+        self.strides = tuple(int(s) for s in strides)
+        self.padding = padding
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.empty((self.features, self.in_features) + self.kernel_size))
+        self.bias = (nn.Parameter(torch.empty((self.features,)))
+                     if use_bias else None)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        fan_in = self.in_features * self.kernel_size[0] * self.kernel_size[1]
+        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std,
+                                  2.0 * std, generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def _pads(self, x: torch.Tensor):
+        if self.padding == "VALID":
+            return (0, 0), (0, 0)
+        if self.padding == "SAME":
+            return tuple(_same_pads(x.shape[2 + i], self.kernel_size[i],
+                                    self.strides[i]) for i in range(2))
+        return tuple(tuple(int(p) for p in pair) for pair in self.padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        x = x.to(dtype)
+        (top, bottom), (left, right) = self._pads(x)
+        if top == bottom and left == right:
+            padding = (top, left)
+        else:
+            x = F.pad(x, (left, right, top, bottom))
+            padding = (0, 0)
+        y = F.conv2d(x, self.weight.to(dtype), stride=self.strides,
+                     padding=padding)
+        if self.bias is not None:
+            y = y + self.bias.to(dtype).reshape(1, -1, 1, 1)
+        return y
+
+
+def max_pool(x: torch.Tensor, window: Tuple[int, int],
+             strides: Tuple[int, int], padding=((0, 0), (0, 0))):
+    """`flax.linen.max_pool` over NCHW: padding VALID by default, or
+    symmetric explicit pads, which read as -inf (flax's init value)."""
+    (top, bottom), (left, right) = padding
+    if top != bottom or left != right:
+        raise ValueError(f"max_pool takes symmetric pads, got {padding}")
+    return F.max_pool2d(x, window, strides, padding=(top, left))
+
+
+class BatchNorm(nn.Module):
+    """`flax.linen.BatchNorm` over the channel axis (1) of NCHW or (N, C)
+    inputs, with flax's arithmetic rather than `F.batch_norm`'s:
+
+    - training: the batch's mean and variance in float32, the variance
+      the fast biased one, E[x^2] - E[x]^2 clamped at 0; under a mesh
+      (inside the trainer's `parallel.mesh.batch_block_of`) over the
+      global batch, the per-rank sums all-reduced over data
+      (`parallel.mesh.sum_over_data`), as the reference's GSPMD step
+      computes them. Eval: the running averages.
+    - y = (x - mean) * (rsqrt(var + epsilon) * scale) + bias in float32,
+      cast to `dtype` once at the end (None: the input's dtype promoted
+      with float32).
+    - The running averages (`mean`, zeros, and `var`, ones: float32
+      buffers) move as ra = momentum * ra + (1 - momentum) * batch, with
+      the biased variance, but not inside `forward`: a training forward
+      leaves the batch's statistics in `pending`, and
+      `update_batch_stats(model)` applies them. The trainer calls it once
+      after each training forward, so a remat recompute (which runs the
+      forward again in the backward) or a caller's extra forward moves
+      nothing, as the reference's functional `new_vars` come from the
+      primal pass only.
+
+    Parameters `scale` (ones; zeros with `zero_scale`, the last BN of a
+    residual block) and `bias` (zeros), float32.
+    """
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 epsilon: float = 1e-5, dtype: Optional[torch.dtype] = None,
+                 zero_scale: bool = False):
+        super().__init__()
+        self.features = int(features)
+        self.momentum = float(momentum)
+        self.epsilon = float(epsilon)
+        self.dtype = dtype
+        self.zero_scale = bool(zero_scale)
+        self.scale = nn.Parameter(torch.empty((self.features,)))
+        self.bias = nn.Parameter(torch.empty((self.features,)))
+        self.register_buffer("mean", torch.zeros((self.features,)))
+        self.register_buffer("var", torch.ones((self.features,)))
+        self.pending: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        del generator
+        with torch.no_grad():
+            self.scale.fill_(0.0 if self.zero_scale else 1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+        self.pending = None
+
+    def _batch_stats(self, x32: torch.Tensor):
+        dims = [0] + list(range(2, x32.dim()))
+        if mesh_lib.in_data_parallel_block():
+            sums = torch.stack([x32.sum(dims), (x32 * x32).sum(dims)])
+            sums, rows = mesh_lib.sum_over_data(sums)
+            count = rows * (x32.numel() // (x32.shape[0] * x32.shape[1]))
+            mu, mu2 = sums[0] / count, sums[1] / count
+        else:
+            mu, mu2 = x32.mean(dims), (x32 * x32).mean(dims)
+        return mu, torch.clamp_min(mu2 - mu * mu, 0.0)
+
+    def forward(self, x: torch.Tensor, training: bool) -> torch.Tensor:
+        x32 = x.to(torch.float32)
+        if training:
+            mean, var = self._batch_stats(x32)
+            self.pending = (mean.detach(), var.detach())
+        else:
+            mean, var = self.mean, self.var
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        y = x32 - mean.reshape(shape)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        y = y * mul.reshape(shape) + self.bias.reshape(shape)
+        return y.to(self.dtype or torch.promote_types(x.dtype, torch.float32))
+
+
+@torch.no_grad()
+def update_batch_stats(model: nn.Module) -> None:
+    """Apply each BatchNorm's `pending` batch statistics to its running
+    averages (flax's update, in float32) and clear them."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm) and m.pending is not None:
+            mean, var = m.pending
+            m.pending = None
+            m.mean.copy_(m.momentum * m.mean + (1 - m.momentum) * mean)
+            m.var.copy_(m.momentum * m.var + (1 - m.momentum) * var)

@@ -265,16 +265,46 @@ _BLOCK: contextvars.ContextVar = contextvars.ContextVar(
 
 
 @contextlib.contextmanager
-def batch_block_of(batch_size: int, start: int, stop: int) -> Iterator[None]:
+def batch_block_of(batch_size: int, start: int, stop: int,
+                   mesh: Optional[Mesh] = None) -> Iterator[None]:
     """Within it, `batch_rand` draws for a global batch of `batch_size`
-    rows and keeps rows [start, stop): the trainer sets it around a
-    forward on a rank's block, so a dropout mask does not depend on the
-    world's size (the reference's mask is one global array)."""
-    token = _BLOCK.set((int(batch_size), int(start), int(stop)))
+    rows and keeps rows [start, stop), and `sum_over_data` sums over
+    `mesh`'s data axis: the trainer sets it around a forward on a rank's
+    block, so a dropout mask and BatchNorm's statistics do not depend on
+    the world's size (the reference's mask is one global array, and its
+    batch statistics are the global batch's)."""
+    token = _BLOCK.set((int(batch_size), int(start), int(stop), mesh))
     try:
         yield
     finally:
         _BLOCK.reset(token)
+
+
+class _SumOverData(torch.autograd.Function):
+    """All-reduce (sum) over the data axis; its backward all-reduces the
+    gradient, the transpose of a sum that every rank's loss reads."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_reduce(mesh, data_axis(mesh), x.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(ctx.mesh, data_axis(ctx.mesh), grad.clone()), None
+
+
+def in_data_parallel_block() -> bool:
+    """Inside `batch_block_of` with a mesh."""
+    block = _BLOCK.get()
+    return block is not None and block[3] is not None
+
+
+def sum_over_data(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(the sum of this rank's `x` over the data axis, differentiable; the
+    global batch's rows), inside `batch_block_of` with a mesh."""
+    rows, _, _, mesh = _BLOCK.get()
+    return _SumOverData.apply(x, mesh), rows
 
 
 def batch_rand(shape: Sequence[int], generator: Optional[torch.Generator],
@@ -286,7 +316,7 @@ def batch_rand(shape: Sequence[int], generator: Optional[torch.Generator],
     block = _BLOCK.get()
     if block is None:
         return torch.rand(tuple(shape), generator=generator, device=device)
-    rows, start, stop = block
+    rows, start, stop, _ = block
     if shape[0] != stop - start:
         raise ValueError(f"batch_rand: shape {tuple(shape)} does not lead "
                          f"with the block's {stop - start} rows")

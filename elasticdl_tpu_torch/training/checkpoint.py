@@ -8,8 +8,10 @@ checkpoint is out of scope (a reference state crosses over through
 `convert.train_state_from_flax` instead). One step is one directory:
 
   <dir>/<step>/state.pt     torch.save of {"format", "step", "params"
-                            (name -> tensor), "optimizer" (the optimizer's
-                            state_dict), "generator" (RNG state)}
+                            (name -> tensor), "buffers" (name -> tensor:
+                            BatchNorm's running averages), "optimizer"
+                            (the optimizer's state_dict, a schedule's
+                            count included), "generator" (RNG state)}
   <dir>/embedding_geometry.json   the vocab-padding rule of the build that
                             wrote the newest steps (ops/embedding.py)
 
@@ -134,6 +136,9 @@ def _whole_payload(state: Any) -> Optional[Dict[str, Any]]:
         "format": FORMAT,
         "step": int(state.model_version),
         "params": _host_copy(params),
+        # replicated: every rank holds the same buffers
+        "buffers": _host_copy({k: b.detach()
+                               for k, b in state.buffers.items()}),
         "optimizer": _host_copy(optimizer),
         "generator": state.generator.get_state(),
     }
@@ -384,7 +389,8 @@ class CheckpointManager:
                     if remaining else "no older step left",
                 )
                 continue
-            self._check_shapes(cand, state, payload["params"])
+            self._check_shapes(cand, state, payload["params"],
+                               payload.get("buffers", {}))
             self._apply(state, _local_payload(state, payload))
             if i > 0:
                 logger.warning(
@@ -402,11 +408,14 @@ class CheckpointManager:
             f"(tried {candidates})"
         ) from last_err
 
-    def _check_shapes(self, step: int, state, saved: Dict[str, Any]) -> None:
+    def _check_shapes(self, step: int, state, saved: Dict[str, Any],
+                      saved_buffers: Dict[str, Any]) -> None:
         want = {k: tuple(p.shape) for k, p in state.params.items()}
         for k, rows in state.row_shards.items():
             want[k] = (rows.rows,) + want[k][1:]
+        want.update({k: tuple(b.shape) for k, b in state.buffers.items()})
         have = {k: tuple(t.shape) for k, t in saved.items()}
+        have.update({k: tuple(t.shape) for k, t in saved_buffers.items()})
         problems = [
             f"{k}: model wants {want[k]}, checkpoint holds {have[k]}"
             for k in sorted(set(want) & set(have)) if want[k] != have[k]]
@@ -422,6 +431,8 @@ class CheckpointManager:
         with torch.no_grad():
             for name, p in state.params.items():
                 p.copy_(payload["params"][name])
+            for name, b in state.buffers.items():
+                b.copy_(payload["buffers"][name])
         state.optimizer.load_state_dict(payload["optimizer"])
         state.generator.set_state(payload["generator"])
         state.step = int(payload["step"])

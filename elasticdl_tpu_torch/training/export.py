@@ -3,8 +3,10 @@
 Counterpart of `elasticdl_tpu/training/export.py`. After training, the
 worker writes the trained parameters and a manifest:
 
-  <export_dir>/params.pt        torch.save of {"params": {name: tensor}}
-                                (host tensors, the model's state_dict)
+  <export_dir>/params.pt        torch.save of {"params": {name: tensor},
+                                "buffers": {name: tensor}} (host tensors:
+                                the model's state_dict, BatchNorm's
+                                running averages in the buffers)
   <export_dir>/model_info.json  model_def, model_params, step, framework info
 
 `load_model()` rebuilds the model from the port's zoo and loads the
@@ -54,11 +56,13 @@ def export_model(
     if not write_files:
         return export_dir
     params = {k: p.to("cpu", copy=True) for k, p in params.items()}
+    buffers = {k: b.detach().to("cpu", copy=True)
+               for k, b in state.buffers.items()}
     os.makedirs(export_dir, exist_ok=True)
     params_path = os.path.join(export_dir, PARAMS_FILE)
     tmp = params_path + ".tmp"
     with open(tmp, "wb") as f:
-        torch.save({"params": params}, f)
+        torch.save({"params": params, "buffers": buffers}, f)
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, params_path)
@@ -93,7 +97,8 @@ def read_info(export_dir: str) -> Dict[str, Any]:
 
 
 def load_variables(export_dir: str) -> Dict[str, Any]:
-    """The exported variables {"params": {name: host tensor}}."""
+    """The exported variables {"params": {name: host tensor},
+    "buffers": {name: host tensor}}."""
     return torch.load(os.path.join(export_dir, PARAMS_FILE),
                       map_location="cpu", weights_only=True)
 
@@ -120,7 +125,8 @@ def load_model(
     module, func_name = load_module(model_zoo, model_def)
     model = getattr(module, func_name)(**params)
     variables = load_variables(export_dir)
-    model.load_state_dict(variables["params"])
+    model.load_state_dict({**variables["params"],
+                           **variables.get("buffers", {})})
     model.to(runtime.resolve_device(device)).eval()
     return model, variables
 

@@ -139,6 +139,48 @@ class AUC(Metric):
         return float(abs(trapezoid(tpr, fpr)))
 
 
+class PrecisionRecall(Metric):
+    """Streaming binary precision, recall or F1 at one decision threshold.
+    State: [tp, fp, fn], additive across batches and workers; `kind`
+    ('precision', 'recall' or 'f1', the default) picks what `result`
+    returns, so one class serves all three under different names."""
+
+    def __init__(self, kind: str = "f1", threshold: float = 0.5,
+                 from_logits: bool = True):
+        if kind not in ("precision", "recall", "f1"):
+            raise ValueError(f"unknown kind {kind!r}")
+        self.kind = kind
+        self.name = kind
+        self.threshold = threshold
+        self.from_logits = from_logits
+
+    def init_state(self) -> np.ndarray:
+        return np.zeros((3,), np.float32)  # [tp, fp, fn]
+
+    def update(self, state, labels, outputs, mask=None):
+        scores = outputs.to(torch.float32).reshape(-1)
+        if self.from_logits:
+            scores = 1.0 / (1.0 + torch.exp(-scores))
+        labels = labels.to(torch.float32).reshape(-1)
+        m = _as_mask(mask, labels.shape[0], labels.device)
+        pred = (scores >= self.threshold).to(torch.float32)
+        lab = (labels > 0.5).to(torch.float32)
+        tp = torch.sum(pred * lab * m)
+        fp = torch.sum(pred * (1 - lab) * m)
+        fn = torch.sum((1 - pred) * lab * m)
+        return _add(state, torch.stack([tp, fp, fn]))
+
+    def result(self, state) -> float:
+        tp, fp, fn = (float(x) for x in np.asarray(state, np.float64))
+        precision = tp / max(tp + fp, 1e-9)
+        recall = tp / max(tp + fn, 1e-9)
+        if self.kind == "precision":
+            return precision
+        if self.kind == "recall":
+            return recall
+        return 2 * precision * recall / max(precision + recall, 1e-9)
+
+
 def init_states(metrics: Dict[str, Metric]) -> Dict[str, np.ndarray]:
     return {k: m.init_state() for k, m in metrics.items()}
 

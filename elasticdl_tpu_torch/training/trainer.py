@@ -29,9 +29,18 @@ tables hold the rank's row range (`Embedding.shard`), whose gradient the
 manual lookup makes whole; the replicated parameters' gradients and the
 loss are summed over the data axis in one flat bucket; and the optimizer
 runs locally, so the replicas stay bit-identical. Dropout draws the
-global batch's mask and keeps the rank's rows, so a step does not depend
-on the world's size. Eval and predict all-gather the outputs over data,
-so every rank updates the metric states with the whole batch.
+global batch's mask and keeps the rank's rows, and BatchNorm's
+statistics are the global batch's (its per-rank sums all-reduced, as
+the reference's GSPMD step computes them), so a step does not depend on
+the world's size and the running averages stay the same on every rank.
+Eval and predict all-gather the outputs over data, so every rank updates
+the metric states with the whole batch.
+
+Model state beside the parameters (BatchNorm's running averages, the
+reference's `extra_vars`) lives in the model's buffers, which
+`TrainState.buffers` names: each training forward moves them once
+(`api.layers.update_batch_stats`), micro-batch by micro-batch under
+accumulation, never again in a remat recompute.
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ import numpy as np
 import torch
 from torch.utils import checkpoint as ckpt
 
-from elasticdl_tpu_torch.api.layers import Embedding
+from elasticdl_tpu_torch.api.layers import Embed, Embedding, update_batch_stats
 from elasticdl_tpu_torch.common import runtime
 from elasticdl_tpu_torch.common.log_utils import default_logger
 from elasticdl_tpu_torch.data.prefetch import tree_map
@@ -61,13 +70,17 @@ class TrainState:
     """The training state. `params` are the model's own parameter tensors
     (by name), which the optimizer updates in place; `optimizer` holds the
     slots (Adam's moments); `generator` draws the step's randomness
-    (dropout). `step` is the global step counter and doubles as the model
-    version reported to the master."""
+    (dropout). `buffers` are the model's state beside its parameters (by
+    name; BatchNorm's running averages), the counterpart of the
+    reference's `extra_vars`: each training forward moves them once, and
+    eval and predict read them. `step` is the global step counter and
+    doubles as the model version reported to the master."""
 
     step: int
     params: Dict[str, torch.nn.Parameter]
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
+    buffers: Dict[str, torch.Tensor] = field(default_factory=dict)
     # under a mesh: the mesh, and the row range each sharded table holds
     mesh: Optional[mesh_lib.Mesh] = None
     row_shards: Dict[str, mesh_lib.RowShard] = field(default_factory=dict)
@@ -254,17 +267,16 @@ class Trainer:
                 raise NotImplementedError(
                     f"mesh axes {sorted(extra)} (sequence, pipeline and "
                     "expert parallelism) are ROADMAP items 21 and 23")
-            tables = [m for m in self.model.modules()
-                      if isinstance(m, Embedding)]
-            if not tables:
-                # the data-parallel step is held to the reference for
-                # DeepFM, whose tables are `Embedding` layers, only
+            if any(isinstance(m, Embed) for m in self.model.modules()):
+                # the LM embeds through `Embed`; its cohort (its batch
+                # partition and sequence-parallel attention) is not ported
                 raise NotImplementedError(
-                    "under a mesh the port trains models with "
-                    "`api.layers.Embedding` tables (DeepFM); the LM in a "
-                    "cohort is ROADMAP item 21")
-            for module in tables:
-                module.shard(self.mesh)
+                    "under a mesh the port trains models whose parameters "
+                    "are replicated or in `api.layers.Embedding` tables; "
+                    "the LM in a cohort is ROADMAP item 21")
+            for module in self.model.modules():
+                if isinstance(module, Embedding):
+                    module.shard(self.mesh)
         self.metrics: Dict[str, metrics_lib.Metric] = (
             dict(spec.eval_metrics_fn()) if spec.eval_metrics_fn else {}
         )
@@ -307,7 +319,7 @@ class Trainer:
                     self.spec.module_name, n / 1e6, self.device)
         return TrainState(
             step=0, params=params, optimizer=optimizer, generator=generator,
-            mesh=self.mesh,
+            buffers=dict(model.named_buffers()), mesh=self.mesh,
             row_shards={f"{name}.table": m.row_shard
                         for name, m in model.named_modules()
                         if isinstance(m, Embedding)
@@ -319,8 +331,11 @@ class Trainer:
     def _forward(self, state: TrainState, features, block=None):
         """The training forward; under remat, inside a non-reentrant
         `torch.utils.checkpoint` with the policy's context. `block` is
-        (global rows, start, stop) of a rank's block under a mesh, for
-        the randomness the model draws per example.
+        (global rows, start, stop, mesh) of a rank's block under a mesh,
+        for the randomness the model draws per example and the global
+        batch's BatchNorm statistics. The buffers move once, from this
+        pass's statistics (`api.layers.update_batch_stats`), never from a
+        remat recompute in the backward.
 
         `checkpoint` restores the global RNG state for the recompute, not
         a generator passed in, and the models draw dropout from
@@ -337,15 +352,18 @@ class Trainer:
                 return self.model(feats, training=True, generator=gen)
 
         if not self.remat:
-            return model(features)
-        entry = gen.get_state()
+            outputs = model(features)
+        else:
+            entry = gen.get_state()
 
-        def forward(feats):
-            gen.set_state(entry)
-            return model(feats)
+            def forward(feats):
+                gen.set_state(entry)
+                return model(feats)
 
-        return ckpt.checkpoint(forward, features, use_reentrant=False,
-                               context_fn=self._remat_context)
+            outputs = ckpt.checkpoint(forward, features, use_reentrant=False,
+                                      context_fn=self._remat_context)
+        update_batch_stats(self.model)
+        return outputs
 
     def _backward(self, state: TrainState, value: torch.Tensor) -> None:
         """`value.backward()`. Under remat the recompute rewinds the
@@ -383,7 +401,7 @@ class Trainer:
                 b = _group_size({"features": f})
                 c_global = (torch.sum(m.to(torch.float32)) if m is not None
                             else torch.tensor(float(b), device=self.device))
-                block = (b, *mesh_lib.batch_block(self.mesh, b))
+                block = (b, *mesh_lib.batch_block(self.mesh, b), self.mesh)
                 f, l, m = (mesh_lib.shard_batch(self.mesh, x)
                            for x in (f, l, m))
             value = self.spec.loss(l, self._forward(state, f, block))

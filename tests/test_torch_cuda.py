@@ -3,7 +3,8 @@ against their plain versions, the train steps on the GPU against the
 same steps on the CPU, the trainer's knobs (remat, accumulation, grouped
 steps) through K1-K4', the DeepFM job path (master, worker,
 checkpoint, export), the manual schedule's per-rank compute (K1 on a
-shard) and a one-rank NCCL cohort context on the card. They skip where no CUDA device is
+shard), a one-rank NCCL cohort context, K1 on Wide & Deep's census
+stream and a ResNet-20 step (convolutions, BatchNorm) on the card. They skip where no CUDA device is
 present.
 
 This file imports torch and the port only, so it also runs on a GPU
@@ -460,6 +461,56 @@ def case_lm_grads_on_the_card_match_cpu(cuda):
         _close(got, want, n, 5e-5, 5e-5)
 
 
+def case_k1_on_the_census_stream(cuda):
+    """K1 on Wide & Deep's stream: synthetic census rows hashed by the
+    port's spec, a table of 512 rows with nearly every segment hot."""
+    from elasticdl_tpu_torch.data import parsing
+    from elasticdl_tpu_torch.data.reader import SyntheticDataReader
+    from elasticdl_tpu_torch.model_zoo.census import wide_deep
+
+    reader = SyntheticDataReader(kind="census", num_records=2048)
+    records = list(reader.read_records("synthetic-census-0", 0, 2048))
+    feats, _ = parsing.as_batch_parser(wide_deep.dataset_fn("training", None))(
+        records)
+    ids = torch.sort(torch.from_numpy(feats["cat"]).reshape(-1).to(
+        cuda, torch.int32), stable=True)[0].contiguous()
+    rows = torch.randn((ids.numel(), 9), device=cuda)
+    _assert_matches_plain(ids, rows, emb.padded_vocab(wide_deep.TOTAL_VOCAB))
+
+
+def case_resnet20_step_on_the_card_matches_cpu(cuda):
+    """One ResNet-20 (depth 8, float32) train step on the card against
+    the port's CPU step from the same state: loss rtol 1e-5; params and
+    BatchNorm's running averages rtol 1e-5 with atol 1e-5 of the largest
+    magnitude over all of them (tests/test_torch_zoo.py's step tolerance:
+    cuDNN and the CPU sum in other orders, and BatchNorm's fast variance
+    magnifies that)."""
+    r = np.random.RandomState(6)
+    batch = {"features": r.rand(16, 32, 32, 3).astype(np.float32),
+             "labels": r.randint(0, 10, 16).astype(np.int32)}
+    results, weights = [], None
+    for dev in ("cpu", None):
+        tr = _card_trainer("cifar10.resnet.custom_model", "depth=8",
+                           "float32", device=dev)
+        state = tr.init_state(None)
+        if weights is None:
+            weights = {k: v.detach().clone() for k, v in
+                       tr.model.state_dict().items()}
+        tr.model.load_state_dict(weights)
+        state, logs = tr.train_step(state, batch)
+        results.append((float(logs["loss"]),
+                        {k: v.detach().cpu().numpy() for k, v in
+                         tr.model.state_dict().items()}))
+    (cpu_loss, want), (card_loss, got) = results
+    assert card_loss == pytest.approx(cpu_loss, rel=1e-5)
+    for names in ([k for k in want if k.endswith(("mean", "var"))],
+                  [k for k in want if not k.endswith(("mean", "var"))]):
+        scale = max(np.abs(want[k]).max() for k in names)
+        for k in names:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
+                                       atol=1e-5 * scale, err_msg=k)
+
+
 def _card_trainer(model_def, params, dtype, **knobs):
     from elasticdl_tpu_torch.common.config import JobConfig
     from elasticdl_tpu_torch.training.model_spec import ModelSpec
@@ -648,6 +699,8 @@ def test_kernels_on_the_card(cuda, tmp_path):
     case_shard_part_on_the_card_matches_plain(cuda)
     case_one_rank_nccl_cohort(cuda)
     case_deepfm_grads_on_the_card_match_cpu(cuda)
+    case_k1_on_the_census_stream(cuda)
+    case_resnet20_step_on_the_card_matches_cpu(cuda)
     for dtype in (torch.float32, torch.bfloat16):
         for d in (16, 64, 96, 128, 256):
             case_flash_kernels_match_plain(cuda, dtype, d, 100, 100, True, 0,

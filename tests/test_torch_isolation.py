@@ -1,7 +1,7 @@
 """The port stands alone: it imports no JAX stack and nothing of the
 reference package (the train step, the job path's worker, cohort, mesh,
-master, launcher, data path, checkpoint and export included), and it
-never falls back to the CPU on its own."""
+master, launcher, data path, checkpoint and export, and every zoo model
+included), and it never falls back to the CPU on its own."""
 
 import ast
 import json
@@ -41,6 +41,15 @@ lm = ModelSpec.from_config(JobConfig.from_argv([
     "--model_zoo", sys.argv[1], "--model_def",
     "transformer.transformer_lm.custom_model",
     "--model_params", "vocab=64;num_layers=1;dim=32;heads=2;max_len=16"]))
+for model_def, params in (
+        ("deepfm.xdeepfm", "field_vocab=100;hidden=8;cin_sizes=4"),
+        ("census.wide_deep", "hidden=8"),
+        ("mnist.mnist_cnn", ""),
+        ("cifar10.resnet", "depth=8"),
+        ("resnet50.resnet50", "num_classes=10")):
+    ModelSpec.from_config(JobConfig.from_argv([
+        "--model_zoo", sys.argv[1], "--model_def",
+        model_def + ".custom_model", "--model_params", params]))
 print(json.dumps(sorted(set(sys.modules) - before)))
 """
 
@@ -59,7 +68,9 @@ def case_port_loads_no_jax_or_reference_module():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    for name in ("deepfm.deepfm", "transformer.transformer_lm", "torch",
+    for name in ("deepfm.deepfm", "transformer.transformer_lm",
+                 "deepfm.xdeepfm", "census.wide_deep", "mnist.mnist_cnn",
+                 "cifar10.resnet", "resnet50.resnet50", "torch",
                  "elasticdl_tpu_torch.ops.flash_attention",
                  "elasticdl_tpu_torch.worker.worker",
                  "elasticdl_tpu_torch.worker.cohort",

@@ -108,6 +108,9 @@ def case_metric_states_identical(name):
         "accuracy": lambda m: m.Accuracy(),
         "accuracy_probs": lambda m: m.Accuracy(from_logits=False),
         "auc": lambda m: m.AUC(),
+        "precision": lambda m: m.PrecisionRecall("precision"),
+        "recall": lambda m: m.PrecisionRecall("recall"),
+        "f1": lambda m: m.PrecisionRecall(),
     }[name]
     jmetric, tmetric = make(jm), make(tm)
     js, ts = jmetric.init_state(), tmetric.init_state()
@@ -146,6 +149,7 @@ def test_layers_and_metrics_against_the_reference():
     case_initializers_follow_flax_distributions()
     for dtype in ("float32", "bfloat16"):
         case_layernorm_and_embed_match_flax(dtype)
-    for name in ("mean", "accuracy", "accuracy_probs", "auc"):
+    for name in ("mean", "accuracy", "accuracy_probs", "auc", "precision",
+                 "recall", "f1"):
         case_metric_states_identical(name)
     case_accuracy_multiclass_state_identical()
