@@ -5,7 +5,8 @@
 
 The main paths: the DeepFM job (master, worker, data, checkpoint, eval,
 export) and its train step (kernel K1: its zero pass and its placement
-pass), the other five zoo models (xDeepFM and Wide & Deep through K1;
+pass), the embedding tier's device-mode pushes, session and resharding
+(K1 on every push), the other five zoo models (xDeepFM and Wide & Deep through K1;
 the MNIST CNN, ResNet-20 and ResNet-50 through library convolutions
 and BatchNorm) as steps and, for ResNet-20 and Wide & Deep, as jobs, the transformer LM's train step and its job (flash-attention
 kernels: for its bfloat16 D 64 attention the Hopper kernels K2', K3', K4'
@@ -204,12 +205,41 @@ caught):
            exactly (params, BatchNorm's buffers, optimizer slots) and the
            export on the card predicting as the state does (atol 1e-6).
            Prints samples/s, host ms, data_wait and h2d a step, the wall
-           and the eval metrics. Then the whole script's wall on a line of
-           its own (`wall`).
+           and the eval metrics.
+20. tier (after `zoo_job`, before `cohort_job`)  the elastic embedding
+           tier at the reference bench leg's configuration
+           (bench.py:1371-1387: one table `users`, 262,144 x 32 float32,
+           seed 3; 8 shards; batches of 4096 x 16 ids zipf(1.3) % vocab
+           from RandomState(7); 8 steps after a warm-up). Serving, as
+           bench.py's `_et_serving_loops`: the single-host lane (1 shard,
+           no dedupe, a push per occurrence) in host mode, the sharded
+           deduped lane on 8 device-mode stores on the card over
+           LocalTransport, and the same lane in host mode, each with
+           rows/s and pull and push p50/p99; the device lane's final
+           shards must equal the host lane's bit for bit (deduped pushes
+           send sorted unique ids, one term a row), and K1 must launch 2
+           kernels a shard pushed. K1 on one shard's push of that lane
+           and at the flagship geometry (a tier table of DeepFM's
+           2,605,056 x 17, 8 shards, one deduped batch of 8192 x 26 hashed
+           ids as `kernel` draws them), held as `kernel` holds K1, with
+           ms, device ms, bound, plain ms, `index_add_` on the in-range
+           ids, and the whole push's device work (`rows + scale x delta`)
+           beside its bound. Then `EmbeddingTierSession.step` with a
+           TierEmbedding (sum) logistic loss, 8 steps at lr 0.1: finite
+           losses, the shards within rtol 1e-5 and atol 1e-6 of the
+           largest row of a dense float32 replay on the card, K1 in each
+           step's backward and each push. Last the kill-worker reshard
+           under the port's Master (`--embedding_shards 8`, gRPC) with
+           three device-mode WorkerTierRuntimes, at the bench's reshard
+           table (65,536 x 16, seed 5; 1024 x 8 ids from RandomState(11)):
+           the map commits at version 2 without the victim, every shard
+           bit-exact, a re-sent acknowledged push dedupes, no new
+           CompileCache miss in the recovery; prints its wall. Then the
+           whole script's wall on a line of its own (`wall`).
 Then the `kernels` line (K1's `launches` are the job's, with the
-`grouped`, `cohort_job` and `manual_shards` phases' beside them; the
-Hopper kernels' are `lm_train`'s, with `lm_job`'s beside them), the
-nvidia-smi line, and last the `ok` line.
+`grouped`, `cohort_job`, `manual_shards` and `tier` phases' beside
+them; the Hopper kernels' are `lm_train`'s, with `lm_job`'s beside
+them), the nvidia-smi line, and last the `ok` line.
 
 It exits non-zero without a result where CUDA is unavailable, and where
 the port's package is absent.
@@ -219,6 +249,7 @@ import ctypes
 import gc
 import glob
 import json
+import math
 import os
 import re
 import signal
@@ -1789,6 +1820,407 @@ def phase_manual_shards(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------- tier
+
+
+# the reference bench leg's configuration (bench.py:1371-1387): one table
+# `users` of 262,144 x 32 float32 (seed 3) on 8 shards and 8 owners,
+# batches of 4096 x 16 ids drawn zipf(1.3) % vocab from RandomState(7),
+# TIER_STEPS steps after a warm-up; its reshard scenario's table and ids
+# (bench.py:1812-1843)
+TIER_VOCAB, TIER_DIM, TIER_SHARDS = 262_144, 32, 8
+TIER_BATCH, TIER_LEN, TIER_STEPS, TIER_ZIPF = 4096, 16, 8, 1.3
+TIER_LR = 0.1
+# the session's shards against the dense replay (see phase_tier)
+TIER_RTOL, TIER_ATOL_OF_MAX = 1e-5, 1e-6
+
+
+def tier_view(spec, num_shards, owners):
+    from elasticdl_tpu_torch.embedding import sharding
+
+    return sharding.ShardMapView(
+        version=1, num_shards=num_shards, tables=(spec,),
+        owners=tuple(sharding.assign_round_robin(num_shards, owners)))
+
+
+def tier_lane(spec, num_shards, owners, device, dedupe):
+    """A client over `owners` stores (device mode on `device`, host mode
+    for device=False) of one table, over LocalTransport."""
+    from elasticdl_tpu_torch.embedding import store, tier, transport
+
+    view = tier_view(spec, num_shards, owners)
+    tr = transport.LocalTransport()
+    for o in owners:
+        st = store.EmbeddingShardStore(o, device=device)
+        st.attach(view)
+        tr.register(st)
+    client = tier.EmbeddingTierClient(lambda: view, tr, client_id="smoke",
+                                      dedupe=dedupe)
+    return view, tr, client
+
+
+def tier_table(spec, view, tr):
+    """The dense (vocab, dim) table assembled from its shards (shard s
+    holds ids s, s + S, ...)."""
+    out = np.zeros((spec.vocab, spec.dim), np.float32)
+    for s in range(view.num_shards):
+        rows = tr.store_of(view.owners[s]).extract_shard(spec.name, s)["rows"]
+        out[np.arange(s, spec.vocab, view.num_shards)] = rows
+    return out
+
+
+def quantile_ms(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] * 1e3
+
+
+def tier_serving(spec, ids):
+    """The serving lanes, as bench.py's `_et_serving_loops` runs them: the
+    single-host lane (1 shard, no dedupe, a push per occurrence) in host
+    mode, and the sharded deduped lane in device mode on the card and in
+    host mode. Returns the report, the device lane's final table, K1's
+    launches in its pushes and the shard pushes it made, and shard 0's
+    first push (local ids as sent, rows) for the kernel measurement."""
+    from elasticdl_tpu_torch.embedding import tier as tier_lib
+    from elasticdl_tpu_torch.ops import placement
+
+    report, tables = {}, {}
+    first_push = {}
+    for name, shards, owners, device, dedupe in (
+            ("single_host", 1, [0], False, False),
+            ("sharded_device", TIER_SHARDS, list(range(TIER_SHARDS)),
+             True, True),
+            ("sharded_host", TIER_SHARDS, list(range(TIER_SHARDS)),
+             False, True)):
+        view, tr, client = tier_lane(spec, shards, owners, device, dedupe)
+        pulls, pushes, shard_pushes = [], [], 0
+        launches_before = placement.launches
+        for step in range(TIER_STEPS + 1):      # step 0: the warm-up
+            if step == 1:
+                pulls.clear()
+                pushes.clear()
+            t = time.perf_counter()
+            if dedupe:
+                rows, _, uniq = client.pull_unique("users", ids)
+            else:
+                vec = client.pull("users", ids)
+            pulls.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            if dedupe:
+                g = rows * np.float32(0.1)      # per-unique-row gradients
+                client.push("users", uniq, g, scale=-0.01)
+                real = uniq[uniq >= 0]
+                shard_pushes += len(np.unique(real % shards))
+                if step == 0 and device:
+                    sel = real % shards == 0
+                    local = (real[sel] // shards).astype(np.int32)
+                    n = tier_lib.pad_pow2(local.size)
+                    pid = np.full((n,), -1, np.int32)
+                    pid[: local.size] = local
+                    prow = np.zeros((n, spec.dim), np.float32)
+                    prow[: local.size] = g[uniq >= 0][sel]
+                    first_push["ids"], first_push["rows"] = pid, prow
+            else:
+                g = vec.reshape(-1, spec.dim) * np.float32(0.1)
+                client.push("users", ids, g, scale=-0.01)
+            pushes.append(time.perf_counter() - t)
+        wall = sum(pulls) + sum(pushes)
+        report[name] = {
+            "mode": "device" if device else "host",
+            "rows_per_s": ids.size * TIER_STEPS / wall,
+            "pull_p50_ms": quantile_ms(pulls, 0.5),
+            "pull_p99_ms": quantile_ms(pulls, 0.99),
+            "push_p50_ms": quantile_ms(pushes, 0.5),
+            "push_p99_ms": quantile_ms(pushes, 0.99)}
+        if device:
+            torch.cuda.synchronize()
+            launches = placement.launches - launches_before
+            report[name].update(k1_launches=launches,
+                                shard_pushes=shard_pushes)
+            device_launches, device_pushes = launches, shard_pushes
+        if name != "single_host":
+            tables[name] = tier_table(spec, view, tr)
+        client.close()
+    report["sharded_bit_equal_device_vs_host"] = bool(np.array_equal(
+        tables["sharded_device"], tables["sharded_host"]))
+    return report, device_launches, device_pushes, first_push
+
+
+def k1_on_push(ids_np, rows_np, num_rows, dev):
+    """K1 on one shard's push as the store runs it (`scatter_add_dense`:
+    the pow2 padding's -1 sentinels go out of range, the stream is sorted,
+    K1 places it): held to its plain version as `kernel` holds it, a
+    bit-identical rerun, ms, device ms and bound; `index_add_` on the
+    in-range ids only; and the whole push's device work (`rows + scale *
+    delta`, out of place) with its bound."""
+    from elasticdl_tpu_torch.ops import embedding as emb
+
+    ids = torch.from_numpy(ids_np).to(dev)
+    rows = torch.from_numpy(rows_np).to(dev)
+    in_range = (ids >= 0) & (ids < num_rows)
+    safe = torch.where(in_range, ids, emb.OOB_ID)
+    sid, srows = emb.sorted_stream(safe, torch.where(in_range[:, None],
+                                                     rows, 0))
+    entry = k1_stream(sid, srows, num_rows, dev)
+    n, d = rows.shape
+    kept = int(in_range.sum())
+    ids64 = ids[in_range].to(torch.int64)
+    kept_rows = rows[in_range]
+    entry["in_range_ids"] = kept
+    entry["library_ms"] = time_ms(
+        lambda: torch.zeros((num_rows, d), device=dev).index_add_(
+            0, ids64, kept_rows))
+    tab = torch.rand((num_rows, d), device=dev)
+    scale = torch.tensor(-0.01, device=dev)
+
+    def push():
+        return tab + scale * emb.scatter_add_dense(ids, rows, num_rows)
+
+    entry["push_ms"] = time_ms(push)
+    # the whole push: K1's bytes, then one more read of the shard and of
+    # the delta and one more write (an out-of-place update, fused)
+    entry["push_bound_ms"] = (
+        entry["bound_ms"] + 3 * num_rows * d * 4 / HBM_BYTES_PER_S * 1e3)
+    return entry
+
+
+def flagship_push(dev):
+    """Shard 0's push of one deduped batch of 8192 x 26 hashed DeepFM ids
+    (drawn as the `kernel` phase draws them) into a tier table of DeepFM's
+    geometry (`tier_table_spec`, 2,605,056 x 17) on 8 shards: (local ids
+    padded as the client pads them, rows, shard rows)."""
+    from elasticdl_tpu_torch.api.layers import tier_table_spec
+    from elasticdl_tpu_torch.embedding import sharding
+    from elasticdl_tpu_torch.embedding import tier as tier_lib
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm
+
+    fspec = deepfm.feature_spec(FIELD_VOCAB)
+    spec = tier_table_spec("deepfm", fspec.total_vocab, 17)
+    cat = torch.from_numpy(criteo_batch(7)["features"]["cat"])
+    hashed = fspec.device_transform(
+        {"dense": torch.zeros((BATCH, 13)), "cat": cat})["cat"].numpy()
+    uniq = np.unique(hashed.reshape(-1))
+    local = (uniq[uniq % TIER_SHARDS == 0] // TIER_SHARDS).astype(np.int32)
+    n = tier_lib.pad_pow2(local.size)
+    ids = np.full((n,), -1, np.int32)
+    ids[: local.size] = local
+    rows = np.random.RandomState(1).randn(n, 17).astype(np.float32)
+    return ids, rows, sharding.shard_row_count(spec.vocab, TIER_SHARDS), spec
+
+
+def tier_session(spec, ids, labels, dev):
+    """EmbeddingTierSession.step with a TierEmbedding (sum) logistic loss
+    (the logit is the pooled vector's mean, labels from the batch's seed)
+    over the deduped batch, TIER_STEPS steps at TIER_LR on the 8 device
+    shards, against a dense float32 replay of the same updates on the
+    card. Returns the report and K1's launches a step."""
+    from torch.nn import functional as F
+
+    from elasticdl_tpu_torch.api.layers import TierEmbedding
+    from elasticdl_tpu_torch.embedding import tier as tier_lib
+    from elasticdl_tpu_torch.ops import placement
+
+    view, tr, client = tier_lane(spec, TIER_SHARDS, list(range(TIER_SHARDS)),
+                                 True, True)
+    dense = torch.from_numpy(tier_table(spec, view, tr)).to(dev)
+    session = tier_lib.EmbeddingTierSession(client, {"users": "ids"})
+    layer = TierEmbedding(spec.dim, "sum")
+    batch = {"ids": ids, "y": labels}
+
+    def loss_fn(vectors, inverses, b):
+        pooled = layer(vectors["users"], b["ids"], inverse=inverses["users"])
+        return F.binary_cross_entropy_with_logits(pooled.mean(-1), b["y"])
+
+    real = ids.reshape(-1)
+    shards_pushed = len(np.unique(np.unique(real) % TIER_SHARDS))
+    tid, ty = torch.from_numpy(ids).to(dev), torch.from_numpy(labels).to(dev)
+    losses, dense_losses, per_step, step_ms = [], [], [], []
+    for _ in range(TIER_STEPS):
+        before = placement.launches
+        t = time.perf_counter()
+        loss, _ = session.step(loss_fn, batch, lr=TIER_LR)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        per_step.append(placement.launches - before)
+        losses.append(loss)
+        # the dense replay: the same loss over the whole table's rows
+        table = dense.clone().requires_grad_(True)
+        dl = F.binary_cross_entropy_with_logits(
+            table[tid].sum(1).mean(-1), ty)
+        (g,) = torch.autograd.grad(dl, table)
+        dense_losses.append(float(dl.detach()))
+        with torch.no_grad():
+            dense = dense + torch.tensor(-TIER_LR, device=dev) * g
+    got = tier_table(spec, view, tr)
+    want = dense.cpu().numpy()
+    err = np.abs(got - want)
+    scale = float(np.abs(want).max())
+    ok = bool((err <= TIER_RTOL * np.abs(want)
+               + TIER_ATOL_OF_MAX * scale).all())
+    want_launches = placement.PASSES * (1 + shards_pushed)
+    report = {
+        "losses": losses, "dense_losses": dense_losses,
+        "max_abs_err": float(err.max()),
+        "max_err_over_largest_row": float(err.max()) / scale,
+        "tolerance": {"rtol": TIER_RTOL, "atol_of_max": TIER_ATOL_OF_MAX},
+        "k1_launches_per_step": per_step,
+        "want_k1_launches_per_step": want_launches,
+        "host_ms_per_step": step_ms, "within_tolerance": ok}
+    client.close()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"tier session losses not finite: {losses}")
+    if not ok:
+        raise AssertionError(f"tier session off its dense replay: {report}")
+    if per_step != [want_launches] * TIER_STEPS:
+        raise AssertionError(f"K1 launched {per_step} kernels a session "
+                             f"step, want {want_launches} (backward + "
+                             f"{shards_pushed} shard pushes)")
+    return report, per_step
+
+
+def tier_reshard(spec, ids):
+    """The kill-worker resharding under the port's Master with
+    `--embedding_shards 8` behind gRPC and three WorkerTierRuntimes in
+    device mode on the card: push, drain the victim, deregister it, mark
+    it dead, and run the survivors' `on_world_change`. Returns the
+    report and K1's launches (its pushes)."""
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.common.net import free_port
+    from elasticdl_tpu_torch.embedding import tier as tier_lib
+    from elasticdl_tpu_torch.embedding.transport import LocalTransport
+    from elasticdl_tpu_torch.master.main import Master
+    from elasticdl_tpu_torch.ops import placement
+    from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+    from elasticdl_tpu_torch.proto.service import MasterStub, make_channel
+    from elasticdl_tpu_torch.training import compile_cache as cc
+
+    with tempfile.TemporaryDirectory() as out:
+        cfg = JobConfig.from_argv([
+            "--model_zoo", ZOO, "--model_def", "deepfm.deepfm.custom_model",
+            "--embedding_shards", str(TIER_SHARDS),
+            "--checkpoint_dir", os.path.join(out, "ckpt"),
+            "--master_addr", f"localhost:{free_port()}"])
+        master = Master(cfg)
+        master.embedding.register_table(spec)
+        master.start()
+        channel = make_channel(cfg.master_addr)
+        stub = MasterStub(channel)
+        runtimes = {}
+        launches = placement.launches
+        try:
+            wids = [stub.RegisterWorker(pb.RegisterWorkerRequest(
+                worker_name=f"tier-{i}")).worker_id for i in range(3)]
+            shared = LocalTransport()
+            for w in wids:
+                runtimes[w] = tier_lib.WorkerTierRuntime(
+                    stub, w, checkpoint_dir=cfg.checkpoint_dir,
+                    transport=shared)
+            view = runtimes[wids[0]].client.view
+            client = runtimes[wids[0]].client
+            uniq = np.unique(ids)
+            for i in range(2):               # every shard's programs built
+                client.pull_unique("users", ids)
+                g = np.random.RandomState(100 + i).rand(
+                    len(uniq), spec.dim).astype(np.float32)
+                client.push("users", uniq, g, scale=-0.01)
+            before = tier_table(spec, view, shared)
+            misses = cc.global_cache().stats()["misses"]
+            victim = wids[-1]
+            moved = [s for s, o in enumerate(view.owners) if o == victim]
+            last_seq = shared.store_of(victim).extract_shard(
+                "users", moved[0])["applied"][client.client_id]
+            t0 = time.perf_counter()
+            runtimes[victim].drain()
+            shared.deregister(victim)
+            master.membership.mark_dead(victim, reason="chip_smoke kill")
+            for w in wids[:-1]:
+                runtimes[w].on_world_change()
+            recovery_s = time.perf_counter() - t0
+            final = master.embedding.view()
+            bit_exact = bool(np.array_equal(tier_table(spec, final, shared),
+                                            before))
+            dedupes = shared.push(
+                final.owners[moved[0]], "users", moved[0],
+                np.array([0], np.int32), np.ones((1, spec.dim), np.float32),
+                client_id=client.client_id, seq=last_seq,
+                map_version=final.version) is False
+            client.pull_unique("users", ids)
+            client.push("users", uniq, np.ones((len(uniq), spec.dim),
+                                               np.float32), scale=-0.01)
+            new_misses = cc.global_cache().stats()["misses"] - misses
+            torch.cuda.synchronize()
+            report = {
+                "owners": 3, "shards": TIER_SHARDS, "shards_moved": len(moved),
+                "map_version": final.version,
+                "victim_gone": victim not in set(final.owners),
+                "resharding": final.resharding, "bit_exact": bit_exact,
+                "resent_push_dedupes": dedupes,
+                "new_cache_misses_in_recovery": new_misses,
+                "recovery_s": recovery_s,
+                "stores_on": str(runtimes[wids[0]].store.device)}
+        finally:
+            for rt in runtimes.values():
+                rt.close()
+            channel.close()
+            master.shutdown(grace_s=0.1)
+    if not (report["map_version"] == 2 and report["victim_gone"]
+            and not report["resharding"] and bit_exact and dedupes
+            and new_misses == 0):
+        raise AssertionError(f"tier reshard: {report}")
+    return report, placement.launches - launches
+
+
+def phase_tier(dev, smi):
+    """The embedding tier on the card (see the module docstring, 20).
+    Returns K1's launches on the tier's paths and its entries on the two
+    pushes."""
+    from elasticdl_tpu_torch.embedding import sharding
+    from elasticdl_tpu_torch.ops import placement
+
+    started = time.perf_counter()
+    spec = sharding.TableSpec("users", vocab=TIER_VOCAB, dim=TIER_DIM, seed=3)
+    r = np.random.RandomState(7)
+    ids = (r.zipf(TIER_ZIPF, (TIER_BATCH, TIER_LEN)) % TIER_VOCAB).astype(
+        np.int64)
+    labels = r.randint(0, 2, (TIER_BATCH,)).astype(np.float32)
+
+    placement.launches = 0
+    serving, serve_launches, shard_pushes, first = tier_serving(spec, ids)
+    if not serving["sharded_bit_equal_device_vs_host"]:
+        raise AssertionError("device-mode shards differ from host mode")
+    if serve_launches != placement.PASSES * shard_pushes:
+        raise AssertionError(f"K1 launched {serve_launches} kernels over "
+                             f"{shard_pushes} shard pushes, want "
+                             f"{placement.PASSES} a push")
+    session, session_launches = tier_session(spec, ids, labels, dev)
+    rspec = sharding.TableSpec("users", vocab=65536, dim=16, seed=5)
+    rids = (np.random.RandomState(11).zipf(TIER_ZIPF, (1024, 8))
+            % 65536).astype(np.int64)
+    reshard_report, reshard_launches = tier_reshard(rspec, rids)
+    launches = placement.launches
+
+    # K1 on one shard's push (not counted: launches for the comparison)
+    pushes = {"bench_shard0": k1_on_push(
+        first["ids"], first["rows"],
+        sharding.shard_row_count(TIER_VOCAB, TIER_SHARDS), dev)}
+    fids, frows, frows_n, _ = flagship_push(dev)
+    pushes["deepfm_flagship_shard0"] = k1_on_push(fids, frows, frows_n, dev)
+    for name, e in pushes.items():
+        if not e["ok"]:
+            emit("tier", k1_pushes=pushes)
+            raise AssertionError(f"K1 on the tier push {name} disagrees "
+                                 "with its plain version (or itself)")
+    emit("tier", card=smi, table=[TIER_VOCAB, TIER_DIM],
+         batch=[TIER_BATCH, TIER_LEN], shards=TIER_SHARDS, steps=TIER_STEPS,
+         serving=serving, k1_pushes=pushes, session=session,
+         reshard=reshard_report,
+         k1_launches={"serving": serve_launches,
+                      "session": sum(session_launches),
+                      "reshard": reshard_launches, "total": launches},
+         seconds=time.perf_counter() - started)
+    return launches, pushes
+
+
 # ---------------------------------------------------------------- cohort
 
 
@@ -2403,6 +2835,7 @@ def main():
     lm_job_launches = phase_lm_job(smi)
     phase_job_cli(smi)
     zoo_job_launches = phase_zoo_job(smi)
+    tier_launches, tier_pushes = phase_tier(dev, smi)
     cohort_launches = phase_cohort_job(smi, job)
     emit("wall", seconds=time.perf_counter() - started)
 
@@ -2426,6 +2859,9 @@ def main():
         # Deep, none in the CNNs
         "zoo_train_launches": zoo_train_launches,
         "zoo_job_launches": zoo_job_launches,
+        # the embedding tier: device-mode pushes (2 a shard push), the
+        # session's backward and pushes, the reshard's pushes
+        "tier_launches": tier_launches,
         "max_abs_err": max([k1["max_abs_err"]] + [
             e["max_abs_err"] for e in zoo_streams.values()]),
         "max_rel_err": max([k1["max_rel_err"]] + [
@@ -2441,6 +2877,11 @@ def main():
             "n", "d", "num_rows", "distinct_ids", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "library_ms")}
             for name, e in zoo_streams.items()},
+        "tier_pushes": {name: {k: e[k] for k in (
+            "n", "d", "num_rows", "in_range_ids", "max_abs_err", "ms",
+            "device_ms", "plain_ms", "bound_ms", "library_ms", "push_ms",
+            "push_bound_ms")}
+            for name, e in tier_pushes.items()},
     }] + [{
         "name": name,
         "route": "cuda",

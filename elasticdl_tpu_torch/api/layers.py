@@ -1,6 +1,7 @@
-"""User-facing layers: `Embedding`, and the `Dense`, `LayerNorm`, `Embed`,
-`Conv` and `BatchNorm` layers (and `max_pool`) the zoo models use in place
-of flax's.
+"""User-facing layers: `Embedding`, `TierEmbedding` (with `tier_table_spec`)
+for tables served from the embedding tier, and the `Dense`, `LayerNorm`,
+`Embed`, `Conv` and `BatchNorm` layers (and `max_pool`) the zoo models use
+in place of flax's.
 
 Counterpart of `elasticdl_tpu/api/layers.py`. Parameters are float32, created
 empty; `reset_parameters(generator)` draws them from the same
@@ -93,6 +94,53 @@ class Embedding(nn.Module):
             self.table, ids, mode=self.mode, mesh=self.mesh,
             rows=self.row_shard)
         return emb_ops.combine(vectors, self.combiner, ids, weights)
+
+
+class TierEmbedding(nn.Module):
+    """Embedding served from the elastic sharded tier
+    (`elasticdl_tpu_torch/embedding/`) instead of a table parameter.
+
+    The tier's pull happens outside the step: the worker's
+    `EmbeddingTierSession` dedupes the batch's ids, pulls one batched call
+    per owning shard, and hands the rows in as leaf tensors. This layer
+    applies the same combiner and padding semantics as `Embedding`. With
+    `inverse` (the deduped shape of `EmbeddingTierClient.pull_unique`),
+    `vectors` holds one row per unique id and `inverse` maps batch slots
+    onto them: the expansion gather runs through `ops.embedding.
+    gather_rows`, so its backward is K1, a fixed-order sum of each unique
+    row's duplicate slots with no atomics, and reruns give the same bits.
+    The gradient w.r.t. `vectors` is the per-row gradient the session
+    pushes back.
+    """
+
+    def __init__(self, output_dim: int, combiner: Optional[str] = None):
+        super().__init__()
+        self.output_dim = int(output_dim)
+        self.combiner = combiner
+
+    def forward(self, vectors: torch.Tensor, ids: torch.Tensor,
+                weights: Optional[torch.Tensor] = None,
+                inverse: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ids = ids.to(torch.int32)
+        if inverse is not None:
+            vectors = emb_ops.gather_rows(vectors, inverse.to(torch.int32))
+        return emb_ops.combine(vectors, self.combiner, ids, weights)
+
+
+def tier_table_spec(name: str, input_dim: int, output_dim: int,
+                    seed: int = 0, init_scale: float = 0.05):
+    """The tier TableSpec matching an `Embedding(input_dim, output_dim)`
+    layer's geometry: rows padded by the same rule as the table parameter
+    (`ops.embedding.padded_vocab`)."""
+    from elasticdl_tpu_torch.embedding.sharding import TableSpec
+
+    return TableSpec(
+        name=name,
+        vocab=emb_ops.padded_vocab(input_dim),
+        dim=output_dim,
+        seed=seed,
+        init_scale=init_scale,
+    )
 
 
 def dropout(x: torch.Tensor, rate: float,

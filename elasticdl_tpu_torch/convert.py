@@ -42,6 +42,12 @@ that numpy can read (flax's jax arrays included) is accepted; the caller
 hands the trees over as numpy. Given the `row_shards` of a TrainState
 under a mesh, each sharded table and its moments are cut to this rank's
 row range, as that state holds them.
+
+The embedding tier's tables need no conversion: a tier shard's weights
+are its seed-made numpy rows (`embedding/store._init_shard_rows`), which
+both packages build bit for bit, and the shard files
+(`<checkpoint_dir>/emb/`) that carry anything pushed since have one
+format that either package reads.
 """
 
 from __future__ import annotations

@@ -5,13 +5,14 @@ args, create data shards and the task dispatcher, start the gRPC servicer
 and services, run to job end. The services it wires (dispatcher, journal,
 membership, evaluation, health, time series, alerts, goodput) are the
 port's copies of the reference's, and the model module it loads for
-metric finalization is the port's zoo. The branches a local DeepFM job
-does not take, and whose modules the port has not taken over, raise
+metric finalization is the port's zoo. With `--embedding_shards N` it
+owns the embedding tier's shard map (`embedding/sharding.ShardMapOwner`,
+journal-durable, with its death-driven resharding) and, with
+`--layout_autoscale`, the layout controller (the port's copies). The
+branches whose modules the port has not taken over raise
 `NotImplementedError` naming their ROADMAP item: the closed-loop
-autoscaler (`--autoscale`, item 31), the embedding tier's shard map and
-layout controller (`--embedding_shards`, item 20), zoo `callbacks()`
-(item 28) and the Kubernetes instance manager (`--instance_manager k8s`,
-item 25).
+autoscaler (`--autoscale`, item 31), zoo `callbacks()` (item 28) and the
+Kubernetes instance manager (`--instance_manager k8s`, item 25).
 """
 
 from __future__ import annotations
@@ -44,10 +45,6 @@ def check_supported(cfg: JobConfig) -> None:
         raise NotImplementedError(
             "--autoscale (the closed-loop autoscaler, deliberate "
             "resizing) is ROADMAP item 31")
-    if cfg.embedding_shards > 0:
-        raise NotImplementedError(
-            "--embedding_shards (the embedding tier's shard map and layout "
-            "controller) is ROADMAP item 20 (slice 5)")
     if cfg.instance_manager == "k8s":
         raise NotImplementedError(
             "--instance_manager k8s (master-owned worker pods) is ROADMAP "
@@ -220,6 +217,44 @@ class Master:
 
         self.attribution = FleetAttribution()
 
+        # Elastic sharded embedding tier: the master owns the id-sharded
+        # table map, durable through the same journal as task accounting
+        # — a master crash mid-resharding replays to the last COMMITTED
+        # map. Worker death triggers a minimal-movement re-plan; workers
+        # execute the moves and confirm via ReportEmbeddingReshard
+        # (servicer), which commits the plan.
+        self.embedding = None
+        if cfg.embedding_shards > 0:
+            from elasticdl_tpu_torch.embedding.sharding import ShardMapOwner
+
+            self.embedding = ShardMapOwner(
+                cfg.embedding_shards, journal=self.journal,
+                replica_count=cfg.embedding_read_replicas,
+            )
+            if (
+                self.journal is not None
+                and self.journal.embedding_snapshot() is not None
+            ):
+                self.embedding.restore_from_replay(
+                    self.journal.embedding_snapshot()
+                )
+            self.membership.add_death_callback(self._embedding_on_death)
+
+        # Closed-loop layout controller (master/layout_controller.py):
+        # skew signals become journaled, cost-gated layout actions,
+        # evaluated on the wait poll. None when --layout_autoscale is off
+        # (the default). On the distributed path the target is the owner
+        # map only, so split/merge suppress as `unsupported`.
+        self.layout = None
+        if self.embedding is not None:
+            from elasticdl_tpu_torch.master import layout_controller as layout_lib
+
+            self.layout = layout_lib.from_config(cfg, journal=self.journal)
+            if self.layout is not None:
+                self.layout.subscribe(alerts=self.alerts)
+                self.layout.bind_target(layout_lib.OwnerLayoutTarget(
+                    self.embedding, membership=self.membership))
+
         metrics = None
         callbacks = []
         if eval_shards or cfg.model_def:
@@ -257,6 +292,7 @@ class Master:
             # journaled masters fence RPCs from before their last restart
             # (0 = fencing off for volatile masters; proto/service.py)
             generation=self.journal.generation if self.journal else 0,
+            embedding=self.embedding,
         )
         self.callbacks = callbacks
         if callbacks:
@@ -317,6 +353,35 @@ class Master:
             f"straggler:worker-{info.get('worker_id')}"
         )
 
+    def _embedding_on_death(self, worker_id: int) -> None:
+        """Membership death -> minimal-movement shard re-plan. Best
+        effort: with a resharding already in flight the dead owner's
+        shards ride the NEXT plan (the interrupted one must commit or
+        roll back first — overlapping plans would break the exactly-once
+        confirm accounting)."""
+        if self.embedding is None:
+            return
+        view = self.embedding.view()
+        if not view.owners:
+            return   # tier never bootstrapped; nothing to move
+        alive = [
+            w.worker_id for w in self.membership.alive_workers()
+            if w.led_by is None
+        ]
+        if not alive:
+            logger.warning(
+                "embedding tier: last owner died; shards recover from "
+                "checkpoint when workers return"
+            )
+            return
+        try:
+            self.embedding.begin_resharding(alive, dead=[worker_id])
+        except RuntimeError as e:
+            logger.warning(
+                "embedding resharding deferred (worker %d death): %s",
+                worker_id, e,
+            )
+
     def _healthz_extra(self) -> dict:
         """What the master's /healthz adds over the per-process base:
         which master (generation), which worker set (membership version +
@@ -335,6 +400,12 @@ class Master:
             # snapshots too, so chaos artifacts (and the incident CLI
             # reading them) carry the incident's bill
             "goodput": self.goodput.snapshot(),
+            # the closed-loop layout policy's state (budget, per-kind
+            # cooldowns, last decision); absent key = controller off
+            **(
+                {"layout": self.layout.snapshot()}
+                if self.layout is not None else {}
+            ),
         }
 
     def _fleet_series(self) -> dict:
@@ -402,6 +473,14 @@ class Master:
                 self.timeseries.maybe_sample(extra_fn=self._fleet_series)
             with poll_phase("alerts"):
                 self.alerts.evaluate()
+            if self.layout is not None:
+                # the layout decision pass: skew signals + the fleet's
+                # per-shard load / hot-id telemetry (riding the heartbeat
+                # stats records) -> at most one journaled, cost-gated
+                # layout action. Never raises.
+                with poll_phase("layout"):
+                    self.layout.evaluate(
+                        workers=self.membership.health_snapshot())
             if self.summary is not None:
                 # control-plane metrics ride the summary stream (rate-
                 # limited inside; never raises)

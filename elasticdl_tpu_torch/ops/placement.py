@@ -19,11 +19,14 @@ fallback. On a CPU tensor it runs `place_sorted_grads_plain`.
 
 `launches` counts kernel launches (PASSES a call; not plain-version
 calls), so a run can show that its main path went through the kernels.
+The count is taken under a lock: the embedding tier's client pushes to
+its shards from a thread pool.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -36,6 +39,7 @@ PASSES = 2             # kernels a call launches: zero pass, placement
 # CHUNK_ROWS-aligned chunks by the zero pass
 SPLIT_ROWS, CHUNK_ROWS = 32, 256
 launches = 0
+_launches_lock = threading.Lock()
 
 _INT_MAX = 2**31 - 1
 
@@ -98,7 +102,8 @@ def place_sorted_grads(sorted_ids: torch.Tensor, rows: torch.Tensor,
             sorted_ids.data_ptr(), rows.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), n, num_rows, d, stream)
     native.check(lib, code, KERNEL)
-    launches += PASSES
+    with _launches_lock:
+        launches += PASSES
     return out
 
 

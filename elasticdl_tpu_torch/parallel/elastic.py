@@ -20,15 +20,21 @@ deterministic), and the trainer takes the rank's block of it
 `make_global_batch_stack`, which assemble a global array from the same
 slices, have no counterpart.
 
-Not ported yet: `neighbor_world_sizes`, `stage_leaf`, `reshard_state` and
-`LiveStateHandoff`, the in-place rescale's handoff (ROADMAP item 32).
+`stage_leaf` and `reshard_state` are the staged lane of a handoff, which
+the embedding tier's shard migrations ride (`embedding/reshard.py`): a
+leaf is pulled to host numpy, then laid onto the new mesh's device. The
+port's mesh has no sharded layout for such a leaf, so it is replicated on
+the rank's device.
+
+Not ported yet: `neighbor_world_sizes` and `LiveStateHandoff`, the
+in-place rescale's handoff (ROADMAP item 32).
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -166,3 +172,58 @@ def context_from_env(cfg) -> Optional[CohortContext]:
     )
     version = int(os.environ.get("EDL_WORLD_VERSION", "0") or 0)
     return CohortContext(addr, n, pid, world_version=version)
+
+
+# ---------------------------------------------------------------------- #
+# the staged lane of a state handoff
+
+
+class _HostStaged:
+    """A leaf pulled to host numpy, with the layout it had (`spec`; the
+    port lays every staged leaf out replicated)."""
+
+    __slots__ = ("array", "spec")
+
+    def __init__(self, array, spec):
+        self.array = array
+        self.spec = spec
+
+
+def stage_leaf(x, spec=None) -> _HostStaged:
+    """Pull one tensor or ndarray to host numpy for the staged half of a
+    handoff. `spec` defaults to replicated, `()`."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return _HostStaged(np.asarray(x), spec if spec is not None else ())
+
+
+def _mesh_device(mesh) -> torch.device:
+    """The device a leaf lands on under `mesh`: a device or device name
+    as given; for a `parallel.mesh.Mesh`, this rank's card where the
+    world runs NCCL, else the CPU."""
+    if isinstance(mesh, (str, torch.device)):
+        return torch.device(mesh)
+    if (dist.is_available() and dist.is_initialized()
+            and dist.get_backend() == "nccl"):
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def reshard_state(state: Any, new_mesh) -> Any:
+    """Lay a staged leaf, or a tree (dicts, lists, tuples) of tensors and
+    staged leaves, onto `new_mesh`'s device (`_mesh_device`), replicated.
+    A tensor already there passes through; other leaves are untouched."""
+    device = _mesh_device(new_mesh)
+
+    def move(x):
+        if isinstance(x, _HostStaged):
+            return torch.from_numpy(np.array(x.array, copy=True)).to(device)
+        if isinstance(x, torch.Tensor):
+            return x if x.device == device else x.to(device)
+        if isinstance(x, dict):
+            return {k: move(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(move(v) for v in x)
+        return x
+
+    return move(state)

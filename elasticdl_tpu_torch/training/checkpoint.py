@@ -42,9 +42,13 @@ worker, and the other way round. `save_overlapped` is the cohort's
 preemption drain: the gather, the write handed to the background writer,
 `overlap_fn` run meanwhile, then a wait for durability.
 
+The embedding tier's shards are not state leaves: they live in their
+owners' stores (`embedding/store.py`) and ride the same directory as
+per-shard files, `<dir>/emb/<table>-shard<id>.npz`, in the reference's
+format (`save_embedding_tier`, `restore_embedding_tier`).
+
 The live handoff of the in-place rescale (`restore_or_handoff`) waits
-for ROADMAP item 32, and the embedding tier's shard files for item 20
-(slice 5); they raise.
+for ROADMAP item 32; it raises.
 """
 
 from __future__ import annotations
@@ -438,17 +442,24 @@ class CheckpointManager:
         state.step = int(payload["step"])
 
     # ------------------------------------------------------------------ #
-    # embedding tier shards (slice 5)
+    # embedding tier shards (embedding/store.py): one atomic file a shard,
+    # rows and exactly-once watermarks, beside the steps
 
     def save_embedding_tier(self, store, tables=None) -> int:
-        raise NotImplementedError(
-            "embedding-tier shard checkpoints come with the tier's device "
-            "mode, ROADMAP item 20 (slice 5)")
+        """Persist every tier shard resident in `store` into
+        `<dir>/emb/`; returns shards written."""
+        with tracing.span("ckpt.embedding_tier_save") as sp:
+            n = store.save(self._dir, tables)
+            sp.set(shards=n)
+        return n
 
     def restore_embedding_tier(self, store) -> int:
-        raise NotImplementedError(
-            "embedding-tier shard checkpoints come with the tier's device "
-            "mode, ROADMAP item 20 (slice 5)")
+        """Install any checkpointed shard the store's current map assigns
+        here but that is not yet resident; returns shards restored."""
+        with tracing.span("ckpt.embedding_tier_restore") as sp:
+            n = store.restore_missing(self._dir)
+            sp.set(shards=n)
+        return n
 
     @property
     def directory(self) -> str:

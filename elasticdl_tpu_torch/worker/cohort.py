@@ -31,9 +31,13 @@ relaunched cohort resumes at the pre-kill step.
 
 The worker pieces are the plain worker's (`worker/worker.py`, which this
 class extends): the pinned prefetcher, the grouped task loops and the
-profiler window. Not ported yet, and raising for their options: the
-speculative compiler of the in-place rescale (`--speculative_compile`,
-ROADMAP item 19) and the embedding tier (`--embedding_shards`, item 20).
+profiler window. With `--embedding_shards N` the cohort is one logical
+worker of the embedding tier: the leader alone joins it, its store on
+the leader's device, syncs replicas at the collective poll boundary and
+drains its shards into the checkpoint directory on every teardown; the
+next generation's leader restores them. Not ported yet, and raising for
+its option: the speculative compiler of the in-place rescale
+(`--speculative_compile`, ROADMAP item 19).
 """
 
 from __future__ import annotations
@@ -249,6 +253,7 @@ class CohortWorker(Worker):
         stats.update(profile_lib.get_profiler().snapshot())
         stats.update(goodput_lib.get_ledger().payload())
         stats.update(reqtrace_lib.get_recorder().payload())
+        self._tier_stats(stats)
         return stats
 
     def _member_beats(self) -> List[pb.MemberBeat]:
@@ -627,6 +632,9 @@ class CohortWorker(Worker):
                 self._build_trainer()
             if self.ctx.is_leader:
                 self._connect()
+                # leader-only tier membership: the cohort is ONE logical
+                # worker, so the leader owns its shard set
+                self._init_embedding_tier()
                 heartbeat = threading.Thread(
                     target=self._heartbeat_loop, daemon=True)
                 heartbeat.start()
@@ -636,6 +644,13 @@ class CohortWorker(Worker):
                                else [0] * CTRL_LEN)
                 ctrl = [int(x) for x in self.ctx.broadcast_ints(leader_ctrl)]
                 op = ctrl[0]
+                if self._tier is not None:
+                    # replica delta sync at the collective poll boundary
+                    # (leader-only: the tier is the leader's)
+                    try:
+                        self._tier.sync_replicas()
+                    except Exception:
+                        logger.exception("embedding replica sync failed")
                 if op == OP_NOOP:
                     with goodput_lib.get_ledger().phase("lease_wait"):
                         time.sleep(jittered(backoff) if self.ctx.is_leader
@@ -647,6 +662,14 @@ class CohortWorker(Worker):
                 if op == OP_DONE:
                     self._export_final_model()
                 break
+            if self._tier is not None:
+                # the tier's shards drain on every teardown path (the next
+                # generation's leader restores them bit-exactly,
+                # watermarks included)
+                try:
+                    self._tier.drain()
+                except Exception:
+                    logger.exception("embedding tier drain failed")
             mngr = self._checkpoint_manager()
             if (op == OP_ABORT and ctrl[6] & FLAG_CHECKPOINT
                     and mngr is not None and self._state is not None):
@@ -666,6 +689,7 @@ class CohortWorker(Worker):
             return 0 if op == OP_DONE else ExitCode.COHORT_EVICTED
         finally:
             self._shutdown.set()
+            self._close_embedding_tier()
             if heartbeat is not None:
                 heartbeat.join(timeout=2 * self.cfg.worker_heartbeat_s)
             if metrics_server is not None:

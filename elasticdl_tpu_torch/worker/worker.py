@@ -21,10 +21,16 @@ predict_many), with one loss readback a group. Gradient accumulation and
 remat are the Trainer's knobs. `--profile_dir` records a window of worker
 0's steps with `torch.profiler` as a Chrome trace.
 
+With `--embedding_shards N` the worker joins the elastic embedding tier
+(`embedding/tier.WorkerTierRuntime`, its store on the worker's device):
+it owns the shards the master's map assigns it, serves them over the
+gRPC data plane with `--embedding_transport grpc`, reports the tier's
+stats on its heartbeat, drains its shards into the checkpoint directory
+on a forced save, and re-fetches the map and installs moved shards at a
+task boundary after a membership change.
+
 What the port does not have yet raises `NotImplementedError` naming its
-ROADMAP item: the in-place rescale (`request_rescale`, items 32 and 19)
-and, at construction, the embedding tier and its data plane
-(`embedding_shards > 0`, item 20).
+ROADMAP item: the in-place rescale (`request_rescale`, items 32 and 19).
 """
 
 from __future__ import annotations
@@ -85,22 +91,12 @@ _RECONNECTS = _reg.counter(
     "reconnect handshakes after a master restart (re-register + re-lease)")
 
 
-def check_supported(cfg: JobConfig) -> None:
-    """Raise for the options whose code paths the port has not taken over
-    yet, before the worker registers with the master."""
-    if cfg.embedding_shards > 0:
-        raise NotImplementedError(
-            "embedding_shards > 0 (the embedding tier and its data plane) "
-            "is ROADMAP item 20 (slice 5)")
-
-
 class Worker:
     # a shutdown or preemption ends a training task at a group boundary
     # (a cohort member must not: its peers run the task on)
     _drains_mid_task = True
 
     def __init__(self, cfg: JobConfig, device: runtime.DeviceLike = None):
-        check_supported(cfg)
         self.cfg = cfg
         # resolved before anything connects: a worker with no card (and
         # no explicit request for another device) fails here, before it
@@ -142,6 +138,13 @@ class Worker:
         self._profile_state = "idle"  # idle -> active -> done (torch.profiler)
         self._profiler = None
         self._profile_first_step = 0
+        # Elastic sharded embedding tier (cfg.embedding_shards > 0): this
+        # worker's owning store + pull/push client. Membership bumps set
+        # the refresh flag (heartbeat thread); the run loop reacts at the
+        # next task boundary — shard installs must not stall heartbeats.
+        self._tier = None
+        self._tier_refresh_pending = False
+        self._data_server = None
 
     # ------------------------------------------------------------------ #
     # setup
@@ -158,6 +161,11 @@ class Worker:
         )
         # registered once, reused by every reconnect handshake
         self._name = f"{socket.gethostname()}:{os.getpid()}"
+        # gRPC embedding data plane: the endpoint comes up BEFORE
+        # registration so its address can ride the RegisterWorker request
+        # into the owner address book; the store binds later, when the
+        # tier runtime builds it (_init_embedding_tier)
+        self._start_data_plane()
         preferred = int(os.environ.get(WorkerEnv.WORKER_ID, -1))
         resp = self._boot_register(self._name, preferred)
         self.worker_id = resp.worker_id
@@ -188,8 +196,39 @@ class Worker:
             preferred_id=preferred,
             window_s=self.cfg.master_unreachable_timeout_s,
             shutdown=self._shutdown,
-            data_addr="",
+            data_addr=self._data_addr,
         )
+
+    def _start_data_plane(self) -> None:
+        """Bind the per-worker EmbeddingData endpoint. A bind failure is
+        fatal: `--embedding_transport grpc` means peers' shards live in
+        other processes, so silently falling back to LocalTransport would
+        leave every peer-owned pull/push raising OwnerUnavailableError
+        forever — fail at boot, loudly, instead."""
+        self._data_server = None
+        if (self.cfg.embedding_shards <= 0
+                or self.cfg.embedding_transport != "grpc"):
+            return
+        try:
+            from elasticdl_tpu_torch.embedding.data_plane import (
+                EmbeddingDataServer,
+            )
+
+            self._data_server = EmbeddingDataServer(
+                shm=self.cfg.embedding_shm)
+            self._data_server.start()
+        except Exception as e:
+            self._data_server = None
+            raise RuntimeError(
+                "embedding data-plane endpoint failed to start but "
+                "--embedding_transport grpc requires it (peer-owned "
+                f"shards are unreachable over LocalTransport): {e}"
+            ) from e
+
+    @property
+    def _data_addr(self) -> str:
+        srv = self._data_server
+        return srv.address or "" if srv is not None else ""
 
     def _note_master_ok(self) -> None:
         self._last_master_ok = time.monotonic()
@@ -217,7 +256,7 @@ class Worker:
         re-register under our EXISTING worker id, then apply the response."""
         resp = reregister(
             self._stub, name=self._name, worker_id=self.worker_id,
-            data_addr="",
+            data_addr=self._data_addr,
         )
         # the restarted master requeued every lease of the dead generation
         self._lease_queue.clear()
@@ -361,7 +400,17 @@ class Worker:
         """Step-interval checkpointing (--checkpoint_steps), plus forced
         saves on preemption — both taken only at task boundaries, and only
         by worker 0 (one writer per directory). force=True also drains an
-        in-flight save, so a preemption exit never abandons one."""
+        in-flight save, so a preemption exit never abandons one, and
+        persists this worker's tier shards."""
+        if force and self._tier is not None:
+            # the tier half of a forced save: every worker persists ITS
+            # resident shards (one owner per shard — no write races),
+            # seq watermarks included, so a planned kill loses no acked
+            # push
+            try:
+                self._tier.drain()
+            except Exception:
+                logger.exception("embedding tier drain failed")
         mngr = self._checkpoint_manager()
         if mngr is None or self._state is None or self.worker_id != 0:
             return
@@ -408,7 +457,18 @@ class Worker:
         stats.update(profile_lib.get_profiler().snapshot())
         stats.update(goodput_lib.get_ledger().payload())
         stats.update(reqtrace_lib.get_recorder().payload())
+        self._tier_stats(stats)
         return stats
+
+    def _tier_stats(self, stats: Dict[str, Any]) -> None:
+        """The embedding tier's ride-along (hot-id share, shard imbalance,
+        recent pull/push p99): best-effort, a tier hiccup must never cost
+        the heartbeat."""
+        if self._tier is not None:
+            try:
+                stats.update(self._tier.client.tier_stats())
+            except Exception:
+                logger.debug("tier stats skipped", exc_info=True)
 
     def _heartbeat_loop(self) -> None:
         while not self._shutdown.is_set():
@@ -480,6 +540,10 @@ class Worker:
             "membership v%d -> v%d", self._membership_version, new_version
         )
         self._membership_version = new_version
+        if self._tier is not None:
+            # shards may have been re-planned onto (or off) this worker;
+            # the run loop executes the refresh at a task boundary
+            self._tier_refresh_pending = True
         if (
             self.cfg.scale_lr_with_workers and self._base_lr and num_workers
             and not self._pushed_lr
@@ -777,8 +841,106 @@ class Worker:
 
     # ------------------------------------------------------------------ #
 
+    def _init_embedding_tier(self) -> None:
+        """Join the elastic embedding tier (cfg.embedding_shards > 0):
+        register this worker's owning store (on the worker's device),
+        build the pull/push client off the master's shard map, install
+        any shards the map (or a checkpoint) assigns here. Best-effort at
+        boot, as in the reference: a worker that cannot join the tier
+        still trains dense models."""
+        if self.cfg.embedding_shards <= 0 or self._tier is not None:
+            return
+        try:
+            from elasticdl_tpu_torch.embedding.tier import WorkerTierRuntime
+
+            transport = bind_servicer = None
+            if (self.cfg.embedding_transport == "grpc"
+                    and self._data_server is not None):
+                # the partition-tolerant data plane: peers' shards over
+                # gRPC through the robustness layer; our own store
+                # short-circuits in-process
+                from elasticdl_tpu_torch.embedding.data_plane import (
+                    GrpcTransport,
+                    ResilientTransport,
+                    default_policies,
+                )
+
+                budget_s = self.cfg.embedding_rpc_deadline_ms / 1e3
+                queue_journal = ""
+                if (self.cfg.embedding_push_queue > 0
+                        and self.cfg.checkpoint_dir):
+                    queue_journal = os.path.join(
+                        self.cfg.checkpoint_dir,
+                        f"emb-push-queue-{self.worker_id}.jsonl")
+                transport = ResilientTransport(
+                    GrpcTransport(default_timeout_s=budget_s,
+                                  shm=self.cfg.embedding_shm),
+                    policies=default_policies(budget_s),
+                    staleness_bound=self.cfg.embedding_cache_staleness,
+                    hedge=self.cfg.embedding_hedge_ms >= 0,
+                    hedge_delay_ms=max(0, self.cfg.embedding_hedge_ms),
+                    queue_journal=queue_journal,
+                    queue_max=self.cfg.embedding_push_queue,
+                )
+                bind_servicer = self._data_server.servicer
+            self._tier = WorkerTierRuntime(
+                self._stub, self.worker_id,
+                checkpoint_dir=self.cfg.checkpoint_dir,
+                transport=transport,
+                bind_servicer=bind_servicer,
+                cache_rows=self.cfg.embedding_cache_rows,
+                cache_staleness=self.cfg.embedding_cache_staleness,
+                read_replicas=self.cfg.embedding_read_replicas > 0,
+                pipeline_depth=self.cfg.embedding_pull_pipeline,
+                device=self.device,
+            )
+            logger.info(
+                "joined embedding tier: map v%d, %d shard(s) resident on %s",
+                self._tier.client.view.version,
+                len(self._tier.store.resident_shards()), self.device,
+            )
+        except Exception:
+            logger.exception(
+                "embedding tier init failed; tier disabled for this worker"
+            )
+
+    def _close_embedding_tier(self) -> None:
+        """Teardown: take this worker's store out of its transport (the
+        process-local one outlives an in-process worker) and stop the
+        data-plane endpoint."""
+        if self._tier is not None:
+            try:
+                self._tier.close()
+            except Exception:
+                logger.debug("embedding tier close failed", exc_info=True)
+        if self._data_server is not None:
+            try:
+                self._data_server.stop()
+            except Exception:
+                logger.debug("data-plane endpoint stop failed",
+                             exc_info=True)
+
+    def _tier_task_boundary(self) -> None:
+        """The tier's task-boundary work: after a membership change,
+        refetch the map and install/confirm newly-owned shards; otherwise
+        one replica delta-sync round (a no-op without replicas)."""
+        if self._tier is None:
+            return
+        if self._tier_refresh_pending:
+            self._tier_refresh_pending = False
+            try:
+                self._tier.on_world_change()
+            except Exception:
+                logger.exception("embedding tier refresh failed")
+            return
+        try:
+            self._tier.sync_replicas()
+        except Exception:
+            logger.exception("embedding replica sync failed")
+
     def run(self) -> int:
         self._connect()
+        self._init_embedding_tier()
         # /metrics + /healthz for this worker (best-effort, off the hot
         # path; a set EDL_METRICS_PORT overrides cfg.metrics_port)
         from elasticdl_tpu_torch.observability.http import start_server
@@ -842,6 +1004,7 @@ class Worker:
                     self._maybe_checkpoint(force=True)
                 except Exception:
                     logger.exception("master-requested checkpoint failed")
+            self._tier_task_boundary()
             if task.type == pb.WAIT:
                 with goodput_lib.get_ledger().phase("lease_wait"):
                     time.sleep(jittered(wait_backoff))
@@ -936,6 +1099,7 @@ class Worker:
                 self._metrics_server.stop()
             except Exception:
                 logger.debug("metrics endpoint stop failed", exc_info=True)
+        self._close_embedding_tier()
         tracing.get_tracer().close()
         if self._heartbeat_thread is not None:
             self._heartbeat_thread.join(timeout=2 * self.cfg.worker_heartbeat_s)

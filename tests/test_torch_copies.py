@@ -15,7 +15,10 @@ Non-Python files (the proto, the C++ parser sources) are byte copies.
 `master/process_manager.py` is ported by one more substitution, its spawn
 target (`elasticdl_tpu.worker.main` becomes `elasticdl_tpu_torch.worker.
 main`); its resize probe's import of the checkpoint manager is an import
-line. Every file is compared exactly after the substitutions.
+line. `embedding/tier.py` is ported by the named substitutions of
+`TIER_SUBSTITUTIONS`: the runtime's and the session's `device=`, and the
+session's `_grad_fn`, a cached callable over torch autograd. Every file
+is compared exactly after the substitutions.
 """
 
 import re
@@ -45,6 +48,99 @@ COPIED = (
     "master/journal.py", "master/membership.py", "master/poll_phases.py",
     "master/servicer.py", "master/summary_service.py",
     "master/task_dispatcher.py",
+    "master/layout_controller.py",
+    "embedding/__init__.py", "embedding/cache.py",
+    "embedding/data_plane.py", "embedding/reshard.py",
+    "embedding/sharding.py", "embedding/shm.py", "embedding/sketch.py",
+    "embedding/transport.py",
+)
+# embedding/tier.py: the reference's text but for the device the runtime
+# builds its store on, the session's device, and `_grad_fn`
+TIER_SUBSTITUTIONS = (
+    # the runtime's store is built on the worker's device
+    ("""                 pipeline_depth: int = 0, bind_servicer=None):
+        from elasticdl_tpu_torch.embedding.store import EmbeddingShardStore
+""", """                 pipeline_depth: int = 0, bind_servicer=None,
+                 device=None):
+        from elasticdl_tpu_torch.embedding.store import EmbeddingShardStore
+"""),
+    ("""        self.store = EmbeddingShardStore(worker_id)
+""", """        self.store = EmbeddingShardStore(worker_id, device=device)
+"""),
+    # the session's gradient function runs on its device (the card
+    # unless named)
+    ("""                 tables: Dict[str, str], compile_cache=None,
+                 pipeline_depth: int = 0):
+        self.client = client
+        self.tables = dict(tables)
+""", """                 tables: Dict[str, str], compile_cache=None,
+                 pipeline_depth: int = 0, device=None):
+        from elasticdl_tpu_torch.common import runtime
+
+        self.client = client
+        self.tables = dict(tables)
+        self.device = runtime.resolve_device(device)
+"""),
+    # _grad_fn: a cached callable over torch autograd in place of
+    # jax.jit(jax.value_and_grad(loss_fn))
+    ("""    def _grad_fn(self, loss_fn, vectors, batch):
+        import jax
+
+        key = (
+            "emb_tier_step", id(loss_fn),
+            tuple(sorted(
+                (k, np.asarray(v).shape) for k, v in vectors.items())),
+            tuple(sorted(
+                (k, np.asarray(v).shape) for k, v in batch.items()
+                if hasattr(v, "shape") or isinstance(v, np.ndarray))),
+        )
+
+        def build():
+            return jax.jit(jax.value_and_grad(loss_fn, argnums=0))
+
+        return self._cache.get_or_build(key, build)""",
+     """    def _grad_fn(self, loss_fn, vectors, batch):
+        import torch
+
+        key = (
+            "emb_tier_step", id(loss_fn), str(self.device),
+            tuple(sorted(
+                (k, np.asarray(v).shape) for k, v in vectors.items())),
+            tuple(sorted(
+                (k, np.asarray(v).shape) for k, v in batch.items()
+                if hasattr(v, "shape") or isinstance(v, np.ndarray))),
+        )
+
+        def build():
+            device = self.device
+
+            def put(v):
+                if isinstance(v, dict):
+                    return {k: put(x) for k, x in v.items()}
+                if isinstance(v, np.ndarray) or hasattr(v, "shape"):
+                    return torch.as_tensor(np.asarray(v)).to(device)
+                return v
+
+            def value_and_grad(vectors, inverses, batch):
+                # the pulled rows become leaf tensors on the device; the
+                # loss's backward hands back their (duplicate-summed)
+                # gradients, which go back to host numpy for the push
+                leaves = {
+                    k: torch.as_tensor(np.asarray(v, np.float32)).to(
+                        device).requires_grad_(True)
+                    for k, v in vectors.items()
+                }
+                loss = loss_fn(leaves, put(inverses), put(batch))
+                loss.backward()
+                return loss.detach(), {
+                    k: (v.grad.cpu().numpy() if v.grad is not None
+                        else np.zeros(v.shape, np.float32))
+                    for k, v in leaves.items()
+                }
+
+            return value_and_grad
+
+        return self._cache.get_or_build(key, build)"""),
 )
 # ported modules whose text is the reference's after further named
 # substitutions
@@ -52,6 +148,7 @@ SUBSTITUTED = {
     "master/process_manager.py": (
         ('"elasticdl_tpu.worker.main"', '"elasticdl_tpu_torch.worker.main"'),
     ),
+    "embedding/tier.py": TIER_SUBSTITUTIONS,
 }
 
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)elasticdl_tpu(?=[.\s])", re.M)

@@ -4,8 +4,9 @@ same steps on the CPU, the trainer's knobs (remat, accumulation, grouped
 steps) through K1-K4', the DeepFM job path (master, worker,
 checkpoint, export), the manual schedule's per-rank compute (K1 on a
 shard), a one-rank NCCL cohort context, K1 on Wide & Deep's census
-stream and a ResNet-20 step (convolutions, BatchNorm) on the card. They skip where no CUDA device is
-present.
+stream, a ResNet-20 step (convolutions, BatchNorm) and a device-mode
+embedding-tier store (K1 on every push) on the card. They skip where no
+CUDA device is present.
 
 This file imports torch and the port only, so it also runs on a GPU
 machine without JAX:
@@ -685,6 +686,46 @@ def case_job_on_the_card(cuda, tmp):
     assert float((got - want).abs().max()) <= 1e-6
 
 
+def case_tier_store_on_the_card(cuda):
+    """A device-mode tier store on the card and a host-mode store take the
+    same deduped pushes (sorted unique ids: one term a row) and end with
+    bit-equal shards; every push launches K1 (2 kernels), and pulls read
+    the same rows."""
+    from elasticdl_tpu_torch.embedding import sharding, store
+    from elasticdl_tpu_torch.training import compile_cache as cc
+
+    spec = sharding.TableSpec("users", vocab=8192, dim=32, seed=3)
+    view = sharding.ShardMapView(version=1, num_shards=2, owners=(0, 0),
+                                 tables=(spec,))
+    card = store.EmbeddingShardStore(0, compile_cache=cc.CompileCache(),
+                                     device=True)
+    host = store.EmbeddingShardStore(0, device=False)
+    assert card.device.type == cuda.type
+    for st in (card, host):
+        st.attach(view)
+    r = np.random.RandomState(0)
+    placement.launches = 0
+    pushes = 0
+    for seq in range(1, 5):
+        for shard in (0, 1):
+            uniq = np.unique(r.randint(0, 4096, 700)).astype(np.int32)
+            ids = np.full((1024,), -1, np.int32)
+            ids[:uniq.size] = uniq
+            vals = r.randn(1024, 32).astype(np.float32)
+            for st in (card, host):
+                assert st.push("users", shard, ids, vals, client_id="c",
+                               seq=seq, scale=-0.01 * seq)
+            pushes += 1
+    assert placement.launches == placement.PASSES * pushes
+    for shard in (0, 1):
+        assert isinstance(card._shards[("users", shard)].rows, torch.Tensor)
+        assert np.array_equal(card.extract_shard("users", shard)["rows"],
+                              host.extract_shard("users", shard)["rows"])
+        ids = np.array([-1, 0, 5, 4095, 10 ** 6], np.int32)
+        assert np.array_equal(card.pull("users", shard, ids),
+                              host.pull("users", shard, ids))
+
+
 def test_kernels_on_the_card(cuda, tmp_path):
     """Every case above, in one collected test (ROADMAP.md, conventions:
     one collected test per port test file)."""
@@ -730,3 +771,4 @@ def test_kernels_on_the_card(cuda, tmp_path):
     case_lm_knobs_on_the_card(cuda)
     case_grouped_deepfm_on_the_card(cuda)
     case_job_on_the_card(cuda, str(tmp_path))
+    case_tier_store_on_the_card(cuda)

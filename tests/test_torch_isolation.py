@@ -1,7 +1,9 @@
 """The port stands alone: it imports no JAX stack and nothing of the
 reference package (the train step, the job path's worker, cohort, mesh,
-master, launcher, data path, checkpoint and export, and every zoo model
-included), and it never falls back to the CPU on its own."""
+master, launcher, data path, checkpoint and export, the embedding tier,
+its layout controller and the program cache, and every zoo model
+included), and it never falls back to the CPU on its own: without a card
+a worker, a trainer and a default embedding-tier store raise."""
 
 import ast
 import json
@@ -28,9 +30,13 @@ from elasticdl_tpu_torch.ops import (
 from elasticdl_tpu_torch import convert
 from elasticdl_tpu_torch.client import api, local, main as client_main
 from elasticdl_tpu_torch.data import nativelib, parsing, prefetch, reader, recordio
-from elasticdl_tpu_torch.master import main as master_main, process_manager
+from elasticdl_tpu_torch.master import (
+    layout_controller, main as master_main, process_manager)
 from elasticdl_tpu_torch.parallel import elastic, mesh
-from elasticdl_tpu_torch.training import checkpoint, export
+from elasticdl_tpu_torch.training import checkpoint, compile_cache, export
+from elasticdl_tpu_torch.embedding import (
+    cache, data_plane, reshard, sharding, shm, sketch, store, tier, transport)
+from elasticdl_tpu_torch.api.layers import TierEmbedding, tier_table_spec
 from elasticdl_tpu_torch.worker import (
     cohort, main as worker_main, prediction_outputs_processor,
     task_data_service, worker)
@@ -80,7 +86,13 @@ def case_port_loads_no_jax_or_reference_module():
                  "elasticdl_tpu_torch.client.local",
                  "elasticdl_tpu_torch.data.prefetch",
                  "elasticdl_tpu_torch.training.checkpoint",
-                 "elasticdl_tpu_torch.proto.service"):
+                 "elasticdl_tpu_torch.proto.service",
+                 "elasticdl_tpu_torch.embedding.store",
+                 "elasticdl_tpu_torch.embedding.tier",
+                 "elasticdl_tpu_torch.embedding.data_plane",
+                 "elasticdl_tpu_torch.embedding.reshard",
+                 "elasticdl_tpu_torch.master.layout_controller",
+                 "elasticdl_tpu_torch.training.compile_cache"):
         assert name in loaded, name
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -122,6 +134,24 @@ def case_trainer_without_device_raises_where_cuda_is_absent():
     assert Trainer(spec, device="cpu").device.type == "cpu"
 
 
+def case_tier_store_without_device_raises_where_cuda_is_absent(monkeypatch):
+    """A tier store in device mode (the default) needs the card; host
+    mode and the CPU are asked for explicitly."""
+    from elasticdl_tpu_torch.embedding.store import EmbeddingShardStore
+
+    monkeypatch.delenv("EDL_EMB_TIER_DEVICE", raising=False)
+    for device in (None, True, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            EmbeddingShardStore(0, device=device)
+    monkeypatch.setenv("EDL_EMB_TIER_DEVICE", "1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EmbeddingShardStore(0)
+    monkeypatch.setenv("EDL_EMB_TIER_DEVICE", "0")
+    assert EmbeddingShardStore(0).device is None
+    assert EmbeddingShardStore(0, device=False).device is None
+    assert EmbeddingShardStore(0, device="cpu").device.type == "cpu"
+
+
 def start_worker_without_device():
     """The job path's worker with no device request, started on its own:
     a subprocess that runs while the other cases do. The master address is
@@ -152,7 +182,7 @@ def case_worker_without_device_exits_where_cuda_is_absent(proc):
     assert "registered as worker" not in stderr
 
 
-def test_port_stands_alone():
+def test_port_stands_alone(monkeypatch):
     """Every case above, in one collected test (ROADMAP.md, conventions:
     one collected test per port test file)."""
     no_device = (None if torch.cuda.is_available()
@@ -163,4 +193,6 @@ def test_port_stands_alone():
     if not torch.cuda.is_available():
         # where a card is present, Trainer(spec) runs there instead
         case_trainer_without_device_raises_where_cuda_is_absent()
+        case_tier_store_without_device_raises_where_cuda_is_absent(
+            monkeypatch)
         case_worker_without_device_exits_where_cuda_is_absent(no_device)
