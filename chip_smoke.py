@@ -8,7 +8,8 @@ export) and its train step (kernel K1: its zero pass and its placement
 pass), the embedding tier's device-mode pushes, session and resharding
 (K1 on every push), the other five zoo models (xDeepFM and Wide & Deep through K1;
 the MNIST CNN, ResNet-20 and ResNet-50 through library convolutions
-and BatchNorm) as steps and, for ResNet-20 and Wide & Deep, as jobs, the transformer LM's train step and its job (flash-attention
+and BatchNorm) as steps and, for ResNet-20 and Wide & Deep, as jobs, the transformer LM's train step and its job, its Switch-MoE
+configuration as a step and a job and its pipelined one as a step (flash-attention
 kernels: for its bfloat16 D 64 attention the Hopper kernels K2', K3', K4'
 and the delta pass, which runs once a backward; K2, K3 and K4 for every
 other input, such as the float32 LM), and the trainer's knobs (remat,
@@ -236,10 +237,36 @@ caught):
            bit-exact, a re-sent acknowledged push dedupes, no new
            CompileCache miss in the recovery; prints its wall. Then the
            whole script's wall on a line of its own (`wall`).
+21. moe_train (after `lm_train`)  the Switch-MoE LM (`moe_experts=8`,
+           capacity factor 1.25, aux weight 0.01) at 9's width and batch:
+           a warm-up step, STEPS timed train steps, eval and predict.
+           Asserts finite falling losses, K2', K3', K4' and the delta pass
+           4 times a train step (K2' also 4 times in each of eval and
+           predict), finite aux losses and a dropped share in [0, 1).
+           Prints step ms, host ms, tokens/s, peak memory, the first and
+           last loss, each block's aux, the share of tokens dropped, and
+           the profile. Then one MoE layer at this width (8192 tokens,
+           capacity 1280) by the index route and by the dense plain route
+           (`ops/moe.py`): outputs, aux and the expert kernels' gradients
+           equal bit for bit, the other gradients within rtol 1e-6 with
+           atol 1e-6 of the largest; each route's fwd + bwd ms.
+22. pp_train (after `moe_train`)  the pipelined LM (`pp_axis=pp`, 4
+           microbatches) with no pp axis, the sequential fold of its 4
+           stacked stages, as 21 runs the MoE LM (the same launches).
+           Then `tp_axis=model` with no mesh against the plain LM: one
+           step from one seed, loss and parameters bit for bit.
+23. moe_job (after `lm_job`)  the MoE LM of 21 through the job path as
+           14 runs the LM (no profiler window), with checkpoints every 16
+           steps (steps 16 and 32 kept): 4 tasks, a token accuracy in [0,
+           1], K2', K3', K4' and the delta pass 4 times a train step and
+           K2' 4 times an eval step, and the newest checkpoint restoring
+           the final state exactly (router, experts, `moe_aux`). Prints
+           the wall, host ms and tokens/s a step, data_wait and h2d.
 Then the `kernels` line (K1's `launches` are the job's, with the
 `grouped`, `cohort_job`, `manual_shards` and `tier` phases' beside
-them; the Hopper kernels' are `lm_train`'s, with `lm_job`'s beside
-them), the nvidia-smi line, and last the `ok` line.
+them; the Hopper kernels' are `lm_train`'s, with `lm_job`'s,
+`moe_train`'s, `pp_train`'s and `moe_job`'s beside them), the nvidia-smi
+line, and last the `ok` line.
 
 It exits non-zero without a result where CUDA is unavailable, and where
 the port's package is absent.
@@ -273,7 +300,7 @@ F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12              # H100 SXM dense bf16
 # the LM as bench.py's transformer_lm leg runs it (bench.py:4398-4407)
 LM_PARAMS = "vocab=8192;num_layers=4;dim=512;heads=8;max_len=1024"
-LM_LAYERS, LM_BATCH, LM_T, LM_VOCAB = 4, 8, 1024, 8192
+LM_LAYERS, LM_BATCH, LM_T, LM_VOCAB, LM_DIM = 4, 8, 1024, 8192, 512
 LM_SMALL = "vocab=64;num_layers=2;dim=64;heads=4;max_len=64"
 # the job phases: Criteo records per training task, and the variables a
 # polluted environment can carry that would make a spawned worker a member
@@ -1672,6 +1699,314 @@ def phase_lm_job(smi):
     return launches
 
 
+# ---------------------------------------------------------------- MoE, GPipe
+
+
+LM_DEF = "transformer.transformer_lm.custom_model"
+MOE_EXPERTS, MOE_CAPACITY = 8, 1.25       # the layer's default capacity
+MOE_PARAMS = f"{LM_PARAMS};moe_experts={MOE_EXPERTS}"
+PP_PARAMS = f"{LM_PARAMS};pp_axis=pp;pp_microbatches=4;seq_parallel=none"
+
+
+def hopper_launches(steps, evals=0):
+    """The Hopper flash kernels' launches over `steps` bf16 LM train steps
+    and `evals` forward-only steps: one of each a layer a step."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    want = {name: 0 for name in fa.launches}
+    for name in (fa.BWD_DQ_SM90, fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90):
+        want[name] = LM_LAYERS * steps
+    want[fa.FWD_SM90] = LM_LAYERS * (steps + evals)
+    return want
+
+
+def routing_stats(trainer, state, batch):
+    """(each block's aux loss, the share of tokens dropped) of an eval
+    forward over `batch`, from the routing `ops.moe.route` returns."""
+    from elasticdl_tpu_torch.ops import moe as moe_ops
+
+    seen, real = [], moe_ops.route
+
+    def spy(*args, **kwargs):
+        r = real(*args, **kwargs)
+        seen.append((float(r.aux), float((~r.keep).float().mean())))
+        return r
+
+    moe_ops.route = spy
+    try:
+        trainer.predict_step(state, batch)
+    finally:
+        moe_ops.route = real
+    return [a for a, _ in seen], float(np.mean([d for _, d in seen]))
+
+
+def lm_variant_train(params, name, smi):
+    """The bf16 LM variant `params` at `lm_train`'s width and batch: a
+    warm-up step, then STEPS timed train steps, eval and predict; returns
+    (trainer, state, the fields to emit, its flash launches)."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(load_spec(params, model_def=LM_DEF))   # the card
+    if trainer.device.type != "cuda":
+        raise AssertionError(f"Trainer defaulted to {trainer.device}")
+    batch = lm_batch(100)
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state(batch)
+    reset_launches()
+    losses = []
+    state, logs = trainer.train_step(state, batch)          # warm-up step
+    losses.append(logs["loss"])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(STEPS):
+        state, logs = trainer.train_step(state, batch)
+        losses.append(logs["loss"])
+    end.record()
+    end.synchronize()
+    host_s = time.perf_counter() - t0
+    step_ms = start.elapsed_time(end) / STEPS
+    train = dict(fa.launches)
+    reset_launches()
+    metric_states = trainer.eval_step(state, batch,
+                                      trainer.new_metric_states())
+    preds = trainer.predict_step(state, batch)
+    torch.cuda.synchronize()
+    forward = dict(fa.launches)
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name} losses not finite and falling: "
+                             f"{losses}")
+    if train != hopper_launches(STEPS + 1) or forward != hopper_launches(
+            0, evals=2):
+        raise AssertionError(f"{name}: flash launches {train} in {STEPS + 1}"
+                             f" train steps, {forward} in eval and predict")
+    if tuple(preds.shape) != (LM_BATCH, LM_T, LM_VOCAB) or not bool(
+            torch.isfinite(preds).all()):
+        raise AssertionError(f"{name} predictions {tuple(preds.shape)} "
+                             "not finite")
+    fields = dict(
+        card=smi, params=params, batch=[LM_BATCH, LM_T],
+        compute_dtype="bfloat16", steps=STEPS, losses=losses,
+        first_loss=losses[0], last_loss=losses[-1], step_ms=step_ms,
+        host_step_ms=host_s * 1e3 / STEPS,
+        tokens_per_s=LM_BATCH * LM_T / (step_ms / 1e3),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches_per_step={k: v / (STEPS + 1) for k, v in train.items()
+                           if v},
+        eval=trainer.metric_results(metric_states))
+    launches = {k: train[k] + forward[k] for k in train}
+    return trainer, state, batch, fields, launches
+
+
+def moe_layer_routes(smi):
+    """One MoE layer at the LM's width (8192 tokens, C 512, H 2048, 8
+    experts, capacity 1280) on the card, forward and backward by the index
+    route (`switch_moe`) and by the dense plain route
+    (`switch_moe_plain`): outputs, aux and the expert kernels' gradients
+    equal bit for bit, the other gradients (sums in another order) within
+    rtol 1e-6 with atol 1e-6 of each one's largest value; the time of
+    each (CUDA events, fwd + bwd) beside the dense route's one-hot FLOPs."""
+    from elasticdl_tpu_torch.api.layers import MoE
+    from elasticdl_tpu_torch.common import runtime
+    from elasticdl_tpu_torch.ops import moe as moe_ops
+
+    runtime.configure_torch_runtime()
+    dev = runtime.resolve_device(None)       # the card
+    n, c = LM_BATCH * LM_T, LM_DIM
+    gen = torch.Generator(device=dev).manual_seed(5)
+    layer = MoE(c, MOE_EXPERTS, 4 * c, residual=False).to(dev)
+    layer.reset_parameters(gen)
+    x = torch.randn((n, c), device=dev, generator=gen)
+    g = torch.randn((n, c), device=dev, generator=gen)
+    weights = [layer.router, layer.w1, layer.b1, layer.w2, layer.b2]
+    leaves = [x.requires_grad_()] + weights
+
+    def fwd_bwd(fn):
+        out, aux = fn(x, *weights, capacity_factor=MOE_CAPACITY)
+        return out, aux, torch.autograd.grad((out * g).sum() + aux, leaves)
+
+    (o1, a1, g1), (o2, a2, g2) = (fwd_bwd(moe_ops.switch_moe),
+                                  fwd_bwd(moe_ops.switch_moe_plain))
+    if not (torch.equal(o1, o2) and torch.equal(a1, a2)):
+        raise AssertionError("index and dense MoE routes differ")
+    worst = 0.0
+    for name, p, q in zip(("x", "router", "w1", "b1", "w2", "b2"), g1, g2):
+        if name in ("w1", "b1", "w2"):
+            if not torch.equal(p, q):
+                raise AssertionError(f"{name} gradients differ by route")
+            continue
+        _, ratio = over_tol(p, q, 1e-6, 1e-6)
+        worst = max(worst, ratio)
+        if ratio > 1.0:
+            raise AssertionError(f"{name} gradients differ by route "
+                                 f"({ratio} of the tolerance)")
+    cap = max(1, int(MOE_CAPACITY * n / MOE_EXPERTS))
+    index_ms = time_ms(lambda: fwd_bwd(moe_ops.switch_moe), groups=7,
+                       per_group=3, warmup=1)
+    dense_ms = time_ms(lambda: fwd_bwd(moe_ops.switch_moe_plain), groups=7,
+                       per_group=3, warmup=1)
+    onehot_flops = 2 * n * MOE_EXPERTS * cap * c
+    ffn_flops = 3 * 2 * 2 * MOE_EXPERTS * cap * c * 4 * c   # fwd + bwd
+    return dict(tokens=n, experts=MOE_EXPERTS, capacity=cap,
+                index_fwd_bwd_ms=index_ms, dense_fwd_bwd_ms=dense_ms,
+                dense_over_index=dense_ms / index_ms,
+                expert_ffn_gflop=ffn_flops / 1e9,
+                one_hot_product_gflop=onehot_flops / 1e9,
+                ffn_bound_ms=ffn_flops / F32_FLOPS * 1e3,
+                worst_grad_err_over_tol=worst, card=smi)
+
+
+def phase_moe_train(smi):
+    """The Switch-MoE LM (8 experts a block, capacity factor 1.25, aux
+    weight 0.01) at `lm_train`'s width; then one MoE layer by both
+    routes. Returns the flash kernels' launches."""
+    trainer, state, batch, fields, launches = lm_variant_train(
+        MOE_PARAMS, "moe_train", smi)
+    aux, dropped = routing_stats(trainer, state, batch)
+    buffers = [float(state.buffers[f"block_{i}.moe.moe_aux"])
+               for i in range(LM_LAYERS)]
+    if not (len(aux) == LM_LAYERS and all(np.isfinite(aux + buffers))
+            and 0.0 <= dropped < 1.0):
+        raise AssertionError(f"routing: aux {aux}, buffers {buffers}, "
+                             f"dropped {dropped}")
+    emit("moe_train", **fields, experts=MOE_EXPERTS,
+         capacity_factor=MOE_CAPACITY,
+         aux_loss_weight=trainer.spec.aux_loss_weight,
+         aux_last_step=buffers, aux_eval=aux, dropped_share=dropped,
+         layer_routes=moe_layer_routes(smi))
+    phase_profile(trainer, state, batch, fields["step_ms"], model="moe_lm")
+    return launches
+
+
+def phase_pp_train(smi):
+    """The pipelined LM (`pp_axis=pp`, 4 microbatches) with no pp axis:
+    the sequential fold of 4 stacked stages, at `lm_train`'s width. Then
+    `tp_axis=model` with no mesh against the plain LM: one step from the
+    same weights, loss and parameters bit for bit. Returns the flash
+    kernels' launches."""
+    from elasticdl_tpu_torch.training.trainer import Trainer
+
+    trainer, state, batch, fields, launches = lm_variant_train(
+        PP_PARAMS, "pp_train", smi)
+    emit("pp_train", **fields, stages=LM_LAYERS, microbatches=4)
+    phase_profile(trainer, state, batch, fields["step_ms"], model="pp_lm")
+    del trainer, state
+    gc.collect()
+    steps = []
+    for params in (LM_PARAMS, f"{LM_PARAMS};tp_axis=model"):
+        tr = Trainer(load_spec(params, model_def=LM_DEF), seed=3)
+        st = tr.init_state(batch)
+        loss = float(tr.train_step(st, batch)[1]["loss"])
+        steps.append((loss, {k: p.detach().clone()
+                             for k, p in st.params.items()}))
+    (l0, p0), (l1, p1) = steps
+    if l0 != l1 or p0.keys() != p1.keys() or not all(
+            torch.equal(p0[k], p1[k]) for k in p0):
+        raise AssertionError(f"tp_axis without a mesh: loss {l1} against "
+                             f"{l0}, or its parameters differ")
+    emit("tp_no_mesh", card=smi, loss=l1, params=len(p1),
+         bit_equal_to_plain=True)
+    return launches
+
+
+def phase_moe_job(smi):
+    """The MoE LM through the job path in one process, as `lm_job` runs
+    it (no profiler window), with interval checkpoints every 16 steps;
+    the newest restores the final state exactly (the router, the experts
+    and the `moe_aux` buffers included). Returns the flash launches."""
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.common.net import free_port
+    from elasticdl_tpu_torch.master.main import Master
+    from elasticdl_tpu_torch.observability import profile
+    from elasticdl_tpu_torch.observability.registry import default_registry
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.training.checkpoint import CheckpointManager
+    from elasticdl_tpu_torch.training.model_spec import ModelSpec
+    from elasticdl_tpu_torch.training.trainer import Trainer
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    with tempfile.TemporaryDirectory() as out:
+        argv = lm_job_argv(out)
+        cut = argv.index("--profile_dir")
+        argv = argv[:cut] + argv[cut + 6:]
+        argv[argv.index("--model_params") + 1] = MOE_PARAMS
+        cfg = JobConfig.from_argv(argv + [
+            "--checkpoint_dir", os.path.join(out, "ckpt"),
+            "--checkpoint_steps", "16", "--keep_checkpoint_max", "2",
+            "--master_addr", f"localhost:{free_port()}"])
+        master = Master(cfg)
+        master.start()
+        worker = Worker(cfg)                # device defaulted: the GPU
+        reg = default_registry()
+        before = reg.snapshot()
+        profile.get_profiler().reset()
+        rc = []
+        thread = threading.Thread(target=lambda: rc.append(worker.run()),
+                                  name="moe-job-worker", daemon=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        thread.start()
+        try:
+            finished = master.wait(poll_s=0.2, timeout_s=600)
+            counts = master.dispatcher.counts()
+            results = master.evaluation.latest_results()
+        finally:
+            master.shutdown(grace_s=1)
+            thread.join(300)
+        wall_s = time.perf_counter() - t0
+        launches = dict(fa.launches)
+        after = reg.snapshot()
+        phases = profile.get_profiler().snapshot(update_memory=False)
+        steps = worker._global_step
+        if not finished or rc != [0] or thread.is_alive():
+            raise AssertionError(f"MoE job did not finish cleanly: finished"
+                                 f" {finished}, worker exit {rc}")
+        if counts["finished_training"] != 4 or counts["failed_permanently"]:
+            raise AssertionError(f"dispatcher counts {counts}")
+        acc = results.get("token_accuracy", np.nan)
+        if steps != LM_JOB_STEPS or not (np.isfinite(acc)
+                                         and 0.0 <= acc <= 1.0):
+            raise AssertionError(f"{steps} steps, eval results {results}")
+        if launches != hopper_launches(LM_JOB_STEPS, LM_JOB_EVAL_STEPS):
+            raise AssertionError(f"flash launches in the MoE job {launches}")
+        final = worker._state
+        mngr = CheckpointManager(cfg.checkpoint_dir)
+        if mngr.all_steps() != [16, 32]:
+            raise AssertionError(f"checkpoint steps {mngr.all_steps()}")
+        fresh = Trainer(ModelSpec.from_config(cfg)).init_state(None)
+        if states_equal(fresh, final):
+            raise AssertionError("a fresh state already equals the final one")
+        if mngr.restore(fresh) is not fresh or not states_equal(fresh, final):
+            raise AssertionError("newest checkpoint does not restore the "
+                                 "final MoE state")
+        aux = [float(fresh.buffers[f"block_{i}.moe.moe_aux"])
+               for i in range(LM_LAYERS)]
+        del fresh
+
+    def delta(name):
+        return after.get(name, 0.0) - before.get(name, 0.0)
+
+    step_s = delta("edl_train_step_seconds_sum")
+    groups = delta("edl_train_step_seconds_count")
+    emit("moe_job", card=smi, params=MOE_PARAMS, compute_dtype="bfloat16",
+         batch=[LM_BATCH, LM_T], steps_per_dispatch=LM_JOB_GROUP,
+         tasks=counts["finished_training"], train_steps=steps,
+         counts=counts, eval=results, token_accuracy=acc, wall_s=wall_s,
+         host_ms_per_step=step_s * 1e3 / groups,
+         tokens_per_s=LM_BATCH * LM_T * groups / step_s,
+         data_wait_ms_per_step=phases.get("phase_data_wait_ms", 0.0),
+         h2d_ms_per_step=phases.get("phase_h2d_ms", 0.0),
+         compute_ms_per_step=phases.get("phase_compute_ms", 0.0),
+         checkpoint_steps=[16, 32], restored_exactly=True,
+         restored_moe_aux=aux,
+         launches={k: v for k, v in launches.items() if v})
+    return launches
+
+
 def phase_job_cli(smi):
     """The same job at a smaller depth through the CLI: `python -m
     elasticdl_tpu_torch.client.main train` -> run_local -> ProcessManager
@@ -2828,11 +3163,14 @@ def main():
     f32_lm_launches = phase_lm_parity()
     launches = phase_train()
     lm_launches = phase_lm_train()
+    moe_launches = phase_moe_train(smi)
+    pp_launches = phase_pp_train(smi)
     phase_knobs()
     zoo_train_launches = phase_zoo_train(smi)
     grouped_launches = phase_grouped()
     job_launches, job = phase_job(smi)
     lm_job_launches = phase_lm_job(smi)
+    moe_job_launches = phase_moe_job(smi)
     phase_job_cli(smi)
     zoo_job_launches = phase_zoo_job(smi)
     tier_launches, tier_pushes = phase_tier(dev, smi)
@@ -2888,12 +3226,16 @@ def main():
         "source": ATTN_KERNELS[name][0],
         "replaces": ATTN_KERNELS[name][1],
         # K2-K4 serve the float32 LM (lm_parity); the Hopper kernels the
-        # bf16 LM's train, eval and predict steps (lm_train)
+        # bf16 LM's train, eval and predict steps (lm_train), and those of
+        # the MoE and pipelined LMs and the MoE job
         "launches": (f32_lm_launches[name] if name in f32_lm
                      else lm_launches[name]),
         "launches_in": "lm_parity" if name in f32_lm else "lm_train",
         **({} if name in f32_lm else
-           {"lm_job_launches": lm_job_launches[name]}),
+           {"lm_job_launches": lm_job_launches[name],
+            "moe_train_launches": moe_launches[name],
+            "pp_train_launches": pp_launches[name],
+            "moe_job_launches": moe_job_launches[name]}),
         **attn[name],
     } for name in (fa.FWD, fa.FWD_SM90, fa.BWD_DQ, fa.BWD_DQ_SM90,
                    fa.BWD_DKV, fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90)]}),

@@ -1,12 +1,20 @@
 """User-facing layers: `Embedding`, `TierEmbedding` (with `tier_table_spec`)
-for tables served from the embedding tier, and the `Dense`, `LayerNorm`,
-`Embed`, `Conv` and `BatchNorm` layers (and `max_pool`) the zoo models use
-in place of flax's.
+for tables served from the embedding tier, the Switch-MoE FFN `MoE`, and
+the `Dense` (with its tensor-parallel `TPDense`), `LayerNorm`, `Embed`,
+`Conv` and `BatchNorm` layers (and `max_pool`) the zoo models use in
+place of flax's.
 
 Counterpart of `elasticdl_tpu/api/layers.py`. Parameters are float32, created
 empty; `reset_parameters(generator)` draws them from the same
 distributions as the reference's flax initializers, from an explicit
 `torch.Generator` (`reset_tree` does so for every layer of a model).
+
+A layer that a mesh can split has `shard(mesh)`, which the trainer calls
+under a mesh of more than one rank, and `shards()`, the `parallel.mesh.
+RowShard` of each of its split parameters by name, which the trainer
+collects into `TrainState.row_shards`. Its `reset_parameters` draws the
+whole parameter and keeps the rank's part, so a state does not depend on
+the world's size.
 
 Images are NCHW here where flax's are NHWC: `Conv`'s weight is OIHW (flax's
 kernel is HWIO, and `convert.py` permutes it), and a model that flattens a
@@ -16,7 +24,7 @@ feature map permutes it to NHWC first, so the flattened order is flax's.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -73,6 +81,9 @@ class Embedding(nn.Module):
         self.row_shard = mesh_lib.table_rows(mesh, self.num_rows)
         self.table = nn.Parameter(torch.empty(
             (self.row_shard.size, self.output_dim), device=self.table.device))
+
+    def shards(self):
+        return {} if self.row_shard is None else {"table": self.row_shard}
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Draw the whole table from `generator` and keep this rank's
@@ -175,16 +186,97 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.empty((self.features,)))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        std = math.sqrt(1.0 / self.in_features) / _TRUNC_STD
         with torch.no_grad():
-            nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std,
-                                  2.0 * std, generator=generator)
+            _lecun_normal_(self.weight, self.in_features, generator)
+            self.bias.zero_()
+
+    def _product(self, x: torch.Tensor):
+        dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        return torch.nn.functional.linear(x.to(dtype),
+                                          self.weight.to(dtype)), dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, dtype = self._product(x)
+        return y + self.bias.to(dtype)
+
+
+def _lecun_normal_(weight: torch.Tensor, fan_in: int,
+                   generator: Optional[torch.Generator]) -> None:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+def _keep_part(param: torch.Tensor, full: torch.Tensor,
+               rows: Optional[mesh_lib.RowShard]) -> None:
+    """Copy this rank's part of the whole `full` into `param`."""
+    if rows is not None:
+        full = full.narrow(rows.dim, rows.start, rows.size)
+    param.copy_(full)
+
+
+class TPDense(Dense):
+    """`Dense` with Megatron's tensor parallelism over mesh axis `axis`
+    (the reference's `_tp_dense`): without the axis (no mesh, or a mesh
+    that lacks it) it is `Dense`, parameter for parameter and bit for bit.
+
+    split="col": the rank holds a slice of the output features (weight
+    rows, bias); its input enters through `copy_to_axis`, and with
+    `gather` the outputs are gathered over the axis (the LM's head before
+    the loss). split="row": the rank holds a slice of the input features
+    (weight columns) and takes the matching slice of its input; the
+    partial products are summed over the axis (`reduce_from_axis`) and
+    the replicated bias is added once, after the sum."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: Optional[torch.dtype] = None, axis: str = "model",
+                 split: str = "col", gather: bool = False):
+        if split not in ("col", "row"):
+            raise ValueError(f"split must be 'col' or 'row', got {split!r}")
+        super().__init__(in_features, features, dtype=dtype)
+        self.axis, self.split, self.gather = axis, split, bool(gather)
+        self.mesh: Optional[mesh_lib.Mesh] = None
+        self.parts: Dict[str, mesh_lib.RowShard] = {}
+
+    def shard(self, mesh: mesh_lib.Mesh) -> None:
+        if mesh.axis_size(self.axis) == 1:
+            return
+        self.mesh = mesh
+        if self.split == "col":
+            rows = mesh_lib.axis_rows(mesh, self.axis, self.features, 0)
+            self.parts = {"weight": rows, "bias": rows}
+        else:
+            self.parts = {"weight": mesh_lib.axis_rows(
+                mesh, self.axis, self.in_features, 1)}
+        for name, rows in self.parts.items():
+            old = getattr(self, name)
+            shape = list(old.shape)
+            shape[rows.dim] = rows.size
+            setattr(self, name, nn.Parameter(
+                torch.empty(shape, device=old.device)))
+
+    def shards(self):
+        return dict(self.parts)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            weight = torch.empty((self.features, self.in_features),
+                                 device=self.weight.device)
+            _lecun_normal_(weight, self.in_features, generator)
+            _keep_part(self.weight, weight, self.parts.get("weight"))
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        y = torch.nn.functional.linear(x.to(dtype), self.weight.to(dtype))
-        return y + self.bias.to(dtype)
+        if self.mesh is None:
+            return super().forward(x)
+        if self.split == "row":
+            y, dtype = self._product(x)
+            y = mesh_lib.reduce_from_axis(y, self.mesh, self.axis)
+            return y + self.bias.to(dtype)
+        y = super().forward(mesh_lib.copy_to_axis(x, self.mesh, self.axis))
+        if self.gather:
+            y = mesh_lib.gather_from_axis(y, self.mesh, self.axis, -1)
+        return y
 
 
 class LayerNorm(nn.Module):
@@ -413,13 +505,110 @@ class BatchNorm(nn.Module):
         return y.to(self.dtype or torch.promote_types(x.dtype, torch.float32))
 
 
+class MoE(nn.Module):
+    """Switch-style top-1 Mixture-of-Experts FFN (`ops.moe.switch_moe`),
+    the reference's `api.layers.MoE`.
+
+    Parameters, float32: `router` (C, E) and the stacked experts `w1`
+    (E, C, H), `b1` (E, H), `w2` (E, H, C), `b2` (E, C); the router and
+    the expert kernels start from normal(0.02), the biases from zero.
+    `shard(mesh)` keeps this rank's experts on the mesh's `expert` axis
+    (`ops.moe.expert_range`); without one the experts are replicated.
+
+    The output is residual (x + the expert mix; dropped tokens pass
+    through) unless `residual=False`. A training forward leaves the
+    Switch load-balancing aux loss, live, in `pending`: the trainer adds
+    its weighted sum into the differentiated loss (`aux_losses`), and
+    `update_batch_stats` moves it into the `moe_aux` buffer once, with
+    overwrite semantics (the reference sows it into its `losses`
+    collection), never from a remat recompute."""
+
+    def __init__(self, features: int, num_experts: int, hidden_dim: int,
+                 capacity_factor: float = 1.25, residual: bool = True):
+        super().__init__()
+        self.features = int(features)
+        self.num_experts = int(num_experts)
+        self.hidden_dim = int(hidden_dim)
+        self.capacity_factor = float(capacity_factor)
+        self.residual = bool(residual)
+        c, e, h = self.features, self.num_experts, self.hidden_dim
+        self.router = nn.Parameter(torch.empty((c, e)))
+        self._expert_shapes = {"w1": (e, c, h), "b1": (e, h),
+                               "w2": (e, h, c), "b2": (e, c)}
+        for name, shape in self._expert_shapes.items():
+            setattr(self, name, nn.Parameter(torch.empty(shape)))
+        self.register_buffer("moe_aux", torch.zeros(()))
+        self.mesh: Optional[mesh_lib.Mesh] = None
+        self.experts: Optional[mesh_lib.RowShard] = None
+        self.pending: Optional[torch.Tensor] = None
+
+    def shard(self, mesh: mesh_lib.Mesh) -> None:
+        from elasticdl_tpu_torch.ops import moe as moe_ops
+
+        if mesh.axis_size(moe_ops.EXPERT_AXIS) == 1:
+            return
+        self.mesh = mesh
+        self.experts = moe_ops.expert_range(mesh, self.num_experts)
+        for name, shape in self._expert_shapes.items():
+            setattr(self, name, nn.Parameter(torch.empty(
+                (self.experts.size,) + shape[1:],
+                device=self.router.device)))
+
+    def shards(self):
+        if self.experts is None:
+            return {}
+        return {name: self.experts for name in self._expert_shapes}
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        dev = self.router.device
+        with torch.no_grad():
+            nn.init.normal_(self.router, 0.0, 0.02, generator=generator)
+            for name, shape in self._expert_shapes.items():
+                full = torch.zeros(shape, device=dev)
+                if name.startswith("w"):
+                    nn.init.normal_(full, 0.0, 0.02, generator=generator)
+                _keep_part(getattr(self, name), full, self.experts)
+            self.moe_aux.zero_()
+        self.pending = None
+
+    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        from elasticdl_tpu_torch.ops import moe as moe_ops
+
+        flat = x.reshape(-1, x.shape[-1])
+        out, aux = moe_ops.switch_moe(
+            flat, self.router, self.w1, self.b1, self.w2, self.b2,
+            self.capacity_factor, experts=self.experts, mesh=self.mesh)
+        if training:
+            self.pending = aux
+        out = out.reshape(x.shape)
+        return x + out if self.residual else out
+
+
+def aux_losses(model: nn.Module) -> List[torch.Tensor]:
+    """The live aux losses the last training forward left (each MoE's
+    `pending`)."""
+    return [m.pending for m in model.modules()
+            if isinstance(m, MoE) and m.pending is not None]
+
+
+def drop_pending(model: nn.Module) -> None:
+    """Forget what a forward left pending (a remat recompute's)."""
+    for m in model.modules():
+        if isinstance(m, (BatchNorm, MoE)):
+            m.pending = None
+
+
 @torch.no_grad()
 def update_batch_stats(model: nn.Module) -> None:
     """Apply each BatchNorm's `pending` batch statistics to its running
-    averages (flax's update, in float32) and clear them."""
+    averages (flax's update, in float32), move each MoE's pending aux
+    loss into its `moe_aux` buffer, and clear them."""
     for m in model.modules():
         if isinstance(m, BatchNorm) and m.pending is not None:
             mean, var = m.pending
             m.pending = None
             m.mean.copy_(m.momentum * m.mean + (1 - m.momentum) * mean)
             m.var.copy_(m.momentum * m.var + (1 - m.momentum) * var)
+        elif isinstance(m, MoE) and m.pending is not None:
+            m.moe_aux.copy_(m.pending.detach())
+            m.pending = None

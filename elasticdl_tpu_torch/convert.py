@@ -18,7 +18,12 @@ transformer LM (`model_zoo/transformer/transformer_lm.py`, a tree with
   block_i/LayerNorm_{0,1}/{scale,bias}    -> block_i.LayerNorm_{0,1}.*
   LayerNorm_0/{scale,bias}, lm_head/...   -> the same names
 
-for <dense> in q, k, v, proj, mlp_in, mlp_out, kernels transposed.
+for <dense> in q, k, v, proj, mlp_in, mlp_out, kernels transposed; a
+block with a Switch-MoE FFN has `moe/{router,w1,b1,w2,b2}` in place of
+mlp_in and mlp_out, and a pipelined LM has `pipeline/{ln1_scale, ...,
+b2}` in place of the blocks, all as they are (stacked leaves keep flax's
+(in, out) kernels). A `losses` tree (the MoE layers' sown `moe_aux`) maps
+by name onto the model's buffers, as `batch_stats` does.
 
 Every other tree (xDeepFM, Wide & Deep, the MNIST CNN and the ResNets) is
 mapped by name: the path's keys joined with dots, a Dense `kernel`
@@ -40,8 +45,9 @@ slots or its `momentum_buffer`s, a schedule's `count`, and its step), so
 a reference job and a port job can start from one state. Any array type
 that numpy can read (flax's jax arrays included) is accepted; the caller
 hands the trees over as numpy. Given the `row_shards` of a TrainState
-under a mesh, each sharded table and its moments are cut to this rank's
-row range, as that state holds them.
+under a mesh, each split leaf (a sharded table, an MoE layer's experts,
+a pipeline's stages, a tensor-parallel split) and its moments are cut to
+this rank's part, as that state holds them.
 
 The embedding tier's tables need no conversion: a tier shard's weights
 are its seed-made numpy rows (`embedding/store._init_shard_rows`), which
@@ -64,6 +70,10 @@ _DENSE = re.compile(r"^(dense_linear|dnn_out|dnn_\d+)$")
 _BLOCK = re.compile(r"^block_(\d+)$")
 _BLOCK_DENSES = ("q", "k", "v", "proj", "mlp_in", "mlp_out")
 _BLOCK_NORMS = ("LayerNorm_0", "LayerNorm_1")
+_MOE = {"router": 2, "w1": 3, "b1": 2, "w2": 3, "b2": 2}
+_PIPELINE = {"ln1_scale": 2, "ln1_bias": 2, "wq": 3, "wk": 3, "wv": 3,
+             "wo": 3, "ln2_scale": 2, "ln2_bias": 2, "w1": 3, "b1": 2,
+             "w2": 3, "b2": 2}
 
 
 def params_from_flax(
@@ -92,11 +102,12 @@ def params_from_flax(
     return out
 
 
-def buffers_from_flax(batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The port's buffers for a flax `batch_stats` tree (by name)."""
-    if "batch_stats" in batch_stats and len(batch_stats) == 1:
-        batch_stats = batch_stats["batch_stats"]
-    return _by_name(batch_stats)
+def buffers_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's buffers for a flax `batch_stats` or `losses` tree (by
+    name)."""
+    if len(tree) == 1 and next(iter(tree)) in ("batch_stats", "losses"):
+        tree = next(iter(tree.values()))
+    return _by_name(tree)
 
 
 def train_state_from_flax(
@@ -109,15 +120,17 @@ def train_state_from_flax(
     row_shards: Optional[Mapping[str, mesh_lib.RowShard]] = None,
     trace: Optional[Mapping[str, Any]] = None,
     batch_stats: Optional[Mapping[str, Any]] = None,
+    losses: Optional[Mapping[str, Any]] = None,
 ) -> Dict[str, Any]:
     """The port's counterpart of a reference TrainState: {"params",
     "exp_avg", "exp_avg_sq" (Adam's moments `mu`, `nu`) or
     "momentum_buffer" (SGD's `trace`), "buffers" (`batch_stats`): name ->
-    tensor; "count" (the optimizer's update count), "step": ints}. Raises
+    tensor, with the `losses` tree's `moe_aux` leaves beside BatchNorm's;
+    "count" (the optimizer's update count), "step": ints}. Raises
     ValueError on a missing or extra key or a shape mismatch, in the
     params and in the slots (against the params). `row_shards` (a
-    TrainState's) cuts the tables it names to their rows; `expected` is
-    checked after that cut."""
+    TrainState's) cuts the leaves it names to this rank's part;
+    `expected` is checked after that cut."""
     out_params = params_from_flax(params)
     slots = {}
     for what, tree in (("exp_avg", mu), ("exp_avg_sq", nu),
@@ -130,13 +143,15 @@ def train_state_from_flax(
             raise ValueError(f"optimizer {what}: {e}") from e
     for tree in (out_params, *slots.values()):
         for name, rows in (row_shards or {}).items():
-            tree[name] = tree[name][rows.start:rows.stop].clone()
+            tree[name] = tree[name].narrow(rows.dim, rows.start,
+                                           rows.size).clone()
     if expected is not None:
         _check_against(out_params, expected)
     out = {"params": out_params, **slots,
            "count": int(np.asarray(count)), "step": int(np.asarray(step))}
-    if batch_stats is not None:
-        out["buffers"] = buffers_from_flax(batch_stats)
+    if batch_stats is not None or losses is not None:
+        out["buffers"] = {**buffers_from_flax(batch_stats or {}),
+                          **buffers_from_flax({"losses": losses or {}})}
     return out
 
 
@@ -207,18 +222,34 @@ def _lm_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             out.update(_dense(node, name))
         elif name == "LayerNorm_0":
             out.update(_norm(node, name))
+        elif name == "pipeline":
+            out.update(_stacked(node, name, _PIPELINE))
         elif _BLOCK.match(name):
-            _keys(node, set(_BLOCK_DENSES + _BLOCK_NORMS), name)
-            for sub in _BLOCK_DENSES:
+            moe = "moe" in node
+            denses = _BLOCK_DENSES[:4] if moe else _BLOCK_DENSES
+            _keys(node, set(denses + _BLOCK_NORMS + (("moe",) if moe
+                                                      else ())), name)
+            for sub in denses:
                 out.update(_dense(node[sub], f"{name}.{sub}"))
             for sub in _BLOCK_NORMS:
                 out.update(_norm(node[sub], f"{name}.{sub}"))
+            if moe:
+                out.update(_stacked(node["moe"], f"{name}.moe", _MOE))
         else:
             raise ValueError(f"unexpected flax param {name!r}")
     _require(out, ("tok_embed.embedding", "pos_embed", "LayerNorm_0.scale",
                    "lm_head.weight"))
     _consecutive(out, r"^block_(\d+)\.q\.weight$", "block")
     return out
+
+
+def _stacked(node: Mapping[str, Any], name: str,
+             ndims: Mapping[str, int]) -> Dict[str, torch.Tensor]:
+    """Raw leaves {leaf: ndim} kept as they are: an MoE layer's router and
+    experts, a pipeline's stacked stages."""
+    _keys(node, set(ndims), name)
+    return {f"{name}.{leaf}": _array(node[leaf], f"{name}/{leaf}", ndim=nd)
+            for leaf, nd in ndims.items()}
 
 
 def _by_name(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:

@@ -1,72 +1,218 @@
 """Decoder-only transformer LM — the port's twin of
-`model_zoo/transformer/transformer_lm.py`, on one device.
+`model_zoo/transformer/transformer_lm.py`.
 
 Each block's attention goes through `ops.attention.
-sequence_parallel_attention`, which on one device is `full_attention`: the
-flash kernels K2 (forward), K3 and K4 (backward) of
-`csrc/flash_attention.cu` on the card. The q/k/v/proj/MLP products and the
-lm_head are plain matmuls, as in the reference.
+sequence_parallel_attention`, which without a `seq` axis is
+`full_attention`: on the card, for bfloat16 at head dim 64, the Hopper
+kernels of `csrc/flash_attention_sm90.cu` (K2' forward, K3' and K4'
+backward after one delta pass; `ops/flash_attention._sm90` decides the
+route), and for every other input (float32) K2, K3 and K4 of
+`csrc/flash_attention.cu`. The q/k/v/proj/MLP products and the lm_head
+are plain matmuls, as in the reference.
 
 Rounding follows flax's: the positional add is float32 and the sum is cast
 to `compute_dtype`; LayerNorm computes in float32 and casts once; Dense
 rounds its product to `compute_dtype` (see `api.layers`); `lm_head` is
 float32, so the logits are float32.
 
-Tensor and pipeline parallelism and the Switch-MoE FFN (`tp_axis`,
-`pp_axis`, `moe_experts`) need the port's mesh and MoE layers (ROADMAP
-items 17 and 23); a non-default value raises NotImplementedError.
+The reference's parallel options:
+
+- `moe_experts` > 0 replaces each block's MLP with a Switch-MoE FFN
+  (`api.layers.MoE`, named `moe`; its experts split over the mesh's
+  `expert` axis when it has one); the module's `aux_loss_weight` weighs
+  its load-balancing loss in training.
+- `tp_axis` (typically "model"): Megatron's tensor parallelism over that
+  mesh axis (`api.layers.TPDense`): q, k, v and mlp_in split by columns,
+  so attention runs head-parallel, proj and mlp_out by rows, and the
+  lm_head by columns over the vocab with its logits gathered. Without
+  the axis every layer is a plain Dense.
+- `pp_axis` (typically "pp"): the blocks become `PipelinedBlocks`, a
+  GPipe pipeline over that axis (`parallel/pipeline.gpipe`), whose
+  stacked stages fold in turn when the mesh lacks the axis.
+
+A mesh with a `seq` axis is ROADMAP item 21 (the trainer refuses it).
 
 Parameter names follow the flax module's (`tok_embed.embedding`,
 `pos_embed`, `block_{i}.{q,k,v,proj,mlp_in,mlp_out}`,
-`block_{i}.LayerNorm_{0,1}`, `LayerNorm_0`, `lm_head`), so `convert.py`
-maps one onto the other by name.
+`block_{i}.moe.{router,w1,b1,w2,b2}`, `block_{i}.LayerNorm_{0,1}`,
+`pipeline.{ln1_scale,...,b2}`, `LayerNorm_0`, `lm_head`), so
+`convert.py` maps one onto the other by name.
 """
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from elasticdl_tpu_torch.api.layers import Dense, Embed, LayerNorm, dropout
-from elasticdl_tpu_torch.ops.attention import sequence_parallel_attention
+from elasticdl_tpu_torch.api.layers import (
+    MoE, Dense, Embed, LayerNorm, TPDense, dropout)
+from elasticdl_tpu_torch.common.constants import MeshAxis
+from elasticdl_tpu_torch.ops.attention import (
+    full_attention, sequence_parallel_attention)
+from elasticdl_tpu_torch.parallel import mesh as mesh_lib
+from elasticdl_tpu_torch.parallel import pipeline
 from elasticdl_tpu_torch.training import lr_modulation
 from elasticdl_tpu_torch.training import metrics as metrics_lib
 
 
+def _tp_dense(in_features, features, dtype, tp_axis, split, gather=False):
+    """Dense with Megatron's split over `tp_axis` ("" = plain Dense)."""
+    if not tp_axis:
+        return Dense(in_features, features, dtype=dtype)
+    return TPDense(in_features, features, dtype=dtype, axis=tp_axis,
+                   split=split, gather=gather)
+
+
 class Block(nn.Module):
     def __init__(self, dim: int, heads: int, compute_dtype: torch.dtype,
-                 seq_parallel: str, dropout: float):
+                 seq_parallel: str, dropout: float, tp_axis: str = "",
+                 moe_experts: int = 0):
         super().__init__()
         self.dim, self.heads = int(dim), int(heads)
         self.seq_parallel = seq_parallel
         self.dropout = float(dropout)
         self.LayerNorm_0 = LayerNorm(dim, dtype=compute_dtype)
-        # separate q/k/v projections, as in the reference
-        for name in ("q", "k", "v", "proj"):
-            setattr(self, name, Dense(dim, dim, dtype=compute_dtype))
+        # separate q/k/v projections, as in the reference: their column
+        # splits land on head boundaries
+        for name in ("q", "k", "v"):
+            setattr(self, name, _tp_dense(dim, dim, compute_dtype, tp_axis,
+                                          "col"))
+        self.proj = _tp_dense(dim, dim, compute_dtype, tp_axis, "row")
         self.LayerNorm_1 = LayerNorm(dim, dtype=compute_dtype)
-        self.mlp_in = Dense(dim, 4 * dim, dtype=compute_dtype)
-        self.mlp_out = Dense(4 * dim, dim, dtype=compute_dtype)
+        if moe_experts:
+            self.moe = MoE(dim, moe_experts, 4 * dim, residual=False)
+        else:
+            self.mlp_in = _tp_dense(dim, 4 * dim, compute_dtype, tp_axis,
+                                    "col")
+            self.mlp_out = _tp_dense(4 * dim, dim, compute_dtype, tp_axis,
+                                     "row")
 
     def forward(self, x, training: bool,
                 generator: Optional[torch.Generator] = None):
         B, T, C = x.shape
         h = self.LayerNorm_0(x)
-        shape = (B, T, self.heads, C // self.heads)
+        q, k, v = self.q(h), self.k(h), self.v(h)
+        # under tensor parallelism each rank holds heads / tp of them
+        shape = (B, T, q.shape[-1] // (C // self.heads), C // self.heads)
         attn = sequence_parallel_attention(
-            self.q(h).reshape(shape), self.k(h).reshape(shape),
-            self.v(h).reshape(shape), causal=True, mode=self.seq_parallel)
-        h = self.proj(attn.reshape(B, T, C))
+            q.reshape(shape), k.reshape(shape), v.reshape(shape),
+            causal=True, mode=self.seq_parallel)
+        h = self.proj(attn.reshape(B, T, q.shape[-1]))
         if training and self.dropout > 0:
             # the mask comes from `generator`; under remat the trainer
             # rewinds it before the recompute, which so draws the same
             # mask (`training/trainer.py` `Trainer._forward`)
             h = dropout(h, self.dropout, generator)
         x = x + h
-        h = F.gelu(self.mlp_in(self.LayerNorm_1(x)), approximate="tanh")
+        h = self.LayerNorm_1(x)
+        if hasattr(self, "moe"):
+            return x + self.moe(h, training)
+        h = F.gelu(self.mlp_in(h), approximate="tanh")
         return x + self.mlp_out(h)
+
+
+def _stage_ln(a: torch.Tensor, scale: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """The pipeline's hand-rolled LayerNorm: float32, population
+    variance, epsilon 1e-6, cast back once."""
+    a32 = a.to(torch.float32)
+    mu = a32.mean(dim=-1, keepdim=True)
+    var = ((a32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    return ((a32 - mu) * torch.rsqrt(var + 1e-6) * scale + bias).to(a.dtype)
+
+
+class PipelinedBlocks(nn.Module):
+    """`num_layers` transformer blocks run as a GPipe pipeline over the
+    `pp` mesh axis (the reference's `PipelinedBlocks`): float32
+    per-layer parameters stacked with a leading layer dim (`ln1_scale`,
+    `ln1_bias`, `wq`, `wk`, `wv`, `wo`, `ln2_scale`, `ln2_bias`, `w1`,
+    `b1`, `w2`, `b2`; kernels (in, out) as flax's), and a hand-rolled
+    block as the stage. `shard(mesh)` keeps this rank's layer on a mesh
+    with the axis, which must have `num_layers` ranks along it; without
+    it the stacked layers fold in turn. No dropout (the stages are
+    deterministic). Its attention is `full_attention`, so on the card
+    K2'/K3'/K4'."""
+
+    _SHAPES = (("ln1_scale", 1), ("ln1_bias", 1), ("wq", 2), ("wk", 2),
+               ("wv", 2), ("wo", 2), ("ln2_scale", 1), ("ln2_bias", 1),
+               ("w1", 2), ("b1", 1), ("w2", 2), ("b2", 1))
+
+    def __init__(self, num_layers: int, dim: int, heads: int,
+                 compute_dtype: torch.dtype, pp_axis: str = MeshAxis.PIPE,
+                 num_microbatches: int = 4):
+        super().__init__()
+        self.num_layers, self.dim, self.heads = (int(num_layers), int(dim),
+                                                 int(heads))
+        self.compute_dtype = compute_dtype
+        self.pp_axis = pp_axis
+        self.num_microbatches = int(num_microbatches)
+        for name, shape in self._shapes().items():
+            setattr(self, name, nn.Parameter(torch.empty(shape)))
+        self.mesh: Optional[mesh_lib.Mesh] = None
+        self.stages: Optional[mesh_lib.RowShard] = None
+
+    def _shapes(self) -> Dict[str, Tuple[int, ...]]:
+        s, c = self.num_layers, self.dim
+        inner = {"w1": (c, 4 * c), "b1": (4 * c,), "w2": (4 * c, c)}
+        return {name: (s,) + inner.get(name, (c, c) if nd == 2 else (c,))
+                for name, nd in self._SHAPES}
+
+    def shard(self, mesh: mesh_lib.Mesh) -> None:
+        n = mesh.axis_size(self.pp_axis)
+        if n == 1:
+            return
+        if n != self.num_layers:
+            raise ValueError(
+                f"PipelinedBlocks stack {self.num_layers} stages but mesh "
+                f"axis {self.pp_axis!r} has {n} shards — they must match")
+        self.mesh = mesh
+        self.stages = mesh_lib.axis_rows(mesh, self.pp_axis, n)
+        for name, shape in self._shapes().items():
+            setattr(self, name, nn.Parameter(torch.empty(
+                (1,) + shape[1:], device=self.wq.device)))
+
+    def shards(self):
+        if self.stages is None:
+            return {}
+        return {name: self.stages for name in self._shapes()}
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            for name, shape in self._shapes().items():
+                full = torch.empty(shape, device=self.wq.device)
+                if name.startswith("w"):
+                    nn.init.normal_(full, 0.0, 0.02, generator=generator)
+                else:
+                    full.fill_(1.0 if name.endswith("scale") else 0.0)
+                param = getattr(self, name)
+                if self.stages is not None:
+                    full = full.narrow(0, self.stages.start, 1)
+                param.copy_(full)
+
+    def _stage(self, sp: Dict[str, torch.Tensor],
+               a: torch.Tensor) -> torch.Tensor:
+        B, T, C = a.shape
+        dt = self.compute_dtype
+        h = _stage_ln(a, sp["ln1_scale"], sp["ln1_bias"])
+        shape = (B, T, self.heads, C // self.heads)
+        attn = full_attention((h @ sp["wq"].to(dt)).reshape(shape),
+                              (h @ sp["wk"].to(dt)).reshape(shape),
+                              (h @ sp["wv"].to(dt)).reshape(shape),
+                              causal=True)
+        a = a + attn.reshape(B, T, C) @ sp["wo"].to(dt)
+        h = _stage_ln(a, sp["ln2_scale"], sp["ln2_bias"])
+        h = F.gelu(h @ sp["w1"].to(dt) + sp["b1"].to(dt), approximate="tanh")
+        return a + h @ sp["w2"].to(dt) + sp["b2"].to(dt)
+
+    def forward(self, x, training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        del training, generator      # no dropout inside the pipeline
+        params = {name: getattr(self, name) for name in self._shapes()}
+        return pipeline.gpipe(self._stage, params, x,
+                              num_microbatches=self.num_microbatches,
+                              axis=self.pp_axis, mesh=self.mesh)
 
 
 class TransformerLM(nn.Module):
@@ -76,8 +222,7 @@ class TransformerLM(nn.Module):
                  tp_axis: str = "", pp_axis: str = "",
                  pp_microbatches: int = 4, moe_experts: int = 0):
         super().__init__()
-        # the reference's own consistency checks first, then what the port
-        # does not have yet
+        # the reference's own consistency checks
         if pp_axis and tp_axis:
             raise ValueError("pp_axis and tp_axis are mutually exclusive")
         if moe_experts and (tp_axis or pp_axis):
@@ -92,22 +237,23 @@ class TransformerLM(nn.Module):
                 "pp_axis runs attention unsharded inside each stage; set "
                 "seq_parallel='none' (ring/Ulysses do not compose with "
                 "the pipeline)")
-        if tp_axis or pp_axis or moe_experts:
-            raise NotImplementedError(
-                f"tp_axis={tp_axis!r}, pp_axis={pp_axis!r}, "
-                f"moe_experts={moe_experts} need the port's mesh, pipeline "
-                "and MoE layers (ROADMAP items 17 and 23)")
-        del pp_microbatches     # used only with pp_axis
         self.vocab, self.num_layers = int(vocab), int(num_layers)
         self.dim, self.heads, self.max_len = int(dim), int(heads), int(max_len)
         self.compute_dtype = compute_dtype
         self.tok_embed = Embed(vocab, dim)
         self.pos_embed = nn.Parameter(torch.empty((self.max_len, self.dim)))
-        for i in range(self.num_layers):
-            setattr(self, f"block_{i}", Block(dim, heads, compute_dtype,
-                                              seq_parallel, dropout))
+        if pp_axis:
+            self.pipeline = PipelinedBlocks(
+                num_layers, dim, heads, compute_dtype, pp_axis=pp_axis,
+                num_microbatches=pp_microbatches)
+        else:
+            for i in range(self.num_layers):
+                setattr(self, f"block_{i}", Block(
+                    dim, heads, compute_dtype, seq_parallel, dropout,
+                    tp_axis=tp_axis, moe_experts=moe_experts))
         self.LayerNorm_0 = LayerNorm(dim, dtype=compute_dtype)
-        self.lm_head = Dense(dim, vocab, dtype=torch.float32)
+        self.lm_head = _tp_dense(dim, vocab, torch.float32, tp_axis, "col",
+                                 gather=True)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Draw every parameter from flax's default distributions."""
@@ -122,8 +268,11 @@ class TransformerLM(nn.Module):
         T = tokens.shape[1]
         x = self.tok_embed(tokens) + self.pos_embed[:T][None]
         x = x.to(self.compute_dtype)
-        for i in range(self.num_layers):
-            x = getattr(self, f"block_{i}")(x, training, generator)
+        if hasattr(self, "pipeline"):
+            x = self.pipeline(x, training)
+        else:
+            for i in range(self.num_layers):
+                x = getattr(self, f"block_{i}")(x, training, generator)
         return self.lm_head(self.LayerNorm_0(x))          # (B, T, vocab) f32
 
 
@@ -144,6 +293,20 @@ def custom_model(**kwargs) -> TransformerLM:
         pp_microbatches=int(kwargs.get("pp_microbatches", 4)),
         moe_experts=int(kwargs.get("moe_experts", 0)),
     )
+
+
+# ModelSpec picks this up: the weight of the MoE blocks' load-balancing
+# loss in training (nothing to weigh without moe_experts)
+aux_loss_weight = 0.01
+
+
+def batch_partition():
+    """Tokens over (data, seq), the mask over data: the reference's
+    partition, as axis names a dimension. Without a `seq` axis only the
+    data axis applies; a `seq` axis is ROADMAP item 21."""
+    return {"features": (MeshAxis.DATA, MeshAxis.SEQ),
+            "labels": (MeshAxis.DATA, MeshAxis.SEQ),
+            "mask": (MeshAxis.DATA,)}
 
 
 def loss(labels, outputs):

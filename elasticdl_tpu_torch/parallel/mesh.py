@@ -12,7 +12,18 @@ for each axis through this rank:
 - embedding tables are sharded by contiguous row ranges over every axis
   (`table_rows`), indexed by the rank's linear index over all axes,
   row-major — what `jax.lax.axis_index(axes)` gives the reference;
-- dense parameters are replicated.
+- a leaf of an expert, pipeline or tensor-parallel layer is cut along one
+  dimension over one axis (`axis_rows`: experts over `expert`, stages
+  over `pp`, Megatron's column and row splits over `model`) and
+  replicated over the others;
+- every other parameter is replicated.
+
+The Megatron pair of autograd Functions joins a split layer to its
+replicated neighbours: `copy_to_axis` (identity forward, all-reduce
+backward) where a replicated tensor enters a split computation,
+`reduce_from_axis` (all-reduce forward, identity backward) where its
+partial sums leave it; `gather_from_axis` concatenates the ranks' slices
+along a dimension and hands each rank its slice of the gradient.
 
 A process with no process group, or a world of one rank, has a mesh of
 size 1 with no group: every collective helper below is then the identity,
@@ -42,11 +53,19 @@ from elasticdl_tpu_torch.common.constants import MeshAxis
 
 @dataclass(frozen=True)
 class RowShard:
-    """Rows [start, stop) of a table of `rows` rows: one rank's range."""
+    """Rows [start, stop) along dimension `dim` of a leaf that has `rows`
+    of them: one rank's range. `axis` None: the range is indexed by the
+    rank's linear index over every axis of the mesh (an embedding table,
+    whose gradient the manual lookup makes whole on each rank); an axis
+    name: by the rank's coordinate on that axis alone, the leaf
+    replicated over the other axes (an expert, pipeline or
+    tensor-parallel leaf, whose gradient the data axis sums)."""
 
     start: int
     stop: int
     rows: int
+    dim: int = 0
+    axis: Optional[str] = None
 
     @property
     def size(self) -> int:
@@ -82,6 +101,18 @@ class Mesh:
 
     def group(self, axis: str):
         return self._groups.get(axis)
+
+    def axis_size(self, axis: str) -> int:
+        """The axis's size; 1 for an axis the mesh does not have."""
+        return self.shape.get(axis, 1)
+
+    def rank_at(self, **coords: int) -> int:
+        """The world rank whose coordinates are this rank's with `coords`
+        put in."""
+        at = dict(self.coords, **coords)
+        return self.ranks[int(np.ravel_multi_index(
+            tuple(at[a] for a in self.axis_names),
+            tuple(self.shape.values())))]
 
 
 def _world() -> Tuple[int, int]:
@@ -152,13 +183,18 @@ def build_job_mesh(cfg) -> Mesh:
     return build_mesh(sizes)
 
 
+_MODEL_AXES = (MeshAxis.MODEL, MeshAxis.EXPERT, MeshAxis.PIPE, MeshAxis.SEQ)
+
+
 def data_axis(mesh: Mesh) -> str:
-    return (MeshAxis.DATA if MeshAxis.DATA in mesh.axis_names
-            else mesh.axis_names[0])
-
-
-def model_axis(mesh: Mesh) -> Optional[str]:
-    return MeshAxis.MODEL if MeshAxis.MODEL in mesh.axis_names else None
+    """The axis the batch is split over: `data`, else the mesh's first
+    axis that is not a model-parallel one (as the reference takes its
+    first axis), else `data` all the same, which the mesh then lacks
+    (size 1: every rank holds the whole batch)."""
+    if MeshAxis.DATA in mesh.axis_names:
+        return MeshAxis.DATA
+    return next((a for a in mesh.axis_names if a not in _MODEL_AXES),
+                MeshAxis.DATA)
 
 
 def shard_rows(index: int, count: int, rows: int) -> RowShard:
@@ -177,15 +213,28 @@ def table_rows(mesh: Mesh, rows: int) -> RowShard:
     return shard_rows(mesh.index, mesh.size, rows)
 
 
+def axis_rows(mesh: Mesh, axis: str, rows: int, dim: int = 0) -> RowShard:
+    """This rank's equal part, along `dim`, of a leaf with `rows` entries
+    there cut over `axis` (the whole leaf where the axis has size 1).
+    Raises ValueError where the axis's size does not divide `rows`."""
+    n = mesh.axis_size(axis)
+    if rows % n:
+        raise ValueError(f"{rows} entries along dim {dim} do not split "
+                         f"evenly over mesh axis {axis!r} of size {n}")
+    per = rows // n
+    c = mesh.coords.get(axis, 0)
+    return RowShard(c * per, (c + 1) * per, rows, dim, axis)
+
+
 def batch_block(mesh: Mesh, batch_size: int) -> Tuple[int, int]:
     """Rows [start, stop) of a global batch that this rank takes: its
     contiguous block along the data axis."""
-    d = mesh.shape[data_axis(mesh)]
+    d = mesh.axis_size(data_axis(mesh))
     if batch_size % d:
         raise ValueError(f"batch size {batch_size} is not a multiple of the "
                          f"data axis ({d})")
     per = batch_size // d
-    c = mesh.coords[data_axis(mesh)]
+    c = mesh.coords.get(data_axis(mesh), 0)
     return c * per, (c + 1) * per
 
 
@@ -240,20 +289,88 @@ def all_reduce(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
 
 def gather_rows(mesh: Mesh, shard: torch.Tensor,
                 rows: RowShard) -> Optional[torch.Tensor]:
-    """The whole table on the mesh's leader from every rank's row range
-    (each range padded to ceil(rows / n) for the gather, then cut);
-    None on every other rank. Collective over the mesh."""
+    """The whole leaf on the mesh's leader from every rank's range along
+    `rows.dim` (each range padded to ceil(rows / n) for the gather, then
+    cut); None on every other rank. Collective over the mesh: every rank
+    sends, and a leaf cut over one axis is taken from the ranks along
+    that axis through the leader."""
     if mesh.world is None:
         return shard
-    per = math.ceil(rows.rows / mesh.size)
-    padded = shard.new_zeros((per,) + tuple(shard.shape[1:]))
-    padded[: rows.size] = shard
+    n = mesh.size if rows.axis is None else mesh.axis_size(rows.axis)
+    per = math.ceil(rows.rows / n)
+    part = shard.movedim(rows.dim, 0)
+    padded = part.new_zeros((per,) + tuple(part.shape[1:]))
+    padded[: rows.size] = part
     parts = ([torch.empty_like(padded) for _ in range(mesh.size)]
              if mesh.is_leader else None)
     dist.gather(padded, parts, dst=mesh.ranks[0], group=mesh.world)
     if not mesh.is_leader:
         return None
-    return torch.cat(parts)[: rows.rows]
+    if rows.axis is not None:
+        # the leader's coordinates are all 0: its line along the axis
+        parts = [parts[mesh.ranks.index(mesh.rank_at(**{rows.axis: c}))]
+                 for c in range(n)]
+    return torch.cat(parts)[: rows.rows].movedim(0, rows.dim).contiguous()
+
+
+# ---------------------------------------------------------------------- #
+# the Megatron pair, and a gather, over one axis (autograd Functions; the
+# identity where the axis has size 1)
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(ctx.mesh, ctx.axis, grad.contiguous().clone()), \
+            None, None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(mesh, axis, x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GatherFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.slice = (dim, mesh.coords[axis], x.shape[dim])
+        parts = all_gather(mesh, axis, x.movedim(dim, 0))
+        return parts.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, c, size = ctx.slice
+        return grad.narrow(dim, c * size, size), None, None, None
+
+
+def copy_to_axis(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """`x` as it is; its gradient summed over `axis` (a replicated tensor
+    entering a computation split over the axis, each rank's gradient
+    partial)."""
+    return _CopyToAxis.apply(x, mesh, axis)
+
+
+def reduce_from_axis(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum of `x` over `axis` (partial sums leaving a split
+    computation); the gradient reaches each rank as it is."""
+    return _ReduceFromAxis.apply(x, mesh, axis)
+
+
+def gather_from_axis(x: torch.Tensor, mesh: Mesh, axis: str,
+                     dim: int) -> torch.Tensor:
+    """The ranks' equal slices of `x` along `dim`, concatenated in axis
+    order; each rank's gradient is its slice of the whole one's."""
+    return _GatherFromAxis.apply(x, mesh, axis, dim % x.dim())
 
 
 # ---------------------------------------------------------------------- #
@@ -292,6 +409,13 @@ class _SumOverData(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return all_reduce(ctx.mesh, data_axis(ctx.mesh), grad.clone()), None
+
+
+def data_block():
+    """(global rows, start, stop, mesh) inside `batch_block_of` with a
+    mesh, else None."""
+    block = _BLOCK.get()
+    return block if block is not None and block[3] is not None else None
 
 
 def in_data_parallel_block() -> bool:

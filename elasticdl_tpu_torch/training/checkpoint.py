@@ -33,12 +33,14 @@ Hardening, as in the reference:
   (common/faults.py) sit in front of both operations.
 
 Under a mesh (a cohort's TrainState carries one), checkpoints are
-collective. `save` is joined by every rank: each sharded table's row
-ranges, and those of its Adam slots, are gathered to the mesh's leader,
-which writes the one-process format above; the other ranks write
-nothing. `restore` reads the step on every rank, which keeps its own
-rows. So a cohort's checkpoint restores at any world size and in a plain
-worker, and the other way round. `save_overlapped` is the cohort's
+collective. `save` is joined by every rank: each split leaf's parts (a
+sharded table's row ranges; the experts of an MoE layer, the stages of a
+pipeline and Megatron's column and row splits, each along its dimension:
+`TrainState.row_shards`), and those of its Adam slots, are gathered to
+the mesh's leader, which writes the one-process format above; the other
+ranks write nothing. `restore` reads the step on every rank, which keeps
+its own part of each leaf. So a cohort's checkpoint restores at any
+world size and mesh and in a plain worker, and the other way round. `save_overlapped` is the cohort's
 preemption drain: the gather, the write handed to the background writer,
 `overlap_fn` run meanwhile, then a wait for durability.
 
@@ -148,24 +150,29 @@ def _whole_payload(state: Any) -> Optional[Dict[str, Any]]:
     }
 
 
+def _part(value, rows):
+    """This rank's part of a whole leaf (or of its optimizer slot)."""
+    if rows is None or value.dim() <= rows.dim or \
+            value.shape[rows.dim] != rows.rows:
+        return value
+    return value.narrow(rows.dim, rows.start, rows.size)
+
+
 def _local_payload(state: Any, payload: Dict[str, Any]) -> Dict[str, Any]:
-    """A one-process payload cut to this rank's rows of each sharded
-    table and of its optimizer slots."""
+    """A one-process payload cut to this rank's part of each split leaf
+    and of its optimizer slots."""
     if not state.row_shards:
         return payload
     names = _slots(state)
     params = dict(payload["params"])
     for name, rows in state.row_shards.items():
-        params[name] = params[name][rows.start:rows.stop]
+        params[name] = _part(params[name], rows)
     optimizer = dict(payload["optimizer"])
     optimizer["state"] = {}
     for i, slot in payload["optimizer"]["state"].items():
         rows = state.row_shards.get(names[i])
-        optimizer["state"][i] = {
-            key: (value[rows.start:rows.stop]
-                  if rows is not None and value.dim()
-                  and value.shape[0] == rows.rows else value)
-            for key, value in slot.items()}
+        optimizer["state"][i] = {key: _part(value, rows)
+                                 for key, value in slot.items()}
     return {**payload, "params": params, "optimizer": optimizer}
 
 
@@ -416,7 +423,9 @@ class CheckpointManager:
                       saved_buffers: Dict[str, Any]) -> None:
         want = {k: tuple(p.shape) for k, p in state.params.items()}
         for k, rows in state.row_shards.items():
-            want[k] = (rows.rows,) + want[k][1:]
+            shape = list(want[k])
+            shape[rows.dim] = rows.rows
+            want[k] = tuple(shape)
         want.update({k: tuple(b.shape) for k, b in state.buffers.items()})
         have = {k: tuple(t.shape) for k, t in saved.items()}
         have.update({k: tuple(t.shape) for k, t in saved_buffers.items()})

@@ -12,13 +12,18 @@ contract in torch terms:
   (see `lr_modulation.modulated`),
 - `dataset_fn`, `eval_metrics_fn` (`{name: Metric}` from
   `elasticdl_tpu_torch.training.metrics`), `callbacks` and
-  `prediction_outputs_processor` as in the reference.
+  `prediction_outputs_processor` as in the reference,
+- an optional `batch_partition()`: {top-level batch key: a tuple of mesh
+  axis names, one a dimension (None for none)}, the counterpart of the
+  reference's PartitionSpecs,
+- an optional module-level `aux_loss_weight` float: the weight of the
+  auxiliary losses (the MoE layers' load balance) in training.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from torch import nn
 
@@ -39,6 +44,13 @@ class ModelSpec:
     # the params the model was actually built with (cfg.model_params plus
     # injected defaults like compute_dtype)
     model_params: Dict[str, Any] = field(default_factory=dict)
+    # per-top-level-key axis names of the input batches (zoo module-level
+    # `batch_partition()`); the leading one must be the data axis
+    batch_partition: Optional[Dict[str, Tuple[Optional[str], ...]]] = None
+    # weight of the auxiliary losses (api.layers.MoE's Switch
+    # load-balance penalty), which the trainer adds inside the
+    # differentiated loss; 0 = ignored
+    aux_loss_weight: float = 0.0
 
     @classmethod
     def from_config(cls, cfg: JobConfig) -> "ModelSpec":
@@ -63,6 +75,8 @@ class ModelSpec:
             module, "eval_metrics_fn", cfg.eval_metrics_fn, required=False
         )
         callbacks_fn = get_module_attr(module, "callbacks", "", required=False)
+        batch_partition_fn = get_module_attr(
+            module, "batch_partition", "", required=False)
         pop_fn = get_module_attr(
             module,
             "prediction_outputs_processor",
@@ -80,4 +94,8 @@ class ModelSpec:
             prediction_outputs_processor=pop_fn() if pop_fn else None,
             module_name=module.__name__,
             model_params=model_params,
+            batch_partition=(
+                dict(batch_partition_fn()) if batch_partition_fn else None),
+            aux_loss_weight=float(
+                getattr(module, "aux_loss_weight", 0.0) or 0.0),
         )

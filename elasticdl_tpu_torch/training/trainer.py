@@ -26,9 +26,15 @@ the whole global batch and takes its block along the data axis; its
 masked loss SUM is divided by the global batch's mask count (every rank
 holds the whole mask, so the count needs no collective); the embedding
 tables hold the rank's row range (`Embedding.shard`), whose gradient the
-manual lookup makes whole; the replicated parameters' gradients and the
-loss are summed over the data axis in one flat bucket; and the optimizer
-runs locally, so the replicas stay bit-identical. Dropout draws the
+manual lookup makes whole; every other parameter's gradient and the loss
+are summed over the data axis in one flat bucket; and the optimizer runs
+locally, so the replicas stay bit-identical. The mesh's other axes are
+the model's: layers with a `shard(mesh)` keep their part of a split
+parameter (the MoE's experts over `expert`, the pipeline's stages over
+`pp`, Megatron's splits over `model`), and their autograd Functions do
+the sums over those axes that the reference's GSPMD program does, so a
+parameter replicated over them ends every step equal on each rank. A
+`seq` axis (sequence parallelism) is ROADMAP item 21. Dropout draws the
 global batch's mask and keeps the rank's rows, and BatchNorm's
 statistics are the global batch's (its per-rank sums all-reduced, as
 the reference's GSPMD step computes them), so a step does not depend on
@@ -37,10 +43,20 @@ Eval and predict all-gather the outputs over data, so every rank updates
 the metric states with the whole batch.
 
 Model state beside the parameters (BatchNorm's running averages, the
-reference's `extra_vars`) lives in the model's buffers, which
-`TrainState.buffers` names: each training forward moves them once
-(`api.layers.update_batch_stats`), micro-batch by micro-batch under
-accumulation, never again in a remat recompute.
+MoE layers' last aux loss: the reference's `extra_vars`) lives in the
+model's buffers, which `TrainState.buffers` names: each training forward
+moves them once (`api.layers.update_batch_stats`), micro-batch by
+micro-batch under accumulation, never again in a remat recompute.
+
+The spec's `aux_loss_weight` weighs the aux losses a training forward
+leaves (`api.layers.aux_losses`) inside the differentiated loss, as the
+reference's `_aux_loss` does: weight * their sum on the one-step path;
+under accumulation each micro-batch's aux scaled by its example count
+before the divide-once (the reference's arithmetic, which is not the
+full batch's aux); under a mesh the aux is the global batch's
+(`ops/moe.py`) and each rank of the data axis carries 1/D of it, since
+its gradient's sum over data runs inside the MoE's routing. A weight of
+0 skips all of it.
 """
 
 from __future__ import annotations
@@ -53,7 +69,9 @@ import numpy as np
 import torch
 from torch.utils import checkpoint as ckpt
 
-from elasticdl_tpu_torch.api.layers import Embed, Embedding, update_batch_stats
+from elasticdl_tpu_torch.api.layers import (
+    aux_losses, drop_pending, update_batch_stats)
+from elasticdl_tpu_torch.common.constants import MeshAxis
 from elasticdl_tpu_torch.common import runtime
 from elasticdl_tpu_torch.common.log_utils import default_logger
 from elasticdl_tpu_torch.data.prefetch import tree_map
@@ -81,7 +99,8 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
     buffers: Dict[str, torch.Tensor] = field(default_factory=dict)
-    # under a mesh: the mesh, and the row range each sharded table holds
+    # under a mesh: the mesh, and the range each split parameter holds
+    # (`RowShard.axis` None: a table sharded over every axis)
     mesh: Optional[mesh_lib.Mesh] = None
     row_shards: Dict[str, mesh_lib.RowShard] = field(default_factory=dict)
 
@@ -229,6 +248,26 @@ def _group_size(stacked: Dict[str, Any]) -> int:
     return int(leaf.shape[0])
 
 
+def _check_mesh(mesh: mesh_lib.Mesh, partition) -> None:
+    """Refuse what the port does not run under a mesh: a `seq` axis, and
+    a batch partition that shards anything but the leading dimension
+    over an axis the mesh has (both sequence parallelism, ROADMAP item
+    21)."""
+    if MeshAxis.SEQ in mesh.axis_names:
+        raise NotImplementedError(
+            f"mesh axis {MeshAxis.SEQ!r} (sequence parallelism: ring and "
+            "Ulysses attention and its batch partition) is ROADMAP item 21")
+    for key, axes in (partition or {}).items():
+        if axes and axes[0] not in (None, mesh_lib.data_axis(mesh)):
+            raise ValueError(f"batch partition {key!r}: {axes} does not "
+                             "lead with the data axis")
+        inner = [a for a in (axes or ())[1:] if a in mesh.axis_names]
+        if inner:
+            raise NotImplementedError(
+                f"batch partition {key!r} shards over {inner} (sequence "
+                "parallelism is ROADMAP item 21)")
+
+
 class Trainer:
     """Runs the train/eval/predict steps of one ModelSpec on one device.
 
@@ -261,21 +300,9 @@ class Trainer:
         self.model = spec.model
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         if self.mesh is not None:
-            extra = set(self.mesh.axis_names) - {
-                mesh_lib.data_axis(self.mesh), mesh_lib.model_axis(self.mesh)}
-            if extra:
-                raise NotImplementedError(
-                    f"mesh axes {sorted(extra)} (sequence, pipeline and "
-                    "expert parallelism) are ROADMAP items 21 and 23")
-            if any(isinstance(m, Embed) for m in self.model.modules()):
-                # the LM embeds through `Embed`; its cohort (its batch
-                # partition and sequence-parallel attention) is not ported
-                raise NotImplementedError(
-                    "under a mesh the port trains models whose parameters "
-                    "are replicated or in `api.layers.Embedding` tables; "
-                    "the LM in a cohort is ROADMAP item 21")
+            _check_mesh(self.mesh, spec.batch_partition)
             for module in self.model.modules():
-                if isinstance(module, Embedding):
+                if hasattr(module, "shard"):
                     module.shard(self.mesh)
         self.metrics: Dict[str, metrics_lib.Metric] = (
             dict(spec.eval_metrics_fn()) if spec.eval_metrics_fn else {}
@@ -320,16 +347,17 @@ class Trainer:
         return TrainState(
             step=0, params=params, optimizer=optimizer, generator=generator,
             buffers=dict(model.named_buffers()), mesh=self.mesh,
-            row_shards={f"{name}.table": m.row_shard
+            row_shards={f"{name}.{leaf}": rows
                         for name, m in model.named_modules()
-                        if isinstance(m, Embedding)
-                        and m.row_shard is not None})
+                        if hasattr(m, "shards")
+                        for leaf, rows in m.shards().items()})
 
     # ------------------------------------------------------------------ #
     # Steps
 
     def _forward(self, state: TrainState, features, block=None):
-        """The training forward; under remat, inside a non-reentrant
+        """The training forward: (outputs, the weighted aux loss or None
+        with a weight of 0 or no aux); under remat, inside a non-reentrant
         `torch.utils.checkpoint` with the policy's context. `block` is
         (global rows, start, stop, mesh) of a rank's block under a mesh,
         for the randomness the model draws per example and the global
@@ -344,12 +372,16 @@ class Trainer:
         draws the forward's masks again (the reference's dropout draws
         from `fold_in(rng, step)` and recomputes the same masks)."""
         gen = state.generator
+        weight = self.spec.aux_loss_weight
 
         def model(feats):
             if block is None:
-                return self.model(feats, training=True, generator=gen)
-            with mesh_lib.batch_block_of(*block):
-                return self.model(feats, training=True, generator=gen)
+                outputs = self.model(feats, training=True, generator=gen)
+            else:
+                with mesh_lib.batch_block_of(*block):
+                    outputs = self.model(feats, training=True, generator=gen)
+            aux = aux_losses(self.model) if weight else []
+            return outputs, (weight * sum(aux) if aux else None)
 
         if not self.remat:
             outputs = model(features)
@@ -375,6 +407,7 @@ class Trainer:
         after = state.generator.get_state()
         value.backward()
         state.generator.set_state(after)
+        drop_pending(self.model)
 
     def _accumulated_backward(self, state: TrainState, features, labels,
                               mask) -> torch.Tensor:
@@ -404,14 +437,20 @@ class Trainer:
                 block = (b, *mesh_lib.batch_block(self.mesh, b), self.mesh)
                 f, l, m = (mesh_lib.shard_batch(self.mesh, x)
                            for x in (f, l, m))
-            value = self.spec.loss(l, self._forward(state, f, block))
+            outputs, aux = self._forward(state, f, block)
+            value = self.spec.loss(l, outputs)
+            # each rank of the data axis carries 1/D of a global aux
+            share = (1.0 if self.mesh is None else
+                     1.0 / self.mesh.axis_size(mesh_lib.data_axis(self.mesh)))
             if value.dim() == 0:
                 _warn_scalar_loss_with_accum()
                 s, c = value.to(torch.float32), 1.0
                 if self.mesh is not None:
                     # the data axis's blocks weigh equally, as the
                     # micro-batches do
-                    s = s / self.mesh.shape[mesh_lib.data_axis(self.mesh)]
+                    s = s / self.mesh.axis_size(mesh_lib.data_axis(self.mesh))
+                if aux is not None:
+                    s = s + aux * share
             else:
                 v = value.reshape(-1).to(torch.float32)
                 mm = (m.to(torch.float32).reshape(-1) if m is not None
@@ -419,6 +458,9 @@ class Trainer:
                 s, c = torch.sum(v * mm), torch.sum(mm)
                 if self.mesh is not None:
                     c = c_global
+                if aux is not None:
+                    # the reference's aux * count, before the divide-once
+                    s = s + aux * c * share
             self._backward(state, s)
             loss_sum += s.detach()
             count += c
@@ -441,8 +483,10 @@ class Trainer:
         if self.grad_accum > 1 or self.mesh is not None:
             loss = self._accumulated_backward(state, features, labels, mask)
         else:
-            outputs = self._forward(state, features)
+            outputs, aux = self._forward(state, features)
             loss = _masked_scalar_loss(self.spec.loss, labels, outputs, mask)
+            if aux is not None:
+                loss = loss + aux
             self._backward(state, loss)
         if self.mesh is not None:
             loss = self._sum_over_data(state, loss.detach())
@@ -450,11 +494,13 @@ class Trainer:
 
     def _sum_over_data(self, state: TrainState,
                        loss: torch.Tensor) -> torch.Tensor:
-        """Sum the replicated parameters' gradients and the loss over the
-        data axis, in one flat bucket (a library collective). A sharded
-        table's gradient is already whole. Returns the summed loss."""
+        """Sum the parameters' gradients and the loss over the data axis,
+        in one flat bucket (a library collective). A sharded table's
+        gradient is already whole. Returns the summed loss."""
+        tables = {n for n, rows in state.row_shards.items()
+                  if rows.axis is None}
         grads = [p.grad for n, p in state.params.items()
-                 if n not in state.row_shards and p.grad is not None]
+                 if n not in tables and p.grad is not None]
         # float32 whatever the parameters' order: the float32 loss makes
         # cat promote bfloat16 gradients
         bucket = torch.cat([g.reshape(-1) for g in grads]
@@ -523,8 +569,11 @@ class Trainer:
         mesh, this rank's block's, all-gathered over data."""
         if self.mesh is None:
             return self.model(features, training=False)
-        out = self.model(mesh_lib.shard_batch(self.mesh, features),
-                         training=False)
+        b = _group_size({"features": features})
+        with mesh_lib.batch_block_of(b, *mesh_lib.batch_block(self.mesh, b),
+                                     self.mesh):
+            out = self.model(mesh_lib.shard_batch(self.mesh, features),
+                             training=False)
         return mesh_lib.all_gather(self.mesh, mesh_lib.data_axis(self.mesh),
                                    out)
 

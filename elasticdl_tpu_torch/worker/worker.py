@@ -326,7 +326,7 @@ class Worker:
             parse = self._spec.dataset_fn(mode, reader.metadata)
             # a batch splits evenly over the data axis (1 for a plain
             # worker)
-            multiple = self._mesh.shape[mesh_lib.data_axis(self._mesh)]
+            multiple = self._mesh.axis_size(mesh_lib.data_axis(self._mesh))
             self._readers[task_type] = reader
             self._services[task_type] = TaskDataService(
                 reader, parse, self.cfg.minibatch_size,

@@ -26,8 +26,8 @@ of the conftest's 8-device CPU mesh, with the exact embedding backward
   {data 4} (params and Adam's moments, bit for bit), and the one-process
   port's eval metric states and predictions equal the {data 2} ones
   (states exactly, the loss pair and predictions within rtol 1e-6).
-- The LM under a mesh of more than one rank is refused (ROADMAP item
-  21).
+- A mesh with a `seq` axis is refused, naming ROADMAP item 21 (the LM
+  under the other axes is `tests/test_torch_lm_parallel.py`'s).
 """
 
 import os
@@ -338,9 +338,9 @@ def case_checkpoint_restores_at_other_sizes(parts):
     np.testing.assert_array_equal(parts[1]["pred2"], parts[0]["pred2"])
 
 
-def case_lm_under_a_mesh_is_refused():
-    """The LM in a cohort is ROADMAP item 21: a trainer under a mesh of
-    more than one rank refuses a model with no `Embedding` table."""
+def case_seq_axis_is_refused():
+    """Sequence parallelism is ROADMAP item 21: a trainer under a mesh
+    with a `seq` axis refuses the LM; without one it takes it."""
     import pytest
 
     from elasticdl_tpu_torch.common.config import JobConfig
@@ -354,11 +354,13 @@ def case_lm_under_a_mesh_is_refused():
             "--model_zoo", TZOO, "--model_def",
             "transformer.transformer_lm.custom_model",
             "--model_params", LM_PARAMS]))
-    for sizes in ({"data": 2}, {"data": 2, "model": 2}):
+    for sizes in ({"data": 2, "seq": 2}, {"seq": 2}):
         n = int(np.prod(list(sizes.values())))
         mesh = Mesh(sizes, range(n), 0, groups={}, world=None)
         with pytest.raises(NotImplementedError, match="item 21"):
             Trainer(spec, device="cpu", mesh=mesh)
+    mesh = Mesh({"data": 2, "model": 2}, range(4), 0, groups={}, world=None)
+    Trainer(spec, device="cpu", mesh=mesh)
 
 
 def test_cohort_step_against_the_reference(monkeypatch):
@@ -375,7 +377,7 @@ def test_cohort_step_against_the_reference(monkeypatch):
         case_steps_match_reference(parts, want)
         case_dropout_step_does_not_depend_on_world_size(parts)
         case_checkpoint_restores_at_other_sizes(parts)
-    case_lm_under_a_mesh_is_refused()
+    case_seq_axis_is_refused()
 
 
 if __name__ == "__main__" and sys.argv[1] == "ranks":

@@ -4,7 +4,8 @@ same steps on the CPU, the trainer's knobs (remat, accumulation, grouped
 steps) through K1-K4', the DeepFM job path (master, worker,
 checkpoint, export), the manual schedule's per-rank compute (K1 on a
 shard), a one-rank NCCL cohort context, K1 on Wide & Deep's census
-stream, a ResNet-20 step (convolutions, BatchNorm) and a device-mode
+stream, the MoE, pipelined and tensor-parallel LMs and the MoE's index
+and dense routes, a ResNet-20 step (convolutions, BatchNorm) and a device-mode
 embedding-tier store (K1 on every push) on the card. They skip where no
 CUDA device is present.
 
@@ -430,7 +431,10 @@ def case_hopper_wrapper_rejects_strides_tma_cannot_take(cuda):
     assert fa.launches[fa.BWD_DELTA_SM90] == before[fa.BWD_DELTA_SM90]
 
 
-def case_lm_grads_on_the_card_match_cpu(cuda):
+def case_lm_grads_on_the_card_match_cpu(cuda, extra=""):
+    """The float32 LM's loss and gradients on the card against the CPU;
+    `extra` adds model_params (the MoE, pipelined and tensor-parallel
+    configurations, with no mesh)."""
     from elasticdl_tpu_torch.common.config import JobConfig
     from elasticdl_tpu_torch.training.model_spec import ModelSpec
     from elasticdl_tpu_torch.training.trainer import Trainer
@@ -438,7 +442,8 @@ def case_lm_grads_on_the_card_match_cpu(cuda):
     cfg = JobConfig.from_argv([
         "--model_zoo", os.path.join(REPO, "elasticdl_tpu_torch", "model_zoo"),
         "--model_def", "transformer.transformer_lm.custom_model",
-        "--model_params", "vocab=64;num_layers=2;dim=64;heads=4;max_len=64",
+        "--model_params",
+        "vocab=64;num_layers=2;dim=64;heads=4;max_len=64" + extra,
         "--compute_dtype", "float32"])
     r = np.random.RandomState(6)
     toks = r.randint(0, 64, (8, 33)).astype(np.int32)
@@ -460,6 +465,36 @@ def case_lm_grads_on_the_card_match_cpu(cuda):
         if n.endswith(".k.bias"):       # 0 in exact arithmetic
             continue
         _close(got, want, n, 5e-5, 5e-5)
+
+
+def case_moe_routes_on_the_card(cuda):
+    """The index and the dense plain MoE routes on the card: outputs, aux
+    and the expert kernels' gradients bit for bit, the rest rtol 1e-6 with
+    atol 1e-6 of the largest (`tests/test_torch_moe.py` holds them so on
+    the CPU)."""
+    from elasticdl_tpu_torch.common import runtime
+    from elasticdl_tpu_torch.ops import moe
+
+    runtime.configure_torch_runtime()
+    r = np.random.RandomState(5)
+    n, c, e, h = 512, 64, 8, 256
+    arrays = [r.randn(n, c), r.randn(c, e), r.randn(e, c, h) * 0.1,
+              r.randn(e, h) * 0.1, r.randn(e, h, c) * 0.1, r.randn(e, c) * 0.1]
+    g = torch.tensor(r.randn(n, c), dtype=torch.float32, device=cuda)
+    results = []
+    for fn in (moe.switch_moe, moe.switch_moe_plain):
+        args = [torch.tensor(a, dtype=torch.float32, device=cuda,
+                             requires_grad=True) for a in arrays]
+        out, aux = fn(*args, capacity_factor=1.25)
+        results.append((out, aux, torch.autograd.grad(
+            (out * g).sum() + aux, args)))
+    (o1, a1, g1), (o2, a2, g2) = results
+    assert torch.equal(o1, o2) and torch.equal(a1, a2)
+    for name, p, q in zip(("x", "wg", "w1", "b1", "w2", "b2"), g1, g2):
+        if name in ("w1", "b1", "w2"):
+            assert torch.equal(p, q), name
+        else:
+            _close(p, q, name, 1e-6, 1e-6)
 
 
 def case_k1_on_the_census_stream(cuda):
@@ -768,6 +803,10 @@ def test_kernels_on_the_card(cuda, tmp_path):
     case_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda)
     case_hopper_wrapper_rejects_strides_tma_cannot_take(cuda)
     case_lm_grads_on_the_card_match_cpu(cuda)
+    for extra in (";moe_experts=4", ";pp_axis=pp;seq_parallel=none",
+                  ";tp_axis=model"):
+        case_lm_grads_on_the_card_match_cpu(cuda, extra)
+    case_moe_routes_on_the_card(cuda)
     case_lm_knobs_on_the_card(cuda)
     case_grouped_deepfm_on_the_card(cuda)
     case_job_on_the_card(cuda, str(tmp_path))

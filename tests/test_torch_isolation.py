@@ -26,13 +26,13 @@ from elasticdl_tpu_torch.common.config import JobConfig
 from elasticdl_tpu_torch.training.model_spec import ModelSpec
 from elasticdl_tpu_torch.training.trainer import Trainer
 from elasticdl_tpu_torch.ops import (
-    attention, embedding, flash_attention, native, placement)
+    attention, embedding, flash_attention, moe, native, placement)
 from elasticdl_tpu_torch import convert
 from elasticdl_tpu_torch.client import api, local, main as client_main
 from elasticdl_tpu_torch.data import nativelib, parsing, prefetch, reader, recordio
 from elasticdl_tpu_torch.master import (
     layout_controller, main as master_main, process_manager)
-from elasticdl_tpu_torch.parallel import elastic, mesh
+from elasticdl_tpu_torch.parallel import elastic, mesh, pipeline
 from elasticdl_tpu_torch.training import checkpoint, compile_cache, export
 from elasticdl_tpu_torch.embedding import (
     cache, data_plane, reshard, sharding, shm, sketch, store, tier, transport)
@@ -47,6 +47,12 @@ lm = ModelSpec.from_config(JobConfig.from_argv([
     "--model_zoo", sys.argv[1], "--model_def",
     "transformer.transformer_lm.custom_model",
     "--model_params", "vocab=64;num_layers=1;dim=32;heads=2;max_len=16"]))
+for params in ("moe_experts=2", "tp_axis=model",
+               "pp_axis=pp;seq_parallel=none"):
+    ModelSpec.from_config(JobConfig.from_argv([
+        "--model_zoo", sys.argv[1], "--model_def",
+        "transformer.transformer_lm.custom_model", "--model_params",
+        "vocab=64;num_layers=1;dim=32;heads=2;max_len=16;" + params]))
 for model_def, params in (
         ("deepfm.xdeepfm", "field_vocab=100;hidden=8;cin_sizes=4"),
         ("census.wide_deep", "hidden=8"),
@@ -78,6 +84,8 @@ def case_port_loads_no_jax_or_reference_module():
                  "deepfm.xdeepfm", "census.wide_deep", "mnist.mnist_cnn",
                  "cifar10.resnet", "resnet50.resnet50", "torch",
                  "elasticdl_tpu_torch.ops.flash_attention",
+                 "elasticdl_tpu_torch.ops.moe",
+                 "elasticdl_tpu_torch.parallel.pipeline",
                  "elasticdl_tpu_torch.worker.worker",
                  "elasticdl_tpu_torch.worker.cohort",
                  "elasticdl_tpu_torch.parallel.mesh",

@@ -229,15 +229,22 @@ def case_convert_rejects_stray_and_missing_keys(p):
         convert.params_from_flax(bad, p.tt.model)
 
 
-def case_unported_parallel_options_raise():
+def case_parallel_options_build():
+    """The reference's parallel options build (their parity is in
+    `tests/test_torch_moe.py`, `tests/test_torch_pipeline.py` and
+    `tests/test_torch_lm_parallel.py`); the reference's consistency
+    checks raise as its own do."""
     from elasticdl_tpu_torch.model_zoo.transformer import transformer_lm as lm
 
     with pytest.raises(ValueError, match="mutually exclusive"):
         lm.custom_model(tp_axis="model", pp_axis="pp")
-    for kw in ({"tp_axis": "model"}, {"moe_experts": 4},
-               {"pp_axis": "pp", "seq_parallel": "none"}):
-        with pytest.raises(NotImplementedError, match="17 and 23"):
-            lm.custom_model(**kw)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        lm.custom_model(tp_axis="model", moe_experts=4)
+    for kw, leaf in (({"tp_axis": "model"}, "block_0.q.weight"),
+                     ({"moe_experts": 4}, "block_0.moe.w1"),
+                     ({"pp_axis": "pp", "seq_parallel": "none"},
+                      "pipeline.wq")):
+        assert leaf in dict(lm.custom_model(**kw).named_parameters()), kw
 
 
 def test_transformer_lm_against_the_reference():
@@ -251,4 +258,4 @@ def test_transformer_lm_against_the_reference():
         case_convert_rejects_stray_and_missing_keys(p)
         case_f32_three_adamw_steps_then_eval(p)
         case_bf16_logits_loss_and_grads()
-    case_unported_parallel_options_raise()
+    case_parallel_options_build()

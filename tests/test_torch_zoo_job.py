@@ -202,8 +202,8 @@ def case_resnet20_cohort(tmp):
     log = job.log()
     for p in (0, 1):
         assert f"distributed world v0 up: process {p}/2" in log, log[-3000:]
-    _, variables = export.load_model(cfg.output, TZOO, device="cpu")
     with zoo(TZOO):
+        _, variables = export.load_model(cfg.output, TZOO, device="cpu")
         state = Trainer(ModelSpec.from_config(cfg), device="cpu").init_state(
             None)
     CheckpointManager(cfg.checkpoint_dir).restore(state)
