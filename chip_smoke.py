@@ -9,7 +9,9 @@ pass), the embedding tier's device-mode pushes, session and resharding
 (K1 on every push), the other five zoo models (xDeepFM and Wide & Deep through K1;
 the MNIST CNN, ResNet-20 and ResNet-50 through library convolutions
 and BatchNorm) as steps and, for ResNet-20 and Wide & Deep, as jobs, the transformer LM's train step and its job, its Switch-MoE
-configuration as a step and a job and its pipelined one as a step (flash-attention
+configuration as a step and a job and its pipelined one as a step, its
+sequence-parallel ring and Ulysses schedules and its steps on a `seq`
+mesh (flash-attention
 kernels: for its bfloat16 D 64 attention the Hopper kernels K2', K3', K4'
 and the delta pass, which runs once a backward; K2, K3 and K4 for every
 other input, such as the float32 LM), and the trainer's knobs (remat,
@@ -262,11 +264,41 @@ caught):
            K2' 4 times an eval step, and the newest checkpoint restoring
            the final state exactly (router, experts, `moe_aux`). Prints
            the wall, host ms and tokens/s a step, data_wait and h2d.
+24. ring_attn (after `attn_kernel`)  the sequence-parallel ring of
+           `ops/attention.py` in one process at the LM's attention width
+           (B 8, T 1024, H 8, D 64, bf16, causal), over 4 virtual ranks of
+           256 columns (`ring_attention_local`: the same schedule and
+           merge as the sharded ring, with a rotation that hands each
+           virtual rank the blocks it would receive), forward and backward
+           with a random cotangent; then Ulysses over 4 virtual ranks
+           (2 heads each over the whole sequence, `ulysses_local`). The
+           ring must launch K2' 16 times (4 x 4 block pairs, the wholly
+           masked ones included) and K3', K4' and the delta pass 16 times
+           each in the backward,
+           at nonzero offsets and with the merge's live lse cotangent;
+           Ulysses 4 of each. Each launch is held against its plain
+           version on the same inputs (`phase_attn_kernel`'s bf16
+           tolerance; the wholly masked blocks 0 with lse NEG_BIG), and
+           the schedule's output and gradients against itself with the
+           plain versions and against one unsplit `full_attention`
+           (RING_OUT_TOL, RING_GRAD_TOL, which say why: the gradients
+           are bf16 sums of 4 partials), with each error's share of its
+           tolerance; then timed fwd + bwd beside the unsplit call (CUDA
+           events).
+25. seq_train (after `lm_train`)  the LM at 9's width on a one-rank NCCL
+           world with the mesh {data 1, seq 1}: 3 train steps equal the
+           same steps with no mesh bit for bit (the fallback at a seq
+           size of 1), with `lm_train`'s launches; then the LM with each
+           block's attention as the in-process ring of 24 over 4 blocks, 3
+           train steps: finite, falling, the first loss within rel 1e-2 of
+           the unsplit one's, K2', K3', K4' and the delta pass 16 times a
+           layer and step.
 Then the `kernels` line (K1's `launches` are the job's, with the
 `grouped`, `cohort_job`, `manual_shards` and `tier` phases' beside
 them; the Hopper kernels' are `lm_train`'s, with `lm_job`'s,
-`moe_train`'s, `pp_train`'s and `moe_job`'s beside them), the nvidia-smi
-line, and last the `ok` line.
+`moe_train`'s, `pp_train`'s, `moe_job`'s, `ring_attn`'s and
+`seq_train`'s beside them), the nvidia-smi line, and last the `ok`
+line.
 
 It exits non-zero without a result where CUDA is unavailable, and where
 the port's package is absent.
@@ -1154,6 +1186,345 @@ def phase_lm_train():
     phase_profile(trainer, state, batch, step_ms)
     return {name: train[name] + evaluate[name] + predict[name]
             for name in train}
+
+
+# ---------------------------------------------------------------- seq
+
+
+RING_BLOCKS = 4
+# a schedule's output and gradients (rtol, atol of max, atol of rms),
+# against unsplit attention and against itself with the plain versions,
+# from where each side rounds to bf16 (2**-9 relative, half an ulp) or
+# differs by the kernels' own bf16 tolerance (one ulp) a call:
+# - out: the n partials, each rounded by K2', merge in float32 with
+#   weights summing to 1, then round once: at most 2**-9 x (max|partial|
+#   + 2 max|out|) <= 3 x 2**-9 x max|out|, or 2**-7 x max|out| for
+#   partials one ulp apart;
+# - a gradient of k or v (or of q, over the n kv blocks) is the bf16 sum
+#   of n bf16 partials: n roundings of the partials and n - 1 of the sum,
+#   and the unsplit call's one, at most 2n x 2**-9 x max = 2**-6 x max
+#   for n = 4 (partials no larger than the whole gradient's largest).
+# Each kernel call itself is held to `phase_attn_kernel`'s bf16
+# tolerance against its plain version on the same inputs (KERNEL_TOL).
+RING_OUT_TOL = (2 ** -8, 2 ** -7, 0.0)
+RING_GRAD_TOL = (2 ** -8, 2 ** -6, 0.0)
+KERNEL_TOL = (2 ** -7, 0.0, 1e-2)
+
+
+class plain_flash:
+    """Within it, `_FlashAttention` runs the flash kernels' plain versions
+    on the card (the same inputs, no launch), so a schedule built on it
+    can be held against itself with the kernels."""
+
+    def __enter__(self):
+        from elasticdl_tpu_torch.ops import flash_attention as fa
+
+        self.saved = fa.flash_fwd, fa.flash_bwd
+        fa.flash_fwd = fa.flash_fwd_plain
+
+        def bwd(q, k, v, out, dout, lse, g_lse=None, causal=True,
+                q_offset=0, kv_offset=0):
+            args = (q, k, v, out, dout, lse, g_lse, causal, q_offset,
+                    kv_offset)
+            return (fa.flash_bwd_dq_plain(*args),
+                    *fa.flash_bwd_dkv_plain(*args))
+
+        fa.flash_bwd = bwd
+        return self
+
+    def __exit__(self, *exc):
+        from elasticdl_tpu_torch.ops import flash_attention as fa
+
+        fa.flash_fwd, fa.flash_bwd = self.saved
+
+
+class recorded_flash:
+    """Within it, every forward and backward that `_FlashAttention` runs
+    is recorded with its inputs and results (`fwd`, `bwd`: lists of
+    (args, results)), so each launch can be held against its plain
+    version on the same inputs."""
+
+    def __enter__(self):
+        from elasticdl_tpu_torch.ops import flash_attention as fa
+
+        self.saved = fa.flash_fwd, fa.flash_bwd
+        self.fwd, self.bwd = [], []
+        real_fwd, real_bwd = self.saved
+
+        def fwd(*args):
+            out = real_fwd(*args)
+            self.fwd.append((args, out))
+            return out
+
+        def bwd(*args):
+            out = real_bwd(*args)
+            self.bwd.append((args, out))
+            return out
+
+        fa.flash_fwd, fa.flash_bwd = fwd, bwd
+        return self
+
+    def __exit__(self, *exc):
+        from elasticdl_tpu_torch.ops import flash_attention as fa
+
+        fa.flash_fwd, fa.flash_bwd = self.saved
+
+
+@torch.no_grad()
+def per_call_checks(rec):
+    """Each recorded launch against its plain version on the same inputs
+    (KERNEL_TOL; lse 2e-5): {kernel: [max abs error, share of tolerance]},
+    the (q_offset, kv_offset) pairs, the wholly masked calls (out 0, lse
+    NEG_BIG, gradients 0: R1) and the backward calls with a nonzero lse
+    cotangent."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    worst = {}
+
+    def note(kernel, results):
+        err = max(r[0] for r in results)
+        ratio = max(r[1] for r in results)
+        old = worst.get(kernel, [0.0, 0.0])
+        worst[kernel] = [max(old[0], err), max(old[1], ratio)]
+
+    offsets, masked, live = set(), 0, 0
+    for (q, k, v, causal, q_off, kv_off), (out, lse) in rec.fwd:
+        want_out, want_lse = fa.flash_fwd_plain(q, k, v, causal, q_off,
+                                                kv_off)
+        note(fa.FWD_SM90, [over_tol(out, want_out, *KERNEL_TOL),
+                           over_tol(lse, want_lse, 2e-5, 2e-5)])
+        offsets.add((q_off, kv_off))
+        if causal and kv_off >= q_off + q.shape[1]:
+            masked += 1
+            if not (bool((out == 0).all()) and bool((lse <= -1e29).all())):
+                raise AssertionError(f"a wholly masked block ({q_off}, "
+                                     f"{kv_off}) is not 0 with lse NEG_BIG")
+    for args, (dq, dk, dv) in rec.bwd:
+        q, k, v, out, dout, lse, g_lse, causal, q_off, kv_off = args
+        want_dq = fa.flash_bwd_dq_plain(*args)
+        want_dk, want_dv = fa.flash_bwd_dkv_plain(*args)
+        note(fa.BWD_DQ_SM90, [over_tol(dq, want_dq, *KERNEL_TOL)])
+        note(fa.BWD_DKV_SM90, [over_tol(dk, want_dk, *KERNEL_TOL),
+                               over_tol(dv, want_dv, *KERNEL_TOL)])
+        note(fa.BWD_DELTA_SM90, [over_tol(
+            fa.flash_bwd_delta(out, dout, g_lse),
+            fa.flash_bwd_delta_plain(out, dout, g_lse), 2e-5, 2e-5)])
+        live += int(g_lse is not None and bool((g_lse != 0).any()))
+        if causal and kv_off >= q_off + q.shape[1]:
+            if not all(bool((x == 0).all()) for x in (dq, dk, dv)):
+                raise AssertionError("a wholly masked block's gradients "
+                                     "are not 0")
+    return {"kernels": worst, "offsets": sorted(offsets),
+            "wholly_masked_calls": masked, "bwd_calls_with_live_g_lse": live}
+
+
+def ulysses_local(q, k, v, n, causal=True):
+    """Ulysses over n virtual ranks in this process: after its all-to-all,
+    virtual rank r holds the whole sequence for heads [r H/n, (r+1) H/n),
+    so each runs `full_attention` over those heads, and the second
+    all-to-all joins the results along H."""
+    from elasticdl_tpu_torch.ops import attention
+
+    per = q.shape[2] // n
+    return torch.cat([attention.full_attention(
+        q[:, :, r * per:(r + 1) * per], k[:, :, r * per:(r + 1) * per],
+        v[:, :, r * per:(r + 1) * per], causal=causal)
+        for r in range(n)], dim=2)
+
+
+def attn_fwd_bwd(fn, q, k, v, dout):
+    """(out, (dq, dk, dv)) of `fn(q, k, v)` with the cotangent `dout`."""
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = fn(*leaves)
+    return out.detach(), torch.autograd.grad(out, leaves, dout)
+
+
+def schedule_checks(name, fn, q, k, v, dout, want_fwd, want_bwd):
+    """One schedule (`fn(q, k, v)`, causal) on the card: its launches in
+    the forward and in the backward, held to `want_fwd` and `want_bwd`;
+    each launch against its plain version on the same inputs
+    (`per_call_checks`); its output and gradients against the same
+    schedule with the plain versions and against unsplit
+    `full_attention` (RING_OUT_TOL, RING_GRAD_TOL); and its fwd + bwd ms
+    beside the unsplit call's, with CUDA events."""
+    from elasticdl_tpu_torch.ops import attention
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    reset_launches()
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    with recorded_flash() as rec:
+        out = fn(*leaves)
+        torch.cuda.synchronize()
+        fwd = {n: c for n, c in fa.launches.items() if c}
+        reset_launches()
+        grads = torch.autograd.grad(out, leaves, dout)
+        torch.cuda.synchronize()
+        bwd = {n: c for n, c in fa.launches.items() if c}
+    if (fwd, bwd) != (want_fwd, want_bwd):
+        raise AssertionError(f"{name}: launched {fwd} forward and {bwd} "
+                             f"backward, want {want_fwd} and {want_bwd}")
+    calls = per_call_checks(rec)
+    del rec
+    got = [out.detach()] + list(grads)
+    with plain_flash():
+        p_out, p_grads = attn_fwd_bwd(fn, q, k, v, dout)
+    u_out, u_grads = attn_fwd_bwd(attention.full_attention, q, k, v, dout)
+    names = ("out", "dq", "dk", "dv")
+
+    def against(want):
+        return {n: over_tol(g, w, *(RING_OUT_TOL if n == "out"
+                                    else RING_GRAD_TOL))
+                for n, g, w in zip(names, got, want)}
+
+    against_plain = against([p_out] + list(p_grads))
+    against_unsplit = against([u_out] + list(u_grads))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    worst = max(r[1] for r in (*against_plain.values(),
+                               *against_unsplit.values(),
+                               *calls["kernels"].values()))
+    if not finite or worst > 1.0:
+        emit(name, per_call=calls, against_plain=against_plain,
+             against_unsplit=against_unsplit, finite=finite)
+        raise AssertionError(f"{name} disagrees ({worst} of a tolerance)")
+    ms = time_ms(lambda: attn_fwd_bwd(fn, q, k, v, dout), groups=7,
+                 per_group=3, warmup=1)
+    unsplit_ms = time_ms(lambda: attn_fwd_bwd(attention.full_attention, q,
+                                              k, v, dout),
+                         groups=7, per_group=3, warmup=1)
+    return {"launches_fwd": fwd, "launches_bwd": bwd, "per_call": calls,
+            "against_plain": against_plain,
+            "against_unsplit": against_unsplit,
+            "fwd_bwd_ms": ms, "unsplit_fwd_bwd_ms": unsplit_ms}
+
+
+def phase_ring_attn(dev, smi):
+    """The ring schedule of `ops/attention.py` in one process at the LM's
+    attention width (B 8, T 1024, H 8, D 64, bf16, causal) over
+    RING_BLOCKS virtual ranks of 256 columns (`ring_attention_local`: the
+    rotation hands each virtual rank the blocks it would receive), and
+    Ulysses over as many (`ulysses_local`: 2 heads each over the whole
+    sequence), forward and backward with a random cotangent. The
+    ring launches K2' once a (q block, kv block) pair, the wholly masked
+    pairs included (n x n), and K3', K4' and the delta pass as often in
+    the backward, at nonzero offsets and with the merge's live lse
+    cotangent; Ulysses once a virtual rank each. Returns the Hopper
+    kernels' launches."""
+    from elasticdl_tpu_torch.ops import attention
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, d, n = LM_BATCH, LM_T, 8, 64, RING_BLOCKS
+    q, k, v, dout, _ = attn_inputs(dev, b, t, t, h, d, torch.bfloat16, 41)
+    pairs, bwd = n * n, (fa.BWD_DQ_SM90, fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90)
+    ring = schedule_checks(
+        "ring_attn", lambda q, k, v: attention.ring_attention_local(
+            q, k, v, n, causal=True), q, k, v, dout,
+        {fa.FWD_SM90: pairs}, {name: pairs for name in bwd})
+    ulysses = schedule_checks(
+        "ring_attn", lambda q, k, v: ulysses_local(q, k, v, n), q, k, v,
+        dout,
+        {fa.FWD_SM90: n}, {name: n for name in bwd})
+    emit("ring_attn", card=smi, shape=[b, t, h, d], dtype="bfloat16",
+         causal=True, blocks=n, block_len=t // n,
+         tolerance={"per_call": list(KERNEL_TOL),
+                    "out": list(RING_OUT_TOL),
+                    "grads": list(RING_GRAD_TOL),
+                    "form": "rtol, atol of max, atol of rms"},
+         ring=ring, ulysses=ulysses)
+    launches = {name: 0 for name in fa.launches}
+    for run in (ring, ulysses):
+        for counts in (run["launches_fwd"], run["launches_bwd"]):
+            for name, c in counts.items():
+                launches[name] += c
+    return launches
+
+
+def phase_seq_train(smi):
+    """The LM at `lm_train`'s width on a `seq` mesh of one card: a
+    one-rank NCCL world (as `cohort_job`'s member forms it) with the mesh
+    {data 1, seq 1}, 3 train steps, which must equal the same 3 steps with
+    no mesh bit for bit (losses and parameters: the reference's fallback
+    at a seq size of 1), with K2', K3', K4' and the delta pass launched
+    as in `lm_train`. Then the same LM with each block's attention run as
+    the in-process ring over RING_BLOCKS blocks: 3 train steps, finite
+    and falling, the first loss within rel 1e-2 of the unsplit step's,
+    and the Hopper kernels launched n x n times a layer and step (the
+    ring's offsets and its live lse cotangent inside a train step).
+    Returns the kernels' launches of the mesh run and the ring run."""
+    from elasticdl_tpu_torch.common.net import free_port
+    from elasticdl_tpu_torch.ops import attention
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel import elastic
+    from elasticdl_tpu_torch.parallel import mesh as mesh_lib
+    from elasticdl_tpu_torch.training.trainer import Trainer
+
+    steps, n = 3, RING_BLOCKS
+    batches = [lm_batch(300 + i) for i in range(steps)]
+
+    def train(mesh=None, ring=False):
+        tr = Trainer(load_spec(LM_PARAMS, model_def=LM_DEF), seed=5,
+                     mesh=mesh)
+        lm = sys.modules[type(tr.model).__module__]
+        real = lm.sequence_parallel_attention
+        if ring:
+            lm.sequence_parallel_attention = (
+                lambda q, k, v, causal=True, mode="ring":
+                attention.ring_attention_local(q, k, v, n, causal))
+        try:
+            state = tr.init_state(None)
+            reset_launches()
+            losses, times = [], []
+            for bt in batches:
+                t0 = time.perf_counter()
+                losses.append(tr.train_step(state, bt)[1]["loss"])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms = statistics.mean(times[1:])      # past the first step
+        finally:
+            lm.sequence_parallel_attention = real
+        return ([float(x) for x in losses], {
+            k: p.detach().clone() for k, p in state.params.items()},
+            dict(fa.launches), ms)
+
+    plain_losses, plain_params, plain_launches, plain_ms = train()
+    ctx = elastic.CohortContext(f"localhost:{free_port()}", 1, 0,
+                                device=torch.device("cuda:0"))
+    ctx.initialize(timeout_s=60)
+    try:
+        mesh = mesh_lib.build_mesh({"data": 1, "seq": 1})
+        losses, params, launches, ms = train(mesh)
+    finally:
+        ctx.shutdown()
+    if losses != plain_losses or params.keys() != plain_params.keys() or \
+            not all(torch.equal(params[k], plain_params[k]) for k in params):
+        raise AssertionError(f"the {{data 1, seq 1}} steps {losses} differ "
+                             f"from the steps with no mesh {plain_losses}")
+    if launches != hopper_launches(steps) or launches != plain_launches:
+        raise AssertionError(f"flash launches on the seq mesh {launches}")
+    ring_losses, _, ring_launches, ring_ms = train(ring=True)
+    pairs = n * n * LM_LAYERS * steps
+    want = {name: 0 for name in fa.launches}
+    for name in (fa.FWD_SM90, fa.BWD_DQ_SM90, fa.BWD_DKV_SM90,
+                 fa.BWD_DELTA_SM90):
+        want[name] = pairs
+    if (ring_launches != want or not all(np.isfinite(ring_losses))
+            or not ring_losses[-1] < ring_losses[0]
+            or abs(ring_losses[0] - plain_losses[0])
+            > 1e-2 * abs(plain_losses[0])):
+        raise AssertionError(f"the ring LM's steps: losses {ring_losses} "
+                             f"against {plain_losses}, launches "
+                             f"{ring_launches}")
+    emit("seq_train", card=smi, params=LM_PARAMS, batch=[LM_BATCH, LM_T],
+         compute_dtype="bfloat16", mesh={"data": 1, "seq": 1},
+         backend=ctx.backend, steps=steps, losses=losses,
+         bit_equal_to_no_mesh=True, host_ms_per_step=ms,
+         no_mesh_host_ms_per_step=plain_ms,
+         launches={k: v for k, v in launches.items() if v},
+         ring={"blocks": n, "losses": ring_losses,
+               "first_loss_rel_diff": abs(ring_losses[0] - plain_losses[0])
+               / abs(plain_losses[0]),
+               "host_ms_per_step": ring_ms,
+               "launches": {k: v for k, v in ring_launches.items() if v}})
+    return {k: launches[k] + ring_launches[k] for k in launches}
 
 
 # ---------------------------------------------------------------- knobs
@@ -3159,10 +3530,12 @@ def main():
     manual_shard_launches = phase_manual_shards(dev, smi)
     report, worst = phase_attn_kernel(dev)
     attn = attn_times(dev, report, worst)
+    ring_launches = phase_ring_attn(dev, smi)
     phase_parity()
     f32_lm_launches = phase_lm_parity()
     launches = phase_train()
     lm_launches = phase_lm_train()
+    seq_launches = phase_seq_train(smi)
     moe_launches = phase_moe_train(smi)
     pp_launches = phase_pp_train(smi)
     phase_knobs()
@@ -3227,7 +3600,9 @@ def main():
         "replaces": ATTN_KERNELS[name][1],
         # K2-K4 serve the float32 LM (lm_parity); the Hopper kernels the
         # bf16 LM's train, eval and predict steps (lm_train), and those of
-        # the MoE and pipelined LMs and the MoE job
+        # the MoE and pipelined LMs, the MoE job, the in-process ring and
+        # Ulysses (ring_attn) and the seq mesh's and ring LM's steps
+        # (seq_train)
         "launches": (f32_lm_launches[name] if name in f32_lm
                      else lm_launches[name]),
         "launches_in": "lm_parity" if name in f32_lm else "lm_train",
@@ -3235,7 +3610,9 @@ def main():
            {"lm_job_launches": lm_job_launches[name],
             "moe_train_launches": moe_launches[name],
             "pp_train_launches": pp_launches[name],
-            "moe_job_launches": moe_job_launches[name]}),
+            "moe_job_launches": moe_job_launches[name],
+            "ring_attn_launches": ring_launches[name],
+            "seq_train_launches": seq_launches[name]}),
         **attn[name],
     } for name in (fa.FWD, fa.FWD_SM90, fa.BWD_DQ, fa.BWD_DQ_SM90,
                    fa.BWD_DKV, fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90)]}),

@@ -30,7 +30,11 @@ The reference's parallel options:
   GPipe pipeline over that axis (`parallel/pipeline.gpipe`), whose
   stacked stages fold in turn when the mesh lacks the axis.
 
-A mesh with a `seq` axis is ROADMAP item 21 (the trainer refuses it).
+On a mesh with a `seq` axis each rank holds its columns of the tokens
+(`batch_partition`): the blocks' attention runs `seq_parallel`'s
+schedule over the axis (ring or Ulysses, `ops/attention.py`) and the
+positions are the rank's columns of `pos_embed`. A `seq` axis beside
+`tp_axis`, the MoE or the pipeline is ROADMAP item 35.
 
 Parameter names follow the flax module's (`tok_embed.embedding`,
 `pos_embed`, `block_{i}.{q,k,v,proj,mlp_in,mlp_out}`,
@@ -160,6 +164,10 @@ class PipelinedBlocks(nn.Module):
                 for name, nd in self._SHAPES}
 
     def shard(self, mesh: mesh_lib.Mesh) -> None:
+        if mesh.axis_size(MeshAxis.SEQ) > 1:
+            raise NotImplementedError(
+                "the pipeline's stages run attention unsharded; a "
+                f"{MeshAxis.SEQ!r} mesh axis beside them is ROADMAP item 35")
         n = mesh.axis_size(self.pp_axis)
         if n == 1:
             return
@@ -266,7 +274,10 @@ class TransformerLM(nn.Module):
     def forward(self, tokens: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         T = tokens.shape[1]
-        x = self.tok_embed(tokens) + self.pos_embed[:T][None]
+        # on a seq axis, this rank's columns of the sequence
+        cols = mesh_lib.seq_columns()
+        start = 0 if cols is None else cols[1]
+        x = self.tok_embed(tokens) + self.pos_embed[start:start + T][None]
         x = x.to(self.compute_dtype)
         if hasattr(self, "pipeline"):
             x = self.pipeline(x, training)
@@ -302,8 +313,8 @@ aux_loss_weight = 0.01
 
 def batch_partition():
     """Tokens over (data, seq), the mask over data: the reference's
-    partition, as axis names a dimension. Without a `seq` axis only the
-    data axis applies; a `seq` axis is ROADMAP item 21."""
+    partition, as axis names a dimension. An axis the mesh lacks does not
+    cut."""
     return {"features": (MeshAxis.DATA, MeshAxis.SEQ),
             "labels": (MeshAxis.DATA, MeshAxis.SEQ),
             "mask": (MeshAxis.DATA,)}

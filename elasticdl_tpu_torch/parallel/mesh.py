@@ -9,6 +9,12 @@ for each axis through this rank:
 - the `data` axis carries the batch: a rank takes its contiguous block of
   the global batch (`batch_block`, `shard_batch`), and ranks that share a
   data coordinate take the same block;
+- the `seq` axis carries the sequence: a leaf whose partition names it on
+  its second dimension (the LM's tokens) is cut there too, to the rank's
+  contiguous columns (`seq_block`); the ring and Ulysses attention of
+  `ops/attention.py` exchange blocks over it (`ring_shift`,
+  `all_to_all`), and every parameter is replicated over it, its gradient
+  summed over data and seq;
 - embedding tables are sharded by contiguous row ranges over every axis
   (`table_rows`), indexed by the rank's linear index over all axes,
   row-major — what `jax.lax.axis_index(axes)` gives the reference;
@@ -238,33 +244,66 @@ def batch_block(mesh: Mesh, batch_size: int) -> Tuple[int, int]:
     return c * per, (c + 1) * per
 
 
-def shard_batch(mesh: Mesh, batch: Any) -> Any:
+def seq_block(mesh: Mesh, length: int) -> Tuple[int, int]:
+    """Columns [start, stop) of a sequence of `length` that this rank
+    takes: its contiguous block along the `seq` axis (the whole sequence
+    where the mesh has none)."""
+    n = mesh.axis_size(MeshAxis.SEQ)
+    if length % n:
+        raise ValueError(f"sequence length {length} is not a multiple of "
+                         f"the seq axis ({n})")
+    per = length // n
+    c = mesh.coords.get(MeshAxis.SEQ, 0)
+    return c * per, (c + 1) * per
+
+
+def cuts_seq(axes) -> bool:
+    """Whether a leaf's partition (axis names, one a dimension) cuts its
+    second dimension over `seq`."""
+    return bool(axes) and len(axes) > 1 and axes[1] == MeshAxis.SEQ
+
+
+def shard_batch(mesh: Mesh, batch: Any,
+                partition: Optional[Dict[str, Sequence]] = None) -> Any:
     """This rank's block of every leaf of a global batch pytree (dicts,
     numpy arrays or tensors, None kept): the reference's `shard_batch` and
-    `make_global_batch`, since every rank holds the whole batch. Views,
-    not copies."""
-    if batch is None:
-        return None
+    `make_global_batch`, since every rank holds the whole batch. A leaf
+    under a top-level key whose `partition` entry names `seq` on the
+    second dimension is also cut there (`seq_block`). Views, not
+    copies."""
+    def cut(x, axes):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: cut(v, axes) for k, v in x.items()}
+        start, stop = batch_block(mesh, x.shape[0])
+        x = x[start:stop]
+        if cuts_seq(axes):
+            start, stop = seq_block(mesh, x.shape[1])
+            x = x[:, start:stop]
+        return x
+
     if isinstance(batch, dict):
-        return {k: shard_batch(mesh, v) for k, v in batch.items()}
-    start, stop = batch_block(mesh, batch.shape[0])
-    return batch[start:stop]
+        return {k: cut(v, (partition or {}).get(k))
+                for k, v in batch.items()}
+    return cut(batch, None)
 
 
 # ---------------------------------------------------------------------- #
 # collectives over one axis (the identity where the axis has size 1)
 
 
-def all_gather(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
-    """Concatenate `x` (n, ...) of every rank along `axis`, in axis order,
-    into (size * n, ...)."""
+def all_gather(mesh: Mesh, axis: str, x: torch.Tensor,
+               dim: int = 0) -> torch.Tensor:
+    """Concatenate `x` of every rank along `axis`, in axis order, on
+    dimension `dim`: (n, ...) into (size * n, ...) for dim 0."""
     group = mesh.group(axis)
     if group is None:
         return x
-    x = x.contiguous()
+    x = x.movedim(dim, 0).contiguous()
     out = x.new_empty((mesh.shape[axis] * x.shape[0],) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, x, group=group)
-    return out
+    return out.movedim(0, dim)
 
 
 def reduce_scatter(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
@@ -374,27 +413,120 @@ def gather_from_axis(x: torch.Tensor, mesh: Mesh, axis: str,
 
 
 # ---------------------------------------------------------------------- #
+# point-to-point and all-to-all exchanges over one axis (autograd
+# Functions; each rank of the axis calls them alike)
+
+
+def _shift(x: torch.Tensor, mesh: Mesh, axis: str, step: int) -> torch.Tensor:
+    """Send `x` to the rank `step` places on along `axis` (mod its size)
+    and receive the one from `step` places back, in one batch of
+    point-to-point ops, so no order of posting can deadlock."""
+    n, c = mesh.axis_size(axis), mesh.coords[axis]
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    group = mesh.group(axis)
+    ops = [dist.P2POp(dist.isend, x, mesh.rank_at(**{axis: (c + step) % n}),
+                      group),
+           dist.P2POp(dist.irecv, out,
+                      mesh.rank_at(**{axis: (c - step) % n}), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    """One step of a ring: every rank's `x` moves to the next rank along
+    the axis. Backward: the gradient moves one step back (the transpose
+    of `lax.ppermute`)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _shift(x, mesh, axis, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.mesh, ctx.axis, -1), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """`x` (n, ...) over an axis of n ranks: block j goes to the axis's
+    rank j, and block j of the result came from rank j. The exchange is
+    its own transpose, so the backward is the same exchange."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _exchange(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.mesh, ctx.axis), None, None
+
+
+def _exchange(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=mesh.group(axis))
+    return out
+
+
+def ring_shift(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """`x` of the rank one place back along `axis` (coordinate - 1 mod
+    n): every rank sends its own to the next, point to point. The
+    gradient takes the way back."""
+    return _RingShift.apply(x, mesh, axis)
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The axis's all-to-all over the leading dimension of `x` (n, ...),
+    n the axis's size (`_AllToAll`); differentiable."""
+    if x.shape[0] != mesh.axis_size(axis):
+        raise ValueError(f"all_to_all over {axis!r} of size "
+                         f"{mesh.axis_size(axis)} needs that many blocks, "
+                         f"got {tuple(x.shape)}")
+    return _AllToAll.apply(x, mesh, axis)
+
+
+# ---------------------------------------------------------------------- #
 # the batch block of a forward, for randomness drawn per example
 
 
 _BLOCK: contextvars.ContextVar = contextvars.ContextVar(
     "edl_batch_block", default=None)
+_COLUMNS: contextvars.ContextVar = contextvars.ContextVar(
+    "edl_seq_columns", default=None)
 
 
 @contextlib.contextmanager
 def batch_block_of(batch_size: int, start: int, stop: int,
-                   mesh: Optional[Mesh] = None) -> Iterator[None]:
+                   mesh: Optional[Mesh] = None,
+                   columns: Optional[Tuple[int, int, int]] = None
+                   ) -> Iterator[None]:
     """Within it, `batch_rand` draws for a global batch of `batch_size`
     rows and keeps rows [start, stop), and `sum_over_data` sums over
     `mesh`'s data axis: the trainer sets it around a forward on a rank's
     block, so a dropout mask and BatchNorm's statistics do not depend on
     the world's size (the reference's mask is one global array, and its
-    batch statistics are the global batch's)."""
+    batch statistics are the global batch's). `columns` (the global
+    sequence length, start, stop), on a mesh with a `seq` axis: the
+    rank's columns, which positions and per-token draws read
+    (`seq_columns`) and which make `ops.attention`'s sequence-parallel
+    attention exchange blocks over the axis."""
     token = _BLOCK.set((int(batch_size), int(start), int(stop), mesh))
+    cols = _COLUMNS.set(None if columns is None
+                        else tuple(int(c) for c in columns))
     try:
         yield
     finally:
+        _COLUMNS.reset(cols)
         _BLOCK.reset(token)
+
+
+def seq_columns() -> Optional[Tuple[int, int, int]]:
+    """(global sequence length, start, stop) of this rank's columns inside
+    `batch_block_of` with `columns`, else None."""
+    return _COLUMNS.get()
 
 
 class _SumOverData(torch.autograd.Function):
@@ -433,10 +565,11 @@ def sum_over_data(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
 
 def batch_rand(shape: Sequence[int], generator: Optional[torch.Generator],
                device) -> torch.Tensor:
-    """`torch.rand(shape)` for a tensor whose first axis is the batch.
-    Inside `batch_block_of` it draws the global batch's values and
-    returns this rank's rows, so every rank consumes the generator alike
-    and the rows equal the one-process draw's."""
+    """`torch.rand(shape)` for a tensor whose first axis is the batch
+    (and, on a `seq` mesh, whose second is the sequence). Inside
+    `batch_block_of` it draws the global batch's values and returns this
+    rank's rows (and columns), so every rank consumes the generator alike
+    and its part equals the one-process draw's."""
     block = _BLOCK.get()
     if block is None:
         return torch.rand(tuple(shape), generator=generator, device=device)
@@ -444,6 +577,16 @@ def batch_rand(shape: Sequence[int], generator: Optional[torch.Generator],
     if shape[0] != stop - start:
         raise ValueError(f"batch_rand: shape {tuple(shape)} does not lead "
                          f"with the block's {stop - start} rows")
-    full = torch.rand((rows,) + tuple(shape[1:]), generator=generator,
+    shape = tuple(shape)
+    cols = _COLUMNS.get()
+    if cols is None:
+        full = torch.rand((rows,) + shape[1:], generator=generator,
+                          device=device)
+        return full[start:stop]
+    length, c0, c1 = cols
+    if len(shape) < 2 or shape[1] != c1 - c0:
+        raise ValueError(f"batch_rand: shape {shape} does not hold the "
+                         f"block's {c1 - c0} columns second")
+    full = torch.rand((rows, length) + shape[2:], generator=generator,
                       device=device)
-    return full[start:stop]
+    return full[start:stop, c0:c1]

@@ -34,13 +34,20 @@ parameter (the MoE's experts over `expert`, the pipeline's stages over
 `pp`, Megatron's splits over `model`), and their autograd Functions do
 the sums over those axes that the reference's GSPMD program does, so a
 parameter replicated over them ends every step equal on each rank. A
-`seq` axis (sequence parallelism) is ROADMAP item 21. Dropout draws the
-global batch's mask and keeps the rank's rows, and BatchNorm's
+`seq` axis cuts the sequence as well (sequence parallelism): the leaves
+whose batch partition names it on their second dimension (the LM's
+tokens and labels) give each rank its columns, the attention runs ring
+or Ulysses over the axis (`ops/attention.py`), a rank's loss sum is its
+blocks' per-example means over 1/S of the tokens, divided by the axis's
+size S, and every parameter's gradient is summed over data and seq; a
+`seq` axis beside a `model`, `expert` or `pp` one is ROADMAP item 35.
+Dropout draws the global batch's mask and keeps the rank's rows (and
+columns), and BatchNorm's
 statistics are the global batch's (its per-rank sums all-reduced, as
 the reference's GSPMD step computes them), so a step does not depend on
 the world's size and the running averages stay the same on every rank.
-Eval and predict all-gather the outputs over data, so every rank updates
-the metric states with the whole batch.
+Eval and predict all-gather the outputs along the sequence over seq, then
+over data, so every rank updates the metric states with the whole batch.
 
 Model state beside the parameters (BatchNorm's running averages, the
 MoE layers' last aux loss: the reference's `extra_vars`) lives in the
@@ -248,24 +255,37 @@ def _group_size(stacked: Dict[str, Any]) -> int:
     return int(leaf.shape[0])
 
 
+_BESIDE_SEQ = (MeshAxis.MODEL, MeshAxis.EXPERT, MeshAxis.PIPE)
+
+
 def _check_mesh(mesh: mesh_lib.Mesh, partition) -> None:
-    """Refuse what the port does not run under a mesh: a `seq` axis, and
-    a batch partition that shards anything but the leading dimension
-    over an axis the mesh has (both sequence parallelism, ROADMAP item
-    21)."""
-    if MeshAxis.SEQ in mesh.axis_names:
-        raise NotImplementedError(
-            f"mesh axis {MeshAxis.SEQ!r} (sequence parallelism: ring and "
-            "Ulysses attention and its batch partition) is ROADMAP item 21")
+    """Refuse what the port does not run under a mesh: a batch partition
+    that does not lead with the data axis or that cuts a later dimension
+    over anything but `seq` on the second; a `seq` axis beside a `model`,
+    `expert` or `pp` axis (ROADMAP item 35); and a `seq` axis without a
+    partition that cuts the features over it."""
+    if mesh.axis_size(MeshAxis.SEQ) > 1:
+        beside = [a for a in _BESIDE_SEQ if mesh.axis_size(a) > 1]
+        if beside:
+            raise NotImplementedError(
+                f"mesh axis {MeshAxis.SEQ!r} beside {beside} (sequence "
+                "parallelism with tensor, expert or pipeline parallelism) "
+                "is ROADMAP item 35")
+        if not mesh_lib.cuts_seq((partition or {}).get("features")):
+            raise ValueError(
+                f"a mesh with a {MeshAxis.SEQ!r} axis needs a batch "
+                "partition that cuts the features' second dimension over "
+                "it (the model's batch_partition())")
     for key, axes in (partition or {}).items():
         if axes and axes[0] not in (None, mesh_lib.data_axis(mesh)):
             raise ValueError(f"batch partition {key!r}: {axes} does not "
                              "lead with the data axis")
         inner = [a for a in (axes or ())[1:] if a in mesh.axis_names]
-        if inner:
+        if inner and not (inner == [MeshAxis.SEQ]
+                          and mesh_lib.cuts_seq(axes)):
             raise NotImplementedError(
-                f"batch partition {key!r} shards over {inner} (sequence "
-                "parallelism is ROADMAP item 21)")
+                f"batch partition {key!r} shards over {inner}: the port "
+                f"cuts only the second dimension, over {MeshAxis.SEQ!r}")
 
 
 class Trainer:
@@ -355,13 +375,37 @@ class Trainer:
     # ------------------------------------------------------------------ #
     # Steps
 
+    def _columns(self, features) -> Optional[Tuple[int, int, int]]:
+        """(global sequence length, start, stop) of this rank's columns of
+        `features` on a mesh with a `seq` axis, else None."""
+        if self.mesh.axis_size(MeshAxis.SEQ) == 1:
+            return None
+        while isinstance(features, dict):
+            features = next(iter(features.values()))
+        length = int(features.shape[1])
+        return (length, *mesh_lib.seq_block(self.mesh, length))
+
+    def _block(self, features, labels=None, mask=None):
+        """Under a mesh: (global rows, start, stop, mesh, columns) of this
+        rank's block, for `batch_block_of`, and its part of features,
+        labels and mask (`parallel.mesh.shard_batch` by the model's
+        partition)."""
+        b = _group_size({"features": features})
+        block = (b, *mesh_lib.batch_block(self.mesh, b), self.mesh,
+                 self._columns(features))
+        part = mesh_lib.shard_batch(
+            self.mesh, {"features": features, "labels": labels,
+                        "mask": mask}, self.spec.batch_partition)
+        return block, part["features"], part["labels"], part["mask"]
+
     def _forward(self, state: TrainState, features, block=None):
         """The training forward: (outputs, the weighted aux loss or None
         with a weight of 0 or no aux); under remat, inside a non-reentrant
         `torch.utils.checkpoint` with the policy's context. `block` is
-        (global rows, start, stop, mesh) of a rank's block under a mesh,
-        for the randomness the model draws per example and the global
-        batch's BatchNorm statistics. The buffers move once, from this
+        (global rows, start, stop, mesh, columns) of a rank's block under
+        a mesh (`_block`), for the randomness the model draws per example,
+        the global batch's BatchNorm statistics and the columns of a
+        `seq` axis. The buffers move once, from this
         pass's statistics (`api.layers.update_batch_stats`), never from a
         remat recompute in the backward.
 
@@ -421,41 +465,42 @@ class Trainer:
 
         Under a mesh every step takes this path (grad_accum 1 is one
         micro-batch): each global micro-batch's mask count, then the
-        forward and backward of this rank's block of it, so the sums
-        over the data axis (`_sum_over_data`) give the global step's."""
+        forward and backward of this rank's block of it (its rows, and
+        on a `seq` axis its columns, each example's loss the mean of its
+        S blocks' means), so the sums over data and seq
+        (`_sum_over_data`) give the global step's."""
         k = self.grad_accum
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         count = torch.zeros((), dtype=torch.float32, device=self.device)
+        data = seq = 1
+        if self.mesh is not None:
+            data = self.mesh.axis_size(mesh_lib.data_axis(self.mesh))
+            seq = self.mesh.axis_size(MeshAxis.SEQ)
         for f, l, m in zip(*(_micro_batches(x, k)
                              for x in (features, labels, mask))):
             block = None
             if self.mesh is not None:
                 # the global micro-batch's count, then this rank's block
-                b = _group_size({"features": f})
                 c_global = (torch.sum(m.to(torch.float32)) if m is not None
-                            else torch.tensor(float(b), device=self.device))
-                block = (b, *mesh_lib.batch_block(self.mesh, b), self.mesh)
-                f, l, m = (mesh_lib.shard_batch(self.mesh, x)
-                           for x in (f, l, m))
+                            else torch.tensor(float(_group_size(
+                                {"features": f})), device=self.device))
+                block, f, l, m = self._block(f, l, m)
             outputs, aux = self._forward(state, f, block)
             value = self.spec.loss(l, outputs)
             # each rank of the data axis carries 1/D of a global aux
-            share = (1.0 if self.mesh is None else
-                     1.0 / self.mesh.axis_size(mesh_lib.data_axis(self.mesh)))
+            share = 1.0 / data
             if value.dim() == 0:
                 _warn_scalar_loss_with_accum()
-                s, c = value.to(torch.float32), 1.0
-                if self.mesh is not None:
-                    # the data axis's blocks weigh equally, as the
-                    # micro-batches do
-                    s = s / self.mesh.axis_size(mesh_lib.data_axis(self.mesh))
+                # the blocks weigh equally, as the micro-batches do
+                s, c = value.to(torch.float32) / (data * seq), 1.0
                 if aux is not None:
                     s = s + aux * share
             else:
                 v = value.reshape(-1).to(torch.float32)
                 mm = (m.to(torch.float32).reshape(-1) if m is not None
                       else torch.ones_like(v))
-                s, c = torch.sum(v * mm), torch.sum(mm)
+                # an example's loss: the mean of its S column blocks'
+                s, c = torch.sum(v * mm) / seq, torch.sum(mm)
                 if self.mesh is not None:
                     c = c_global
                 if aux is not None:
@@ -495,8 +540,9 @@ class Trainer:
     def _sum_over_data(self, state: TrainState,
                        loss: torch.Tensor) -> torch.Tensor:
         """Sum the parameters' gradients and the loss over the data axis,
-        in one flat bucket (a library collective). A sharded table's
-        gradient is already whole. Returns the summed loss."""
+        then over `seq` (every parameter is replicated over it), in one
+        flat bucket (library collectives). A sharded table's gradient is
+        already whole. Returns the summed loss."""
         tables = {n for n, rows in state.row_shards.items()
                   if rows.axis is None}
         grads = [p.grad for n, p in state.params.items()
@@ -505,7 +551,8 @@ class Trainer:
         # cat promote bfloat16 gradients
         bucket = torch.cat([g.reshape(-1) for g in grads]
                            + [loss.reshape(1).float()])
-        mesh_lib.all_reduce(self.mesh, mesh_lib.data_axis(self.mesh), bucket)
+        for axis in (mesh_lib.data_axis(self.mesh), MeshAxis.SEQ):
+            mesh_lib.all_reduce(self.mesh, axis, bucket)
         offset = 0
         for g in grads:
             g.copy_(bucket[offset:offset + g.numel()].view_as(g))
@@ -566,14 +613,15 @@ class Trainer:
 
     def _eval_outputs(self, features):
         """The model's outputs for the whole batch, in eval mode: under a
-        mesh, this rank's block's, all-gathered over data."""
+        mesh, this rank's block's, all-gathered along the sequence over
+        `seq` and then over data."""
         if self.mesh is None:
             return self.model(features, training=False)
-        b = _group_size({"features": features})
-        with mesh_lib.batch_block_of(b, *mesh_lib.batch_block(self.mesh, b),
-                                     self.mesh):
-            out = self.model(mesh_lib.shard_batch(self.mesh, features),
-                             training=False)
+        block, part, _, _ = self._block(features)
+        with mesh_lib.batch_block_of(*block):
+            out = self.model(part, training=False)
+        if block[4] is not None:
+            out = mesh_lib.all_gather(self.mesh, MeshAxis.SEQ, out, dim=1)
         return mesh_lib.all_gather(self.mesh, mesh_lib.data_axis(self.mesh),
                                    out)
 

@@ -26,8 +26,11 @@ of the conftest's 8-device CPU mesh, with the exact embedding backward
   {data 4} (params and Adam's moments, bit for bit), and the one-process
   port's eval metric states and predictions equal the {data 2} ones
   (states exactly, the loss pair and predictions within rtol 1e-6).
-- A mesh with a `seq` axis is refused, naming ROADMAP item 21 (the LM
-  under the other axes is `tests/test_torch_lm_parallel.py`'s).
+- A mesh with a `seq` axis beside a `model`, `expert` or `pp` one is
+  refused, naming ROADMAP item 35, and so is the MoE or the pipeline on a
+  `seq` axis; the LM on a `seq` axis alone or with `data` is taken (its
+  steps are `tests/test_torch_seq_parallel.py`'s, the LM under the other
+  axes `tests/test_torch_lm_parallel.py`'s).
 """
 
 import os
@@ -339,8 +342,11 @@ def case_checkpoint_restores_at_other_sizes(parts):
 
 
 def case_seq_axis_is_refused():
-    """Sequence parallelism is ROADMAP item 21: a trainer under a mesh
-    with a `seq` axis refuses the LM; without one it takes it."""
+    """Sequence parallelism beside tensor, expert or pipeline parallelism
+    is ROADMAP item 35: a trainer under a mesh with a `seq` axis and one
+    of those refuses the LM, and so do the MoE and the pipeline on a
+    `seq` axis; the LM on {data 2, seq 2}, {seq 2} and {data 2, model 2}
+    is taken."""
     import pytest
 
     from elasticdl_tpu_torch.common.config import JobConfig
@@ -349,18 +355,27 @@ def case_seq_axis_is_refused():
     from elasticdl_tpu_torch.training.trainer import Trainer
     from tests.test_torch_job_lm import LM_PARAMS, zoo
 
-    with zoo(TZOO):
-        spec = ModelSpec.from_config(JobConfig.from_argv([
-            "--model_zoo", TZOO, "--model_def",
-            "transformer.transformer_lm.custom_model",
-            "--model_params", LM_PARAMS]))
-    for sizes in ({"data": 2, "seq": 2}, {"seq": 2}):
+    def spec(params):
+        with zoo(TZOO):
+            return ModelSpec.from_config(JobConfig.from_argv([
+                "--model_zoo", TZOO, "--model_def",
+                "transformer.transformer_lm.custom_model",
+                "--model_params", params]))
+
+    def mesh(sizes):
         n = int(np.prod(list(sizes.values())))
-        mesh = Mesh(sizes, range(n), 0, groups={}, world=None)
-        with pytest.raises(NotImplementedError, match="item 21"):
-            Trainer(spec, device="cpu", mesh=mesh)
-    mesh = Mesh({"data": 2, "model": 2}, range(4), 0, groups={}, world=None)
-    Trainer(spec, device="cpu", mesh=mesh)
+        return Mesh(sizes, range(n), 0, groups={}, world=None)
+
+    for sizes in ({"seq": 2, "model": 2}, {"seq": 2, "expert": 2},
+                  {"seq": 2, "pp": 2}):
+        with pytest.raises(NotImplementedError, match="item 35"):
+            Trainer(spec(LM_PARAMS), device="cpu", mesh=mesh(sizes))
+    for extra in (";moe_experts=2", ";pp_axis=pp"):
+        with pytest.raises(NotImplementedError, match="item 35"):
+            Trainer(spec(LM_PARAMS + extra), device="cpu",
+                    mesh=mesh({"data": 2, "seq": 2}))
+    for sizes in ({"data": 2, "seq": 2}, {"seq": 2}, {"data": 2, "model": 2}):
+        Trainer(spec(LM_PARAMS), device="cpu", mesh=mesh(sizes))
 
 
 def test_cohort_step_against_the_reference(monkeypatch):

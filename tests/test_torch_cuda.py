@@ -5,7 +5,8 @@ steps) through K1-K4', the DeepFM job path (master, worker,
 checkpoint, export), the manual schedule's per-rank compute (K1 on a
 shard), a one-rank NCCL cohort context, K1 on Wide & Deep's census
 stream, the MoE, pipelined and tensor-parallel LMs and the MoE's index
-and dense routes, a ResNet-20 step (convolutions, BatchNorm) and a device-mode
+and dense routes, the sequence-parallel ring in one process against
+unsplit attention, a ResNet-20 step (convolutions, BatchNorm) and a device-mode
 embedding-tier store (K1 on every push) on the card. They skip where no
 CUDA device is present.
 
@@ -547,6 +548,40 @@ def case_resnet20_step_on_the_card_matches_cpu(cuda):
                                        atol=1e-5 * scale, err_msg=k)
 
 
+def case_ring_on_the_card(cuda):
+    """The ring of `ops/attention.py` in one process (`ring_attention_local`,
+    4 blocks of 64 over B 2, T 256, H 2, D 64, bf16, causal) against one
+    unsplit `full_attention` on the card: K2' once a (q block, kv block)
+    pair (16, the wholly masked pairs included) and K3', K4' and the delta
+    pass as often in the backward. The ring merges four bf16 partials in
+    float32 and sums four bf16 gradient partials in bf16, where the unsplit
+    call rounds once: out within 2**-7 of its largest magnitude, gradients
+    within 2**-6 (both plus rtol 2**-8; `chip_smoke.py`'s RING_OUT_TOL and
+    RING_GRAD_TOL say why)."""
+    from elasticdl_tpu_torch.ops import attention
+
+    q, k, v, dout, _ = _attn_inputs(cuda, 2, 256, 256, 2, 64, torch.bfloat16,
+                                    seed=11)
+
+    def fwd_bwd(fn):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves)
+        return [out.detach(), *torch.autograd.grad(out, leaves, dout)]
+
+    for name in fa.launches:
+        fa.launches[name] = 0
+    ring = fwd_bwd(lambda q, k, v: attention.ring_attention_local(q, k, v, 4))
+    torch.cuda.synchronize()
+    assert fa.launches == {**{n: 0 for n in fa.launches}, fa.FWD_SM90: 16,
+                           fa.BWD_DQ_SM90: 16, fa.BWD_DKV_SM90: 16,
+                           fa.BWD_DELTA_SM90: 16}, fa.launches
+    whole = fwd_bwd(attention.full_attention)
+    for what, got, want in zip(("out", "dq", "dk", "dv"), ring, whole):
+        assert bool(torch.isfinite(got).all()), what
+        _close(got, want, what, 2 ** -8,
+               atol_of_max=2 ** -7 if what == "out" else 2 ** -6)
+
+
 def _card_trainer(model_def, params, dtype, **knobs):
     from elasticdl_tpu_torch.common.config import JobConfig
     from elasticdl_tpu_torch.training.model_spec import ModelSpec
@@ -807,6 +842,7 @@ def test_kernels_on_the_card(cuda, tmp_path):
                   ";tp_axis=model"):
         case_lm_grads_on_the_card_match_cpu(cuda, extra)
     case_moe_routes_on_the_card(cuda)
+    case_ring_on_the_card(cuda)
     case_lm_knobs_on_the_card(cuda)
     case_grouped_deepfm_on_the_card(cuda)
     case_job_on_the_card(cuda, str(tmp_path))

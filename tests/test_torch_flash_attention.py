@@ -254,12 +254,16 @@ def case_materialized_path_matches_the_reference(dtype):
                                    causal=True, q_offset=16, kv_offset=0)
         got = tatt.full_attention(*_torch(q, k, v, dtype=tdt), causal=True,
                                   q_offset=16, kv_offset=0)
+        # with no mesh, a named seq axis falls back to full attention, as
+        # the reference's does where the mesh lacks the axis
+        assert torch.equal(
+            tatt.sequence_parallel_attention(*_torch(q, k, v),
+                                             axis_name="seq"),
+            tatt.full_attention(*_torch(q, k, v), causal=True))
     tol = F32 if dtype == "float32" else dict(atol=3e-2, rtol=3e-2)
     assert got.dtype == tdt
     np.testing.assert_allclose(got.to(torch.float32).numpy(),
                                np.asarray(want, np.float32), **tol)
-    with pytest.raises(NotImplementedError, match="ROADMAP items 17 and 21"):
-        tatt.sequence_parallel_attention(*_torch(q, k, v), axis_name="seq")
 
 
 def case_hopper_route_by_dtype_and_head_dim():

@@ -243,3 +243,101 @@ def test_lm_and_grouped_jobs_match_reference(tmp_path, monkeypatch):
         case_grouped_job_matches_single_steps()
     finally:
         signal.signal(signal.SIGUSR2, sigusr2)
+
+
+# ---------------------------------------------------------------- F2
+
+
+def moe_job_side_by_side(tmp, model_params, dtype):
+    """The MoE LM job as `chip_smoke.py`'s `moe_job` runs it (32 steps in
+    4 tasks, groups of 4 steps, checkpoints every 16 steps, eval at epoch
+    end), at a reduced width on the CPU: the reference's master and worker,
+    then the port's from the reference worker's converted initial state.
+    Returns {"reference", "port"}: each job's losses (one a step), eval
+    results, dispatcher counts and final `moe_aux` buffers.
+
+        python tests/test_torch_job_lm.py f2 [float32|bfloat16]"""
+    from elasticdl_tpu_torch.training import trainer as trainer_lib
+
+    def argv(zoo_root, ckpt):
+        return [
+            "--model_zoo", zoo_root,
+            "--model_def", "transformer.transformer_lm.custom_model",
+            "--model_params", model_params, "--compute_dtype", dtype,
+            "--minibatch_size", "8", "--records_per_task", "64",
+            "--training_data",
+            "synthetic://lm?n=256&shards=4&vocab=512&seq_len=64",
+            "--validation_data",
+            "synthetic://lm?n=64&shards=1&vocab=512&seq_len=64",
+            "--steps_per_dispatch", "4", "--checkpoint_dir", ckpt,
+            "--checkpoint_steps", "16", "--keep_checkpoint_max", "2",
+            "--master_addr", f"localhost:{free_port()}",
+            "--worker_heartbeat_s", "1"]
+
+    inits, losses = [], {"reference": [], "port": []}
+    real_init, real_jmany = JTrainer.init_state, JTrainer.train_many
+    real_tmany = trainer_lib.Trainer.train_many
+
+    def init_state(self, example):
+        state = real_init(self, example)
+        adam = state.opt_state.inner_state[0]
+        inits.append(jax.device_get((state.params, adam.mu, adam.nu,
+                                     adam.count, state.step,
+                                     state.extra_vars.get("losses"))))
+        return state
+
+    def jmany(self, state, stacked):
+        state, logs = real_jmany(self, state, stacked)
+        losses["reference"] += [float(x) for x in np.asarray(logs["loss"])]
+        return state, logs
+
+    def tmany(self, state, stacked):
+        state, logs = real_tmany(self, state, stacked)
+        losses["port"] += [float(x) for x in logs["loss"]]
+        return state, logs
+
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JTrainer, "init_state", init_state)
+        mp.setattr(JTrainer, "train_many", jmany)
+        mp.setattr(trainer_lib.Trainer, "train_many", tmany)
+        jcfg = JJobConfig.from_argv(argv(JZOO, os.path.join(tmp, "j")))
+        counts, results, jw = _run_job(
+            JMaster, JWorker, jcfg, JZOO,
+            mesh=build_mesh(devices=jax.devices()[:1]))
+        aux = jax.device_get(jw._state.extra_vars.get("losses", {}))
+        out["reference"] = {
+            "counts": counts, "eval": results,
+            "moe_aux": [float(np.asarray(aux[b]["moe"]["moe_aux"]))
+                        for b in sorted(aux)]}
+        tcfg = JobConfig.from_argv(argv(TZOO, os.path.join(tmp, "t")))
+        params, mu, nu, count, step, init_losses = inits[0]
+        with zoo(TZOO):
+            tt = Trainer(ModelSpec.from_config(tcfg), device="cpu")
+            ts = convert.load_train_state(
+                tt.init_state(None), convert.train_state_from_flax(
+                    params, mu, nu, count, step, expected=tt.model,
+                    losses=init_losses))
+            CheckpointManager(tcfg.checkpoint_dir).save(ts, wait=True)
+        counts, results, tw = _run_job(Master, Worker, tcfg, TZOO,
+                                       device="cpu")
+        out["port"] = {
+            "counts": counts, "eval": results,
+            "moe_aux": [float(v) for k, v in sorted(
+                tw._state.buffers.items()) if k.endswith("moe_aux")]}
+    for side in out:
+        out[side]["losses"] = losses[side]
+    return out
+
+
+if __name__ == "__main__" and sys.argv[1] == "f2":
+    import json
+    import tempfile
+
+    dtype = sys.argv[2] if len(sys.argv) > 2 else "float32"
+    lm = "vocab=512;num_layers=2;dim=64;heads=4;max_len=64;seq_parallel=none"
+    report = {}
+    for name, params in (("moe", lm + ";moe_experts=8"), ("plain", lm)):
+        with tempfile.TemporaryDirectory() as tmp:
+            report[name] = moe_job_side_by_side(tmp, params, dtype)
+    print(json.dumps({"dtype": dtype, **report}))

@@ -97,7 +97,7 @@ def run_ranks(rank: int, world: int, port: str, workdir: str,
     """Every run of `plan.json`, in order, each on its mesh over ranks [0,
     n). A run: name, sizes (the mesh), params (the LM's model_params;
     without them only the probe runs, with no trainer), and optionally
-    accum, remat, steps, init (the inputs' prefix of the
+    accum, remat, remat_policy, steps, init (the inputs' prefix of the
     reference's initial params), restore (a checkpoint directory to start
     from instead), save (one to write at the end), eval (a batch to
     evaluate and predict) and probe (a name in `probes`: fn(mesh,
@@ -130,7 +130,8 @@ def run_ranks(rank: int, world: int, port: str, workdir: str,
             spec = lm_spec(TZOO, JobConfig, ModelSpec, run["params"])
             tr = Trainer(spec, device="cpu", mesh=mesh,
                          grad_accum=run.get("accum", 1),
-                         remat=run.get("remat", False))
+                         remat=run.get("remat", False),
+                         remat_policy=run.get("remat_policy", ""))
             state = tr.init_state(None)
             if "restore" in run:
                 CheckpointManager(os.path.join(workdir, run["restore"])

@@ -111,13 +111,14 @@ def zoo(root):
         sys.path[:] = path
 
 
-def specs(name, dtype="float32", stages=None):
+def specs(name, dtype="float32", stages=None, port_only=False):
     """(reference ModelSpec, port ModelSpec) of model `name`; `stages`
-    sets ResNet-50's stage_sizes in both."""
+    sets ResNet-50's stage_sizes in both. `port_only`: (None, the port's
+    ModelSpec)."""
     model_def, params, _, _ = MODELS[name]
-    out = []
-    for root, cfg_cls, spec_cls in ((JZOO, JJobConfig, JModelSpec),
-                                    (TZOO, JobConfig, ModelSpec)):
+    out = [None] if port_only else []
+    sides = ((JZOO, JJobConfig, JModelSpec), (TZOO, JobConfig, ModelSpec))
+    for root, cfg_cls, spec_cls in sides[1:] if port_only else sides:
         with zoo(root):
             spec = spec_cls.from_config(cfg_cls.from_argv([
                 "--model_zoo", root, "--model_def", model_def,
@@ -256,7 +257,8 @@ class Pair:
     def port_twin(self, **knobs):
         """A port trainer and state of this model with other knobs, from
         the port's current state."""
-        _, tspec = specs(self.name, "float32", self.stages())
+        _, tspec = specs(self.name, "float32", self.stages(),
+                         port_only=True)
         tt = Trainer(tspec, device="cpu", **knobs)
         ts = tt.init_state(None)
         with torch.no_grad():
@@ -379,7 +381,7 @@ def case_checkpoint_and_export(name):
     from elasticdl_tpu_torch.training import export
     from elasticdl_tpu_torch.training.checkpoint import CheckpointManager
 
-    _, tspec = specs(name)
+    _, tspec = specs(name, port_only=True)
     tt = Trainer(tspec, device="cpu")
     ts = tt.init_state(None)
     guard = no_dropout(tspec) if name == "mnist" else contextlib.nullcontext()
@@ -388,7 +390,7 @@ def case_checkpoint_and_export(name):
             tt.train_step(ts, batch(name, 40 + i))
     with tempfile.TemporaryDirectory() as d:
         CheckpointManager(os.path.join(d, "ckpt")).save(ts, wait=True)
-        _, fresh_spec = specs(name)
+        _, fresh_spec = specs(name, port_only=True)
         ft = Trainer(fresh_spec, device="cpu")
         fs = ft.init_state(None)
         CheckpointManager(os.path.join(d, "ckpt")).restore(fs)
@@ -418,12 +420,20 @@ def case_checkpoint_and_export(name):
                 tt.predict_step(ts, b).numpy())
 
 
-def case_forward_bf16(name):
-    p = Pair(name, "bfloat16")
-    assert p.tt.model.compute_dtype == torch.bfloat16
+def case_forward_bf16(p):
+    """The bfloat16 model's predictions from the float32 pair's initial
+    reference state (its params are float32 in both compute dtypes, so
+    the reference's init is not compiled again)."""
+    name = p.name
+    jspec, tspec = specs(name, "bfloat16")
+    jt = JTrainer(jspec, build_mesh(devices=jax.devices()[:1]))
+    tt = Trainer(tspec, device="cpu")
+    ts = tt.init_state(None)
+    convert.load_train_state(ts, reference_state(p.js))
+    assert tt.model.compute_dtype == torch.bfloat16
     b = batch(name, 2)
-    want = np.asarray(p.jt.predict_step(p.js, b))
-    got = p.tt.predict_step(p.ts, b).numpy()
+    want = np.asarray(jt.predict_step(p.js, b))
+    got = tt.predict_step(ts, b).numpy()
     scale = np.abs(want).max()
     np.testing.assert_allclose(got / scale, want / scale, atol=2e-2,
                                err_msg=name)
@@ -694,7 +704,7 @@ def test_zoo_models_against_the_reference(monkeypatch):
     for name in MODELS:
         pair = Pair(name, stages=STAGES.get(name))
         case_forward(pair)
+        if name in ("xdeepfm", "resnet20"):
+            case_forward_bf16(pair)
         case_steps_eval_and_remat(pair)
         case_checkpoint_and_export(name)
-    for name in ("xdeepfm", "resnet20"):
-        case_forward_bf16(name)
