@@ -14,8 +14,10 @@ sequence-parallel ring and Ulysses schedules and its steps on a `seq`
 mesh (flash-attention
 kernels: for its bfloat16 D 64 attention the Hopper kernels K2', K3', K4'
 and the delta pass, which runs once a backward; K2, K3 and K4 for every
-other input, such as the float32 LM), and the trainer's knobs (remat,
-gradient accumulation, grouped steps) over both. Phases, each printing
+other input, such as the float32 LM), the trainer's knobs (remat,
+gradient accumulation, grouped steps) over both, and the elastic control
+loop over the DeepFM job (the autoscaler's decisions and its drain-first
+eviction, zoo callbacks, the hybrid multi-slice mesh). Phases, each printing
 one JSON line; any failure raises and exits non-zero (no phase's error is
 caught):
 
@@ -293,8 +295,45 @@ caught):
            train steps: finite, falling, the first loss within rel 1e-2 of
            the unsplit one's, K2', K3', K4' and the delta pass 16 times a
            layer and step.
+26. autoscale_job (after `cohort_job`)  the closed-loop autoscaler over
+           the DeepFM job at 10's width (6 tasks of 2 steps, no eval),
+           with one plain training worker (the reference's config refuses
+           two, which would train independent replicas, and a card takes
+           one cohort rank): the first submission is wired as
+           `client/local.run_local` wires it, with `--autoscale
+           --straggler_quorum 2`, hold, cooldown and rescale cost of 1 s
+           and the reference's `fleet_data_wait_dominant` rule (value
+           mode, threshold 0.5); the job's data wait reaches the policy,
+           whose `shrink` must be suppressed `world_at_min` and journaled,
+           with nothing applied. After the first finished task the
+           policy's target evicts the worker: it must drain (the
+           heartbeat evict bit, an in-flight task's remainder requeued, no
+           `worker_died` waste), exit 75 and be retired, not relaunched.
+           The job is resubmitted through `run_local` over the same
+           checkpoint directory and must finish every task once across
+           the two; K1 must launch twice a logged train step in the
+           evicted and in the resumed worker. Prints every decision with
+           its kind and reason, the signal's onset and its decision, the
+           evict-to-retired time, and each worker's host ms and data_wait
+           a step and K1 launches.
+27. callbacks_job  zoo callbacks over the DeepFM job at 10's width in one
+           process: a zoo module written to a temp directory, the port's
+           DeepFM with `ReduceLROnPlateau` (1e-3 halved once to 5e-4 on a
+           certain plateau of the eval AUC) and `EarlyStopping` (three
+           evals without an improvement), 8 training tasks of 2 steps and
+           an eval job of one batch every 2 steps. The pushed 5e-4 must be
+           in every param group of the worker's Adam on the card and in
+           the checkpoint's optimizer state, EarlyStopping must stop
+           training (the dispatcher's stop line names its reason) before
+           the data runs out, none failed, and K1 must launch twice a
+           train step.
+28. hybrid_mesh  `--dcn_mesh_shape data=1` on a one-rank NCCL world:
+           DeepFM at 5's width, 3 train steps on the mesh `build_job_mesh`
+           builds from it and 3 on the flat mesh, from one seed: losses
+           and parameters equal bit for bit, K1 twice a step in each.
 Then the `kernels` line (K1's `launches` are the job's, with the
-`grouped`, `cohort_job`, `manual_shards` and `tier` phases' beside
+`grouped`, `cohort_job`, `manual_shards`, `tier`, `autoscale_job`,
+`callbacks_job` and `hybrid_mesh` phases' beside
 them; the Hopper kernels' are `lm_train`'s, with `lm_job`'s,
 `moe_train`'s, `pp_train`'s, `moe_job`'s, `ring_attn`'s and
 `seq_train`'s beside them), the nvidia-smi line, and last the `ok`
@@ -308,6 +347,7 @@ import ctypes
 import gc
 import glob
 import json
+import logging
 import math
 import os
 import re
@@ -2932,8 +2972,10 @@ def phase_tier(dev, smi):
 
 # the world a one-member cohort on the card forms
 COHORT_WORLD = ("nccl", "cuda:0")
-COHORT_TASK_LINE = re.compile(
-    r"cohort task \d+: (\d+) steps, (\d+) records, ([0-9.]+) s in steps, "
+# one line a training task, from a plain worker ("task N: ...") or a
+# cohort member ("cohort task N: ...")
+TASK_LINE = re.compile(
+    r"task \d+: (\d+) steps, (\d+) records, ([0-9.]+) s in steps, "
     r"data_wait ([0-9.]+) ms and h2d ([0-9.]+) ms a step, "
     r"place_sorted_grads launches (\d+)")
 # training tasks of the measured cohort job: past each process's first
@@ -3060,7 +3102,7 @@ def phase_cohort_job(smi, job):
         # holds its count, 2 a train step
         launches, processes = 0, []
         for generation in run["processes"]:
-            lines = COHORT_TASK_LINE.findall(generation)
+            lines = TASK_LINE.findall(generation)
             if lines:
                 launches += int(lines[-1][5])
                 processes.append(lines)
@@ -3122,6 +3164,418 @@ def phase_cohort_job(smi, job):
          k1_launches=launches, export_max_abs_err=export_err,
          traced_run={"wall_s": traced["wall_s"], "trace": traces},
          cohort=cohort, job={k: job[k] for k in cohort})
+    return launches
+
+
+# ---------------------------------------------------------------- elastic control
+
+# the autoscaled job: tasks of JOB_TASK records (2 steps at BATCH)
+AUTOSCALE_TASKS = 6
+# the callbacks job: training tasks of JOB_TASK records and eval jobs of
+# one batch, an eval job every 2 steps
+CALLBACKS_TASKS = 8
+# a subprocess worker's environment beyond the launcher's (empty: the
+# worker defaults to the card)
+WORKER_ENV = {}
+
+
+class LogLines(logging.Handler):
+    """The messages logged under the port's root logger while installed."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        logging.getLogger("elasticdl_tpu_torch").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("elasticdl_tpu_torch").removeHandler(self)
+
+
+def autoscale_argv(out, rules):
+    """The DeepFM job at full width (AUTOSCALE_TASKS tasks, no eval, no
+    export) with the closed-loop autoscaler on: a 2-worker straggler
+    quorum, hold and cooldown of 1 s, a rescale cost of 1 s, a fleet
+    sample a second, and `rules` as the alert rule set. Heartbeats every
+    3 s: an evicted worker stops beating while it drains, and the master
+    declares it dead after 3 beats, so they must cover the step in flight
+    (2.5-3.7 s of data wait here; with 1 s beats a drain was billed as a
+    death)."""
+    return [
+        "--model_zoo", ZOO, "--model_def", "deepfm.deepfm.custom_model",
+        "--model_params", f"field_vocab={FIELD_VOCAB};hidden=400,400",
+        "--minibatch_size", str(BATCH),
+        "--training_data",
+        f"synthetic://criteo?n={AUTOSCALE_TASKS * JOB_TASK}"
+        f"&shards={AUTOSCALE_TASKS}",
+        "--records_per_task", str(JOB_TASK),
+        "--checkpoint_dir", os.path.join(out, "ckpt"),
+        "--checkpoint_steps", "2", "--worker_heartbeat_s", "3",
+        "--autoscale", "true", "--straggler_quorum", "2",
+        "--autoscale_hold_s", "1", "--autoscale_cooldown_s", "1",
+        "--autoscale_rescale_cost_s", "1", "--timeseries_interval_s", "1",
+        "--alert_rules", rules,
+    ]
+
+
+def task_lines(log_dir):
+    """Each worker log's task lines under `log_dir`, by file name."""
+    return {os.path.basename(f): TASK_LINE.findall(open(f, errors="replace")
+                                                   .read())
+            for f in sorted(glob.glob(os.path.join(log_dir, "*.log")))}
+
+
+def phase_autoscale_job(smi):
+    """The closed-loop autoscaler on the card, over the DeepFM job at full
+    width: a plain training fleet holds one worker (the reference's
+    `JobConfig.validate` refuses two plain training workers, which would
+    train independent replicas, and a card takes one cohort rank), so the
+    policy acts on this fleet only within its bounds. The first
+    submission, wired as `client/local.run_local` wires it (the master,
+    its ProcessManager, a `ProcessManagerTarget` bound to the master's
+    autoscaler): the job's own data-wait signal (the reference's
+    `fleet_data_wait_dominant` rule, value mode, threshold 0.5, 10 s
+    window) reaches the policy, whose `shrink` is suppressed at the world's
+    minimum and journaled. After the first finished task the target the
+    policy drives evicts the worker (`evict(0)`: the servicer's heartbeat
+    evict bit, the manager's never-relaunch mark): the worker drains
+    through its preempt path (drain checkpoint, an in-flight task's
+    remainder requeued), exits EX_TEMPFAIL and its slot is retired, not
+    relaunched,
+    with no `worker_died` waste. The job is then resubmitted through
+    `run_local` over the same checkpoint directory: the new master
+    replays the journal, a new worker resumes from the drain checkpoint,
+    and every task finishes once across the two. Returns K1's launches in
+    the two workers (their task lines)."""
+    from elasticdl_tpu_torch.client.local import run_local
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.common.constants import PodStatus
+    from elasticdl_tpu_torch.common.net import free_port
+    from elasticdl_tpu_torch.master.autoscaler import ProcessManagerTarget
+    from elasticdl_tpu_torch.master.journal import replay_lines
+    from elasticdl_tpu_torch.master.main import Master
+    from elasticdl_tpu_torch.master.process_manager import ProcessManager
+    from elasticdl_tpu_torch.observability import timeseries
+    from elasticdl_tpu_torch.ops import placement
+
+    for k in COHORT_ENV + ("EDL_TORCH_DEVICE",):
+        os.environ.pop(k, None)
+    # the master's time series ring is per process: the earlier phases'
+    # masters left their samples in it, and the policy must decide on this
+    # job's
+    timeseries.reset_for_tests()
+    env = {"PYTHONPATH": os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p), **WORKER_ENV}
+    with tempfile.TemporaryDirectory() as out, LogLines() as lines:
+        rules = os.path.join(out, "rules.json")
+        with open(rules, "w") as f:
+            json.dump([{"name": "fleet_data_wait_dominant",
+                        "series": "edl_fleet_data_wait_frac",
+                        "threshold": 0.5, "mode": "value",
+                        "window_s": 10.0}], f)
+        cfg = JobConfig.from_argv(autoscale_argv(out, rules) + [
+            "--master_addr", f"localhost:{free_port()}"])
+        master = Master(cfg)
+        manager = ProcessManager(
+            cfg, membership=master.membership, extra_env=env,
+            log_dir=os.path.join(out, "logs1"),
+            job_finished_fn=master.dispatcher.finished,
+            checkpoint_request_fn=lambda: master.servicer.request_checkpoint(0),
+            journal=master.journal)
+        target = ProcessManagerTarget(manager, servicer=master.servicer,
+                                      membership=master.membership)
+        master.autoscaler.bind_target(target)
+        seen = {}
+        t0 = time.perf_counter()
+
+        def until_evicted():
+            """The wait poll's hook: note when the signal and the decision
+            first show, evict once a task has finished and the policy has
+            decided, and end the wait once the slot is retired."""
+            now = time.perf_counter() - t0
+            if master.alerts.active():
+                seen.setdefault("signal_s", now)
+            if master.autoscaler.snapshot()["last_decision"]:
+                seen.setdefault("decision_s", now)
+            if ("evict_s" not in seen and "decision_s" in seen
+                    and master.dispatcher.counts()["finished_training"]):
+                seen["finished_at_evict"] = master.dispatcher.counts()[
+                    "finished_training"]
+                seen["evicted"] = target.evict(0, "worker-0")
+                seen["evict_s"] = now
+            if manager.statuses().get(0) == PodStatus.DELETED:
+                seen.setdefault("retired_s", now)
+                return True
+            return now > 600
+
+        master.start()
+        manager.start_workers()
+        try:
+            master.wait(poll_s=0.2, abort_fn=until_evicted)
+            first_s = time.perf_counter() - t0
+            first = {"counts": master.dispatcher.counts(),
+                     "wasted": master.dispatcher.wasted_work(),
+                     "statuses": manager.statuses(),
+                     "autoscale": master.autoscaler.snapshot()}
+        finally:
+            master.shutdown(grace_s=1)
+            manager.stop()
+        if "retired_s" not in seen:
+            print("\n".join(lines.messages[-200:]), file=sys.stderr,
+                  flush=True)
+            raise AssertionError(f"autoscale_job: the worker was not evicted "
+                                 f"and retired: {seen}, {first}")
+        with open(master.journal.path, encoding="utf-8") as f:
+            decisions = [r for r in map(json.loads, f)
+                         if r.get("t") == "autoscale"]
+        t1 = time.perf_counter()
+        rc = run_local(cfg.replace(master_addr="localhost:0"), extra_env=env,
+                       log_dir=os.path.join(out, "logs2"), timeout_s=600)
+        resumed_s = time.perf_counter() - t1
+        with open(master.journal.path + ".completed", encoding="utf-8") as f:
+            replayed = replay_lines(f.readlines())
+        evicted_lines = task_lines(os.path.join(out, "logs1"))
+        resumed_lines = task_lines(os.path.join(out, "logs2"))
+        logs = {d: open(f, errors="replace").read() for d in ("logs1", "logs2")
+                for f in glob.glob(os.path.join(out, d, "worker-0.log"))}
+    problems = []
+    if not seen.get("evicted") or first["statuses"] != {0: PodStatus.DELETED}:
+        problems.append(f"eviction {seen}, statuses {first['statuses']}")
+    if not any(m.startswith("worker 0 eviction complete (exit code 75)")
+               for m in lines.messages):
+        problems.append("no eviction-complete line with exit code 75")
+    if any("relaunch" in m and "worker 0" in m for m in lines.messages):
+        problems.append("the evicted worker was relaunched")
+    if "worker_died" in first["wasted"].get("by_reason", {}):
+        problems.append(f"worker_died waste {first['wasted']}")
+    if "master evicted this worker" not in str(logs):
+        problems.append("the worker's log has no eviction line")
+    shrink = [d for d in decisions if d.get("kind") == "shrink"]
+    if (not shrink or shrink[0].get("suppress_reason") != "world_at_min"
+            or any(d.get("decision") == "applied" for d in decisions)):
+        problems.append(f"decisions {decisions}")
+    counts = replayed.dispatcher
+    if (rc != 0 or counts.finished_training != AUTOSCALE_TASKS
+            or counts.failed_permanently):
+        problems.append(f"resubmission exit {rc}, finished "
+                        f"{counts.finished_training}, failed "
+                        f"{counts.failed_permanently}")
+    workers = []
+    for name, per in (("evicted", evicted_lines), ("resumed", resumed_lines)):
+        tasks = per.get("worker-0.log", [])
+        steps = sum(int(x[0]) for x in tasks)
+        launches = int(tasks[-1][5]) if tasks else 0
+        if not steps or launches != placement.PASSES * steps:
+            problems.append(f"{name} worker: K1 launched {launches} kernels "
+                            f"in {steps} logged train steps")
+        seconds = sum(float(x[2]) for x in tasks)
+        workers.append({
+            "worker": name, "tasks": len(tasks), "train_steps": steps,
+            "k1_launches": launches,
+            "host_ms_per_step": seconds * 1e3 / steps if steps else None,
+            "data_wait_ms_per_step": (sum(float(x[3]) * int(x[0])
+                                          for x in tasks) / steps
+                                      if steps else None),
+            "past_first_task": steady_state([[
+                (int(x[0]), int(x[1]), float(x[2])) for x in tasks
+                if int(x[0])]])})
+    if problems:
+        print("\n".join(lines.messages[-200:]), file=sys.stderr, flush=True)
+        raise AssertionError("autoscale_job: " + "; ".join(problems))
+    emit("autoscale_job", card=smi, tasks=AUTOSCALE_TASKS,
+         decisions=[{k: d.get(k) for k in (
+             "decision", "kind", "suppress_reason", "reason", "worker_id",
+             "gain_s", "cost_s", "world") if k in d} for d in decisions],
+         signal_onset_s=seen.get("signal_s"),
+         signal_to_decision_s=seen["decision_s"] - seen["signal_s"],
+         finished_at_evict=seen["finished_at_evict"],
+         evict_to_retired_s=seen["retired_s"] - seen["evict_s"],
+         first_submission_wall_s=first_s,
+         drain_waste=first["wasted"].get("by_reason", {}),
+         resubmitted={"exit": rc, "wall_s": resumed_s,
+                      "finished_training": counts.finished_training,
+                      "failed_permanently": counts.failed_permanently},
+         workers=workers)
+    return sum(w["k1_launches"] for w in workers)
+
+
+# the zoo module of the callbacks job: the port's DeepFM, its learning
+# rate halved once on a plateau of the eval AUC (no eval can improve it by
+# 1, so the plateau is certain; the floor makes the one halving the last)
+# and training stopped after three more evals without an improvement
+CALLBACKS_ZOO = """
+from elasticdl_tpu_torch.api.callbacks import EarlyStopping, ReduceLROnPlateau
+from elasticdl_tpu_torch.model_zoo.deepfm.deepfm import *  # noqa: F403
+
+
+def callbacks():
+    return [ReduceLROnPlateau(initial_lr=1e-3, monitor="auc", patience=1,
+                              min_delta=1.0, min_lr=5e-4),
+            EarlyStopping(monitor="auc", patience=3, min_delta=1.0)]
+"""
+CALLBACKS_LR = 5e-4
+
+
+def phase_callbacks_job(smi):
+    """Zoo callbacks on the card: the DeepFM job at full width in one
+    process (the port's Master and its Worker on a thread, device
+    defaulted), through a zoo module written to a temp directory whose
+    `callbacks()` returns `ReduceLROnPlateau` and `EarlyStopping` on the
+    eval AUC (CALLBACKS_ZOO), CALLBACKS_TASKS training tasks of 2 steps
+    and an eval job of one batch every 2 steps. The second eval's plateau
+    pushes CALLBACKS_LR through the heartbeat; it must land in every
+    param group of the worker's Adam on the card, and the same LR must be
+    in the checkpoint's optimizer state. The fourth eval stops training
+    through `EarlyStopping` (the dispatcher's stop line names its reason),
+    so fewer tasks finish than the data holds, none failed. K1 must launch
+    twice a train step. Returns K1's launches."""
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.common.net import free_port
+    from elasticdl_tpu_torch.master.main import Master
+    from elasticdl_tpu_torch.ops import placement
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    with tempfile.TemporaryDirectory() as out, LogLines() as lines:
+        os.makedirs(os.path.join(out, "zoo", "deepfm_callbacks"))
+        open(os.path.join(out, "zoo", "deepfm_callbacks", "__init__.py"),
+             "w").close()
+        with open(os.path.join(out, "zoo", "deepfm_callbacks",
+                               "model.py"), "w") as f:
+            f.write(CALLBACKS_ZOO)
+        cfg = JobConfig.from_argv([
+            "--model_zoo", os.path.join(out, "zoo"),
+            "--model_def", "deepfm_callbacks.model.custom_model",
+            "--model_params", f"field_vocab={FIELD_VOCAB};hidden=400,400",
+            "--minibatch_size", str(BATCH),
+            "--training_data",
+            f"synthetic://criteo?n={CALLBACKS_TASKS * JOB_TASK}"
+            f"&shards={CALLBACKS_TASKS}",
+            "--records_per_task", str(JOB_TASK),
+            "--validation_data", f"synthetic://criteo?n={BATCH}&shards=1",
+            "--evaluation_steps", "2",
+            "--checkpoint_dir", os.path.join(out, "ckpt"),
+            "--checkpoint_steps", "1000",
+            "--master_addr", f"localhost:{free_port()}",
+            "--worker_heartbeat_s", "0.5"])
+        master = Master(cfg)
+        master.start()
+        worker = Worker(cfg)                # device defaulted: the GPU
+        if worker.device.type != "cuda":
+            raise AssertionError(f"Worker defaulted to {worker.device}")
+        rc = []
+        thread = threading.Thread(target=lambda: rc.append(worker.run()),
+                                  name="callbacks-worker", daemon=True)
+        placement.launches = 0
+        t0 = time.perf_counter()
+        thread.start()
+        try:
+            finished = master.wait(poll_s=0.2, timeout_s=600)
+            counts = master.dispatcher.counts()
+            results = master.evaluation.latest_results()
+            plateau, early = master.callbacks
+        finally:
+            master.shutdown(grace_s=1)
+            thread.join(300)
+        wall_s = time.perf_counter() - t0
+        launches = placement.launches
+        steps = worker._global_step
+        groups = worker._state.optimizer.param_groups
+        slots = worker._state.optimizer.state.values()
+        from elasticdl_tpu_torch.training.checkpoint import CheckpointManager
+
+        mngr = CheckpointManager(cfg.checkpoint_dir)
+        saved = torch.load(os.path.join(cfg.checkpoint_dir,
+                                        str(mngr.latest_step()), "state.pt"),
+                           map_location="cpu", weights_only=False)
+    stops = [m for m in lines.messages
+             if m.startswith("training stop requested")]
+    evals = [m for m in lines.messages if "ReduceLROnPlateau" in m]
+    saved_lrs = [g.get("lr") for g in saved["optimizer"]["param_groups"]]
+    problems = []
+    if not finished or rc != [0] or thread.is_alive():
+        problems.append(f"finished {finished}, worker exit {rc}")
+    if plateau.lr != CALLBACKS_LR or not early.stopped:
+        problems.append(f"plateau lr {plateau.lr}, stopped {early.stopped}")
+    if [g["lr"] for g in groups] != [CALLBACKS_LR] * len(groups):
+        problems.append(f"param groups' lr {[g['lr'] for g in groups]}")
+    if saved_lrs != [CALLBACKS_LR] * len(saved_lrs):
+        problems.append(f"checkpoint's lr {saved_lrs}")
+    if not all(s["exp_avg"].device.type == "cuda" for s in slots):
+        problems.append("Adam's moments are not on the card")
+    if len(stops) != 1 or "auc did not improve" not in stops[0]:
+        problems.append(f"stop lines {stops}")
+    if not (0 < counts["finished_training"] < CALLBACKS_TASKS) or counts[
+            "failed_permanently"]:
+        problems.append(f"dispatcher counts {counts}")
+    if not steps or launches != placement.PASSES * steps:
+        problems.append(f"K1 launched {launches} kernels in {steps} train "
+                        "steps")
+    if problems:
+        print("\n".join(lines.messages[-200:]), file=sys.stderr, flush=True)
+        raise AssertionError("callbacks_job: " + "; ".join(problems))
+    emit("callbacks_job", card=smi, wall_s=wall_s, counts=counts,
+         eval=results, train_steps=steps, k1_launches=launches,
+         pushed_lr=plateau.lr, param_group_lrs=[g["lr"] for g in groups],
+         checkpoint_lrs=saved_lrs, plateau=evals, stop=stops[0])
+    return launches
+
+
+def phase_hybrid_mesh(smi):
+    """`--dcn_mesh_shape` on the card: DeepFM at full width on a one-rank
+    NCCL world (as `cohort_job`'s member forms it), its mesh built by
+    `build_job_mesh` from `--dcn_mesh_shape data=1` (the hybrid layout of
+    one slice of one rank) and from no DCN shape (flat); 3 train steps on
+    each from one seed must be equal bit for bit (losses and parameters),
+    with K1 launched twice a step. Returns K1's launches."""
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.common.net import free_port
+    from elasticdl_tpu_torch.ops import placement
+    from elasticdl_tpu_torch.parallel import elastic
+    from elasticdl_tpu_torch.parallel import mesh as mesh_lib
+    from elasticdl_tpu_torch.training.trainer import Trainer
+
+    steps = 3
+    batches = [criteo_batch(400 + i) for i in range(steps)]
+    ctx = elastic.CohortContext(f"localhost:{free_port()}", 1, 0,
+                                device=torch.device("cuda:0"))
+    ctx.initialize(timeout_s=60)
+    runs, launches = {}, 0
+    try:
+        for name, dcn in (("hybrid", "data=1"), ("flat", "")):
+            mesh = mesh_lib.build_job_mesh(JobConfig(
+                model_zoo=ZOO, model_def="deepfm.deepfm.custom_model",
+                dcn_mesh_shape=dcn))
+            tr = Trainer(load_spec(f"field_vocab={FIELD_VOCAB};"
+                                   "hidden=400,400"), seed=7, mesh=mesh)
+            state = tr.init_state(None)
+            placement.launches = 0
+            losses = [float(tr.train_step(state, b)[1]["loss"])
+                      for b in batches]
+            launches += placement.launches
+            if placement.launches != placement.PASSES * steps:
+                raise AssertionError(f"{name}: K1 launched "
+                                     f"{placement.launches} kernels in "
+                                     f"{steps} steps")
+            runs[name] = (dict(mesh.shape), losses, {
+                k: p.detach().clone() for k, p in state.params.items()})
+            del tr, state
+    finally:
+        ctx.shutdown()
+    (hshape, hlosses, hparams), (fshape, flosses, fparams) = (
+        runs["hybrid"], runs["flat"])
+    if hlosses != flosses or hparams.keys() != fparams.keys() or not all(
+            torch.equal(hparams[k], fparams[k]) for k in hparams):
+        raise AssertionError(f"the hybrid mesh's steps {hlosses} differ from "
+                             f"the flat mesh's {flosses}")
+    emit("hybrid_mesh", card=smi, backend=ctx.backend,
+         dcn_mesh_shape="data=1", mesh=hshape, flat_mesh=fshape,
+         steps=steps, losses=hlosses, bit_equal_to_flat=True,
+         k1_launches=launches)
     return launches
 
 
@@ -3548,6 +4002,9 @@ def main():
     zoo_job_launches = phase_zoo_job(smi)
     tier_launches, tier_pushes = phase_tier(dev, smi)
     cohort_launches = phase_cohort_job(smi, job)
+    autoscale_launches = phase_autoscale_job(smi)
+    callbacks_launches = phase_callbacks_job(smi)
+    hybrid_launches = phase_hybrid_mesh(smi)
     emit("wall", seconds=time.perf_counter() - started)
 
     f32_lm = (fa.FWD, fa.BWD_DQ, fa.BWD_DKV)
@@ -3573,6 +4030,11 @@ def main():
         # the embedding tier: device-mode pushes (2 a shard push), the
         # session's backward and pushes, the reshard's pushes
         "tier_launches": tier_launches,
+        # the elastic control loop: the autoscaled job's evicted and
+        # resumed workers, the callbacks job, the hybrid mesh's steps
+        "autoscale_launches": autoscale_launches,
+        "callbacks_launches": callbacks_launches,
+        "hybrid_mesh_launches": hybrid_launches,
         "max_abs_err": max([k1["max_abs_err"]] + [
             e["max_abs_err"] for e in zoo_streams.values()]),
         "max_rel_err": max([k1["max_rel_err"]] + [

@@ -4,9 +4,11 @@ Counterpart of `elasticdl_tpu/client/local.py` (`run_local`): the port's
 Master runs in-process and its ProcessManager spawns
 `elasticdl_tpu_torch.worker.main` subprocesses, which train on the card
 (a worker's device can be named through `extra_env`, e.g.
-`{"EDL_TORCH_DEVICE": "cpu"}`). The closed-loop autoscaler's action
-surface is not wired: the port's Master refuses `--autoscale` (ROADMAP
-item 31).
+`{"EDL_TORCH_DEVICE": "cpu"}`). With `--autoscale` this launcher binds
+the closed-loop autoscaler's action surface, a `ProcessManagerTarget`
+over its process manager (evict, grow, shrink; cohorts resize by
+re-formation), feeds the manager's measured re-formations into the
+policy's cost model, and rebinds the target after a master restart.
 
 Master crash-restart chaos (`--master_restarts`): when the
 `master_crash` fault site fires its catchable `drop` flavor inside
@@ -104,6 +106,26 @@ def run_local(
             manager.request_flight_dump(worker_id)
 
     master.health.add_hook(_offender_flight_hook)
+    # Closed-loop autoscaler (--autoscale): the action surface lives
+    # here, since only the launcher owns worker processes.
+    if master.autoscaler is not None:
+        from elasticdl_tpu_torch.master.autoscaler import ProcessManagerTarget
+
+        autoscale_target = ProcessManagerTarget(
+            manager, servicer=master.servicer,
+            membership=master.membership,
+        )
+        master.autoscaler.bind_target(autoscale_target)
+        # measured re-formation durations feed the cost model's EWMA. The
+        # lambda reads the `master` local by reference (reassigned on
+        # --master_restarts recovery), so a successor's cost model keeps
+        # receiving observations.
+        manager.add_reform_observer(
+            lambda seconds, old, new:
+                master.autoscaler.cost.observe_recovery(seconds)
+        )
+    else:
+        autoscale_target = None
     master.start()
     manager.start_workers()
     deadline = time.time() + timeout_s if timeout_s else None
@@ -134,6 +156,16 @@ def run_local(
                     lambda m=master: m.servicer.request_checkpoint(0),
                     journal=master.journal,
                 )
+                if master.autoscaler is not None and autoscale_target:
+                    # the successor's policy replayed its cooldown and
+                    # budget from the journal; rebind the action surface
+                    # (the manager survives, servicer and membership
+                    # moved)
+                    autoscale_target.rebind(
+                        servicer=master.servicer,
+                        membership=master.membership,
+                    )
+                    master.autoscaler.bind_target(autoscale_target)
                 master.start()
     finally:
         # final fleet rollup before teardown (ClusterHealth.update never

@@ -5,14 +5,18 @@ args, create data shards and the task dispatcher, start the gRPC servicer
 and services, run to job end. The services it wires (dispatcher, journal,
 membership, evaluation, health, time series, alerts, goodput) are the
 port's copies of the reference's, and the model module it loads for
-metric finalization is the port's zoo. With `--embedding_shards N` it
-owns the embedding tier's shard map (`embedding/sharding.ShardMapOwner`,
+metric finalization and its `callbacks()` is the port's zoo: each
+callback gets an `api/callbacks.JobContext` and is attached to eval
+results, epoch ends and the job's end as the reference attaches it. With
+`--autoscale` it runs the closed-loop autoscaler (`master/autoscaler.py`,
+a copy): subscribed to the straggler scorer and the alert engine,
+evaluated on the wait poll, reported in `/healthz`; its action surface
+is bound by the launcher (`client/local.py`). With `--embedding_shards N`
+it owns the embedding tier's shard map (`embedding/sharding.ShardMapOwner`,
 journal-durable, with its death-driven resharding) and, with
 `--layout_autoscale`, the layout controller (the port's copies). The
-branches whose modules the port has not taken over raise
-`NotImplementedError` naming their ROADMAP item: the closed-loop
-autoscaler (`--autoscale`, item 31), zoo `callbacks()` (item 28) and the
-Kubernetes instance manager (`--instance_manager k8s`, item 25).
+Kubernetes instance manager (`--instance_manager k8s`) raises
+`NotImplementedError` naming its ROADMAP item (25).
 """
 
 from __future__ import annotations
@@ -41,10 +45,6 @@ logger = default_logger(__name__)
 def check_supported(cfg: JobConfig) -> None:
     """Raise for the master options whose modules the port has not taken
     over yet, before anything binds or opens."""
-    if cfg.autoscale:
-        raise NotImplementedError(
-            "--autoscale (the closed-loop autoscaler, deliberate "
-            "resizing) is ROADMAP item 31")
     if cfg.instance_manager == "k8s":
         raise NotImplementedError(
             "--instance_manager k8s (master-owned worker pods) is ROADMAP "
@@ -217,6 +217,22 @@ class Master:
 
         self.attribution = FleetAttribution()
 
+        # Closed-loop autoscaler (master/autoscaler.py): turns the two
+        # decision seams above (ClusterHealth straggler onsets and the
+        # backlog/data-wait alert rules) into journaled, fenced rescale
+        # actions, evaluated on the wait poll below. None when
+        # --autoscale is off. The action surface binds later:
+        # client/local.py wires the ProcessManagerTarget (only the
+        # launcher owns worker processes). Until a target is bound every
+        # decision suppresses, journaled, with no_target.
+        from elasticdl_tpu_torch.master import autoscaler as autoscaler_lib
+
+        self.autoscaler = autoscaler_lib.from_config(
+            cfg, journal=self.journal,
+        )
+        if self.autoscaler is not None:
+            self.autoscaler.subscribe(health=self.health, alerts=self.alerts)
+
         # Elastic sharded embedding tier: the master owns the id-sharded
         # table map, durable through the same journal as task accounting
         # — a master crash mid-resharding replays to the last COMMITTED
@@ -294,12 +310,25 @@ class Master:
             generation=self.journal.generation if self.journal else 0,
             embedding=self.embedding,
         )
+        # zoo callbacks observe job events and act via a JobContext
         self.callbacks = callbacks
         if callbacks:
-            self._release_on_bind_failure()
-            raise NotImplementedError(
-                "zoo callbacks() (api/callbacks.JobContext) are ROADMAP "
-                "item 28")
+            from elasticdl_tpu_torch.api.callbacks import JobContext
+
+            ctx = JobContext(
+                self.dispatcher, servicer=self.servicer,
+                evaluation=self.evaluation,
+            )
+            for cb in callbacks:
+                if hasattr(cb, "set_context"):
+                    cb.set_context(ctx)
+                if self.evaluation is not None and hasattr(cb, "on_eval_result"):
+                    self.evaluation.add_result_callback(cb.on_eval_result)
+                if hasattr(cb, "on_epoch_end"):
+                    self.dispatcher.add_epoch_end_callback(cb.on_epoch_end)
+                if hasattr(cb, "on_job_end"):
+                    self.dispatcher.add_job_end_callback(cb.on_job_end)
+            logger.info("wired %d zoo callback(s)", len(callbacks))
         # a completed eviction (or any death) prunes the sticky drain-
         # handshake bit — a revived worker id must not inherit it
         self.membership.add_death_callback(self.servicer.clear_evict)
@@ -400,6 +429,12 @@ class Master:
             # snapshots too, so chaos artifacts (and the incident CLI
             # reading them) carry the incident's bill
             "goodput": self.goodput.snapshot(),
+            # the closed-loop rescale policy's state (budget, cooldown,
+            # last decision); absent key = autoscaler off
+            **(
+                {"autoscale": self.autoscaler.snapshot()}
+                if self.autoscaler is not None else {}
+            ),
             # the closed-loop layout policy's state (budget, per-kind
             # cooldowns, last decision); absent key = controller off
             **(
@@ -473,6 +508,12 @@ class Master:
                 self.timeseries.maybe_sample(extra_fn=self._fleet_series)
             with poll_phase("alerts"):
                 self.alerts.evaluate()
+            if self.autoscaler is not None:
+                # the decision pass: pending signals (recorded by the
+                # hooks above) -> at most one journaled, cost-gated,
+                # cooldown-bounded rescale action. Never raises.
+                with poll_phase("autoscaler"):
+                    self.autoscaler.evaluate()
             if self.layout is not None:
                 # the layout decision pass: skew signals + the fleet's
                 # per-shard load / hot-id telemetry (riding the heartbeat

@@ -38,8 +38,15 @@ one-device mesh to its auto path.
 
 Each rank drives one device, so `--mesh_shape` names as many devices as
 the world has ranks; a plain worker (no world) given more than one device
-raises (`build_job_mesh`). The hybrid multi-slice mesh
-(`--dcn_mesh_shape`) is ROADMAP item 33.
+raises (`build_job_mesh`).
+
+The hybrid multi-slice mesh (`--dcn_mesh_shape`, `build_hybrid_mesh`) is
+the reference's layout over ranks: on GPUs a slice is a host, the DCN
+factor of an axis spans hosts over the network and the ICI factors stay
+on one host's NVLink. The ranks form contiguous blocks of prod(ICI), one
+block a host (the launcher's rank order), and each named axis is the
+product of its two factors with the DCN factor varying slowest, so the
+ranks of one host stay adjacent along every axis.
 """
 
 from __future__ import annotations
@@ -168,24 +175,75 @@ def build_mesh(axis_sizes: Optional[Dict[str, int]] = None,
     return Mesh(dict(axis_sizes), ranks, me, groups, mesh_world)
 
 
+def hybrid_layout(ici_axis_sizes: Dict[str, int],
+                  dcn_axis_sizes: Dict[str, int],
+                  ranks: Sequence[int]) -> Tuple[Dict[str, int], np.ndarray]:
+    """The hybrid mesh's axis sizes and its grid of `ranks`: contiguous
+    blocks of prod(ICI) ranks are the slices, and each named axis (ICI
+    names first, then the DCN-only ones) is its (dcn, ici) pair collapsed
+    with the DCN factor slowest-varying (the reference's layout on
+    devices without slice topology)."""
+    names = tuple(
+        dict.fromkeys(tuple(ici_axis_sizes) + tuple(dcn_axis_sizes)))
+    ici = tuple(int(ici_axis_sizes.get(a, 1)) for a in names)
+    dcn = tuple(int(dcn_axis_sizes.get(a, 1)) for a in names)
+    ranks = list(ranks)
+    total = int(np.prod(ici)) * int(np.prod(dcn))
+    if total != len(ranks):
+        raise ValueError(
+            f"hybrid mesh ici={dict(ici_axis_sizes)} x "
+            f"dcn={dict(dcn_axis_sizes)} needs {total} devices, "
+            f"have {len(ranks)}"
+        )
+    n = len(names)
+    perm = [k for i in range(n) for k in (i, n + i)]
+    sizes = tuple(d * s for d, s in zip(dcn, ici))
+    grid = np.asarray(ranks).reshape(dcn + ici).transpose(perm).reshape(sizes)
+    return dict(zip(names, sizes)), grid
+
+
+def build_hybrid_mesh(ici_axis_sizes: Dict[str, int],
+                      dcn_axis_sizes: Dict[str, int],
+                      ranks: Optional[Sequence[int]] = None
+                      ) -> Optional[Mesh]:
+    """The multi-slice mesh over `ranks` (default: every rank of the
+    world): `hybrid_layout`'s grid as a `Mesh`, whose collectives over an
+    axis span both tiers. Collective, as `build_mesh`."""
+    world, _ = _world()
+    sizes, grid = hybrid_layout(
+        ici_axis_sizes, dcn_axis_sizes,
+        range(world) if ranks is None else ranks)
+    return build_mesh(sizes, [int(r) for r in grid.reshape(-1)])
+
+
 def build_job_mesh(cfg) -> Mesh:
     """The mesh a job's config asks for, over the world's ranks: flat
-    (`--mesh_shape`, or every rank on `data`). The single entry point of
-    the worker and cohort paths."""
-    if cfg.dcn_axes_sizes():
-        raise NotImplementedError(
-            "the hybrid multi-slice mesh (--dcn_mesh_shape) is ROADMAP "
-            "item 33")
+    (`--mesh_shape`, or every rank on `data`) or hybrid multi-slice
+    (`--dcn_mesh_shape` names the across-host factors, and `--mesh_shape`
+    then describes one host's layout). The single entry point of the
+    worker and cohort paths."""
     world, _ = _world()
-    sizes = None
+    dcn = cfg.dcn_axes_sizes()
+    devices = world
+    if dcn:
+        n_slices = int(np.prod(list(dcn.values())))
+        if world % n_slices:
+            raise ValueError(
+                f"dcn_mesh_shape {cfg.dcn_mesh_shape!r} implies {n_slices} "
+                f"slices, which does not divide {world} devices"
+            )
+        devices = world // n_slices
+    sizes = {MeshAxis.DATA: devices} if dcn else None
     if cfg.mesh_shape:
         try:
-            sizes = cfg.mesh_axes_sizes(world)
+            sizes = cfg.mesh_axes_sizes(devices)
         except ValueError as e:
             raise ValueError(
                 f"{e}: each process of the port drives one device, so a "
                 "mesh of more devices needs a cohort of that many "
                 "processes (--num_processes)") from e
+    if dcn:
+        return build_hybrid_mesh(sizes, dcn)
     return build_mesh(sizes)
 
 
@@ -345,6 +403,10 @@ def gather_rows(mesh: Mesh, shard: torch.Tensor,
     dist.gather(padded, parts, dst=mesh.ranks[0], group=mesh.world)
     if not mesh.is_leader:
         return None
+    # the group orders its ranks by world rank; the ranges follow the
+    # mesh's order, which a hybrid mesh permutes
+    order = sorted(mesh.ranks)
+    parts = [parts[order.index(r)] for r in mesh.ranks]
     if rows.axis is not None:
         # the leader's coordinates are all 0: its line along the axis
         parts = [parts[mesh.ranks.index(mesh.rank_at(**{rows.axis: c}))]

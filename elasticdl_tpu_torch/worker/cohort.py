@@ -108,6 +108,7 @@ class CohortWorker(Worker):
     # every member runs every task to its end: the drain is the leader's,
     # at a task boundary
     _drains_mid_task = False
+    _task_line = "cohort task"
 
     def __init__(self, cfg: JobConfig, ctx: Optional[CohortContext] = None,
                  device: runtime.DeviceLike = None):
@@ -530,23 +531,6 @@ class CohortWorker(Worker):
             except Exception as e:
                 logger.warning("cohort metrics report failed for task %d: "
                                "%s", task_id, e)
-
-    def _log_training(self, task: pb.Task, stats: Dict[str, Any]) -> None:
-        """One line a training task on every member: its steps, records
-        and time in steps, the step profiler's per-step data wait and
-        h2d, and the embedding-gradient kernel's launches in this process
-        so far (K1, `ops/placement.py`)."""
-        from elasticdl_tpu_torch.ops import placement
-
-        prof = profile_lib.get_profiler().snapshot(update_memory=False)
-        logger.info(
-            "cohort task %d: %d steps, %d records, %.6f s in steps, "
-            "data_wait %.3f ms and h2d %.3f ms a step, %s launches %d",
-            task.task_id, int(stats["loss_count"]),
-            int(stats["records_done"]), stats["step_time_sum"],
-            prof.get("phase_data_wait_ms", 0.0),
-            prof.get("phase_h2d_ms", 0.0), placement.KERNEL,
-            placement.launches)
 
     def _export_final_model(self) -> None:
         """Collective: every process joins the table gather; the leader

@@ -95,6 +95,8 @@ class Worker:
     # a shutdown or preemption ends a training task at a group boundary
     # (a cohort member must not: its peers run the task on)
     _drains_mid_task = True
+    # the prefix of the line each training task logs (`_log_training`)
+    _task_line = "task"
 
     def __init__(self, cfg: JobConfig, device: runtime.DeviceLike = None):
         self.cfg = cfg
@@ -650,6 +652,23 @@ class Worker:
         with profile_lib.get_profiler().phase("h2d"):
             return stack_batches(buf, self.device)
 
+    def _log_training(self, task: pb.Task, stats: Dict[str, Any]) -> None:
+        """One line a training task: its steps, records and time in
+        steps, the step profiler's per-step data wait and h2d, and the
+        embedding-gradient kernel's launches in this process so far (K1,
+        `ops/placement.py`)."""
+        from elasticdl_tpu_torch.ops import placement
+
+        prof = profile_lib.get_profiler().snapshot(update_memory=False)
+        logger.info(
+            "%s %d: %d steps, %d records, %.6f s in steps, "
+            "data_wait %.3f ms and h2d %.3f ms a step, %s launches %d",
+            self._task_line, task.task_id, int(stats["loss_count"]),
+            int(stats["records_done"]), stats["step_time_sum"],
+            prof.get("phase_data_wait_ms", 0.0),
+            prof.get("phase_h2d_ms", 0.0), placement.KERNEL,
+            placement.launches)
+
     def _run_training_task(self, task: pb.Task) -> Dict[str, float]:
         """Run a training task in groups of k = --steps_per_dispatch
         batches. A full group of k > 1 goes through `Trainer.train_many`,
@@ -1016,6 +1035,7 @@ class Worker:
             try:
                 if task.type == pb.TRAINING:
                     stats = self._run_training_task(task)
+                    self._log_training(task, stats)
                     _TRAIN_STEPS.inc(int(stats["loss_count"]))
                     _TRAIN_RECORDS.inc(int(stats["records_done"]))
                     if stats["step_time_sum"] > 0:

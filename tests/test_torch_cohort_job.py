@@ -58,13 +58,15 @@ def job_config(out, *extra):
 
 
 class Job(threading.Thread):
-    """One cohort job, driven as the reference's `run_job` drives it;
+    """One cohort job, driven as the reference's `run_job` drives it
+    (planned resizes quiesce through the servicer's checkpoint request);
     `mid_job(master, manager)` returns True once it has acted."""
 
     def __init__(self, out, cfg, mid_job=None):
         super().__init__(daemon=True)
         self.out, self.cfg, self.mid_job = out, cfg, mid_job
         self.counts, self.error, self.saw_reform = None, None, False
+        self.cohort_size, self.reformations = None, None
 
     def run(self):
         try:
@@ -80,7 +82,9 @@ class Job(threading.Thread):
             extra_env={"EDL_TORCH_DEVICE": "cpu", "PYTHONPATH": REPO,
                        "OMP_NUM_THREADS": "1"},
             log_dir=os.path.join(self.out, "logs"),
-            job_finished_fn=master.dispatcher.finished)
+            job_finished_fn=master.dispatcher.finished,
+            checkpoint_request_fn=lambda: master.servicer.request_checkpoint(0),
+            resize_checkpoint_timeout_s=30.0)
         master.start()
         manager.start_workers()
         try:
@@ -94,6 +98,8 @@ class Job(threading.Thread):
                 time.sleep(0.2)
             self.counts = master.dispatcher.counts()
             self.saw_reform = bool(manager.reformation_log)
+            self.cohort_size = manager.cohort_size
+            self.reformations = [(o, n) for _, o, n in manager.reformation_log]
             assert master.dispatcher.finished(), (self.counts, self.log()[-3000:])
         finally:
             master.shutdown()

@@ -28,7 +28,7 @@ REPO = Path(__file__).resolve().parent.parent
 REF, PORT = REPO / "elasticdl_tpu", REPO / "elasticdl_tpu_torch"
 
 COPIED = (
-    "version.py",
+    "version.py", "api/callbacks.py",
     "common/config.py", "common/constants.py", "common/faults.py",
     "common/log_utils.py", "common/membership_signal.py",
     "common/model_utils.py", "common/net.py",
@@ -48,7 +48,7 @@ COPIED = (
     "master/journal.py", "master/membership.py", "master/poll_phases.py",
     "master/servicer.py", "master/summary_service.py",
     "master/task_dispatcher.py",
-    "master/layout_controller.py",
+    "master/layout_controller.py", "master/autoscaler.py",
     "embedding/__init__.py", "embedding/cache.py",
     "embedding/data_plane.py", "embedding/reshard.py",
     "embedding/sharding.py", "embedding/shm.py", "embedding/sketch.py",

@@ -6,8 +6,9 @@ checkpoint, export), the manual schedule's per-rank compute (K1 on a
 shard), a one-rank NCCL cohort context, K1 on Wide & Deep's census
 stream, the MoE, pipelined and tensor-parallel LMs and the MoE's index
 and dense routes, the sequence-parallel ring in one process against
-unsplit attention, a ResNet-20 step (convolutions, BatchNorm) and a device-mode
-embedding-tier store (K1 on every push) on the card. They skip where no
+unsplit attention, a ResNet-20 step (convolutions, BatchNorm), a device-mode
+embedding-tier store (K1 on every push) and zoo callbacks whose pushed
+learning rate lands in the worker's optimizer on the card. They skip where no
 CUDA device is present.
 
 This file imports torch and the port only, so it also runs on a GPU
@@ -756,6 +757,59 @@ def case_job_on_the_card(cuda, tmp):
     assert float((got - want).abs().max()) <= 1e-6
 
 
+def case_callbacks_lr_lands_on_the_card(cuda, tmp):
+    """Zoo callbacks with the worker on the card: `tests/test_torch_callbacks.py`'s
+    job (the port's DeepFM with `ReduceLROnPlateau` down to 5e-4 and
+    `EarlyStopping` on a certain plateau, an eval job every 2 steps), the
+    worker's device defaulted. The pushed LR lands in every param group of
+    the worker's Adam, whose moments live on the card; EarlyStopping ends
+    training; K1 launches twice a train step."""
+    import threading
+
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.common.net import free_port
+    from elasticdl_tpu_torch.master.main import Master
+    from elasticdl_tpu_torch.worker.worker import Worker
+    from tests.test_torch_callbacks import PORT_DEEPFM, write_zoo
+
+    zoo = os.path.join(tmp, "cb_zoo")
+    write_zoo(zoo, "deepfm_cb_card", PORT_DEEPFM)
+    cfg = JobConfig.from_argv([
+        "--model_zoo", zoo, "--model_def", "deepfm_cb_card.model.custom_model",
+        "--model_params", "field_vocab=1000;hidden=32,32",
+        "--minibatch_size", "256", "--records_per_task", "512",
+        "--training_data", "synthetic://criteo?n=16384&shards=4",
+        "--validation_data", "synthetic://criteo?n=512&shards=1",
+        "--evaluation_steps", "2",
+        "--master_addr", f"localhost:{free_port()}",
+        "--worker_heartbeat_s", "0.05"])
+    master = Master(cfg)
+    master.start()
+    worker = Worker(cfg)
+    assert worker.device.type == "cuda"
+    rc = []
+    thread = threading.Thread(target=lambda: rc.append(worker.run()))
+    placement.launches = 0
+    thread.start()
+    try:
+        assert master.wait(poll_s=0.1, timeout_s=120)
+        counts = master.dispatcher.counts()
+        plateau, es = master.callbacks
+    finally:
+        master.shutdown(grace_s=0.5)
+        thread.join(60)
+    assert rc == [0]
+    assert plateau.lr == 5e-4 and es.stopped
+    optimizer = worker._state.optimizer
+    assert [g["lr"] for g in optimizer.param_groups] == \
+        [5e-4] * len(optimizer.param_groups)
+    assert all(s["exp_avg"].device.type == "cuda"
+               for s in optimizer.state.values())
+    assert 4 <= counts["finished_training"] < 32, counts
+    assert not counts["failed_permanently"]
+    assert placement.launches == placement.PASSES * worker._global_step
+
+
 def case_tier_store_on_the_card(cuda):
     """A device-mode tier store on the card and a host-mode store take the
     same deduped pushes (sorted unique ids: one term a row) and end with
@@ -846,4 +900,5 @@ def test_kernels_on_the_card(cuda, tmp_path):
     case_lm_knobs_on_the_card(cuda)
     case_grouped_deepfm_on_the_card(cuda)
     case_job_on_the_card(cuda, str(tmp_path))
+    case_callbacks_lr_lands_on_the_card(cuda, str(tmp_path))
     case_tier_store_on_the_card(cuda)

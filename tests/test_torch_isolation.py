@@ -31,7 +31,8 @@ from elasticdl_tpu_torch import convert
 from elasticdl_tpu_torch.client import api, local, main as client_main
 from elasticdl_tpu_torch.data import nativelib, parsing, prefetch, reader, recordio
 from elasticdl_tpu_torch.master import (
-    layout_controller, main as master_main, process_manager)
+    autoscaler, layout_controller, main as master_main, process_manager)
+from elasticdl_tpu_torch.api import callbacks
 from elasticdl_tpu_torch.parallel import elastic, mesh, pipeline
 from elasticdl_tpu_torch.training import checkpoint, compile_cache, export
 from elasticdl_tpu_torch.embedding import (

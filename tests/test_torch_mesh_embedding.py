@@ -265,9 +265,11 @@ W = _rng.randn(B, L, D).astype(np.float32)
 
 
 def case_options_left_out_raise():
-    """A plain worker given a mesh of more devices than its one, the
-    hybrid mesh and the cohort's speculative compiler raise, naming
-    where to go; the member of a world needs its own card."""
+    """A plain worker given a mesh of more devices than its one and the
+    cohort's speculative compiler raise, naming where to go; a hybrid
+    mesh of more slices than the world has ranks raises the reference's
+    error, and one slice of one rank is a mesh of one; the member of a
+    world needs its own card."""
     from elasticdl_tpu_torch.common import runtime
     from elasticdl_tpu_torch.common.config import JobConfig
     from elasticdl_tpu_torch.worker.cohort import CohortWorker
@@ -279,9 +281,12 @@ def case_options_left_out_raise():
     with pytest.raises(ValueError, match="--num_processes"):
         Worker(JobConfig.from_argv(base + ["--mesh_shape", "4,2"]),
                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 33"):
+    with pytest.raises(ValueError, match="implies 2 slices, which does "
+                       "not divide 1 devices"):
         Worker(JobConfig.from_argv(base + ["--dcn_mesh_shape", "data=2"]),
                device="cpu")
+    assert Worker(JobConfig.from_argv(base + ["--dcn_mesh_shape", "data=1"]),
+                  device="cpu")._mesh.size == 1
     assert Worker(JobConfig.from_argv(base + ["--mesh_shape", "1"]),
                   device="cpu")._mesh.size == 1
     ctx = elastic.CohortContext("localhost:0", 2, 1)
