@@ -11,7 +11,8 @@ the MNIST CNN, ResNet-20 and ResNet-50 through library convolutions
 and BatchNorm) as steps and, for ResNet-20 and Wide & Deep, as jobs, the transformer LM's train step and its job, its Switch-MoE
 configuration as a step and a job and its pipelined one as a step, its
 sequence-parallel ring and Ulysses schedules and its steps on a `seq`
-mesh (flash-attention
+mesh, those schedules over tensor-parallel head groups and the MoE's
+routing over (data, seq) blocks (flash-attention
 kernels: for its bfloat16 D 64 attention the Hopper kernels K2', K3', K4'
 and the delta pass, which runs once a backward; K2, K3 and K4 for every
 other input, such as the float32 LM), the trainer's knobs (remat,
@@ -331,13 +332,35 @@ caught):
            DeepFM at 5's width, 3 train steps on the mesh `build_job_mesh`
            builds from it and 3 on the flat mesh, from one seed: losses
            and parameters equal bit for bit, K1 twice a step in each.
+29. seq_mix (after `seq_train`)  sequence parallelism beside tensor and
+           expert parallelism in one process, at `ring_attn`'s shape cut
+           into 2 head groups of 4 heads (a `model` axis of 2 ranks, each
+           holding its column split's heads): the ring over 4 virtual
+           ranks on each group, held as `ring_attn` holds it (each launch
+           against its plain version, the joined output and gradients
+           against one unsplit call; 2 x 16 launches of K2', K3', K4' and
+           the delta pass), and Ulysses over 2 virtual ranks on each group
+           (2 x 2); the LM of 9 with each block's attention the ring over
+           head groups, 3 train steps as 25 holds them (2 x 16 launches a
+           layer and step); and one MoE layer at the MoE LM's width (8192
+           tokens, 8 experts) routed over 2 x 2 (data, seq) blocks
+           (`ops.moe.blocks_local`: each block's `route` given the counts
+           a mesh's gathers would bring) at capacity factors 1.25
+           (capacity 1280) and 0.5 (capacity 512, where tokens drop and
+           the arrival order decides which): each block's experts, slots,
+           keep and capacity equal to the global route's bit for bit, its
+           aux within rel 1e-6, its index route's output rows the global
+           layer's bit for bit where the block's gates are, and within
+           MOE_OUT_TOL elsewhere (the router's float32 product runs per
+           block, and cuBLAS picks its kernel by the rows, so the last
+           bits of a gate can differ).
 Then the `kernels` line (K1's `launches` are the job's, with the
 `grouped`, `cohort_job`, `manual_shards`, `tier`, `autoscale_job`,
 `callbacks_job` and `hybrid_mesh` phases' beside
 them; the Hopper kernels' are `lm_train`'s, with `lm_job`'s,
-`moe_train`'s, `pp_train`'s, `moe_job`'s, `ring_attn`'s and
-`seq_train`'s beside them), the nvidia-smi line, and last the `ok`
-line.
+`moe_train`'s, `pp_train`'s, `moe_job`'s, `ring_attn`'s,
+`seq_train`'s and `seq_mix`'s beside them), the nvidia-smi line, and
+last the `ok` line.
 
 It exits non-zero without a result where CUDA is unavailable, and where
 the port's package is absent.
@@ -1478,6 +1501,60 @@ def phase_ring_attn(dev, smi):
     return launches
 
 
+SEQ_STEPS = 3
+
+
+def seq_lm_steps(mesh=None, attention=None):
+    """SEQ_STEPS train steps of the LM at `lm_train`'s width from seed 5,
+    on `mesh`, with each block's attention replaced by `attention(q, k,
+    v, causal)` where given: (losses, params, the flash launches, host
+    ms a step past the first)."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.training.trainer import Trainer
+
+    batches = [lm_batch(300 + i) for i in range(SEQ_STEPS)]
+    tr = Trainer(load_spec(LM_PARAMS, model_def=LM_DEF), seed=5, mesh=mesh)
+    lm = sys.modules[type(tr.model).__module__]
+    real = lm.sequence_parallel_attention
+    if attention is not None:
+        lm.sequence_parallel_attention = (
+            lambda q, k, v, causal=True, **_: attention(q, k, v, causal))
+    try:
+        state = tr.init_state(None)
+        reset_launches()
+        losses, times = [], []
+        for bt in batches:
+            t0 = time.perf_counter()
+            losses.append(tr.train_step(state, bt)[1]["loss"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.mean(times[1:])      # past the first step
+    finally:
+        lm.sequence_parallel_attention = real
+    return ([float(x) for x in losses], {
+        k: p.detach().clone() for k, p in state.params.items()},
+        dict(fa.launches), ms)
+
+
+def ring_lm_checks(name, losses, launches, plain_losses, pairs):
+    """A ring LM's steps: finite and falling, the first loss within rel
+    1e-2 of the unsplit step's, and K2', K3', K4' and the delta pass
+    launched `pairs` times a layer and step."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    want = {k: 0 for k in fa.launches}
+    for k in (fa.FWD_SM90, fa.BWD_DQ_SM90, fa.BWD_DKV_SM90,
+              fa.BWD_DELTA_SM90):
+        want[k] = pairs * LM_LAYERS * SEQ_STEPS
+    if (launches != want or not all(np.isfinite(losses))
+            or not losses[-1] < losses[0]
+            or abs(losses[0] - plain_losses[0])
+            > 1e-2 * abs(plain_losses[0])):
+        raise AssertionError(f"{name}: losses {losses} against "
+                             f"{plain_losses}, launches {launches}")
+    return abs(losses[0] - plain_losses[0]) / abs(plain_losses[0])
+
+
 def phase_seq_train(smi):
     """The LM at `lm_train`'s width on a `seq` mesh of one card: a
     one-rank NCCL world (as `cohort_job`'s member forms it) with the mesh
@@ -1489,49 +1566,21 @@ def phase_seq_train(smi):
     and falling, the first loss within rel 1e-2 of the unsplit step's,
     and the Hopper kernels launched n x n times a layer and step (the
     ring's offsets and its live lse cotangent inside a train step).
-    Returns the kernels' launches of the mesh run and the ring run."""
+    Returns the kernels' launches of the mesh run and the ring run, and
+    the unsplit steps' losses."""
     from elasticdl_tpu_torch.common.net import free_port
     from elasticdl_tpu_torch.ops import attention
-    from elasticdl_tpu_torch.ops import flash_attention as fa
     from elasticdl_tpu_torch.parallel import elastic
     from elasticdl_tpu_torch.parallel import mesh as mesh_lib
-    from elasticdl_tpu_torch.training.trainer import Trainer
 
-    steps, n = 3, RING_BLOCKS
-    batches = [lm_batch(300 + i) for i in range(steps)]
-
-    def train(mesh=None, ring=False):
-        tr = Trainer(load_spec(LM_PARAMS, model_def=LM_DEF), seed=5,
-                     mesh=mesh)
-        lm = sys.modules[type(tr.model).__module__]
-        real = lm.sequence_parallel_attention
-        if ring:
-            lm.sequence_parallel_attention = (
-                lambda q, k, v, causal=True, mode="ring":
-                attention.ring_attention_local(q, k, v, n, causal))
-        try:
-            state = tr.init_state(None)
-            reset_launches()
-            losses, times = [], []
-            for bt in batches:
-                t0 = time.perf_counter()
-                losses.append(tr.train_step(state, bt)[1]["loss"])
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            ms = statistics.mean(times[1:])      # past the first step
-        finally:
-            lm.sequence_parallel_attention = real
-        return ([float(x) for x in losses], {
-            k: p.detach().clone() for k, p in state.params.items()},
-            dict(fa.launches), ms)
-
-    plain_losses, plain_params, plain_launches, plain_ms = train()
+    steps, n = SEQ_STEPS, RING_BLOCKS
+    plain_losses, plain_params, plain_launches, plain_ms = seq_lm_steps()
     ctx = elastic.CohortContext(f"localhost:{free_port()}", 1, 0,
                                 device=torch.device("cuda:0"))
     ctx.initialize(timeout_s=60)
     try:
         mesh = mesh_lib.build_mesh({"data": 1, "seq": 1})
-        losses, params, launches, ms = train(mesh)
+        losses, params, launches, ms = seq_lm_steps(mesh)
     finally:
         ctx.shutdown()
     if losses != plain_losses or params.keys() != plain_params.keys() or \
@@ -1540,19 +1589,11 @@ def phase_seq_train(smi):
                              f"from the steps with no mesh {plain_losses}")
     if launches != hopper_launches(steps) or launches != plain_launches:
         raise AssertionError(f"flash launches on the seq mesh {launches}")
-    ring_losses, _, ring_launches, ring_ms = train(ring=True)
-    pairs = n * n * LM_LAYERS * steps
-    want = {name: 0 for name in fa.launches}
-    for name in (fa.FWD_SM90, fa.BWD_DQ_SM90, fa.BWD_DKV_SM90,
-                 fa.BWD_DELTA_SM90):
-        want[name] = pairs
-    if (ring_launches != want or not all(np.isfinite(ring_losses))
-            or not ring_losses[-1] < ring_losses[0]
-            or abs(ring_losses[0] - plain_losses[0])
-            > 1e-2 * abs(plain_losses[0])):
-        raise AssertionError(f"the ring LM's steps: losses {ring_losses} "
-                             f"against {plain_losses}, launches "
-                             f"{ring_launches}")
+    ring_losses, _, ring_launches, ring_ms = seq_lm_steps(
+        attention=lambda q, k, v, causal: attention.ring_attention_local(
+            q, k, v, n, causal))
+    rel = ring_lm_checks("the ring LM", ring_losses, ring_launches,
+                         plain_losses, n * n)
     emit("seq_train", card=smi, params=LM_PARAMS, batch=[LM_BATCH, LM_T],
          compute_dtype="bfloat16", mesh={"data": 1, "seq": 1},
          backend=ctx.backend, steps=steps, losses=losses,
@@ -1560,11 +1601,172 @@ def phase_seq_train(smi):
          no_mesh_host_ms_per_step=plain_ms,
          launches={k: v for k, v in launches.items() if v},
          ring={"blocks": n, "losses": ring_losses,
-               "first_loss_rel_diff": abs(ring_losses[0] - plain_losses[0])
-               / abs(plain_losses[0]),
+               "first_loss_rel_diff": rel,
                "host_ms_per_step": ring_ms,
                "launches": {k: v for k, v in ring_launches.items() if v}})
-    return {k: launches[k] + ring_launches[k] for k in launches}
+    return {k: launches[k] + ring_launches[k] for k in launches}, plain_losses
+
+
+TP_GROUPS = 2            # the head groups of a model axis of 2 ranks
+MOE_BLOCKS = (2, 2)      # the (data, seq) blocks the MoE routes over
+MOE_DROP_CAPACITY = 0.5  # a capacity factor at which tokens drop
+
+
+def head_groups(fn, groups=TP_GROUPS):
+    """`fn(q, k, v, *args)` run on each of `groups` contiguous head groups
+    of (B, T, H, D) q, k, v, as each rank of a `model` axis of that size
+    runs it on the H / groups heads its column split holds, the outputs
+    joined along H."""
+    def split(q, k, v, *args):
+        per = q.shape[2] // groups
+        return torch.cat([fn(*(x[:, :, g * per:(g + 1) * per].contiguous()
+                               for x in (q, k, v)), *args)
+                          for g in range(groups)], dim=2)
+    return split
+
+
+# a block's MoE output rows against the whole batch's layer (rtol, atol of
+# max): the router's float32 product runs per block, and cuBLAS picks its
+# kernel by the rows (2048 against 8192), so the logits and the gates can
+# differ in their last bits; each output row is its expert row times its
+# gate, one float32 rounding apart (the rows whose gates agree must be
+# equal bit for bit)
+MOE_OUT_TOL = (1e-6, 1e-6)
+
+
+def moe_block_routes():
+    """One MoE layer at the MoE LM's width (8 x 1024 tokens, C 512, 8
+    experts) routed over MOE_BLOCKS (data, seq) blocks in this process
+    (`ops.moe.blocks_local`: each block's `route` gets the counts and the
+    probability sums a mesh's gathers would bring), at capacity factors
+    MOE_CAPACITY and MOE_DROP_CAPACITY: each block's chosen experts,
+    slots, keep and capacity must equal the global route's bit for bit
+    and its aux be within rel 1e-6; its index route's output rows must
+    equal the global layer's bit for bit where the block's gates do, and
+    within MOE_OUT_TOL elsewhere. Returns the report a capacity factor,
+    with the ms of the global layer's forward and of the blocks'
+    forwards, and the checks that failed."""
+    from elasticdl_tpu_torch.api.layers import MoE
+    from elasticdl_tpu_torch.common import runtime
+    from elasticdl_tpu_torch.ops import moe as moe_ops
+
+    runtime.configure_torch_runtime()
+    dev = runtime.resolve_device(None)       # the card
+    c, (data, seq) = LM_DIM, MOE_BLOCKS
+    gen = torch.Generator(device=dev).manual_seed(7)
+    layer = MoE(c, MOE_EXPERTS, 4 * c, residual=False).to(dev)
+    layer.reset_parameters(gen)
+    x = torch.randn((LM_BATCH, LM_T, c), device=dev, generator=gen)
+    flat = x.reshape(-1, c)
+    weights = [layer.router, layer.w1, layer.b1, layer.w2, layer.b2]
+    rows, cols = LM_BATCH // data, LM_T // seq
+    order = torch.arange(LM_BATCH * LM_T, device=dev).view(LM_BATCH, LM_T)
+    report, bad = {}, []
+    with torch.no_grad():
+        for cf in (MOE_CAPACITY, MOE_DROP_CAPACITY):
+            whole = moe_ops.route(flat, layer.router, cf)
+            out, _ = moe_ops.switch_moe(flat, *weights, capacity_factor=cf)
+            blocks = moe_ops.blocks_local(x, layer.router, data, seq)
+            aux_rel, out_ratio, gates_equal, checks = 0.0, 0.0, 0, {}
+            for i, (xb, blk) in enumerate(blocks):
+                d, s = divmod(i, seq)
+                sel = order[d * rows:(d + 1) * rows,
+                            s * cols:(s + 1) * cols].reshape(-1)
+                r = moe_ops.route(xb, layer.router, cf, blk)
+                ob, _ = moe_ops.switch_moe(xb, *weights, capacity_factor=cf,
+                                           blocks=blk)
+                same = r.gate == whole.gate[sel]
+                got = {"cap": r.cap == whole.cap,
+                       "idx": torch.equal(r.idx, whole.idx[sel]),
+                       "pos": torch.equal(r.pos, whole.pos[sel]),
+                       "keep": torch.equal(r.keep, whole.keep[sel]),
+                       "out_where_gates_agree": torch.equal(
+                           ob[same], out[sel][same]),
+                       "out": torch.equal(ob, out[sel]),
+                       "router_logits": torch.equal(
+                           xb @ layer.router, (flat @ layer.router)[sel])}
+                for k, ok in got.items():
+                    checks[k] = checks.get(k, True) and ok
+                gates_equal += int(same.sum())
+                out_ratio = max(out_ratio,
+                                over_tol(ob, out[sel], *MOE_OUT_TOL)[1])
+                aux_rel = max(aux_rel, abs(float(r.aux) - float(whole.aux))
+                              / abs(float(whole.aux)))
+            block_ms = time_ms(lambda: [moe_ops.switch_moe(
+                xb, *weights, capacity_factor=cf, blocks=blk)
+                for xb, blk in blocks], groups=7, per_group=3, warmup=1)
+            whole_ms = time_ms(lambda: moe_ops.switch_moe(
+                flat, *weights, capacity_factor=cf), groups=7, per_group=3,
+                warmup=1)
+            report[str(cf)] = dict(
+                capacity=whole.cap, dropped=int((~whole.keep).sum()),
+                aux=float(whole.aux), aux_rel_diff=aux_rel,
+                bit_equal=checks, gates_bit_equal=gates_equal,
+                out_share_of_tolerance=out_ratio,
+                blocks_fwd_ms=block_ms, whole_fwd_ms=whole_ms)
+            bad += [f"{cf} {k}" for k, ok in checks.items()
+                    if not ok and k not in ("router_logits", "out")]
+            if aux_rel > 1e-6 or out_ratio > 1.0:
+                bad.append(f"{cf} aux {aux_rel}, out {out_ratio}")
+    return report, bad
+
+
+def phase_seq_mix(dev, smi, plain_losses):
+    """Sequence parallelism beside tensor and expert parallelism at the
+    LM's width, in one process (one card holds one rank): the ring over
+    RING_BLOCKS virtual ranks and Ulysses over 2 run on each of TP_GROUPS
+    head groups of 4 heads (B 8, T 1024, D 64, bf16, causal), as each
+    rank of a {seq, model} mesh runs them on its heads, each launch held
+    to its plain version and the joined schedule to one unsplit call
+    (`schedule_checks`); the ring over head groups as each block's
+    attention inside 3 LM train steps; and the MoE's routing over (data,
+    seq) blocks (`moe_block_routes`). Returns the Hopper kernels'
+    launches."""
+    from elasticdl_tpu_torch.ops import attention
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, d, n, g = LM_BATCH, LM_T, 8, 64, RING_BLOCKS, TP_GROUPS
+    q, k, v, dout, _ = attn_inputs(dev, b, t, t, h, d, torch.bfloat16, 43)
+    bwd = (fa.BWD_DQ_SM90, fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90)
+    ring_fn = head_groups(lambda q, k, v: attention.ring_attention_local(
+        q, k, v, n, causal=True))
+    pairs = g * n * n
+    ring = schedule_checks("seq_mix", ring_fn, q, k, v, dout,
+                           {fa.FWD_SM90: pairs},
+                           {name: pairs for name in bwd})
+    ulysses = schedule_checks(
+        "seq_mix", head_groups(lambda q, k, v: ulysses_local(q, k, v, 2)),
+        q, k, v, dout, {fa.FWD_SM90: 2 * g}, {name: 2 * g for name in bwd})
+    losses, _, train_launches, ms = seq_lm_steps(attention=head_groups(
+        lambda q, k, v, causal: attention.ring_attention_local(
+            q, k, v, n, causal)))
+    rel = ring_lm_checks("the ring LM over head groups", losses,
+                         train_launches, plain_losses, g * n * n)
+    routes, bad = moe_block_routes()
+    emit("seq_mix", card=smi, shape=[b, t, h, d], dtype="bfloat16",
+         causal=True, head_groups=g, blocks=n,
+         tolerance={"per_call": list(KERNEL_TOL),
+                    "out": list(RING_OUT_TOL),
+                    "grads": list(RING_GRAD_TOL),
+                    "form": "rtol, atol of max, atol of rms"},
+         ring=ring, ulysses=ulysses,
+         train={"params": LM_PARAMS, "steps": SEQ_STEPS, "losses": losses,
+                "unsplit_losses": plain_losses,
+                "first_loss_rel_diff": rel, "host_ms_per_step": ms,
+                "launches": {k: v for k, v in train_launches.items() if v}},
+         moe_routes={"tokens": LM_BATCH * LM_T, "experts": MOE_EXPERTS,
+                     "blocks": list(MOE_BLOCKS), "out_tolerance": {
+                         "rtol, atol of max": list(MOE_OUT_TOL)},
+                     "by_capacity": routes})
+    if bad:
+        raise AssertionError(f"the MoE's block routes differ from the "
+                             f"global route: {bad}")
+    launches = {name: train_launches[name] for name in fa.launches}
+    for run in (ring, ulysses):
+        for counts in (run["launches_fwd"], run["launches_bwd"]):
+            for name, c in counts.items():
+                launches[name] += c
+    return launches
 
 
 # ---------------------------------------------------------------- knobs
@@ -3989,7 +4191,8 @@ def main():
     f32_lm_launches = phase_lm_parity()
     launches = phase_train()
     lm_launches = phase_lm_train()
-    seq_launches = phase_seq_train(smi)
+    seq_launches, unsplit_losses = phase_seq_train(smi)
+    seq_mix_launches = phase_seq_mix(dev, smi, unsplit_losses)
     moe_launches = phase_moe_train(smi)
     pp_launches = phase_pp_train(smi)
     phase_knobs()
@@ -4063,8 +4266,9 @@ def main():
         # K2-K4 serve the float32 LM (lm_parity); the Hopper kernels the
         # bf16 LM's train, eval and predict steps (lm_train), and those of
         # the MoE and pipelined LMs, the MoE job, the in-process ring and
-        # Ulysses (ring_attn) and the seq mesh's and ring LM's steps
-        # (seq_train)
+        # Ulysses (ring_attn), the seq mesh's and ring LM's steps
+        # (seq_train), and both schedules and the ring LM over head
+        # groups (seq_mix)
         "launches": (f32_lm_launches[name] if name in f32_lm
                      else lm_launches[name]),
         "launches_in": "lm_parity" if name in f32_lm else "lm_train",
@@ -4074,7 +4278,8 @@ def main():
             "pp_train_launches": pp_launches[name],
             "moe_job_launches": moe_job_launches[name],
             "ring_attn_launches": ring_launches[name],
-            "seq_train_launches": seq_launches[name]}),
+            "seq_train_launches": seq_launches[name],
+            "seq_mix_launches": seq_mix_launches[name]}),
         **attn[name],
     } for name in (fa.FWD, fa.FWD_SM90, fa.BWD_DQ, fa.BWD_DQ_SM90,
                    fa.BWD_DKV, fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90)]}),

@@ -30,7 +30,6 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from elasticdl_tpu_torch.common.constants import MeshAxis
 from elasticdl_tpu_torch.ops import embedding as emb_ops
 from elasticdl_tpu_torch.parallel import mesh as mesh_lib
 
@@ -546,10 +545,6 @@ class MoE(nn.Module):
     def shard(self, mesh: mesh_lib.Mesh) -> None:
         from elasticdl_tpu_torch.ops import moe as moe_ops
 
-        if mesh.axis_size(MeshAxis.SEQ) > 1:
-            raise NotImplementedError(
-                "the MoE routes the data axis's tokens; a "
-                f"{MeshAxis.SEQ!r} mesh axis beside it is ROADMAP item 35")
         if mesh.axis_size(moe_ops.EXPERT_AXIS) == 1:
             return
         self.mesh = mesh

@@ -33,8 +33,14 @@ The reference's parallel options:
 On a mesh with a `seq` axis each rank holds its columns of the tokens
 (`batch_partition`): the blocks' attention runs `seq_parallel`'s
 schedule over the axis (ring or Ulysses, `ops/attention.py`) and the
-positions are the rank's columns of `pos_embed`. A `seq` axis beside
-`tp_axis`, the MoE or the pipeline is ROADMAP item 35.
+positions are the rank's columns of `pos_embed`. Beside `tp_axis` the
+schedule runs over the rank's heads (its `seq` group is the one at its
+`model` coordinate), and beside the MoE the routing counts every (data,
+seq) block's tokens (`ops/moe.py`). The pipelined blocks' stages, whose
+attention is unsharded, run each rank's rows against the gathered
+sequence (`ops.attention.gathered_attention`) where the mesh has no
+`pp` axis; beside a `pp` axis a `seq` axis is refused
+(`parallel.pipeline.SEQ_BESIDE_PP`).
 
 Parameter names follow the flax module's (`tok_embed.embedding`,
 `pos_embed`, `block_{i}.{q,k,v,proj,mlp_in,mlp_out}`,
@@ -54,7 +60,7 @@ from elasticdl_tpu_torch.api.layers import (
     MoE, Dense, Embed, LayerNorm, TPDense, dropout)
 from elasticdl_tpu_torch.common.constants import MeshAxis
 from elasticdl_tpu_torch.ops.attention import (
-    full_attention, sequence_parallel_attention)
+    gathered_attention, sequence_parallel_attention)
 from elasticdl_tpu_torch.parallel import mesh as mesh_lib
 from elasticdl_tpu_torch.parallel import pipeline
 from elasticdl_tpu_torch.training import lr_modulation
@@ -102,7 +108,7 @@ class Block(nn.Module):
         shape = (B, T, q.shape[-1] // (C // self.heads), C // self.heads)
         attn = sequence_parallel_attention(
             q.reshape(shape), k.reshape(shape), v.reshape(shape),
-            causal=True, mode=self.seq_parallel)
+            causal=True, mode=self.seq_parallel, heads=self.heads)
         h = self.proj(attn.reshape(B, T, q.shape[-1]))
         if training and self.dropout > 0:
             # the mask comes from `generator`; under remat the trainer
@@ -136,8 +142,10 @@ class PipelinedBlocks(nn.Module):
     block as the stage. `shard(mesh)` keeps this rank's layer on a mesh
     with the axis, which must have `num_layers` ranks along it; without
     it the stacked layers fold in turn. No dropout (the stages are
-    deterministic). Its attention is `full_attention`, so on the card
-    K2'/K3'/K4'."""
+    deterministic). Its attention is `full_attention` (on the card
+    K2'/K3'/K4'); on a `seq` axis, which only a mesh without the `pp`
+    axis may have, each rank's rows against the gathered sequence
+    (`gathered_attention`)."""
 
     _SHAPES = (("ln1_scale", 1), ("ln1_bias", 1), ("wq", 2), ("wk", 2),
                ("wv", 2), ("wo", 2), ("ln2_scale", 1), ("ln2_bias", 1),
@@ -164,11 +172,9 @@ class PipelinedBlocks(nn.Module):
                 for name, nd in self._SHAPES}
 
     def shard(self, mesh: mesh_lib.Mesh) -> None:
-        if mesh.axis_size(MeshAxis.SEQ) > 1:
-            raise NotImplementedError(
-                "the pipeline's stages run attention unsharded; a "
-                f"{MeshAxis.SEQ!r} mesh axis beside them is ROADMAP item 35")
         n = mesh.axis_size(self.pp_axis)
+        if n > 1 and mesh.axis_size(MeshAxis.SEQ) > 1:
+            raise NotImplementedError(pipeline.SEQ_BESIDE_PP)
         if n == 1:
             return
         if n != self.num_layers:
@@ -205,10 +211,10 @@ class PipelinedBlocks(nn.Module):
         dt = self.compute_dtype
         h = _stage_ln(a, sp["ln1_scale"], sp["ln1_bias"])
         shape = (B, T, self.heads, C // self.heads)
-        attn = full_attention((h @ sp["wq"].to(dt)).reshape(shape),
-                              (h @ sp["wk"].to(dt)).reshape(shape),
-                              (h @ sp["wv"].to(dt)).reshape(shape),
-                              causal=True)
+        attn = gathered_attention((h @ sp["wq"].to(dt)).reshape(shape),
+                                  (h @ sp["wk"].to(dt)).reshape(shape),
+                                  (h @ sp["wv"].to(dt)).reshape(shape),
+                                  causal=True)
         a = a + attn.reshape(B, T, C) @ sp["wo"].to(dt)
         h = _stage_ln(a, sp["ln2_scale"], sp["ln2_bias"])
         h = F.gelu(h @ sp["w1"].to(dt) + sp["b1"].to(dt), approximate="tanh")

@@ -18,7 +18,19 @@ sequence, as the reference's do:
 - **Ulysses** (`mode="ulysses"`): an all-to-all re-shards heads against
   the sequence (`parallel.mesh.all_to_all`), each rank runs
   `full_attention` over the whole sequence for H/n heads, and a second
-  all-to-all returns its block; the heads must divide by n.
+  all-to-all returns its block; the heads must divide by n. Under tensor
+  parallelism a rank holds H/tp of the heads; where those do not divide
+  by n (though H does, which is all the reference asks) the rank gathers
+  the sequence's k and v over the axis instead (the backward a
+  reduce-scatter) and runs its own rows against them: the same
+  attention by another schedule.
+
+Under tensor parallelism q, k and v hold the rank's heads, and each
+schedule runs over the `seq` group at the rank's `model` coordinate.
+
+`gathered_attention` is that sequence gather on its own: the attention
+of a caller that the reference leaves to GSPMD's gather (the pipelined
+LM's stages on a `seq` axis without a `pp` one).
 
 The rotation is passed in, so one process can run the ring over n blocks
 it holds itself (`ring_attention_local`, the card's check of the
@@ -212,14 +224,19 @@ def ring_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
-def _ulysses_sharded(q, k, v, mesh, axis: str, causal: bool) -> torch.Tensor:
+def _ulysses_sharded(q, k, v, mesh, axis: str, causal: bool,
+                     heads: int) -> torch.Tensor:
     """All-to-all heads against the sequence over `axis`, full attention
-    over the whole sequence for this rank's H/n heads, and back."""
+    over the whole sequence for this rank's H/n heads, and back. `heads`
+    is the model's H, of which q holds a part under tensor parallelism;
+    where the part does not divide by n, the sequence gather."""
     n = mesh.axis_size(axis)
     b, l, h, d = q.shape
-    if h % n:
+    if heads % n:
         raise ValueError(
-            f"ulysses needs heads ({h}) divisible by seq shards ({n})")
+            f"ulysses needs heads ({heads}) divisible by seq shards ({n})")
+    if h % n:
+        return _gathered(q, k, v, mesh, axis, causal)
 
     def to_seq(x):       # (B, L, H, D) -> (B, n*L, H/n, D)
         x = x.reshape(b, l, n, h // n, d).permute(2, 0, 1, 3, 4)
@@ -235,27 +252,64 @@ def _ulysses_sharded(q, k, v, mesh, axis: str, causal: bool) -> torch.Tensor:
                                    causal=causal))
 
 
+def _gathered(q, k, v, mesh, axis: str, causal: bool) -> torch.Tensor:
+    """This rank's q rows against the whole sequence: k and v gathered
+    over `axis` (each rank's gradient of them summed back over it, a
+    reduce-scatter), q at its block's offset."""
+    k, v = (mesh_lib.gather_from_axis(x, mesh, axis, 1, partial=True)
+            for x in (k, v))
+    return full_attention(q, k, v, causal=causal,
+                          q_offset=mesh.coords[axis] * q.shape[1])
+
+
+def _seq_mesh(axis: str):
+    """The trainer's mesh where this rank holds columns of a sequence
+    sharded over `axis` of more than one rank, else None."""
+    block = mesh_lib.data_block()
+    if (block is None or mesh_lib.seq_columns() is None
+            or block[3].axis_size(axis) == 1):
+        return None
+    return block[3]
+
+
+def gathered_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool = True,
+                       axis_name: Optional[str] = None) -> torch.Tensor:
+    """`full_attention` of this rank's (B, T/n, H, D) blocks against the
+    whole sequence sharded on mesh axis `axis_name` (default `seq`), by
+    the sequence gather (module docstring); `full_attention` where
+    `sequence_parallel_attention` would take it. Collective over the
+    axis."""
+    axis = axis_name or MeshAxis.SEQ
+    mesh = _seq_mesh(axis)
+    if mesh is None:
+        return full_attention(q, k, v, causal=causal)
+    return _gathered(q, k, v, mesh, axis, causal)
+
+
 def sequence_parallel_attention(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, causal: bool = True,
                                 mode: str = "ring",
-                                axis_name: Optional[str] = None
+                                axis_name: Optional[str] = None,
+                                heads: Optional[int] = None
                                 ) -> torch.Tensor:
     """Attention over a sequence sharded on mesh axis `axis_name` (default
-    `seq`): q, k, v are this rank's (B, T/n, H, D) blocks, inside the
-    trainer's `parallel.mesh.batch_block_of` with the rank's columns.
-    `mode` is "ring" or "ulysses" (module docstring). Without such a
-    block, or where the axis has one rank, it is `full_attention`.
-    Collective over the axis: every rank of it calls it alike."""
-    block = mesh_lib.data_block()
+    `seq`): q, k, v are this rank's (B, T/n, H', D) blocks, inside the
+    trainer's `parallel.mesh.batch_block_of` with the rank's columns;
+    `heads` is the model's head count H where the rank holds H' of them
+    (tensor parallelism; default H'). `mode` is "ring" or "ulysses"
+    (module docstring). Without such a block, or where the axis has one
+    rank, it is `full_attention`. Collective over the axis: every rank of
+    it calls it alike."""
     axis = axis_name or MeshAxis.SEQ
-    if (block is None or mesh_lib.seq_columns() is None
-            or block[3].axis_size(axis) == 1):
+    mesh = _seq_mesh(axis)
+    if mesh is None:
         return full_attention(q, k, v, causal=causal)
-    mesh = block[3]
     if mode == "ring":
         rotate = functools.partial(_sharded_rotation, mesh=mesh, axis=axis)
         return ring_attention(q, k, v, mesh.coords[axis],
                               mesh.axis_size(axis), rotate, causal)
     if mode == "ulysses":
-        return _ulysses_sharded(q, k, v, mesh, axis, causal)
+        return _ulysses_sharded(q, k, v, mesh, axis, causal,
+                                heads or q.shape[2])
     raise ValueError(f"unknown sequence-parallel mode {mode!r}")

@@ -31,22 +31,30 @@ Both run the expert FFN as two batched matmuls (`_expert_ffn`), as the
 reference's einsums do outside any kernel.
 
 Under a mesh the routing is the global batch's, as the reference's GSPMD
-program computes it: inside the trainer's `parallel.mesh.batch_block_of`
-a rank holds its block of the tokens, so the capacity counts the global
-batch's tokens, each expert's slots continue the counts of the blocks
-before this one (an all-gather of E counts over data), and the aux
-loss's fractions and mean probabilities are the global batch's (a sum
-over data). With `experts` (an `expert` axis: `expert_range`) a rank
-holds only its experts' weights; tokens are replicated over the axis, so
-each rank fills its experts' slots, combines its part of the output and
-the parts are summed over the axis. Only token-sized tensors cross the
-mesh: the summed output, and in the backward the gradients of the tokens
-and of the gates (`parallel.mesh.copy_to_axis`), whose parts are partial.
+program computes it over the (B, T) tokens flattened row-major: inside
+the trainer's `parallel.mesh.batch_block_of` a rank holds its (rows,
+columns) block of the tokens, a block of rows over data and of columns
+over `seq` (`Blocks`), so the capacity counts the global batch's B T
+tokens, each expert's slots continue the counts of the tokens before
+them in that order (`block_slots`: every token of the earlier data
+blocks, the earlier rows of this data block over all column blocks, the
+same row's earlier column blocks; an all-gather of per-row counts over
+seq and of totals over data), and the aux loss's fractions and mean
+probabilities are the global batch's (a sum over data and seq). The
+counts reach `route` through `Blocks`' functions, so one process can
+route simulated blocks with the code a mesh runs (`blocks_local`, the
+card's and the CPU test's check). With `experts` (an `expert` axis:
+`expert_range`) a rank holds only its experts' weights; tokens are
+replicated over the axis, so each rank fills its experts' slots,
+combines its part of the output and the parts are summed over the axis.
+Only token-sized tensors cross the mesh: the summed output, and in the
+backward the gradients of the tokens and of the gates
+(`parallel.mesh.copy_to_axis`), whose parts are partial.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,37 +83,134 @@ def expert_range(mesh: mesh_lib.Mesh, num_experts: int) -> mesh_lib.RowShard:
     return mesh_lib.axis_rows(mesh, EXPERT_AXIS, num_experts)
 
 
-def route(x: torch.Tensor, wg: torch.Tensor,
-          capacity_factor: float) -> Routing:
-    """Top-1 routing of the tokens x (N, C) by the router wg (C, E): the
-    global batch's under a mesh (module docstring)."""
-    n_local = x.shape[0]
-    e = wg.shape[1]
+class Blocks(NamedTuple):
+    """Where a rank's tokens sit in the global (B, T) batch: its `rows`
+    of the batch and a block of columns, the `seq_index`-th over the
+    `seq` axis, in the `data_index`-th block of rows over data; `tokens`
+    is B T. Its tokens come flattened row-major over (rows, columns), as
+    the reference flattens the whole batch. `gather_seq` takes this
+    block's per-row expert counts (rows, E) to those of every column
+    block of these rows (S, rows, E); `gather_data` takes this data
+    block's expert totals (E,) to every data block's (D, E); `sum_blocks`
+    takes a float (E,) to its sum over every block, differentiably."""
+    tokens: int
+    rows: int
+    seq_index: int
+    data_index: int
+    gather_seq: Callable[[torch.Tensor], torch.Tensor]
+    gather_data: Callable[[torch.Tensor], torch.Tensor]
+    sum_blocks: Callable[[torch.Tensor], torch.Tensor]
+
+
+def mesh_blocks(n_local: int) -> Optional[Blocks]:
+    """The `Blocks` of this rank's `n_local` tokens inside the trainer's
+    `batch_block_of` with a mesh (None outside it): its gathers run over
+    the mesh's `seq` and data axes."""
+    block = mesh_lib.data_block()
+    if block is None:
+        return None
+    rows, start, stop, mesh = block
+    cols = mesh_lib.seq_columns()
+    length = n_local // (stop - start) if cols is None else cols[0]
+    data = mesh_lib.data_axis(mesh)
+    return Blocks(
+        tokens=rows * length, rows=stop - start,
+        seq_index=mesh.coords.get(MeshAxis.SEQ, 0),
+        data_index=mesh.coords.get(data, 0),
+        gather_seq=lambda c: mesh_lib.all_gather(mesh, MeshAxis.SEQ, c[None]),
+        gather_data=lambda c: mesh_lib.all_gather(mesh, data, c[None]),
+        sum_blocks=mesh_lib.sum_over_batch)
+
+
+def block_slots(idx: torch.Tensor, seq_counts: torch.Tensor,
+                seq_index: int, before: torch.Tensor) -> torch.Tensor:
+    """Each token's slot in its expert's buffer: its arrival order among
+    the global batch's tokens routed to the same expert, the batch
+    flattened row-major. idx (rows L,): this block's chosen experts, its
+    (rows, L) tokens row-major; seq_counts (S, rows, E): the tokens each
+    expert got in each row of each column block of these rows (this
+    block's at `seq_index`); before (E,): the tokens each expert got in
+    the earlier data blocks. A token (b, t) comes after those, after rows
+    r0 .. b - 1 of every column block, after row b of the earlier column
+    blocks, and after the earlier tokens of its own row here. Integers,
+    so exact."""
+    _, rows, e = seq_counts.shape
+    whole = seq_counts.sum(0)                                  # (rows, E)
+    offset = (before[None] + torch.cumsum(whole, 0) - whole
+              + seq_counts[:seq_index].sum(0))                 # (rows, E)
+    # the scan runs along the contiguous axis of (E, rows, L)
+    onehot = F.one_hot(idx, e).t().contiguous().view(e, rows, -1)
+    arrived = torch.cumsum(onehot, dim=2) + offset.t()[:, :, None]
+    return arrived.view(e, -1).gather(0, idx[None])[0] - 1
+
+
+def _router(x: torch.Tensor, wg: torch.Tensor):
+    """(probs, chosen expert, its probability) of the tokens x (N, C)."""
     logits = x.to(torch.float32) @ wg.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     idx = torch.argmax(probs, dim=-1)
-    gate = probs.gather(1, idx[:, None])[:, 0]
-    onehot = F.one_hot(idx, e)
-    counts = onehot.sum(0)
-    block = mesh_lib.data_block()
-    if block is None:
-        n, prefix, prob_sum = n_local, torch.zeros_like(counts), probs.sum(0)
+    return probs, idx, probs.gather(1, idx[:, None])[:, 0]
+
+
+def route(x: torch.Tensor, wg: torch.Tensor, capacity_factor: float,
+          blocks: Optional[Blocks] = None) -> Routing:
+    """Top-1 routing of the tokens x (N, C) by the router wg (C, E). With
+    `blocks` (by default the trainer's mesh block, `mesh_blocks`) x is
+    one block of the global batch, and the routing is the global batch's
+    (module docstring): the capacity counts its B T tokens, the slots
+    follow its row-major order (`block_slots`), and the aux loss is its
+    own."""
+    e = wg.shape[1]
+    probs, idx, gate = _router(x, wg)
+    blocks = blocks or mesh_blocks(x.shape[0])
+    if blocks is None:
+        n, prob_sum = x.shape[0], probs.sum(0)
+        # arrival order by expert: the scan runs along the contiguous axis
+        # of (E, N) (down the N rows of (N, E) it is one thread a column)
+        arrived = torch.cumsum(F.one_hot(idx, e).t().contiguous(), dim=1)
+        pos = arrived.gather(0, idx[None])[0] - 1
+        counts = arrived[:, -1]
     else:
-        rows, start, stop, mesh = block
-        n = n_local // (stop - start) * rows
-        axis = mesh_lib.data_axis(mesh)
-        every = mesh_lib.all_gather(mesh, axis, counts[None])     # (D, E)
-        prefix = every[: mesh.coords.get(axis, 0)].sum(0)
-        counts = every.sum(0)
-        prob_sum, _ = mesh_lib.sum_over_data(probs.sum(0))
+        n = blocks.tokens
+        per_row = F.one_hot(idx, e).view(blocks.rows, -1, e).sum(1)
+        seq_counts = blocks.gather_seq(per_row)             # (S, rows, E)
+        totals = blocks.gather_data(seq_counts.sum((0, 1)))  # (D, E)
+        pos = block_slots(idx, seq_counts, blocks.seq_index,
+                          totals[:blocks.data_index].sum(0))
+        counts = totals.sum(0)
+        prob_sum = blocks.sum_blocks(probs.sum(0))
     cap = max(1, int(capacity_factor * n / e))
-    # arrival order by expert: the scan runs along the contiguous axis of
-    # (E, N) (down the N rows of (N, E) it is one thread a column)
-    arrived = torch.cumsum(onehot.t().contiguous(), dim=1)
-    pos = arrived.gather(0, idx[None])[0] - 1 + prefix[idx]
     keep = pos < cap
     aux = e * torch.sum((counts.to(torch.float32) / n) * (prob_sum / n))
     return Routing(probs, idx, gate, pos, keep, cap, aux)
+
+
+def blocks_local(x: torch.Tensor, wg: torch.Tensor, data: int,
+                 seq: int) -> List[Tuple[torch.Tensor, Blocks]]:
+    """The (data, seq) blocks of the (B, T, C) tokens x in this process,
+    in row-major order: each block's tokens (flat, row-major) and its
+    `Blocks`, whose functions hand over the counts and the probability
+    sums that a mesh's gathers would bring (each block's own router,
+    `_router`), so `route` and `switch_moe` run on each block as they
+    run on a rank of a {data, seq} mesh."""
+    b, t, c = x.shape
+    if b % data or t % seq:
+        raise ValueError(f"tokens {tuple(x.shape)} do not split into "
+                         f"{data} x {seq} blocks")
+    rows, cols, e = b // data, t // seq, wg.shape[1]
+    parts = [[x[d * rows:(d + 1) * rows, s * cols:(s + 1) * cols]
+              .reshape(-1, c) for s in range(seq)] for d in range(data)]
+    routed = [[_router(p, wg) for p in line] for line in parts]
+    per_row = [torch.stack([F.one_hot(idx, e).view(rows, -1, e).sum(1)
+                            for _, idx, _ in line]) for line in routed]
+    totals = torch.stack([counts.sum((0, 1)) for counts in per_row])
+    prob_sum = sum(probs.sum(0) for line in routed for probs, _, _ in line)
+    return [(parts[d][s], Blocks(
+        tokens=b * t, rows=rows, seq_index=s, data_index=d,
+        gather_seq=lambda _, d=d: per_row[d],
+        gather_data=lambda _: totals,
+        sum_blocks=lambda _: prob_sum))
+        for d in range(data) for s in range(seq)]
 
 
 def _expert_ffn(buf, w1, b1, w2, b2):
@@ -119,14 +224,16 @@ def switch_moe(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor,
                b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                capacity_factor: float = 1.25,
                experts: Optional[mesh_lib.RowShard] = None,
-               mesh: Optional[mesh_lib.Mesh] = None
+               mesh: Optional[mesh_lib.Mesh] = None,
+               blocks: Optional[Blocks] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-1 MoE over flat tokens by index. x (N, C); wg (C, E); w1 (E', C,
     H), b1 (E', H), w2 (E', H, C), b2 (E', C) for the E' experts of
-    `experts` on `mesh`'s expert axis (all E without them). Returns (out
-    (N, C) in x's dtype, aux ()): dropped tokens' rows are 0."""
+    `experts` on `mesh`'s expert axis (all E without them); `blocks` as
+    `route` takes it. Returns (out (N, C) in x's dtype, aux ()): dropped
+    tokens' rows are 0."""
     n, c = x.shape
-    r = route(x, wg, capacity_factor)
+    r = route(x, wg, capacity_factor, blocks)
     x32, gate = x.to(torch.float32), r.gate
     split = experts is not None and mesh is not None and \
         mesh.axis_size(EXPERT_AXIS) > 1

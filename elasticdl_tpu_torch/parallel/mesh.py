@@ -443,7 +443,8 @@ class _ReduceFromAxis(torch.autograd.Function):
 
 class _GatherFromAxis(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis, dim):
+    def forward(ctx, x, mesh, axis, dim, partial):
+        ctx.mesh, ctx.axis, ctx.partial = mesh, axis, partial
         ctx.slice = (dim, mesh.coords[axis], x.shape[dim])
         parts = all_gather(mesh, axis, x.movedim(dim, 0))
         return parts.movedim(0, dim).contiguous()
@@ -451,7 +452,10 @@ class _GatherFromAxis(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         dim, c, size = ctx.slice
-        return grad.narrow(dim, c * size, size), None, None, None
+        if ctx.partial:
+            grad = reduce_scatter(ctx.mesh, ctx.axis, grad.movedim(dim, 0))
+            return grad.movedim(0, dim), None, None, None, None
+        return grad.narrow(dim, c * size, size), None, None, None, None
 
 
 def copy_to_axis(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
@@ -468,10 +472,13 @@ def reduce_from_axis(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 
 
 def gather_from_axis(x: torch.Tensor, mesh: Mesh, axis: str,
-                     dim: int) -> torch.Tensor:
+                     dim: int, partial: bool = False) -> torch.Tensor:
     """The ranks' equal slices of `x` along `dim`, concatenated in axis
-    order; each rank's gradient is its slice of the whole one's."""
-    return _GatherFromAxis.apply(x, mesh, axis, dim % x.dim())
+    order; each rank's gradient is its slice of the whole one's. With
+    `partial` each rank's gradient of the whole is a part (each rank
+    reads the whole for its own outputs), so the backward sums them over
+    the axis before the slice: a reduce-scatter."""
+    return _GatherFromAxis.apply(x, mesh, axis, dim % x.dim(), partial)
 
 
 # ---------------------------------------------------------------------- #
@@ -591,18 +598,24 @@ def seq_columns() -> Optional[Tuple[int, int, int]]:
     return _COLUMNS.get()
 
 
-class _SumOverData(torch.autograd.Function):
-    """All-reduce (sum) over the data axis; its backward all-reduces the
+class _SumOverAxes(torch.autograd.Function):
+    """All-reduce (sum) over `axes`; its backward all-reduces the
     gradient, the transpose of a sum that every rank's loss reads."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return all_reduce(mesh, data_axis(mesh), x.clone())
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        x = x.clone()
+        for axis in axes:
+            all_reduce(mesh, axis, x)
+        return x
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce(ctx.mesh, data_axis(ctx.mesh), grad.clone()), None
+        grad = grad.clone()
+        for axis in ctx.axes:
+            all_reduce(ctx.mesh, axis, grad)
+        return grad, None, None
 
 
 def data_block():
@@ -622,7 +635,15 @@ def sum_over_data(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
     """(the sum of this rank's `x` over the data axis, differentiable; the
     global batch's rows), inside `batch_block_of` with a mesh."""
     rows, _, _, mesh = _BLOCK.get()
-    return _SumOverData.apply(x, mesh), rows
+    return _SumOverAxes.apply(x, mesh, (data_axis(mesh),)), rows
+
+
+def sum_over_batch(x: torch.Tensor) -> torch.Tensor:
+    """The sum of this rank's `x` over the data axis and then the `seq`
+    axis: over every (rows, columns) block of the global batch,
+    differentiable; inside `batch_block_of` with a mesh."""
+    mesh = _BLOCK.get()[3]
+    return _SumOverAxes.apply(x, mesh, (data_axis(mesh), MeshAxis.SEQ))
 
 
 def batch_rand(shape: Sequence[int], generator: Optional[torch.Generator],

@@ -43,6 +43,13 @@ from elasticdl_tpu_torch.parallel import mesh as mesh_lib
 
 PIPE_AXIS = MeshAxis.PIPE
 
+# why a `seq` axis beside the pipeline's is refused: nothing to hold it to
+SEQ_BESIDE_PP = (
+    f"mesh axis {MeshAxis.SEQ!r} beside {PIPE_AXIS!r}: the reference's own "
+    "program aborts inside XLA on such a mesh (hlo_instruction.cc:1585 "
+    "Invalid binary instruction opcode copy, with seq_parallel='none'), so "
+    "there is no result to hold the port to")
+
 
 def stage_index(mesh: Optional[mesh_lib.Mesh], axis: str = PIPE_AXIS) -> int:
     """This rank's stage on `axis` (0 without it): the counterpart of the

@@ -39,8 +39,10 @@ whose batch partition names it on their second dimension (the LM's
 tokens and labels) give each rank its columns, the attention runs ring
 or Ulysses over the axis (`ops/attention.py`), a rank's loss sum is its
 blocks' per-example means over 1/S of the tokens, divided by the axis's
-size S, and every parameter's gradient is summed over data and seq; a
-`seq` axis beside a `model`, `expert` or `pp` one is ROADMAP item 35.
+size S, and every parameter's gradient is summed over data and seq
+(a leaf split over `model` or `expert` too: its gradient on a rank comes
+from that rank's (data, seq) block of the tokens). A `seq` axis beside
+`pp` is refused: the reference's own program aborts on such a mesh.
 Dropout draws the global batch's mask and keeps the rank's rows (and
 columns), and BatchNorm's
 statistics are the global batch's (its per-rank sums all-reduced, as
@@ -61,9 +63,9 @@ reference's `_aux_loss` does: weight * their sum on the one-step path;
 under accumulation each micro-batch's aux scaled by its example count
 before the divide-once (the reference's arithmetic, which is not the
 full batch's aux); under a mesh the aux is the global batch's
-(`ops/moe.py`) and each rank of the data axis carries 1/D of it, since
-its gradient's sum over data runs inside the MoE's routing. A weight of
-0 skips all of it.
+(`ops/moe.py`) and each rank of the (data, seq) blocks carries 1/(D S)
+of it, since its gradient's sum over data and seq runs inside the MoE's
+routing. A weight of 0 skips all of it.
 """
 
 from __future__ import annotations
@@ -83,6 +85,7 @@ from elasticdl_tpu_torch.common import runtime
 from elasticdl_tpu_torch.common.log_utils import default_logger
 from elasticdl_tpu_torch.data.prefetch import tree_map
 from elasticdl_tpu_torch.parallel import mesh as mesh_lib
+from elasticdl_tpu_torch.parallel import pipeline
 from elasticdl_tpu_torch.training import lr_modulation
 from elasticdl_tpu_torch.training import metrics as metrics_lib
 from elasticdl_tpu_torch.training.model_spec import ModelSpec
@@ -255,22 +258,15 @@ def _group_size(stacked: Dict[str, Any]) -> int:
     return int(leaf.shape[0])
 
 
-_BESIDE_SEQ = (MeshAxis.MODEL, MeshAxis.EXPERT, MeshAxis.PIPE)
-
-
 def _check_mesh(mesh: mesh_lib.Mesh, partition) -> None:
     """Refuse what the port does not run under a mesh: a batch partition
     that does not lead with the data axis or that cuts a later dimension
-    over anything but `seq` on the second; a `seq` axis beside a `model`,
-    `expert` or `pp` axis (ROADMAP item 35); and a `seq` axis without a
-    partition that cuts the features over it."""
+    over anything but `seq` on the second; a `seq` axis beside a `pp`
+    axis (`parallel.pipeline.SEQ_BESIDE_PP` says why); and a `seq` axis
+    without a partition that cuts the features over it."""
     if mesh.axis_size(MeshAxis.SEQ) > 1:
-        beside = [a for a in _BESIDE_SEQ if mesh.axis_size(a) > 1]
-        if beside:
-            raise NotImplementedError(
-                f"mesh axis {MeshAxis.SEQ!r} beside {beside} (sequence "
-                "parallelism with tensor, expert or pipeline parallelism) "
-                "is ROADMAP item 35")
+        if mesh.axis_size(MeshAxis.PIPE) > 1:
+            raise NotImplementedError(pipeline.SEQ_BESIDE_PP)
         if not mesh_lib.cuts_seq((partition or {}).get("features")):
             raise ValueError(
                 f"a mesh with a {MeshAxis.SEQ!r} axis needs a batch "
@@ -487,8 +483,9 @@ class Trainer:
                 block, f, l, m = self._block(f, l, m)
             outputs, aux = self._forward(state, f, block)
             value = self.spec.loss(l, outputs)
-            # each rank of the data axis carries 1/D of a global aux
-            share = 1.0 / data
+            # each rank of the (data, seq) blocks carries 1/(D S) of a
+            # global aux
+            share = 1.0 / (data * seq)
             if value.dim() == 0:
                 _warn_scalar_loss_with_accum()
                 # the blocks weigh equally, as the micro-batches do

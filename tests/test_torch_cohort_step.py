@@ -26,11 +26,12 @@ of the conftest's 8-device CPU mesh, with the exact embedding backward
   {data 4} (params and Adam's moments, bit for bit), and the one-process
   port's eval metric states and predictions equal the {data 2} ones
   (states exactly, the loss pair and predictions within rtol 1e-6).
-- A mesh with a `seq` axis beside a `model`, `expert` or `pp` one is
-  refused, naming ROADMAP item 35, and so is the MoE or the pipeline on a
-  `seq` axis; the LM on a `seq` axis alone or with `data` is taken (its
-  steps are `tests/test_torch_seq_parallel.py`'s, the LM under the other
-  axes `tests/test_torch_lm_parallel.py`'s).
+- A mesh with a `seq` axis beside a `pp` one is refused, naming why (the
+  reference's own program aborts on it); the LM on a `seq` axis alone,
+  with `data`, beside `model` or `expert`, and the MoE and the pipelined
+  LM on {data 2, seq 2} are taken (their steps are
+  `tests/test_torch_seq_parallel.py`'s and `tests/test_torch_seq_mix.py`'s,
+  the LM under the other axes `tests/test_torch_lm_parallel.py`'s).
 """
 
 import os
@@ -341,12 +342,13 @@ def case_checkpoint_restores_at_other_sizes(parts):
     np.testing.assert_array_equal(parts[1]["pred2"], parts[0]["pred2"])
 
 
-def case_seq_axis_is_refused():
-    """Sequence parallelism beside tensor, expert or pipeline parallelism
-    is ROADMAP item 35: a trainer under a mesh with a `seq` axis and one
-    of those refuses the LM, and so do the MoE and the pipeline on a
-    `seq` axis; the LM on {data 2, seq 2}, {seq 2} and {data 2, model 2}
-    is taken."""
+def case_seq_axis_beside_the_model_axes():
+    """A trainer under a mesh with a `seq` axis beside `pp` refuses the LM
+    and the pipelined LM, naming why (ROADMAP R8: the reference aborts on
+    it); the LM on {data 2, seq 2}, {seq 2}, {data 2, model 2}, {seq 2,
+    model 2} and {seq 2, expert 2}, the tensor-parallel LM on {seq 2,
+    model 2}, the MoE LM on {data 2, seq 2} and {seq 2, expert 2} and the
+    pipelined LM on {data 2, seq 2} are taken."""
     import pytest
 
     from elasticdl_tpu_torch.common.config import JobConfig
@@ -366,16 +368,20 @@ def case_seq_axis_is_refused():
         n = int(np.prod(list(sizes.values())))
         return Mesh(sizes, range(n), 0, groups={}, world=None)
 
-    for sizes in ({"seq": 2, "model": 2}, {"seq": 2, "expert": 2},
-                  {"seq": 2, "pp": 2}):
-        with pytest.raises(NotImplementedError, match="item 35"):
-            Trainer(spec(LM_PARAMS), device="cpu", mesh=mesh(sizes))
-    for extra in (";moe_experts=2", ";pp_axis=pp"):
-        with pytest.raises(NotImplementedError, match="item 35"):
-            Trainer(spec(LM_PARAMS + extra), device="cpu",
-                    mesh=mesh({"data": 2, "seq": 2}))
-    for sizes in ({"data": 2, "seq": 2}, {"seq": 2}, {"data": 2, "model": 2}):
+    pipelined = LM_PARAMS + ";pp_axis=pp;seq_parallel=none"
+    for params in (LM_PARAMS, pipelined):
+        with pytest.raises(NotImplementedError, match="aborts inside XLA"):
+            Trainer(spec(params), device="cpu",
+                    mesh=mesh({"seq": 2, "pp": 2}))
+    for sizes in ({"data": 2, "seq": 2}, {"seq": 2}, {"data": 2, "model": 2},
+                  {"seq": 2, "model": 2}, {"seq": 2, "expert": 2}):
         Trainer(spec(LM_PARAMS), device="cpu", mesh=mesh(sizes))
+    for extra, sizes in ((";tp_axis=model", {"seq": 2, "model": 2}),
+                         (";moe_experts=2", {"data": 2, "seq": 2}),
+                         (";moe_experts=2", {"seq": 2, "expert": 2}),
+                         (";pp_axis=pp;seq_parallel=none",
+                          {"data": 2, "seq": 2})):
+        Trainer(spec(LM_PARAMS + extra), device="cpu", mesh=mesh(sizes))
 
 
 def test_cohort_step_against_the_reference(monkeypatch):
@@ -392,7 +398,7 @@ def test_cohort_step_against_the_reference(monkeypatch):
         case_steps_match_reference(parts, want)
         case_dropout_step_does_not_depend_on_world_size(parts)
         case_checkpoint_restores_at_other_sizes(parts)
-    case_seq_axis_is_refused()
+    case_seq_axis_beside_the_model_axes()
 
 
 if __name__ == "__main__" and sys.argv[1] == "ranks":

@@ -6,7 +6,8 @@ checkpoint, export), the manual schedule's per-rank compute (K1 on a
 shard), a one-rank NCCL cohort context, K1 on Wide & Deep's census
 stream, the MoE, pipelined and tensor-parallel LMs and the MoE's index
 and dense routes, the sequence-parallel ring in one process against
-unsplit attention, a ResNet-20 step (convolutions, BatchNorm), a device-mode
+unsplit attention (also over tensor-parallel head groups, each launch
+against its plain version), a ResNet-20 step (convolutions, BatchNorm), a device-mode
 embedding-tier store (K1 on every push) and zoo callbacks whose pushed
 learning rate lands in the worker's optimizer on the card. They skip where no
 CUDA device is present.
@@ -583,6 +584,70 @@ def case_ring_on_the_card(cuda):
                atol_of_max=2 ** -7 if what == "out" else 2 ** -6)
 
 
+def case_ring_over_head_groups_on_the_card(cuda):
+    """The ring as a rank of a {seq, model} mesh runs it on its H/tp heads:
+    B 2, T 256, H 4, D 64 bf16 cut into tp = 2 head groups of 2 heads,
+    each ringed over 4 blocks of 64 (`ring_attention_local`). K2', K3',
+    K4' and the delta pass 2 x 16 times; every launch against its plain
+    version on the same inputs (BF16; lse 2e-5), and the joined output and
+    gradients against one unsplit call as `case_ring_on_the_card` holds
+    them."""
+    from elasticdl_tpu_torch.ops import attention
+
+    q, k, v, dout, _ = _attn_inputs(cuda, 2, 256, 256, 4, 64, torch.bfloat16,
+                                    seed=13)
+    fwd, bwd = [], []
+    real_fwd, real_bwd = fa.flash_fwd, fa.flash_bwd
+
+    def record_fwd(*args):
+        out = real_fwd(*args)
+        fwd.append((args, out))
+        return out
+
+    def record_bwd(*args):
+        out = real_bwd(*args)
+        bwd.append((args, out))
+        return out
+
+    def groups(q, k, v):
+        return torch.cat([attention.ring_attention_local(
+            *(x[:, :, g * 2:(g + 1) * 2].contiguous() for x in (q, k, v)),
+            4) for g in range(2)], dim=2)
+
+    def fwd_bwd(fn):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves)
+        return [out.detach(), *torch.autograd.grad(out, leaves, dout)]
+
+    for name in fa.launches:
+        fa.launches[name] = 0
+    fa.flash_fwd, fa.flash_bwd = record_fwd, record_bwd
+    try:
+        split = fwd_bwd(groups)
+    finally:
+        fa.flash_fwd, fa.flash_bwd = real_fwd, real_bwd
+    torch.cuda.synchronize()
+    assert fa.launches == {**{n: 0 for n in fa.launches}, fa.FWD_SM90: 32,
+                           fa.BWD_DQ_SM90: 32, fa.BWD_DKV_SM90: 32,
+                           fa.BWD_DELTA_SM90: 32}, fa.launches
+    assert (len(fwd), len(bwd)) == (32, 32)
+    with torch.no_grad():
+        for args, (out, lse) in fwd:
+            want_out, want_lse = fa.flash_fwd_plain(*args)
+            _close(out, want_out, "out", *BF16)
+            _close(lse, want_lse, "lse", 2e-5, 2e-5)
+        for args, (dq, dk, dv) in bwd:
+            _close(dq, fa.flash_bwd_dq_plain(*args), "dq", *BF16)
+            want_dk, want_dv = fa.flash_bwd_dkv_plain(*args)
+            _close(dk, want_dk, "dk", *BF16)
+            _close(dv, want_dv, "dv", *BF16)
+    whole = fwd_bwd(attention.full_attention)
+    for what, got, want in zip(("out", "dq", "dk", "dv"), split, whole):
+        assert bool(torch.isfinite(got).all()), what
+        _close(got, want, what, 2 ** -8,
+               atol_of_max=2 ** -7 if what == "out" else 2 ** -6)
+
+
 def _card_trainer(model_def, params, dtype, **knobs):
     from elasticdl_tpu_torch.common.config import JobConfig
     from elasticdl_tpu_torch.training.model_spec import ModelSpec
@@ -897,6 +962,7 @@ def test_kernels_on_the_card(cuda, tmp_path):
         case_lm_grads_on_the_card_match_cpu(cuda, extra)
     case_moe_routes_on_the_card(cuda)
     case_ring_on_the_card(cuda)
+    case_ring_over_head_groups_on_the_card(cuda)
     case_lm_knobs_on_the_card(cuda)
     case_grouped_deepfm_on_the_card(cuda)
     case_job_on_the_card(cuda, str(tmp_path))
