@@ -18,7 +18,9 @@ and the delta pass, which runs once a backward; K2, K3 and K4 for every
 other input, such as the float32 LM), the trainer's knobs (remat,
 gradient accumulation, grouped steps) over both, and the elastic control
 loop over the DeepFM job (the autoscaler's decisions and its drain-first
-eviction, zoo callbacks, the hybrid multi-slice mesh). Phases, each printing
+eviction, zoo callbacks, the hybrid multi-slice mesh), and the DeepFM job
+through the Kubernetes path (the master's pod manager and a relaunched
+worker pod) beside a `zoo init` template's train step. Phases, each printing
 one JSON line; any failure raises and exits non-zero (no phase's error is
 caught):
 
@@ -354,9 +356,36 @@ caught):
            MOE_OUT_TOL elsewhere (the router's float32 product runs per
            block, and cuBLAS picks its kernel by the rows, so the last
            bits of a gate can differ).
+30. k8s_job (after `job_cli`)  the DeepFM job at `job_cli`'s depth (2
+           tasks of one step at batch 8192, eval at epoch end, a checkpoint
+           every step, SAVE_MODEL, the export) through the Kubernetes
+           path: the master started with the command, args and env of the
+           master pod `client/k8s.render_job_manifests` renders for
+           `--instance_manager k8s`, its real `KubectlApi` in front of a
+           stand-in kubectl (`STANDIN_KUBECTL`: a pod is a local process;
+           apply, the JSON watch stream of phase changes, delete with
+           SIGTERM and a 30 s grace). The master's pod manager creates one
+           training worker pod on the card; once the first checkpoint is
+           durable its process is SIGKILLed, the manager must see it
+           Failed, recover its lease and create the next generation,
+           which resumes from the checkpoint. Asserts the master's exit 0,
+           the pods created exactly `...-worker-0-g0` then `-g1`, a cuda
+           device in each worker's log, K1's launches in both pods (2 a
+           logged train step), the newest checkpoint at the job's last
+           step, every training task finished once and none failed (the
+           master's job-end line), and the export loading and predicting
+           finite values on the card. Prints the wall, the relaunch's
+           seconds from the Failed phase to the new pod's registration and
+           to its first finished task, and each pod's device, steps and K1
+           launches.
+31. zoo_init (after `k8s_job`)  `zoo init` into a temporary directory
+           through the CLI, then one train step of the template's model
+           (a 2-unit Dense, Adam at 1e-3) on the card at batch 8192
+           through the port's ModelSpec and Trainer: a finite loss and a
+           largest parameter step in (0, 2e-3].
 Then the `kernels` line (K1's `launches` are the job's, with the
 `grouped`, `cohort_job`, `manual_shards`, `tier`, `autoscale_job`,
-`callbacks_job` and `hybrid_mesh` phases' beside
+`callbacks_job`, `hybrid_mesh` and `k8s_job` phases' beside
 them; the Hopper kernels' are `lm_train`'s, with `lm_job`'s,
 `moe_train`'s, `pp_train`'s, `moe_job`'s, `ring_attn`'s,
 `seq_train`'s and `seq_mix`'s beside them), the nvidia-smi line, and
@@ -366,6 +395,7 @@ It exits non-zero without a result where CUDA is unavailable, and where
 the port's package is absent.
 """
 
+import ast
 import ctypes
 import gc
 import glob
@@ -2667,6 +2697,451 @@ def phase_job_cli(smi):
          finished=re.findall(r"job finished: (.*)", log)[-1:])
 
 
+# ---------------------------------------------------------------- kubernetes
+
+# a stand-in kubectl for one host, in front of the master's real
+# KubectlApi: pods are local processes, their state files beside it
+STANDIN_KUBECTL = r'''#!{python}
+"""A stand-in kubectl for one host: a pod is a local process.
+
+    kubectl -n NS apply -f -       start the pod manifest on stdin (YAML)
+    kubectl -n NS get pods -l SEL --watch --output-watch-events -o json
+    kubectl -n NS delete pod NAME [--ignore-not-found] [--wait=false]
+
+A pod runs its container's command and args with the manifest's env; an
+argument `<job>-master:<port>` becomes `127.0.0.1:<port>` (the cluster's
+DNS) and the command `python` this interpreter (the image's). Its state
+lives beside this file, in pods/: <name>.yaml (the manifest), .pid (the
+container's process group), .sup (its supervisor), .log (its output),
+.phases (one line a change, "<unix time> <phase>", Pending -> Running ->
+Succeeded or Failed by exit code, DELETED last) and .deleting (the time
+a delete came); `applied` lists the pods in the order they were applied.
+A delete sends SIGTERM to the pod's process group and SIGKILL after
+GRACE_S, Kubernetes' default grace period. The watch streams one JSON
+document a change, {"type", "object": {"metadata", "status": {"phase"}}},
+after an ADDED for each live pod, and exits when its parent does."""
+import contextlib
+import fcntl
+import json
+import os
+import re
+import signal
+import subprocess
+import sys
+import time
+
+import yaml
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PODS = os.path.join(HERE, "pods")
+GRACE_S = 30.0
+SERVICE = re.compile(r"^[a-z0-9.-]+-master:(\d+)$")
+TERMINAL = ("Succeeded", "Failed")
+
+
+def path(name, ext):
+    return os.path.join(PODS, name + ext)
+
+
+@contextlib.contextmanager
+def locked(name):
+    with open(path(name, ".lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
+def phases(name):
+    """[[time, phase]] of pod `name`, whole lines only (a watch reads
+    while a supervisor appends)."""
+    try:
+        with open(path(name, ".phases")) as f:
+            return [line.split() for line in f
+                    if line.endswith("\n") and len(line.split()) == 2]
+    except FileNotFoundError:
+        return []
+
+
+def record(name, phase):
+    with open(path(name, ".phases"), "a") as f:
+        f.write(f"{time.time():.6f} {phase}\n")
+
+
+def read_int(name, ext):
+    try:
+        with open(path(name, ext)) as f:
+            return int(f.read())
+    except (FileNotFoundError, ValueError):
+        return None
+
+
+def apply():
+    manifest = yaml.safe_load(sys.stdin.read())
+    name = manifest["metadata"]["name"]
+    os.makedirs(PODS, exist_ok=True)
+    with locked(name):
+        seen = phases(name)
+        if seen and seen[-1][1] != "DELETED":
+            print(f"pod/{name} unchanged")
+            return 0
+        for ext in (".phases", ".pid", ".sup", ".deleting"):
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(path(name, ext))
+        with open(path(name, ".yaml.tmp"), "w") as f:
+            yaml.safe_dump(manifest, f)
+        os.replace(path(name, ".yaml.tmp"), path(name, ".yaml"))
+        with open(os.path.join(HERE, "applied"), "a") as f:
+            f.write(name + "\n")
+        record(name, "Pending")
+    sup = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "_run", name],
+        stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL, start_new_session=True)
+    with open(path(name, ".sup"), "w") as f:
+        f.write(str(sup.pid))
+    print(f"pod/{name} created")
+    return 0
+
+
+def deleting_since(name):
+    try:
+        with open(path(name, ".deleting")) as f:
+            return float(f.read())
+    except (FileNotFoundError, ValueError):
+        return None
+
+
+def run(name):
+    """The pod's supervisor: start its container, record its phases."""
+    with open(path(name, ".yaml")) as f:
+        container = yaml.safe_load(f)["spec"]["containers"][0]
+    command = list(container["command"])
+    if command[0] == "python":
+        command[0] = sys.executable
+    argv = command + [SERVICE.sub(r"127.0.0.1:\1", a)
+                      for a in container.get("args", [])]
+    env = dict(os.environ)
+    env.update({e["name"]: e["value"] for e in container.get("env", [])})
+    with locked(name):
+        if deleting_since(name) is not None:
+            record(name, "DELETED")
+            return 0
+        with open(path(name, ".log"), "w") as log:
+            proc = subprocess.Popen(argv, env=env, stdin=subprocess.DEVNULL,
+                                    stdout=log, stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+        with open(path(name, ".pid"), "w") as f:
+            f.write(str(proc.pid))
+        record(name, "Running")
+    termed = False
+    while proc.poll() is None:
+        since = deleting_since(name)
+        if since is not None:
+            sig = (signal.SIGKILL if time.time() - since > GRACE_S
+                   else None if termed else signal.SIGTERM)
+            if sig is not None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, sig)
+                termed = True
+        time.sleep(0.1)
+    with locked(name):
+        if deleting_since(name) is not None:
+            record(name, "DELETED")
+        else:
+            record(name, "Succeeded" if proc.returncode == 0 else "Failed")
+    return 0
+
+
+def delete(name):
+    with locked(name):
+        seen = phases(name)
+        if not seen or seen[-1][1] == "DELETED":
+            return 0      # --ignore-not-found
+        with open(path(name, ".deleting"), "w") as f:
+            f.write(f"{time.time():.6f}")
+        if seen[-1][1] in TERMINAL:
+            record(name, "DELETED")   # nothing runs: gone now
+        # else the supervisor signals the container and records DELETED
+    print(f'pod "{name}" deleted')
+    return 0
+
+
+def watch(selector):
+    want = dict(kv.split("=", 1) for kv in selector.split(",") if kv)
+    parent = os.getppid()
+    emitted, labels, first = {}, {}, True
+    while os.getppid() == parent:
+        names = sorted(f[:-5] for f in (os.listdir(PODS) if os.path.isdir(
+            PODS) else []) if f.endswith(".yaml"))
+        for name in names:
+            if name not in labels:
+                with open(path(name, ".yaml")) as f:
+                    labels[name] = yaml.safe_load(f)["metadata"].get(
+                        "labels", {})
+            if any(labels[name].get(k) != v for k, v in want.items()):
+                continue
+            seen = [p for _, p in phases(name)]
+            done = emitted.get(name, 0)
+            if done > len(seen):
+                done = 0           # the name was applied again
+            if first and name not in emitted:
+                # the initial list: live pods as ADDED, at their phase
+                if seen and seen[-1] != "DELETED":
+                    docs = [("ADDED", seen[-1])]
+                else:
+                    docs = []
+                done = len(seen)
+            else:
+                docs = []
+                for i in range(done, len(seen)):
+                    if seen[i] == "DELETED":
+                        last = [p for p in seen[:i] if p != "DELETED"]
+                        docs.append(("DELETED", last[-1] if last else "Unknown"))
+                    else:
+                        docs.append(("ADDED" if i == 0 else "MODIFIED", seen[i]))
+                done = len(seen)
+            emitted[name] = done
+            for kind, phase in docs:
+                try:
+                    sys.stdout.write(json.dumps({"type": kind, "object": {
+                        "metadata": {"name": name, "labels": labels[name]},
+                        "status": {"phase": phase}}}) + "\n")
+                    sys.stdout.flush()
+                except BrokenPipeError:
+                    return 0
+        first = False
+        time.sleep(0.1)
+    return 0
+
+
+def main(args):
+    if args[:1] == ["_run"]:
+        return run(args[1])
+    if args[:1] == ["-n"]:
+        args = args[2:]            # one namespace here
+    if args[:3] == ["apply", "-f", "-"]:
+        return apply()
+    if args[:2] == ["get", "pods"] and "--watch" in args:
+        return watch(args[args.index("-l") + 1])
+    if args[:2] == ["delete", "pod"]:
+        return delete(args[2])
+    print(f"stand-in kubectl: unsupported {args}", file=sys.stderr)
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
+'''
+K8S_JOB = "k8s-smoke"
+
+
+def pod_phases(pods, name):
+    """[(unix time, phase)] of pod `name` from the stand-in's state."""
+    try:
+        with open(os.path.join(pods, name + ".phases")) as f:
+            return [(float(t), p) for t, p in
+                    (line.split() for line in f if line.strip())]
+    except FileNotFoundError:
+        return []
+
+
+def state_text(*path):
+    """A file of the stand-in's state, or "" before it exists."""
+    try:
+        with open(os.path.join(*path), errors="replace") as f:
+            return f.read()
+    except FileNotFoundError:
+        return ""
+
+
+def end_pods(pods, timeout_s=60.0):
+    """Wait until every pod of the stand-in has ended (a deleted one gets
+    its grace period), then kill what is left of them and their
+    supervisors."""
+    names = sorted(f[:-5] for f in os.listdir(pods) if f.endswith(".yaml"))
+    deadline = time.time() + timeout_s
+    while time.time() < deadline and not all(
+            pod_phases(pods, n) and pod_phases(pods, n)[-1][1] in (
+                "Succeeded", "Failed", "DELETED") for n in names):
+        time.sleep(0.2)
+    for name in names:
+        # the container's process group, then its supervisor
+        for ext, kill in ((".pid", os.killpg), (".sup", os.kill)):
+            pid = state_text(pods, name + ext).strip()
+            if pid:
+                try:
+                    kill(int(pid), signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+
+
+def phase_k8s_job(smi):
+    """The DeepFM job through the Kubernetes path: the master started as
+    its rendered pod would start (`render_job_manifests`, `--instance_manager
+    k8s`), its real `KubectlApi` talking to the stand-in kubectl above,
+    one training worker pod on the card, a checkpoint every task. Once a
+    checkpoint is durable the worker pod's process is SIGKILLed: the
+    manager must see it Failed, recover its lease and create the next
+    generation, which resumes and finishes the job. Returns K1's launches
+    over both pods."""
+    from elasticdl_tpu_torch.client.k8s import render_job_manifests
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.common.net import free_port
+    from elasticdl_tpu_torch.ops import placement
+    from elasticdl_tpu_torch.training.checkpoint import CheckpointManager
+
+    with tempfile.TemporaryDirectory() as out:
+        kube = os.path.join(out, "kube")
+        pods = os.path.join(kube, "pods")
+        os.makedirs(pods)
+        kubectl = os.path.join(kube, "kubectl")
+        with open(kubectl, "w") as f:
+            f.write(STANDIN_KUBECTL.replace("{python}", sys.executable, 1))
+        os.chmod(kubectl, 0o755)
+        # job_cli's depth: JOB_TASK records in 2 tasks of one step
+        tasks, last_step = 2, JOB_TASK // BATCH
+        cfg = JobConfig.from_argv(job_argv(out, JOB_TASK, tasks) + [
+            "--job_name", K8S_JOB, "--image_name", "elasticdl-tpu-torch:smoke",
+            "--instance_manager", "k8s", "--checkpoint_steps", "1",
+            "--master_addr", f"localhost:{free_port()}"])
+        manifests = render_job_manifests(cfg)
+        kinds = [(m["kind"], m["metadata"]["name"]) for m in manifests]
+        if kinds != [("Pod", f"{K8S_JOB}-master"),
+                     ("Service", f"{K8S_JOB}-master")]:
+            raise AssertionError(f"k8s_job: manifests {kinds}")
+        master = manifests[0]["spec"]["containers"][0]
+        command = list(master["command"])
+        if command[0] == "python":
+            command[0] = sys.executable
+        # the master pod's environment; the image's is this machine's,
+        # without the variables a polluted environment can carry
+        env = {k: v for k, v in os.environ.items()
+               if k not in COHORT_ENV + ("EDL_TORCH_DEVICE",)}
+        env.update({e["name"]: e["value"] for e in master["env"]})
+        env["PATH"] = os.pathsep.join(p for p in (kube, env.get("PATH")) if p)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (REPO, env.get("PYTHONPATH")) if p)
+        g0, g1 = (f"{K8S_JOB}-worker-0-g{g}" for g in (0, 1))
+        mngr = CheckpointManager(cfg.checkpoint_dir)
+        killed_at = g1_registered = g1_first_task = None
+        master_log = os.path.join(out, "master.log")
+        t0 = time.perf_counter()
+        with open(master_log, "w") as log:
+            proc = subprocess.Popen(
+                command + master["args"], cwd=REPO, env=env,
+                stdin=subprocess.DEVNULL, stdout=log,
+                stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            while (proc.poll() is None
+                   and time.perf_counter() - t0 < 600):
+                if killed_at is None and mngr.latest_step() is not None:
+                    pid = state_text(pods, g0 + ".pid").strip()
+                    if pid:
+                        os.kill(int(pid), signal.SIGKILL)
+                        killed_at = mngr.latest_step()
+                if killed_at is not None and g1_first_task is None:
+                    text = state_text(pods, g1 + ".log")
+                    if g1_registered is None and "registered as worker" in text:
+                        g1_registered = time.time()
+                    if TASK_LINE.search(text):
+                        g1_first_task = time.time()
+                time.sleep(0.1)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            end_pods(pods)
+        wall_s = time.perf_counter() - t0
+        with open(master_log, errors="replace") as f:
+            log = f.read()
+        applied = state_text(kube, "applied").split()
+        problems = []
+        if proc.returncode != 0:
+            problems.append(f"master exit {proc.returncode}")
+        if applied != [g0, g1]:
+            problems.append(f"pods created {applied}")
+        if killed_at is None:
+            problems.append("no checkpoint to kill the worker pod after")
+        failed = [t for t, p in pod_phases(pods, g0) if p == "Failed"]
+        if not failed or f"pod {g0} Failed; relaunch 1/" not in log:
+            problems.append(f"{g0}'s phases {pod_phases(pods, g0)}")
+        devices, launches, steps = {}, {}, {}
+        for name in applied:
+            text = state_text(pods, name + ".log")
+            device = re.search(r"registered as worker 0 .* on (\S+)", text)
+            devices[name] = device.group(1) if device else None
+            lines = TASK_LINE.findall(text)
+            steps[name] = sum(int(x[0]) for x in lines)
+            launches[name] = int(lines[-1][5]) if lines else 0
+        if not all((d or "").startswith("cuda") for d in devices.values()):
+            problems.append(f"devices {devices}")
+        if not all(steps.values()) or any(
+                launches[n] != placement.PASSES * steps[n] for n in launches):
+            problems.append(f"K1 launched {launches} in {steps} train steps")
+        saved = mngr.all_steps()
+        if not saved or max(saved) != last_step:
+            problems.append(f"checkpoint steps {saved}, the job's last "
+                            f"{last_step}")
+        finished = re.findall(r"job finished: (\{.*?\}) mean_loss", log)
+        counts = ast.literal_eval(finished[-1]) if finished else {}
+        if counts.get("finished_training") != tasks or counts.get(
+                "failed_permanently"):
+            problems.append(f"counts {counts}")
+        try:
+            export_matches(out, None, criteo_batch(8))
+        except Exception as e:     # reported with the logs below
+            problems.append(f"export does not load: {e!r}")
+        if problems:
+            for name in applied:
+                print(f"--- {name}", state_text(pods, name + ".log")[-4000:],
+                      file=sys.stderr, flush=True)
+            print("--- master", log[-6000:], file=sys.stderr, flush=True)
+            raise AssertionError("k8s_job: " + "; ".join(problems))
+    emit("k8s_job", card=smi, wall_s=wall_s, pods=applied,
+         killed_after_step=killed_at, checkpoint_steps=saved,
+         relaunch_s={"failed_to_registered": g1_registered - failed[0],
+                     "failed_to_first_task_done": g1_first_task - failed[0]},
+         devices=devices, train_steps=steps, k1_launches=launches,
+         counts=counts)
+    return sum(launches.values())
+
+
+def phase_zoo_init(smi):
+    """`zoo init` into a temporary directory, then one train step of the
+    template's model on the card through the port's ModelSpec."""
+    from elasticdl_tpu_torch.client import main as client_main
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.training.model_spec import ModelSpec
+    from elasticdl_tpu_torch.training.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as zoo_dir:
+        rc = client_main.main(["zoo", "init", "--model_zoo", zoo_dir])
+        files = sorted(os.listdir(zoo_dir))
+        try:
+            spec = ModelSpec.from_config(JobConfig.from_argv([
+                "--model_zoo", zoo_dir, "--model_def",
+                "my_model.custom_model"]))
+        finally:
+            sys.modules.pop("my_model", None)
+        trainer = Trainer(spec)
+        state = trainer.init_state(None)
+        before = {k: v.detach().clone() for k, v in state.params.items()}
+        r = np.random.RandomState(0)
+        batch = {"features": r.randn(BATCH, 8).astype(np.float32),
+                 "labels": r.randint(0, 2, (BATCH,)).astype(np.int32)}
+        state, logs = trainer.train_step(state, batch)
+        loss = float(logs["loss"])
+        moved = max(float((state.params[k].detach() - before[k]).abs().max())
+                    for k in before)
+    device = str(trainer.device)
+    if (rc != 0 or files != ["Dockerfile", "my_model.py"]
+            or not device.startswith("cuda") or not math.isfinite(loss)
+            or not 0 < moved <= 2e-3):
+        raise AssertionError(f"zoo_init: rc {rc}, files {files}, device "
+                             f"{device}, loss {loss}, moved {moved}")
+    emit("zoo_init", card=smi, files=files, device=device, batch=BATCH,
+         loss=loss, largest_param_step=moved)
+
+
 # ---------------------------------------------------------------- manual
 
 
@@ -4202,6 +4677,8 @@ def main():
     lm_job_launches = phase_lm_job(smi)
     moe_job_launches = phase_moe_job(smi)
     phase_job_cli(smi)
+    k8s_launches = phase_k8s_job(smi)
+    phase_zoo_init(smi)
     zoo_job_launches = phase_zoo_job(smi)
     tier_launches, tier_pushes = phase_tier(dev, smi)
     cohort_launches = phase_cohort_job(smi, job)
@@ -4238,6 +4715,8 @@ def main():
         "autoscale_launches": autoscale_launches,
         "callbacks_launches": callbacks_launches,
         "hybrid_mesh_launches": hybrid_launches,
+        # the Kubernetes path: both generations of the worker pod
+        "k8s_job_launches": k8s_launches,
         "max_abs_err": max([k1["max_abs_err"]] + [
             e["max_abs_err"] for e in zoo_streams.values()]),
         "max_rel_err": max([k1["max_rel_err"]] + [

@@ -1,9 +1,11 @@
 """Client verb implementations.
 
 Counterpart of `elasticdl_tpu/client/api.py`: train/evaluate/predict
-submit a job to the local launcher (the port's master in-process,
-subprocess workers on the card). The Kubernetes target (`--image_name`)
-and `zoo` wait for ROADMAP item 25 and raise.
+submit a job; zoo manages the model-zoo artifact. Two launch targets:
+- local (default when no --image_name): the port's master in-process,
+  subprocess workers on the card;
+- k8s: render the job's manifests for GPU nodes (client/k8s.py) and
+  submit them with kubectl (printed where kubectl is absent).
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ logger = default_logger(__name__)
 def _launch(cfg: JobConfig) -> int:
     cfg.validate()
     if cfg.image_name:
-        raise NotImplementedError(
-            "Kubernetes submission (--image_name) is ROADMAP item 25")
+        from elasticdl_tpu_torch.client import k8s
+
+        return k8s.submit(cfg)
     from elasticdl_tpu_torch.client.local import run_local
 
     return run_local(cfg)
@@ -50,6 +53,7 @@ def predict(cfg: JobConfig) -> int:
 
 
 def zoo(argv: List[str]) -> int:
-    raise NotImplementedError(
-        "zoo init/build/push (a torch model-zoo template and image) is "
-        "ROADMAP item 25")
+    """zoo init/build/push — model-zoo image management."""
+    from elasticdl_tpu_torch.client import zoo as zoo_mod
+
+    return zoo_mod.main(argv)

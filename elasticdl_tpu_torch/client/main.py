@@ -5,8 +5,10 @@ Counterpart of `elasticdl_tpu/client/main.py`, with the same verbs:
     python -m elasticdl_tpu_torch.client.main train --model_zoo ... \
         --model_def deepfm.deepfm.custom_model --training_data ... [flags]
 
-`train`, `evaluate` and `predict` run a local job (client/local.py);
-`zoo` waits for ROADMAP item 25 and raises.
+`train`, `evaluate` and `predict` run a local job (client/local.py), or
+with `--image_name` submit it to Kubernetes (client/k8s.py); `zoo
+init|build|push` scaffolds, builds and pushes a model-zoo image
+(client/zoo.py).
 """
 
 from __future__ import annotations

@@ -14,9 +14,12 @@ evaluated on the wait poll, reported in `/healthz`; its action surface
 is bound by the launcher (`client/local.py`). With `--embedding_shards N`
 it owns the embedding tier's shard map (`embedding/sharding.ShardMapOwner`,
 journal-durable, with its death-driven resharding) and, with
-`--layout_autoscale`, the layout controller (the port's copies). The
-Kubernetes instance manager (`--instance_manager k8s`) raises
-`NotImplementedError` naming its ROADMAP item (25).
+`--layout_autoscale`, the layout controller (the port's copies). With
+`--instance_manager k8s` it owns the worker pods
+(`master/k8s_instance_manager.py`, a copy): it creates them from
+`client/k8s.render_worker_pod`, watches their events, relaunches the
+dead within the budget and, under `--autoscale`, binds the autoscaler's
+`K8sInstanceTarget` to them; `k8s_api` injects a fake for tests.
 """
 
 from __future__ import annotations
@@ -39,23 +42,21 @@ from elasticdl_tpu_torch.master.servicer import MasterServicer
 from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 from elasticdl_tpu_torch.proto.service import add_master_servicer, make_server
 
-logger = default_logger(__name__)
-
-
-def check_supported(cfg: JobConfig) -> None:
-    """Raise for the master options whose modules the port has not taken
-    over yet, before anything binds or opens."""
-    if cfg.instance_manager == "k8s":
-        raise NotImplementedError(
-            "--instance_manager k8s (master-owned worker pods) is ROADMAP "
-            "item 25")
+# run as `python -m elasticdl_tpu_torch.master.main` (the master pod's
+# command) this module is __main__: it logs under its package's name all
+# the same, or its lines (the job's end among them) would reach no handler
+logger = default_logger(
+    "elasticdl_tpu_torch.master.main" if __name__ == "__main__" else __name__)
 
 
 class Master:
-    def __init__(self, cfg: JobConfig):
+    def __init__(self, cfg: JobConfig, k8s_api=None):
         cfg.validate()
-        check_supported(cfg)
         self.cfg = cfg
+        # cfg.instance_manager == "k8s": this master owns worker pods
+        # (created in start()); k8s_api injects a fake for tests
+        self._k8s_api = k8s_api
+        self.instance_manager = None
         # observability first: every span/log below carries the role, and
         # trace.jsonl lands under <trace_dir|summary_dir/trace>/master/
         from elasticdl_tpu_torch.observability import flight as flight_lib
@@ -371,6 +372,29 @@ class Master:
         )
         if self.evaluation is not None and self.cfg.job_type == JobType.EVALUATION_ONLY:
             self.evaluation.trigger(0)
+        if self.cfg.instance_manager == "k8s":
+            # the k8s flavor: the master creates worker pods and watches
+            # their events (pod death drives task recovery directly)
+            from elasticdl_tpu_torch.master.k8s_instance_manager import (
+                K8sInstanceManager,
+            )
+
+            self.instance_manager = K8sInstanceManager(
+                self.cfg,
+                membership=self.membership,
+                api=self._k8s_api,
+                job_finished_fn=self.dispatcher.finished,
+            )
+            self.instance_manager.start_workers()
+            if self.autoscaler is not None:
+                # master-owned pods: the action surface binds here (the
+                # local-subprocess flavor binds in client/local.py)
+                from elasticdl_tpu_torch.master.autoscaler import K8sInstanceTarget
+
+                self.autoscaler.bind_target(K8sInstanceTarget(
+                    self.instance_manager, servicer=self.servicer,
+                    membership=self.membership,
+                ))
 
     def _straggler_flight_hook(self, info: dict) -> None:
         """Straggler onset -> snapshot the master's flight ring. Hook
@@ -580,6 +604,14 @@ class Master:
         )
         # give workers a heartbeat cycle to see the shutdown flag
         time.sleep(min(grace_s, self.cfg.worker_heartbeat_s))
+        # then delete the pods: a pod deleted first gets SIGTERM, and a
+        # worker that has not yet begun its job-end export skips it
+        # (Worker.preempt)
+        if self.instance_manager is not None:
+            try:
+                self.instance_manager.stop(grace_s)
+            except Exception:
+                logger.exception("instance manager stop failed")
         self.server.stop(grace_s)
         # only after the server stops: late reports may still hit the
         # summary writer while RPCs are in flight
@@ -620,7 +652,11 @@ class Master:
 
     def run(self) -> int:
         self.start()
-        ok = self.wait()
+        abort_fn = (
+            self.instance_manager.all_failed
+            if self.instance_manager is not None else None
+        )
+        ok = self.wait(abort_fn=abort_fn)
         self.shutdown()
         return 0 if ok else 1
 

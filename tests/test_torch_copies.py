@@ -49,6 +49,7 @@ COPIED = (
     "master/servicer.py", "master/summary_service.py",
     "master/task_dispatcher.py",
     "master/layout_controller.py", "master/autoscaler.py",
+    "master/k8s_instance_manager.py",
     "embedding/__init__.py", "embedding/cache.py",
     "embedding/data_plane.py", "embedding/reshard.py",
     "embedding/sharding.py", "embedding/shm.py", "embedding/sketch.py",

@@ -1,6 +1,7 @@
 """The port stands alone: it imports no JAX stack and nothing of the
 reference package (the train step, the job path's worker, cohort, mesh,
-master, launcher, data path, checkpoint and export, the embedding tier,
+master, launcher, Kubernetes renderer and pod manager, the model-zoo
+verbs, data path, checkpoint and export, the embedding tier,
 its layout controller and the program cache, and every zoo model
 included), and it never falls back to the CPU on its own: without a card
 a worker, a trainer and a default embedding-tier store raise."""
@@ -28,10 +29,11 @@ from elasticdl_tpu_torch.training.trainer import Trainer
 from elasticdl_tpu_torch.ops import (
     attention, embedding, flash_attention, moe, native, placement)
 from elasticdl_tpu_torch import convert
-from elasticdl_tpu_torch.client import api, local, main as client_main
+from elasticdl_tpu_torch.client import api, k8s, local, main as client_main, zoo
 from elasticdl_tpu_torch.data import nativelib, parsing, prefetch, reader, recordio
 from elasticdl_tpu_torch.master import (
-    autoscaler, layout_controller, main as master_main, process_manager)
+    autoscaler, k8s_instance_manager, layout_controller, main as master_main,
+    process_manager)
 from elasticdl_tpu_torch.api import callbacks
 from elasticdl_tpu_torch.parallel import elastic, mesh, pipeline
 from elasticdl_tpu_torch.training import checkpoint, compile_cache, export
@@ -93,6 +95,9 @@ def case_port_loads_no_jax_or_reference_module():
                  "elasticdl_tpu_torch.parallel.elastic",
                  "elasticdl_tpu_torch.master.main",
                  "elasticdl_tpu_torch.client.local",
+                 "elasticdl_tpu_torch.client.k8s",
+                 "elasticdl_tpu_torch.client.zoo",
+                 "elasticdl_tpu_torch.master.k8s_instance_manager",
                  "elasticdl_tpu_torch.data.prefetch",
                  "elasticdl_tpu_torch.training.checkpoint",
                  "elasticdl_tpu_torch.proto.service",
