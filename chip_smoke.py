@@ -20,7 +20,9 @@ gradient accumulation, grouped steps) over both, and the elastic control
 loop over the DeepFM job (the autoscaler's decisions and its drain-first
 eviction, zoo callbacks, the hybrid multi-slice mesh), and the DeepFM job
 through the Kubernetes path (the master's pod manager and a relaunched
-worker pod) beside a `zoo init` template's train step. Phases, each printing
+worker pod) beside a `zoo init` template's train step, and the port's
+tooling (edl-lint, the fleet soak, the `.rio` converter, the trace and
+incident CLIs) with the DeepFM job over converted shards. Phases, each printing
 one JSON line; any failure raises and exits non-zero (no phase's error is
 caught):
 
@@ -383,9 +385,30 @@ caught):
            (a 2-unit Dense, Adam at 1e-3) on the card at batch 8192
            through the port's ModelSpec and Trainer: a finite loss and a
            largest parameter step in (0, 2e-3].
+32. tools (after `zoo_init`)  the port's tooling beside the job path:
+           `data/convert.convert_url` writes `synthetic://criteo` as 4
+           `.rio` shards of JOB_TASK records (the `job` phase's count and
+           layout); K1 on the first batch of them (read back by the
+           port's reader, parsed by DeepFM's dataset_fn, hashed as the
+           model hashes) against its plain version, as `kernel` holds it;
+           the DeepFM job at `job`'s shape over the shards through the
+           CLI (a subprocess worker on the card, `--trace_dir`, each
+           process's flight bundle at exit), which must end with exit 0
+           and 4 task lines over 8 steps and K1 launched twice a step;
+           then `python -m elasticdl_tpu_torch.observability.analyze
+           --strict` over the job's trace and `incident --strict` over
+           its flight bundles (master and worker-0), both exit 0.
+           Started first and running on the host meanwhile: edl-lint over
+           the port's tree (`python -m elasticdl_tpu_torch.analysis`:
+           exit 0, no finding) and the fleet soak TOOLS_SCENARIO with its
+           artifacts (`python -m elasticdl_tpu_torch.fleetsim`: exit 0,
+           replay identical, no lost lease, its incident check 0). Prints
+           the job's data_wait and h2d a step beside `job`'s synthetic
+           figures, K1's error and times on the shards' stream, each
+           tool's wall, and the soak's digest.
 Then the `kernels` line (K1's `launches` are the job's, with the
 `grouped`, `cohort_job`, `manual_shards`, `tier`, `autoscale_job`,
-`callbacks_job`, `hybrid_mesh` and `k8s_job` phases' beside
+`callbacks_job`, `hybrid_mesh`, `k8s_job` and `tools` phases' beside
 them; the Hopper kernels' are `lm_train`'s, with `lm_job`'s,
 `moe_train`'s, `pp_train`'s, `moe_job`'s, `ring_attn`'s,
 `seq_train`'s and `seq_mix`'s beside them), the nvidia-smi line, and
@@ -3142,6 +3165,222 @@ def phase_zoo_init(smi):
          loss=loss, largest_param_step=moved)
 
 
+# ---------------------------------------------------------------- tools
+
+# the fleet soak the phase runs: 64 workers, 600 virtual seconds, the
+# autoscaler on a straggler wave (no embedding layout, so no store)
+TOOLS_SCENARIO = "straggler_wave"
+
+
+def tool_env():
+    """The environment of a tool or job subprocess: this checkout on the
+    path, no cohort variables, no device request but WORKER_ENV's."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in COHORT_ENV + ("EDL_TORCH_DEVICE",)}
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, env.get("PYTHONPATH")) if p)
+    env.update(WORKER_ENV)
+    return env
+
+
+def start_tool(argv, out_path):
+    """Start `python -m <argv>` from the checkout, its stdout into
+    `out_path` (stderr too unless JSON comes on stdout); returns (proc,
+    its stdout file, the thread that waits for it and notes its wall)."""
+    out = open(out_path, "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", *argv], cwd=REPO, env=tool_env(), stdout=out,
+        stderr=subprocess.DEVNULL if "--json" in argv else subprocess.STDOUT,
+        text=True, start_new_session=True)
+    wall = []
+    waiter = threading.Thread(
+        target=lambda: (proc.wait(), wall.append(time.perf_counter() - t0)),
+        daemon=True)
+    waiter.start()
+    return proc, out, waiter, wall
+
+
+def end_tool(name, started, timeout_s=300):
+    """Wait for a tool started by `start_tool`: (wall s, its stdout). A
+    tool that does not end in time is killed, and one that exits non-zero
+    fails."""
+    proc, out, waiter, wall = started
+    waiter.join(timeout_s)
+    out.close()
+    if waiter.is_alive():
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise AssertionError(f"tools: {name} did not end in {timeout_s} s")
+    wall_s = wall[0]
+    with open(out.name, errors="replace") as f:
+        text = f.read()
+    if proc.returncode != 0:
+        print(text[-8000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"tools: {name} exited {proc.returncode}")
+    return wall_s, text
+
+
+def rio_k1_stream(rio_dir, dev):
+    """K1 on the stream of the first .rio batch: BATCH records read back by
+    the port's reader, parsed by DeepFM's dataset_fn and hashed as the
+    model hashes them, sorted; held as `kernel` holds K1."""
+    from elasticdl_tpu_torch.data.reader import create_data_reader
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm
+    from elasticdl_tpu_torch.ops import embedding as emb
+
+    reader = create_data_reader(rio_dir)
+    shard = reader.create_shards()[0]
+    records = list(reader.read_records(shard[0], shard[1],
+                                       min(shard[2], shard[1] + BATCH)))
+    features, _ = deepfm.dataset_fn("training", reader.metadata)(records)
+    spec = deepfm.feature_spec(FIELD_VOCAB)
+    ids = spec.device_transform(
+        {"dense": torch.from_numpy(features["dense"]).to(dev),
+         "cat": torch.from_numpy(features["cat"]).to(dev)})["cat"].reshape(-1)
+    rows = torch.randn((ids.numel(), 17), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(1))
+    return k1_stream(torch.sort(ids, stable=True)[0].contiguous(), rows,
+                     emb.padded_vocab(spec.total_vocab), dev)
+
+
+def phase_tools(dev, smi, job):
+    """The port's tooling beside the job path: `.rio` shards written by
+    `data/convert.convert_url` at the `job` phase's record count and
+    layout, the DeepFM job over them through the CLI (a subprocess worker
+    on the card, K1 in every step's backward), K1 on the shards' stream
+    against its plain version, `analyze` over the job's trace and
+    `incident --strict` over its flight bundles, and, started first and
+    running meanwhile on the host, edl-lint over the port's tree and one
+    fleetsim scenario. Returns K1's launches in the job."""
+    from elasticdl_tpu_torch.data.convert import convert_url
+    from elasticdl_tpu_torch.ops import placement
+
+    with tempfile.TemporaryDirectory() as out:
+        lint = start_tool(["elasticdl_tpu_torch.analysis"],
+                          os.path.join(out, "lint.txt"))
+        soak = start_tool(["elasticdl_tpu_torch.fleetsim", TOOLS_SCENARIO,
+                           "--json", "--artifacts",
+                           os.path.join(out, "soak")],
+                          os.path.join(out, "soak.json"))
+
+        rio_dir = os.path.join(out, "rio")
+        n = 4 * JOB_TASK
+        t0 = time.perf_counter()
+        shards = convert_url(f"synthetic://criteo?n={n}&shards=4", rio_dir,
+                             records_per_shard=JOB_TASK)
+        convert_s = time.perf_counter() - t0
+        rio_bytes = sum(os.path.getsize(p) for p in shards)
+        if len(shards) != 4:
+            raise AssertionError(f"convert wrote {len(shards)} shards")
+        k1 = rio_k1_stream(rio_dir, dev)
+        if not k1["ok"]:
+            emit("tools", card=smi, rio_k1=k1)
+            raise AssertionError("K1 disagrees with its plain version (or "
+                                 "with itself) on the .rio stream")
+
+        argv = job_argv(out, n, 4)
+        argv[argv.index("--training_data") + 1] = rio_dir
+        argv += ["--master_addr", "localhost:0",
+                 "--trace_dir", os.path.join(out, "trace")]
+        env = tool_env()
+        # both processes leave their flight bundle at a clean exit
+        env["EDL_FLIGHT_DUMP_ON_EXIT"] = "1"
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "elasticdl_tpu_torch.client.main",
+             "train", *argv], cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        try:
+            log, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        job_s = time.perf_counter() - t0
+        tasks = TASK_LINE.findall(log)
+        steps = sum(int(t[0]) for t in tasks)
+        # a task line carries the process's launches so far
+        launches = int(tasks[-1][5]) if tasks else 0
+        device = re.search(r"registered as worker 0 .* on (\S+)", log)
+        problems = []
+        if proc.returncode != 0:
+            problems.append(f"exit {proc.returncode}")
+        if len(tasks) != 4 or steps != 8:
+            problems.append(f"{len(tasks)} task lines over {steps} steps")
+        if launches != placement.PASSES * steps:
+            problems.append(f"K1 launched {launches} kernels in {steps} "
+                            "steps")
+        if not device or not device.group(1).startswith(
+                WORKER_ENV.get("EDL_TORCH_DEVICE", "cuda")):
+            problems.append("the worker's log names no cuda device")
+        if problems:
+            print(log[-8000:], file=sys.stderr, flush=True)
+            raise AssertionError("tools: " + "; ".join(problems))
+        per_step = [(int(t[0]), float(t[3]), float(t[4])) for t in tasks]
+
+        def mean_ms(i, rows):
+            return sum(r[0] * r[i] for r in rows) / sum(r[0] for r in rows)
+
+        t0 = time.perf_counter()
+        analyze = subprocess.run(
+            [sys.executable, "-m", "elasticdl_tpu_torch.observability.analyze",
+             os.path.join(out, "trace"), "--json", "--strict"], cwd=REPO,
+            env=tool_env(), capture_output=True, text=True, timeout=300)
+        analyze_s = time.perf_counter() - t0
+        flight_dir = os.path.join(out, "ckpt", "flight")
+        t0 = time.perf_counter()
+        incident = subprocess.run(
+            [sys.executable, "-m",
+             "elasticdl_tpu_torch.observability.incident", flight_dir,
+             "--strict", "--json"], cwd=REPO, env=tool_env(),
+            capture_output=True, text=True, timeout=300)
+        incident_s = time.perf_counter() - t0
+        for name, done in (("analyze", analyze), ("incident", incident)):
+            if done.returncode != 0:
+                print(done.stdout[-4000:], done.stderr[-4000:],
+                      file=sys.stderr, flush=True)
+                raise AssertionError(f"tools: {name} exited "
+                                     f"{done.returncode}")
+        trace = json.loads(analyze.stdout)
+        report = json.loads(incident.stdout)
+        roles = sorted(b["role"] for b in report["bundles"])
+        if "master" not in roles or "worker-0" not in roles:
+            raise AssertionError(f"tools: flight bundles of {roles}")
+
+        # exit 0: no finding of the lint; the soak's replay identical, no
+        # acknowledged lease lost and its incident check clean
+        lint_s, _ = end_tool("edl-lint", lint)
+        soak_s, soak_out = end_tool("fleetsim", soak)
+        soak_result = json.loads(soak_out)
+    emit("tools", card=smi, records=n, rio_shards=len(shards),
+         rio_bytes=rio_bytes, convert_s=convert_s,
+         job={"exit": proc.returncode, "wall_s": job_s, "tasks": len(tasks),
+              "steps": steps, "device": device.group(1),
+              "k1_launches": launches,
+              "data_wait_ms_per_step": mean_ms(1, per_step),
+              "h2d_ms_per_step": mean_ms(2, per_step),
+              "data_wait_ms_per_step_past_first_task": mean_ms(
+                  1, per_step[1:]),
+              "h2d_ms_per_step_past_first_task": mean_ms(2, per_step[1:])},
+         synthetic_job={k: job[k] for k in ("data_wait_ms_per_step",
+                                            "h2d_ms_per_step")},
+         rio_k1={k: k1[k] for k in ("n", "max_abs_err", "max_rel_err",
+                                    "bit_identical_rerun", "ms", "plain_ms",
+                                    "bound_ms", "library_ms")},
+         analyze={"exit": analyze.returncode, "wall_s": analyze_s,
+                  "files": len(trace["files"]), "records": trace["records"]},
+         incident={"exit": incident.returncode, "wall_s": incident_s,
+                   "bundles": roles,
+                   "timeline_entries": len(report["timeline"])},
+         lint={"exit": 0, "wall_s": lint_s, "findings": 0},
+         fleetsim={"exit": 0, "wall_s": soak_s, "scenario": TOOLS_SCENARIO,
+                   "workers": soak_result["workers_total"],
+                   "event_log_digest": soak_result["event_log_digest"],
+                   "incident_strict_rc": soak_result["incident_strict_rc"]})
+    return launches, k1
+
+
 # ---------------------------------------------------------------- manual
 
 
@@ -4679,6 +4918,7 @@ def main():
     phase_job_cli(smi)
     k8s_launches = phase_k8s_job(smi)
     phase_zoo_init(smi)
+    tools_launches, rio_k1 = phase_tools(dev, smi, job)
     zoo_job_launches = phase_zoo_job(smi)
     tier_launches, tier_pushes = phase_tier(dev, smi)
     cohort_launches = phase_cohort_job(smi, job)
@@ -4717,9 +4957,11 @@ def main():
         "hybrid_mesh_launches": hybrid_launches,
         # the Kubernetes path: both generations of the worker pod
         "k8s_job_launches": k8s_launches,
-        "max_abs_err": max([k1["max_abs_err"]] + [
+        # the DeepFM job over converted .rio shards (the tools phase)
+        "tools_launches": tools_launches,
+        "max_abs_err": max([k1["max_abs_err"], rio_k1["max_abs_err"]] + [
             e["max_abs_err"] for e in zoo_streams.values()]),
-        "max_rel_err": max([k1["max_rel_err"]] + [
+        "max_rel_err": max([k1["max_rel_err"], rio_k1["max_rel_err"]] + [
             e["max_rel_err"] for e in zoo_streams.values()]),
         "ms": k1["ms"],
         "device_ms": k1["device_ms"],

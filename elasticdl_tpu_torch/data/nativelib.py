@@ -70,7 +70,8 @@ def build_shared(src: str, lib_path: str, force: bool = False) -> Optional[str]:
         tmp = f"{out}.{os.getpid()}.tmp"
         try:
             # the module lock serializes this one-time compile (N
-            # concurrent opens pay one build, not N)
+            # concurrent opens pay one build, not N):
+            # edl-lint: disable=EDL103
             subprocess.run(
                 ["g++", *CXX_FLAGS, src, "-o", tmp],
                 check=True, capture_output=True, timeout=120,

@@ -243,6 +243,9 @@ def switch_moe(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor,
         x32 = mesh_lib.copy_to_axis(x32, mesh, EXPERT_AXIS)
         gate = mesh_lib.copy_to_axis(gate, mesh, EXPERT_AXIS)
     mine = r.keep & (r.idx >= first) & (r.idx < first + count)
+    # the index route gathers the kept rows by a data-dependent count (a
+    # host sync a layer); a fixed-shape route with a spare row is ROADMAP
+    # P8's: edl-lint: disable=EDL201
     rows = torch.nonzero(mine)[:, 0]
     slots = ((r.idx - first) * r.cap + r.pos)[rows]
     buf = x32.new_zeros((count * r.cap, c)).index_copy(0, slots, x32[rows])

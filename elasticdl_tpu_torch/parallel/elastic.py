@@ -26,8 +26,10 @@ leaf is pulled to host numpy, then laid onto the new mesh's device. The
 port's mesh has no sharded layout for such a leaf, so it is replicated on
 the rank's device.
 
-Not ported yet: `neighbor_world_sizes` and `LiveStateHandoff`, the
-in-place rescale's handoff (ROADMAP item 32).
+Not ported, by design: `neighbor_world_sizes` and `LiveStateHandoff`,
+the in-place rescale's handoff (ROADMAP item 32, under "Differences of
+design": a port process drives one card, and a cohort re-forms through
+the instance manager).
 """
 
 from __future__ import annotations

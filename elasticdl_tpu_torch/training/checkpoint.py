@@ -49,8 +49,10 @@ owners' stores (`embedding/store.py`) and ride the same directory as
 per-shard files, `<dir>/emb/<table>-shard<id>.npz`, in the reference's
 format (`save_embedding_tier`, `restore_embedding_tier`).
 
-The live handoff of the in-place rescale (`restore_or_handoff`) waits
-for ROADMAP item 32; it raises.
+The live handoff of the in-place rescale (`restore_or_handoff`) raises:
+a port process drives one card, and a cohort re-forms through the
+instance manager and a checkpoint (ROADMAP item 32, under "Differences of
+design").
 """
 
 from __future__ import annotations
@@ -337,7 +339,9 @@ class CheckpointManager:
                            step: Optional[int] = None) -> Optional[Any]:
         raise NotImplementedError(
             "restore_or_handoff (the in-place rescale's live state handoff) "
-            "is ROADMAP item 32")
+            "is not ported: a port process drives one card, and a cohort "
+            "re-forms through the instance manager and a checkpoint "
+            "(ROADMAP item 32, under 'Differences of design')")
 
     # ------------------------------------------------------------------ #
     # reading

@@ -13,9 +13,12 @@ programs already built, and the count is what shows it (the reference's
 `parallel.mesh.Mesh`) and `aval_signature` (over tensors and ndarrays:
 shape, dtype and device) keep the reference's meaning.
 
-Not ported yet: `SpeculativeCompiler`, the neighbor-world precompiler of
-the in-place rescale, and the AOT entries it stores (`store_aot`; ROADMAP
-item 19); `SpeculativeCompiler` raises `NotImplementedError`.
+Not ported, by design: `SpeculativeCompiler`, the neighbor-world
+precompiler of the in-place rescale, and the AOT entries it stores
+(`store_aot`). The port has no compiled program to warm until a step is
+captured as a CUDA graph, and its rescale re-forms a cohort (ROADMAP items
+32 and 19, under "Differences of design"); `SpeculativeCompiler` raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -171,4 +174,6 @@ class SpeculativeCompiler:
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "SpeculativeCompiler (neighbor-world precompilation for the "
-            "in-place rescale) is ROADMAP item 19")
+            "in-place rescale) is not ported: the port has no compiled "
+            "program to warm until a step is captured as a CUDA graph "
+            "(ROADMAP item 19, under 'Differences of design')")

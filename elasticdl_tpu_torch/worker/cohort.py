@@ -35,9 +35,10 @@ profiler window. With `--embedding_shards N` the cohort is one logical
 worker of the embedding tier: the leader alone joins it, its store on
 the leader's device, syncs replicas at the collective poll boundary and
 drains its shards into the checkpoint directory on every teardown; the
-next generation's leader restores them. Not ported yet, and raising for
-its option: the speculative compiler of the in-place rescale
-(`--speculative_compile`, ROADMAP item 19).
+next generation's leader restores them. Not ported, by design, and
+raising for its option: the speculative compiler of the in-place rescale
+(`--speculative_compile`; ROADMAP item 19, under "Differences of
+design").
 """
 
 from __future__ import annotations
@@ -115,7 +116,9 @@ class CohortWorker(Worker):
         if cfg.speculative_compile:
             raise NotImplementedError(
                 "--speculative_compile (neighbor-world compilation for the "
-                "in-place rescale) is ROADMAP item 19")
+                "in-place rescale) is not ported: the port has no compiled "
+                "program to warm until a step is captured as a CUDA graph "
+                "(ROADMAP item 19, under 'Differences of design')")
         self.ctx = ctx or context_from_env(cfg)
         # the member's card, checked before the world forms
         super().__init__(cfg, device=runtime.cohort_device(

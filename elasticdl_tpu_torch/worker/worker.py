@@ -29,8 +29,10 @@ stats on its heartbeat, drains its shards into the checkpoint directory
 on a forced save, and re-fetches the map and installs moved shards at a
 task boundary after a membership change.
 
-What the port does not have yet raises `NotImplementedError` naming its
-ROADMAP item: the in-place rescale (`request_rescale`, items 32 and 19).
+The in-place rescale (`request_rescale`) raises `NotImplementedError`: a
+port process drives one card, so the reference's single-process rescale
+has no world to shrink; a cohort re-forms through the instance manager
+(ROADMAP items 32 and 19, under "Differences of design").
 """
 
 from __future__ import annotations
@@ -559,7 +561,10 @@ class Worker:
     def request_rescale(self, axis_sizes=None, devices=None) -> None:
         raise NotImplementedError(
             "the in-place rescale (live state handoff onto a new mesh) is "
-            "ROADMAP items 32 and 19")
+            "not ported: a port process drives one card, so the "
+            "reference's single-process rescale has no world to shrink; a "
+            "cohort re-forms through the instance manager (ROADMAP items "
+            "32 and 19, under 'Differences of design')")
 
     # ------------------------------------------------------------------ #
     # task execution
@@ -698,13 +703,16 @@ class Worker:
             faults.fire(f"worker.train_step.{self.worker_id}")
             if stacked is not None:
                 self._state, m = self._trainer.train_many(self._state, stacked)
-                # one readback a group: it waits for the group's k steps
+                # one readback a group: it waits for the group's k steps,
+                # so the group's time covers the device's compute, and
+                # grouping amortizes it k-fold: edl-lint: disable=EDL201
                 stats["loss_sum"] += float(m["loss"].sum())
             else:
                 for b in buf:
                     self._state, logs = self._trainer.train_step(self._state, b)
                     # float() waits for the step, so the wall time covers
-                    # the whole step (launches + device compute)
+                    # the whole step (launches + device compute): the sync
+                    # IS the measurement: edl-lint: disable=EDL201
                     stats["loss_sum"] += float(logs["loss"])
             group_s = time.perf_counter() - t0
             stats["step_time_sum"] += group_s
@@ -716,7 +724,8 @@ class Worker:
             self._global_step += len(buf)
             self._model_version += len(buf)
             # the real (non-padding) records the group applied; the drain
-            # report retires records mid-task, so they count per group
+            # report retires records mid-task, so they count per group:
+            # edl-lint: disable=EDL201
             group_records = int(sum(b["mask"].sum() for b in buf))
             stats["records_done"] += group_records
             # one telemetry sample a group, normalized to per-step values

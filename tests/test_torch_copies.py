@@ -17,8 +17,12 @@ target (`elasticdl_tpu.worker.main` becomes `elasticdl_tpu_torch.worker.
 main`); its resize probe's import of the checkpoint manager is an import
 line. `embedding/tier.py` is ported by the named substitutions of
 `TIER_SUBSTITUTIONS`: the runtime's and the session's `device=`, and the
-session's `_grad_fn`, a cached callable over torch autograd. Every file
-is compared exactly after the substitutions.
+session's `_grad_fn`, a cached callable over torch autograd. The tools
+(`analysis/`, `fleetsim/`, the `analyze` and `incident` CLIs) name the
+port's module where their texts say what to run; edl-lint takes its
+EDL2xx family from `torch_rules.py`, reads the port's own baseline, and
+its path-scoped rules name the port's files. Every file is compared
+exactly after the substitutions.
 """
 
 import re
@@ -54,6 +58,17 @@ COPIED = (
     "embedding/data_plane.py", "embedding/reshard.py",
     "embedding/sharding.py", "embedding/shm.py", "embedding/sketch.py",
     "embedding/transport.py",
+    # the tooling (ROADMAP items 26 and 30)
+    "data/convert.py", "fleetsim/scenario.py",
+    "fleetsim/scenarios/master_failover.json",
+    "fleetsim/scenarios/noisy_signal.json",
+    "fleetsim/scenarios/popularity_flip.json",
+    "fleetsim/scenarios/rack_failure.json",
+    "fleetsim/scenarios/rolling_restart.json",
+    "fleetsim/scenarios/slow_joiner_herd.json",
+    "fleetsim/scenarios/straggler_wave.json",
+    "analysis/callgraph.py", "analysis/concurrency.py",
+    "analysis/lockorder.py", "analysis/locks.py", "analysis/rpc_rules.py",
 )
 # embedding/tier.py: the reference's text but for the device the runtime
 # builds its store on, the session's device, and `_grad_fn`
@@ -150,6 +165,93 @@ SUBSTITUTED = {
         ('"elasticdl_tpu.worker.main"', '"elasticdl_tpu_torch.worker.main"'),
     ),
     "embedding/tier.py": TIER_SUBSTITUTIONS,
+    # the tools' texts name the module a user runs
+    "observability/analyzer.py": (
+        ("CLI: ``python -m elasticdl_tpu.observability.analyze",
+         "CLI: ``python -m elasticdl_tpu_torch.observability.analyze"),
+    ),
+    "observability/analyze.py": (
+        ("    python -m elasticdl_tpu.observability.analyze <path>",
+         "    python -m elasticdl_tpu_torch.observability.analyze <path>"),
+        ('prog="python -m elasticdl_tpu.observability.analyze"',
+         'prog="python -m elasticdl_tpu_torch.observability.analyze"'),
+    ),
+    "observability/incident.py": (
+        ("    python -m elasticdl_tpu.observability.incident <path>",
+         "    python -m elasticdl_tpu_torch.observability.incident <path>"),
+        ('prog="python -m elasticdl_tpu.observability.incident"',
+         'prog="python -m elasticdl_tpu_torch.observability.incident"'),
+    ),
+    "fleetsim/__init__.py": (
+        ("``python -m elasticdl_tpu.fleetsim <scenario.json>``",
+         "``python -m elasticdl_tpu_torch.fleetsim <scenario.json>``"),
+    ),
+    "fleetsim/__main__.py": (
+        ("    python -m elasticdl_tpu.fleetsim <scenario.json",
+         "    python -m elasticdl_tpu_torch.fleetsim <scenario.json"),
+        ('prog="python -m elasticdl_tpu.fleetsim"',
+         'prog="python -m elasticdl_tpu_torch.fleetsim"'),
+    ),
+    # the layout scenario's stores keep the port's default device (the
+    # card; host mode under EDL_EMB_TIER_DEVICE=0): no text changes there
+    "fleetsim/sim.py": (
+        ("`python -m elasticdl_tpu.observability.incident <dir> --strict`",
+         "`python -m elasticdl_tpu_torch.observability.incident <dir> "
+         "--strict`"),
+    ),
+    # edl-lint: the EDL2xx family is torch_rules.py's (the twins of the
+    # reference's jax_rules.py), the CLI lints the port against the port's
+    # own baseline, and the path-scoped rules (EDL407, EDL502) name the
+    # port's modules
+    "analysis/__init__.py": (
+        ("- JAX hazards (EDL2xx): host syncs in dispatch loops, jit cache "
+         "churn,\n  tracer leaks, unordered iteration feeding pytrees;",
+         "- torch hazards (EDL2xx, `torch_rules.py`): host syncs in "
+         "dispatch\n  loops and data-dependent shapes anywhere, compile and "
+         "capture churn,\n  tensors escaping a captured graph, unordered "
+         "iteration;"),
+        ("Run `python -m elasticdl_tpu.analysis`",
+         "Run `python -m elasticdl_tpu_torch.analysis`"),
+    ),
+    "analysis/__main__.py": (
+        ('"""`python -m elasticdl_tpu.analysis`',
+         '"""`python -m elasticdl_tpu_torch.analysis`'),
+        ("target is the installed `elasticdl_tpu` package directory; the "
+         "default\nbaseline is `.edl-lint-baseline.json` next",
+         "target is the installed `elasticdl_tpu_torch` package directory; "
+         "the\ndefault baseline is `.edl-lint-baseline-torch.json` next"),
+        ('BASELINE_NAME = ".edl-lint-baseline.json"',
+         'BASELINE_NAME = ".edl-lint-baseline-torch.json"'),
+        ("os.path.abspath(elasticdl_tpu.__file__)",
+         "os.path.abspath(elasticdl_tpu_torch.__file__)"),
+        ('prog="python -m elasticdl_tpu.analysis"',
+         'prog="python -m elasticdl_tpu_torch.analysis"'),
+        ('"(default: the elasticdl_tpu package)"',
+         '"(default: the elasticdl_tpu_torch package)"'),
+    ),
+    "analysis/core.py": (
+        ("        jax_rules,\n", "        torch_rules,\n"),
+    ),
+    "analysis/observability_rules.py": (
+        ("from elasticdl_tpu_torch.analysis.jax_rules import (",
+         "from elasticdl_tpu_torch.analysis.torch_rules import ("),
+        ('    "elasticdl_tpu/embedding/data_plane.py",\n'
+         '    "elasticdl_tpu/embedding/tier.py",\n'
+         '    "elasticdl_tpu/embedding/shm.py",\n'
+         '    "elasticdl_tpu/embedding/transport.py",\n',
+         '    "elasticdl_tpu_torch/embedding/data_plane.py",\n'
+         '    "elasticdl_tpu_torch/embedding/tier.py",\n'
+         '    "elasticdl_tpu_torch/embedding/shm.py",\n'
+         '    "elasticdl_tpu_torch/embedding/transport.py",\n'),
+    ),
+    "analysis/elasticity_rules.py": (
+        ("    inside `elasticdl_tpu/fleetsim/`. The fleet",
+         "    inside `elasticdl_tpu_torch/fleetsim/`. The fleet"),
+        ('_FLEETSIM_PREFIX = "elasticdl_tpu/fleetsim/"',
+         '_FLEETSIM_PREFIX = "elasticdl_tpu_torch/fleetsim/"'),
+        ('"time.sleep() inside elasticdl_tpu/fleetsim/ burns "',
+         '"time.sleep() inside elasticdl_tpu_torch/fleetsim/ burns "'),
+    ),
 }
 
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)elasticdl_tpu(?=[.\s])", re.M)

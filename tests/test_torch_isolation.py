@@ -40,6 +40,12 @@ from elasticdl_tpu_torch.training import checkpoint, compile_cache, export
 from elasticdl_tpu_torch.embedding import (
     cache, data_plane, reshard, sharding, shm, sketch, store, tier, transport)
 from elasticdl_tpu_torch.api.layers import TierEmbedding, tier_table_spec
+from elasticdl_tpu_torch.analysis import __main__ as lint_main
+from elasticdl_tpu_torch.analysis.core import all_rules
+from elasticdl_tpu_torch.data import convert as data_convert
+from elasticdl_tpu_torch.fleetsim import __main__ as fleetsim_main
+from elasticdl_tpu_torch.observability import analyze, incident
+all_rules()
 from elasticdl_tpu_torch.worker import (
     cohort, main as worker_main, prediction_outputs_processor,
     task_data_service, worker)
@@ -106,7 +112,13 @@ def case_port_loads_no_jax_or_reference_module():
                  "elasticdl_tpu_torch.embedding.data_plane",
                  "elasticdl_tpu_torch.embedding.reshard",
                  "elasticdl_tpu_torch.master.layout_controller",
-                 "elasticdl_tpu_torch.training.compile_cache"):
+                 "elasticdl_tpu_torch.training.compile_cache",
+                 "elasticdl_tpu_torch.analysis.torch_rules",
+                 "elasticdl_tpu_torch.analysis.concurrency",
+                 "elasticdl_tpu_torch.fleetsim.sim",
+                 "elasticdl_tpu_torch.data.convert",
+                 "elasticdl_tpu_torch.observability.incident",
+                 "elasticdl_tpu_torch.observability.analyzer"):
         assert name in loaded, name
     assert [m for m in loaded if _forbidden(m)] == []
 
