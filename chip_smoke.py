@@ -22,7 +22,9 @@ eviction, zoo callbacks, the hybrid multi-slice mesh), and the DeepFM job
 through the Kubernetes path (the master's pod manager and a relaunched
 worker pod) beside a `zoo init` template's train step, and the port's
 tooling (edl-lint, the fleet soak, the `.rio` converter, the trace and
-incident CLIs) with the DeepFM job over converted shards. Phases, each printing
+incident CLIs) with the DeepFM job over converted shards, and the
+serving export of DeepFM and the LM (`torch.export`; the LM's program
+launches K2'). Phases, each printing
 one JSON line; any failure raises and exits non-zero (no phase's error is
 caught):
 
@@ -406,13 +408,34 @@ caught):
            the job's data_wait and h2d a step beside `job`'s synthetic
            figures, K1's error and times on the shards' stream, each
            tool's wall, and the soak's digest.
+33. serve_export (after `job`)  the serving export on the card: `job`'s
+           DeepFM export (the 2,605,056 x 17 table, bf16 DNN 400,400) and
+           the bf16 LM of 9 (random weights from a seed, exported as a
+           worker exports), each through `export_saved_model`
+           (`torch.export` on cuda:0, the batch symbolic; example batch
+           8192 and 8 x 1024) and `load_saved_model`. The program's
+           outputs at the full batch and at 3 rows must equal the eager
+           `load_model` model's on the same rows within 1e-6 (DeepFM;
+           `export_matches`' bound) or 1e-6 of the largest logit (the LM),
+           bit for bit expected; the exported LM's forward must launch K2'
+           exactly once a layer (4) and no K2 from its 4 `edl::flash_fwd`
+           nodes, and DeepFM's nothing (K1 runs only in a backward). A
+           fresh process that imports only `training.export` loads the
+           LM's `.pt2` on the card and serves the 8 rows bit-equal to this
+           process, with its own 4 K2' launches. Prints each export's
+           seconds, load seconds and `.pt2` bytes, and the served and
+           eager forward's ms (CUDA events, median after warm-up) at both
+           batches.
+Every phase line carries `phase_wall_s`, the seconds since its phase
+began, and the `wall` line the list of each phase's wall in the order
+they ran.
 Then the `kernels` line (K1's `launches` are the job's, with the
 `grouped`, `cohort_job`, `manual_shards`, `tier`, `autoscale_job`,
 `callbacks_job`, `hybrid_mesh`, `k8s_job` and `tools` phases' beside
 them; the Hopper kernels' are `lm_train`'s, with `lm_job`'s,
 `moe_train`'s, `pp_train`'s, `moe_job`'s, `ring_attn`'s,
-`seq_train`'s and `seq_mix`'s beside them), the nvidia-smi line, and
-last the `ok` line.
+`seq_train`'s and `seq_mix`'s beside them, and K2''s `serve_export`'s),
+the nvidia-smi line, and last the `ok` line.
 
 It exits non-zero without a result where CUDA is unavailable, and where
 the port's package is absent.
@@ -427,6 +450,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -458,8 +482,25 @@ COHORT_ENV = ("EDL_PROCESS_ID", "EDL_NUM_PROCESSES",
               "EDL_PROCESS_ID_FROM_HOSTNAME", "EDL_COORDINATOR_ADDR")
 
 
+# the running phase's start (`timed`) and each finished phase's wall, in
+# the order they ran: every line carries its phase's seconds so far, the
+# `wall` line the list
+PHASE_T0 = [time.perf_counter()]
+PHASE_WALLS = []
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "phase_wall_s": time.perf_counter() - PHASE_T0[0]}),
+          flush=True)
+
+
+def timed(name, fn, *args):
+    """Run the phase `fn(*args)`, noting its wall under `name`."""
+    PHASE_T0[0] = time.perf_counter()
+    out = fn(*args)
+    PHASE_WALLS.append([name, time.perf_counter() - PHASE_T0[0]])
+    return out
 
 
 def run(cmd):
@@ -2041,10 +2082,11 @@ def states_equal(a, b):
         for i in sa)
 
 
-def phase_job(smi):
+def phase_job(smi, serving):
     """The job path in one process: the port's Master and its Worker (on
     a thread, device defaulted: the card) run the DeepFM job at full
-    width; returns K1's launches in it."""
+    width; returns K1's launches in it. Its export is copied to
+    `<serving>/export` for `serve_export`."""
     from elasticdl_tpu_torch.common.config import JobConfig
     from elasticdl_tpu_torch.common.net import free_port
     from elasticdl_tpu_torch.data import parsing
@@ -2129,6 +2171,8 @@ def phase_job(smi):
         if export_err > 1e-6:
             raise AssertionError(f"export predicts {export_err} off the "
                                  "final state")
+        shutil.copytree(os.path.join(out, "export"),
+                        os.path.join(serving, "export"))
 
     def delta(name):
         return after.get(name, 0.0) - before.get(name, 0.0)
@@ -2150,6 +2194,155 @@ def phase_job(smi):
          else "python", k1_launches=launches, checkpoint_steps=[4, 8],
          export_max_abs_err=export_err)
     return launches, metrics
+
+
+# ---------------------------------------------------------------- serve_export
+
+SERVE_SMALL = 3          # rows of the small serving batch
+SERVE_FRESH = r"""
+import json, sys
+import numpy as np, torch
+from elasticdl_tpu_torch.training import export
+serve = export.load_saved_model(sys.argv[1])
+with torch.no_grad():
+    out = serve(torch.from_numpy(np.load(sys.argv[2])).cuda())
+np.save(sys.argv[3], out.cpu().numpy())
+print(json.dumps(sys.modules["elasticdl_tpu_torch.ops.flash_attention"]
+                 .launches))
+"""
+
+
+def serve_rows(features, rows):
+    """The first `rows` rows of numpy features (a dict or an array), on
+    the card."""
+    if isinstance(features, dict):
+        return {k: torch.from_numpy(v[:rows]).cuda()
+                for k, v in features.items()}
+    return torch.from_numpy(features[:rows]).cuda()
+
+
+def serve_fresh_process(path, tokens, tmp):
+    """Load the program under `path` in a new process that imports only
+    `training.export`, serve `tokens` on the card there: (its outputs,
+    its flash launches)."""
+    np.save(os.path.join(tmp, "tokens.npy"), tokens)
+    out = os.path.join(tmp, "served.npy")
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVE_FRESH, path,
+         os.path.join(tmp, "tokens.npy"), out],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"a fresh process could not serve {path}: "
+                             f"exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    return np.load(out), json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def serve_one(name, export_dir, features, tol):
+    """Export one model (`export_saved_model` on the card, the example
+    batch `features`), load it, and hold its outputs to the eager
+    `load_model` model's, at the full batch and at SERVE_SMALL rows; time
+    both. Returns (the report, the program's directory, the exported
+    forward's flash launches at the full batch, its outputs)."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.ops import placement
+    from elasticdl_tpu_torch.training import export
+
+    t0 = time.perf_counter()
+    path = export.export_saved_model(export_dir, ZOO, features)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve = export.load_saved_model(path)
+    load_s = time.perf_counter() - t0
+    model, _ = export.load_model(export_dir, ZOO)
+    report = {"export_s": export_s, "load_s": load_s,
+              "pt2_bytes": os.path.getsize(
+                  os.path.join(path, export.SAVED_MODEL_FILE)),
+              "flash_fwd_nodes": sum(
+                  n.target is torch.ops.edl.flash_fwd.default
+                  for n in serve.graph.nodes)}
+    launches = None
+    full = len(next(iter(features.values())) if isinstance(features, dict)
+               else features)
+    for rows in (full, SERVE_SMALL):
+        x = serve_rows(features, rows)
+        with torch.no_grad():
+            want = model(x, training=False)
+            torch.cuda.synchronize()
+            reset_launches()
+            placement.launches = 0
+            got = serve(x)
+            torch.cuda.synchronize()
+            if launches is None:
+                launches, outputs = dict(fa.launches), got
+            if placement.launches:
+                raise AssertionError(f"{name}'s served forward launched K1")
+            err = float((got.float() - want.float()).abs().max())
+            if (got.shape != want.shape or got.dtype != want.dtype
+                    or not bool(torch.isfinite(got).all())
+                    or err > tol(want)):
+                raise AssertionError(
+                    f"{name} served {got.dtype} {tuple(got.shape)} at "
+                    f"{rows} rows, {err} off the eager {want.dtype} "
+                    f"{tuple(want.shape)}")
+            report[f"rows_{rows}"] = {
+                "shape": list(got.shape), "max_abs_err": err,
+                "bit_equal": bool(torch.equal(got, want)),
+                "served_ms": time_ms(lambda: serve(x)),
+                "eager_ms": time_ms(lambda: model(x, training=False))}
+    return report, path, launches, outputs
+
+
+def phase_serve_export(smi, serving):
+    """The serving export on the card: DeepFM from the `job` phase's
+    export (`<serving>/export`) and the bf16 LM at `lm_train`'s width from
+    a seed, each through `export_saved_model` (torch.export on cuda:0) and
+    `load_saved_model`; the LM's program must launch K2' once a layer and
+    no K2, and load and serve in a fresh process. Returns the exported LM
+    forward's flash launches."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.training import export
+    from elasticdl_tpu_torch.training.trainer import Trainer
+
+    spec = load_spec(LM_PARAMS, model_def=LM_DEF)
+    trainer = Trainer(spec)                 # device defaulted: the GPU
+    tokens = lm_batch(300)
+    state = trainer.init_state(tokens)
+    lm_dir = export.export_model(
+        state, os.path.join(serving, "lm"), model_def=LM_DEF,
+        model_params=spec.model_params, module_name=spec.module_name)
+    del trainer, state
+    report = {}
+    report["deepfm"], _, deepfm_launches, _ = serve_one(
+        "DeepFM", os.path.join(serving, "export"),
+        criteo_batch(17)["features"], lambda want: 1e-6)
+    if any(deepfm_launches.values()):
+        raise AssertionError(f"the exported DeepFM launched {deepfm_launches}")
+    report["lm"], path, launches, outputs = serve_one(
+        "the LM", lm_dir, tokens["features"],
+        lambda want: 1e-6 * float(want.abs().max()))
+    none = {name: 0 for name in fa.launches}
+    if launches != {**none, fa.FWD_SM90: LM_LAYERS} or \
+            report["lm"]["flash_fwd_nodes"] != LM_LAYERS:
+        raise AssertionError(
+            f"the exported LM's forward launched {launches} from "
+            f"{report['lm']['flash_fwd_nodes']} edl::flash_fwd nodes, want "
+            f"{LM_LAYERS} K2' and no K2")
+    fresh, fresh_launches = serve_fresh_process(path, tokens["features"],
+                                                serving)
+    if not np.array_equal(fresh, outputs.cpu().numpy()) or \
+            fresh_launches != {**none, fa.FWD_SM90: LM_LAYERS}:
+        raise AssertionError(
+            f"a fresh process served {fresh_launches} launches and logits "
+            f"{float(np.abs(fresh - outputs.cpu().numpy()).max())} off")
+    report["lm"]["fresh_process"] = {"launches": fresh_launches,
+                                     "bit_equal": True}
+    emit("serve_export", card=smi,
+         deepfm={"params": f"field_vocab={FIELD_VOCAB};hidden=400,400",
+                 "batch": BATCH, **report["deepfm"]},
+         lm={"params": LM_PARAMS, "batch": [LM_BATCH, LM_T],
+             "compute_dtype": "bfloat16", **report["lm"]},
+         launches=launches)
+    return launches
 
 
 # ---------------------------------------------------------------- grouped
@@ -4873,7 +5066,7 @@ def main():
          count=torch.cuda.device_count(), nvidia_smi=smi,
          nvcc=run([native.nvcc(), "--version"]).splitlines()[-1])
 
-    t0 = time.perf_counter()
+    PHASE_T0[0] = t0 = time.perf_counter()
     built = native.build([placement.KERNEL, fa.LIBRARY, fa.LIBRARY_SM90])
     seconds = time.perf_counter() - t0
     hgmma = hgmma_counts(built[fa.LIBRARY_SM90]["path"])
@@ -4894,38 +5087,45 @@ def main():
     for kernel in shared:
         if not hgmma.get(kernel):
             raise AssertionError(f"{kernel} has no HGMMA instruction")
+    PHASE_WALLS.append(["build", time.perf_counter() - t0])
 
-    k1 = phase_kernel(dev)
-    zoo_streams = phase_zoo_kernel(dev)
-    manual_shard_launches = phase_manual_shards(dev, smi)
-    report, worst = phase_attn_kernel(dev)
-    attn = attn_times(dev, report, worst)
-    ring_launches = phase_ring_attn(dev, smi)
-    phase_parity()
-    f32_lm_launches = phase_lm_parity()
-    launches = phase_train()
-    lm_launches = phase_lm_train()
-    seq_launches, unsplit_losses = phase_seq_train(smi)
-    seq_mix_launches = phase_seq_mix(dev, smi, unsplit_losses)
-    moe_launches = phase_moe_train(smi)
-    pp_launches = phase_pp_train(smi)
-    phase_knobs()
-    zoo_train_launches = phase_zoo_train(smi)
-    grouped_launches = phase_grouped()
-    job_launches, job = phase_job(smi)
-    lm_job_launches = phase_lm_job(smi)
-    moe_job_launches = phase_moe_job(smi)
-    phase_job_cli(smi)
-    k8s_launches = phase_k8s_job(smi)
-    phase_zoo_init(smi)
-    tools_launches, rio_k1 = phase_tools(dev, smi, job)
-    zoo_job_launches = phase_zoo_job(smi)
-    tier_launches, tier_pushes = phase_tier(dev, smi)
-    cohort_launches = phase_cohort_job(smi, job)
-    autoscale_launches = phase_autoscale_job(smi)
-    callbacks_launches = phase_callbacks_job(smi)
-    hybrid_launches = phase_hybrid_mesh(smi)
-    emit("wall", seconds=time.perf_counter() - started)
+    k1 = timed("kernel", phase_kernel, dev)
+    zoo_streams = timed("zoo_kernel", phase_zoo_kernel, dev)
+    manual_shard_launches = timed("manual_shards", phase_manual_shards,
+                                  dev, smi)
+    report, worst = timed("attn_kernel", phase_attn_kernel, dev)
+    attn = timed("attn_times", attn_times, dev, report, worst)
+    ring_launches = timed("ring_attn", phase_ring_attn, dev, smi)
+    timed("parity", phase_parity)
+    f32_lm_launches = timed("lm_parity", phase_lm_parity)
+    launches = timed("train", phase_train)
+    lm_launches = timed("lm_train", phase_lm_train)
+    seq_launches, unsplit_losses = timed("seq_train", phase_seq_train, smi)
+    seq_mix_launches = timed("seq_mix", phase_seq_mix, dev, smi,
+                             unsplit_losses)
+    moe_launches = timed("moe_train", phase_moe_train, smi)
+    pp_launches = timed("pp_train", phase_pp_train, smi)
+    timed("knobs", phase_knobs)
+    zoo_train_launches = timed("zoo_train", phase_zoo_train, smi)
+    grouped_launches = timed("grouped", phase_grouped)
+    with tempfile.TemporaryDirectory() as serving:
+        job_launches, job = timed("job", phase_job, smi, serving)
+        serve_launches = timed("serve_export", phase_serve_export, smi,
+                               serving)
+    lm_job_launches = timed("lm_job", phase_lm_job, smi)
+    moe_job_launches = timed("moe_job", phase_moe_job, smi)
+    timed("job_cli", phase_job_cli, smi)
+    k8s_launches = timed("k8s_job", phase_k8s_job, smi)
+    timed("zoo_init", phase_zoo_init, smi)
+    tools_launches, rio_k1 = timed("tools", phase_tools, dev, smi, job)
+    zoo_job_launches = timed("zoo_job", phase_zoo_job, smi)
+    tier_launches, tier_pushes = timed("tier", phase_tier, dev, smi)
+    cohort_launches = timed("cohort_job", phase_cohort_job, smi, job)
+    autoscale_launches = timed("autoscale_job", phase_autoscale_job, smi)
+    callbacks_launches = timed("callbacks_job", phase_callbacks_job, smi)
+    hybrid_launches = timed("hybrid_mesh", phase_hybrid_mesh, smi)
+    PHASE_T0[0] = started
+    emit("wall", seconds=time.perf_counter() - started, phases=PHASE_WALLS)
 
     f32_lm = (fa.FWD, fa.BWD_DQ, fa.BWD_DKV)
     print(json.dumps({"kernels": [{
@@ -5001,6 +5201,9 @@ def main():
             "ring_attn_launches": ring_launches[name],
             "seq_train_launches": seq_launches[name],
             "seq_mix_launches": seq_mix_launches[name]}),
+        # the exported bf16 LM's forward (serve_export): K2' once a layer
+        **({"serve_export_launches": serve_launches[name]}
+           if name == fa.FWD_SM90 else {}),
         **attn[name],
     } for name in (fa.FWD, fa.FWD_SM90, fa.BWD_DQ, fa.BWD_DQ_SM90,
                    fa.BWD_DKV, fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90)]}),

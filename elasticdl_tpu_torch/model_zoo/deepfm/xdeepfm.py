@@ -61,7 +61,12 @@ class CIN(nn.Module):
         for i, h in enumerate(self.layer_sizes):
             w = getattr(self, f"w{i}").to(self.compute_dtype)
             wr = w.reshape(h, xk.shape[1], self.num_fields)
-            xk = torch.einsum("ohf,bhd,bfd->bod", wr, xk, x0)    # (B, h, D)
+            # the outer product first, then the contraction: the order
+            # opt_einsum picks for "ohf,bhd,bfd->bod" at the zoo's widths,
+            # written out so that it depends neither on the batch (which
+            # a traced export keeps symbolic) nor on opt_einsum
+            outer = torch.einsum("bhd,bfd->bhfd", xk, x0)
+            xk = torch.einsum("ohf,bhfd->bod", wr, outer)        # (B, h, D)
             outs.append(torch.sum(xk, dim=-1))                   # (B, h)
         return torch.cat(outs, dim=-1)
 

@@ -42,7 +42,10 @@ Each wrapper runs its plain version for a tensor on the CPU, launches its
 kernel for a CUDA tensor (or raises), and raises for any other device.
 `launches` counts kernel launches by kernel name, not plain-version calls.
 The split computes the same function, so K2', K3' and K4' share K2's,
-K3's and K4's plain versions.
+K3's and K4's plain versions. The autograd Function's forward calls
+`flash_fwd` through the dispatcher op `edl::flash_fwd` (`flash_fwd_op`,
+with a fake rule), so `torch.export` traces it into a serving program
+that launches K2' or K2 (`training/export.export_saved_model`).
 
 The reference transposes to (B, H, T, D) and lane-broadcasts lse to 128
 only because Mosaic tiles need it; neither is ported, and neither is its
@@ -54,7 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -137,7 +140,8 @@ def flash_fwd_plain(q, k, v, causal=True, q_offset=0, kv_offset=0):
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhqk,bkhd->bhqd", p, v.to(torch.float32)) / l
     lse = (m + torch.log(l)).squeeze(-1)
-    return out.transpose(1, 2).to(q.dtype), lse
+    # contiguous (B, Tq, H, D), as the kernels write it (`flash_fwd_op`)
+    return out.transpose(1, 2).contiguous().to(q.dtype), lse
 
 
 def flash_bwd_delta_plain(out, dout, g_lse=None):
@@ -293,6 +297,28 @@ def launch_fwd(q, k, v, causal, q_offset, kv_offset, hopper: bool):
             _strides(q, k, v, out),
             *_dims(q, k, causal, q_offset, kv_offset))
     return out, lse
+
+
+@torch.library.custom_op("edl::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, q_offset: int, kv_offset: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`flash_fwd` as the dispatcher op `edl::flash_fwd`, so that a traced
+    program (`torch.export`, `training/export.export_saved_model`) holds
+    a node that launches K2 or K2' where a ctypes call on a fake tensor
+    could not be traced. Its body is `flash_fwd` itself: on the CPU the
+    plain version, on the card K2' or K2 as `_sm90` routes them; both
+    return a contiguous out. `launches` counts real launches only: the
+    fake rule below launches nothing."""
+    return flash_fwd(q, k, v, causal, q_offset, kv_offset)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, q_offset, kv_offset):
+    del k, v, causal, q_offset, kv_offset
+    b, tq, h, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, h, tq), dtype=torch.float32))
 
 
 def _check_residuals(q, lse, g_lse):
@@ -474,13 +500,12 @@ class _FlashAttention(torch.autograd.Function):
     the saved q, k, v, out and lse are dropped and the forward runs again
     in the backward: the kernel launches once more (and counts in
     `launches`) into freshly allocated out and lse, which the backward
-    then reads. A selective policy sees only the aten ops around the
-    ctypes launch; out and lse come from `empty_like`/`empty`, which no
-    policy of the trainer saves."""
+    then reads. A selective policy sees the forward as one op,
+    `edl::flash_fwd`, which no policy of the trainer saves."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, kv_offset):
-        out, lse = flash_fwd(q, k, v, causal, q_offset, kv_offset)
+        out, lse = flash_fwd_op(q, k, v, causal, q_offset, kv_offset)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, q_offset, kv_offset)
         ctx.set_materialize_grads(False)

@@ -179,7 +179,8 @@ def route(x: torch.Tensor, wg: torch.Tensor, capacity_factor: float,
                           totals[:blocks.data_index].sum(0))
         counts = totals.sum(0)
         prob_sum = blocks.sum_blocks(probs.sum(0))
-    cap = max(1, int(capacity_factor * n / e))
+    # symbolic where n is (a traced batch): `int` would specialize it
+    cap = torch.sym_max(1, torch.sym_int(capacity_factor * n / e))
     keep = pos < cap
     aux = e * torch.sum((counts.to(torch.float32) / n) * (prob_sum / n))
     return Routing(probs, idx, gate, pos, keep, cap, aux)
@@ -247,10 +248,13 @@ def switch_moe(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor,
     # host sync a layer); a fixed-shape route with a spare row is ROADMAP
     # P8's: edl-lint: disable=EDL201
     rows = torch.nonzero(mine)[:, 0]
-    slots = ((r.idx - first) * r.cap + r.pos)[rows]
+    expert, pos = (r.idx - first)[rows], r.pos[rows]
+    slots = expert * r.cap + pos
     buf = x32.new_zeros((count * r.cap, c)).index_copy(0, slots, x32[rows])
     y = _expert_ffn(buf.view(count, r.cap, c), w1, b1, w2, b2)
-    picked = y.reshape(-1, c).index_select(0, slots) * gate[rows, None]
+    # by (expert, slot): a flat view of y would need a reshape that a
+    # symbolic capacity (a traced batch) cannot prove
+    picked = y[expert, pos] * gate[rows, None]
     out = x32.new_zeros((n, c)).index_copy(0, rows, picked)
     if split:
         out = mesh_lib.reduce_from_axis(out, mesh, EXPERT_AXIS)

@@ -10,22 +10,36 @@ worker writes the trained parameters and a manifest:
   <export_dir>/model_info.json  model_def, model_params, step, framework info
 
 `load_model()` rebuilds the model from the port's zoo and loads the
-parameters, on the device the caller names. The reference's
-`export_saved_model` converts an export to a TF SavedModel through
-jax2tf; the port has no counterpart (it would take `torch.export` and a
-serving runtime), so it raises.
+parameters, on the device the caller names.
+
+`export_saved_model()` is the serving artifact, the counterpart of the
+reference's jax2tf SavedModel: `torch.export` of the loaded model's
+`model(features, training=False)` with one symbolic batch dimension on
+every feature leaf, saved as
+
+  <out_dir>/model.pt2           torch.export.save of the ExportedProgram
+                                (graph and weights; its extra file
+                                `serving.json` names the device)
+
+and `load_saved_model()` loads it back as a callable. The flash forward
+is the dispatcher op `edl::flash_fwd` (`ops/flash_attention.py`), so an
+exported LM launches K2' (K2) on the card; loading needs that op
+registered, which importing this module does.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from elasticdl_tpu_torch.common import runtime
 from elasticdl_tpu_torch.common.log_utils import default_logger
+from elasticdl_tpu_torch.data.prefetch import tree_map
+# registers edl::flash_fwd, which an exported LM's program calls
+from elasticdl_tpu_torch.ops import flash_attention
 from elasticdl_tpu_torch.parallel import mesh as mesh_lib
 from elasticdl_tpu_torch.version import __version__
 
@@ -33,6 +47,8 @@ logger = default_logger(__name__)
 
 PARAMS_FILE = "params.pt"
 INFO_FILE = "model_info.json"
+SAVED_MODEL_FILE = "model.pt2"
+SERVING_INFO = "serving.json"
 
 
 def export_model(
@@ -131,12 +147,97 @@ def load_model(
     return model, variables
 
 
+class _Serve(torch.nn.Module):
+    """The serving call `model(features, training=False)` as a module's
+    forward, for `torch.export`."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, features):
+        return self.model(features, training=False)
+
+
+def _device_name(device: torch.device) -> str:
+    """`device` with its index: `cuda` is the current card."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
+def _max_serving_batch(model: torch.nn.Module) -> Optional[int]:
+    """The largest batch the exported program may serve: the flash
+    kernels put B x heads on the grid's y dimension (`MAX_GRID_Y`), so a
+    model with attention caps B at MAX_GRID_Y // heads; None (no cap)
+    for a model without it."""
+    heads = [int(m.heads) for m in model.modules()
+             if isinstance(getattr(m, "heads", None), int)]
+    return flash_attention.MAX_GRID_Y // max(heads) if heads else None
+
+
 def export_saved_model(
     export_dir: str,
     model_zoo: str,
     example_features: Any,
     out_dir: Optional[str] = None,
-) -> Optional[str]:
-    raise NotImplementedError(
-        "export_saved_model converts through jax2tf to a TF SavedModel; "
-        "the port has no counterpart (see README: out of scope)")
+    device: runtime.DeviceLike = None,
+) -> str:
+    """Export the served model of an export directory with `torch.export`:
+    `model(features, training=False)` on `device` (None: the GPU, raising
+    where there is none), traced on `example_features` (numpy arrays or
+    tensors, a dict of them or one) with the leading dimension of every
+    leaf one symbolic `Dim("batch")`, so one program serves any batch (a
+    model with attention up to `MAX_GRID_Y // heads`: the flash kernels'
+    grid). The example batch must be at least 2 (`torch.export`
+    specializes sizes 0 and 1). Saves `model.pt2` under `out_dir`
+    (default `<export_dir>/saved_model`) and returns that directory, as
+    the reference returns its SavedModel's. A trace that fails raises."""
+    from torch.export import Dim
+
+    dev = runtime.resolve_device(device)
+    features = tree_map(lambda x: torch.as_tensor(x).to(dev),
+                        example_features)
+    sizes = set()
+    tree_map(lambda x: sizes.add(int(x.shape[0])), features)
+    if len(sizes) != 1 or min(sizes) < 2:
+        raise ValueError(f"example_features need one leading batch size of "
+                         f"at least 2 on every leaf, got {sorted(sizes)}")
+    model, _ = load_model(export_dir, model_zoo, device=dev)
+    cap = _max_serving_batch(model)
+    batch = Dim("batch", min=1, max=cap)
+    dynamic = tree_map(lambda _: {0: batch}, features)
+    with torch.no_grad():
+        program = torch.export.export(_Serve(model), (features,),
+                                      dynamic_shapes=(dynamic,))
+    out_dir = os.path.abspath(out_dir or os.path.join(export_dir,
+                                                      "saved_model"))
+    os.makedirs(out_dir, exist_ok=True)
+    info = {"device": _device_name(dev)}
+    path = os.path.join(out_dir, SAVED_MODEL_FILE)
+    torch.export.save(program, path,
+                      extra_files={SERVING_INFO: json.dumps(info)})
+    logger.info("exported serving program (%s, batch <= %s) -> %s",
+                info["device"], cap, path)
+    return out_dir
+
+
+def load_saved_model(path: str,
+                     device: runtime.DeviceLike = None) -> Callable:
+    """Load `export_saved_model`'s program (its directory or the `.pt2`)
+    as a callable `serve(features)`, the counterpart of
+    `tf.saved_model.load(path).serve`. The program runs on the device it
+    was exported on; `device` (None: the GPU) must be that device, or
+    this raises: it does not move a program. The port's op registration
+    (`ops/flash_attention.py`, imported with this module) comes first, so
+    the program's `edl::flash_fwd` nodes resolve."""
+    want = _device_name(runtime.resolve_device(device))
+    if os.path.isdir(path):
+        path = os.path.join(path, SAVED_MODEL_FILE)
+    extra = {SERVING_INFO: ""}
+    program = torch.export.load(path, extra_files=extra)
+    info = json.loads(extra[SERVING_INFO])
+    if info["device"] != want:
+        raise ValueError(f"{path} was exported on {info['device']} and "
+                         f"serves there only, not on {want}")
+    return program.module()

@@ -180,9 +180,8 @@ def _micro_batches(tree, accum: int) -> List[Any]:
 
 # The ops whose outputs each named policy saves; everything else the
 # backward recomputes. `dots` keeps every matmul output, `dots_no_batch`
-# only the unbatched ones, `nothing` none. The flash kernels run through
-# ctypes, which TorchDispatchMode does not see: their outputs come from
-# `empty_like`, which no policy saves, so K2 (K2') runs again in the
+# only the unbatched ones, `nothing` none. The flash forward is the op
+# `edl::flash_fwd`, which no policy saves, so K2 (K2') runs again in the
 # backward under every policy, as the reference's Pallas custom call does
 # under `dots_saveable`.
 _SAVED_OPS = {

@@ -10,7 +10,8 @@ steps with the port's Trainer. Cases:
 - restoring into a model of another geometry raises
   `CheckpointGeometryError` and leaves the state untouched;
 - export, `read_info` and `load_model` round-trip: the loaded model's
-  outputs equal the trained state's exactly; `export_saved_model` raises;
+  outputs equal the trained state's exactly, and so do those of the
+  `export_saved_model` program that `load_saved_model` loads;
 - `convert.train_state_from_flax` raises on a missing key or a wrong
   shape in the params or in Adam's moments.
 """
@@ -176,8 +177,16 @@ def case_export_round_trip(tmp):
                      for k, v in batch["features"].items()}, training=False)
     want = tr.predict_step(state, batch)
     assert got.dtype == torch.float32 and torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="jax2tf"):
-        export.export_saved_model(out, ZOO, batch["features"])
+    # the serving program (torch.export) under <export>/saved_model
+    served = export.export_saved_model(out, ZOO, batch["features"],
+                                       device="cpu")
+    assert served == os.path.join(out, "saved_model")
+    assert os.listdir(served) == [export.SAVED_MODEL_FILE]
+    serve = export.load_saved_model(served, device="cpu")
+    with torch.no_grad():
+        got = serve({k: torch.from_numpy(v)
+                     for k, v in batch["features"].items()})
+    assert torch.equal(got, want)
 
 
 def case_convert_rejects_bad_state():

@@ -8,8 +8,9 @@ stream, the MoE, pipelined and tensor-parallel LMs and the MoE's index
 and dense routes, the sequence-parallel ring in one process against
 unsplit attention (also over tensor-parallel head groups, each launch
 against its plain version), a ResNet-20 step (convolutions, BatchNorm), a device-mode
-embedding-tier store (K1 on every push) and zoo callbacks whose pushed
-learning rate lands in the worker's optimizer on the card. They skip where no
+embedding-tier store (K1 on every push), zoo callbacks whose pushed
+learning rate lands in the worker's optimizer on the card, and an LM's
+serving export, whose program launches K2' or K2. They skip where no
 CUDA device is present.
 
 This file imports torch and the port only, so it also runs on a GPU
@@ -915,6 +916,46 @@ def case_tier_store_on_the_card(cuda):
                               host.pull("users", shard, ids))
 
 
+def case_serving_export_on_the_card(cuda, tmp):
+    """`export_saved_model` on the card: a small LM exported at batch 4
+    serves 4 and 3 rows bit-equal to the eager `load_model` model, its
+    program launching K2' (bf16, D 64) or K2 (float32, D 16) once a layer
+    and nothing else; the program refuses to load for the CPU."""
+    from elasticdl_tpu_torch.training import export
+
+    zoo = os.path.join(REPO, "elasticdl_tpu_torch", "model_zoo")
+    r = np.random.RandomState(9)
+    tokens = r.randint(0, 64, (4, 33)).astype(np.int32)
+    batch = {"features": tokens[:, :-1], "labels": tokens[:, 1:],
+             "mask": np.ones((4,), np.float32)}
+    for dtype, dim, heads, kernel in (("bfloat16", 128, 2, fa.FWD_SM90),
+                                      ("float32", 64, 4, fa.FWD)):
+        params = (f"vocab=64;num_layers=2;dim={dim};heads={heads};"
+                  "max_len=64")
+        tr = _card_trainer("transformer.transformer_lm.custom_model",
+                           params, dtype)
+        out = os.path.join(tmp, f"serve-{dtype}")
+        export.export_model(tr.init_state(batch), out,
+                            model_def="transformer.transformer_lm."
+                            "custom_model", model_params=tr.spec.model_params)
+        path = export.export_saved_model(out, zoo, batch["features"])
+        serve = export.load_saved_model(path)
+        model, _ = export.load_model(out, zoo)
+        with pytest.raises(ValueError, match="serves there only"):
+            export.load_saved_model(path, device="cpu")
+        for rows in (4, 3):
+            x = torch.from_numpy(batch["features"][:rows]).to(cuda)
+            with torch.no_grad():
+                want = model(x, training=False)
+                for name in fa.launches:
+                    fa.launches[name] = 0
+                got = serve(x)
+            torch.cuda.synchronize()
+            assert fa.launches == {**{n: 0 for n in fa.launches},
+                                   kernel: 2}, (dtype, fa.launches)
+            assert got.shape == (rows, 32, 64) and torch.equal(got, want)
+
+
 def test_kernels_on_the_card(cuda, tmp_path):
     """Every case above, in one collected test (ROADMAP.md, conventions:
     one collected test per port test file)."""
@@ -968,3 +1009,4 @@ def test_kernels_on_the_card(cuda, tmp_path):
     case_job_on_the_card(cuda, str(tmp_path))
     case_callbacks_lr_lands_on_the_card(cuda, str(tmp_path))
     case_tier_store_on_the_card(cuda)
+    case_serving_export_on_the_card(cuda, str(tmp_path))
