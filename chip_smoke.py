@@ -55,7 +55,8 @@ caught):
            -> Trainer (device defaulted, so the GPU) -> init_state ->
            train_step x STEPS on one repeated batch -> eval_step ->
            predict_step. Losses must be finite and fall, and K1's two
-           kernels must have launched once each per train step.
+           kernels must have launched once each per train step. Then
+           its `step_cost` line (see below).
 6. profile torch.profiler over three more full-width steps: the device's
            busy share, kernels launched per step, the top kernels.
 7. attn_kernel  the flash kernels against their plain versions on the
@@ -93,7 +94,7 @@ caught):
            be finite and fall; K2', K3', K4' and the delta pass must each
            launch 4 times (one per layer) in every train step and K2-K4
            never, and K2' 4 times in each of eval and predict. Then its
-           profile, as in 6.
+           `step_cost` line and its profile, as in 6.
 10. job   the job path in one process, at DeepFM's full width
            (field_vocab=100000, hidden 400,400, minibatch 8192): the
            port's Master and its Worker (on a thread, device defaulted:
@@ -206,7 +207,8 @@ caught):
            the first step, finite predictions, and ResNet-50's remat step
            equal to its plain step bit for bit under deterministic cuDNN.
            Prints step ms (CUDA events), host ms a step, samples/s and peak
-           memory a model, and the ResNets' profiles, as in 6.
+           memory a model, and the ResNets' profiles, as in 6; then each
+           model's `step_cost` line.
 19. zoo_job (after `job_cli`)  ResNet-20 on `synthetic://cifar10` (batch
            512) and Wide & Deep on `synthetic://census` (batch 4096)
            through the job path in one process, as `job` runs it: 4 tasks
@@ -260,7 +262,10 @@ caught):
            capacity 1280) by the index route and by the dense plain route
            (`ops/moe.py`): outputs, aux and the expert kernels' gradients
            equal bit for bit, the other gradients within rtol 1e-6 with
-           atol 1e-6 of the largest; each route's fwd + bwd ms.
+           atol 1e-6 of the largest; each route's fwd + bwd ms and
+           FLOPs (`training.step_cost`), the dense route's extra the
+           one-hot products' 10 N E Cap C exactly. Then its `step_cost`
+           line.
 22. pp_train (after `moe_train`)  the pipelined LM (`pp_axis=pp`, 4
            microbatches) with no pp axis, the sequential fold of its 4
            stacked stages, as 21 runs the MoE LM (the same launches).
@@ -426,6 +431,16 @@ caught):
            seconds, load seconds and `.pt2` bytes, and the served and
            eager forward's ms (CUDA events, median after warm-up) at both
            batches.
+The `step_cost` lines (in `train`, `lm_train`, `moe_train` and, one a
+model, `zoo_train`): `Trainer.train_step_cost` of the phase's own
+trainer, state and batch, after the phase has read its launch counts:
+FLOPs (the products: matmuls, convolutions, attention) and bytes
+accessed (each op's operands and results once, an upper bound), the
+phase's step ms and the model-FLOP share `mfu` = flops / (step s x the
+named peak, BF16_FLOPS for the bf16 models), the cost call's wall and
+the kernels its step launched (it runs one step and puts the state
+back, which must then be bit-equal). A CPU trainer of the same model,
+width and batch counts the same FLOPs, or the run fails.
 Every phase line carries `phase_wall_s`, the seconds since its phase
 began, and the `wall` line the list of each phase's wall in the order
 they ran.
@@ -722,11 +737,12 @@ def phase_parity():
          params=len(cpu_grads), worst_grad_err_over_tol=worst)
 
 
-def phase_train():
+def phase_train(smi):
     from elasticdl_tpu_torch.ops import placement
     from elasticdl_tpu_torch.training.trainer import Trainer
 
-    spec = load_spec(f"field_vocab={FIELD_VOCAB};hidden=400,400")
+    params = f"field_vocab={FIELD_VOCAB};hidden=400,400"
+    spec = load_spec(params)
     trainer = Trainer(spec)                 # device defaulted: the GPU
     if trainer.device.type != "cuda":
         raise AssertionError(f"Trainer defaulted to {trainer.device}")
@@ -773,6 +789,8 @@ def phase_train():
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
          k1_launches=launches, eval=results,
          predict_shape=list(preds.shape))
+    step_cost("deepfm", trainer, state, batch, step_ms,
+              lambda: load_spec(params), smi, batch_size=BATCH)
     phase_profile(trainer, state, batch, step_ms)
     return launches
 
@@ -813,6 +831,78 @@ def phase_profile(trainer, state, batch, step_ms, steps=3, **labels):
          kernels_per_step=kernels,
          top=[{"ms_per_step": us / 1e3 / steps, "per_step": n / steps,
                "name": name[:100]} for name, (us, n) in top])
+
+
+def kernel_counts():
+    """Every kernel's launch count: K1's and each flash kernel's."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.ops import placement
+
+    return {placement.KERNEL: placement.launches, **fa.launches}
+
+
+def state_tensors(state):
+    """What a train step changes in a TrainState, by name: parameters,
+    buffers, the optimizer's tensor slots and the generator's state."""
+    out = {f"param:{n}": p.detach() for n, p in state.params.items()}
+    out.update({f"buffer:{n}": b for n, b in state.buffers.items()})
+    for n, p in state.params.items():
+        for k, v in state.optimizer.state.get(p, {}).items():
+            if isinstance(v, torch.Tensor):
+                out[f"slot:{n}.{k}"] = v
+    out["generator"] = state.generator.get_state()
+    return out
+
+
+def step_cost(model, trainer, state, batch, step_ms, cpu_spec, smi,
+              **fields):
+    """`Trainer.train_step_cost` of a phase's own trainer, state and batch
+    on the card, after the phase has read its launch counts, beside a CPU
+    trainer's cost of the same model, width and batch (`cpu_spec()` makes
+    its spec). Emits a `step_cost` line: FLOPs (products only), bytes
+    accessed, the phase's step ms, the model-FLOP share `mfu` = flops /
+    (step s x BF16_FLOPS: every model the phases train computes in bf16),
+    the cost call's wall and the CPU's, and the kernels the cost call's
+    step launched (`cost_launches`: it runs one step on the state and
+    puts the state back). Fails unless the card's FLOPs
+    equal the CPU's (the hand-written kernels count by formula at their
+    dispatcher ops, so the count does not depend on the device) and the
+    state is bit-equal after the call."""
+    from elasticdl_tpu_torch.training.trainer import Trainer
+
+    before = {k: v.clone() for k, v in state_tensors(state).items()}
+    step, counts = state.step, kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cost = trainer.train_step_cost(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: n - counts[k] for k, n in kernel_counts().items()
+                if n != counts[k]}
+    after = state_tensors(state)
+    changed = sorted(set(before) ^ set(after)) + [
+        k for k in before if k in after and not torch.equal(before[k],
+                                                            after[k])]
+    del before, after
+    t0 = time.perf_counter()
+    cpu = Trainer(cpu_spec(), device="cpu")
+    cpu_cost = cpu.train_step_cost(cpu.init_state(batch), batch)
+    cpu_wall = time.perf_counter() - t0
+    del cpu
+    emit("step_cost", model=model, card=smi, flops=cost["flops"],
+         bytes_accessed=cost["bytes accessed"], step_ms=step_ms,
+         mfu=cost["flops"] / (step_ms / 1e3 * BF16_FLOPS),
+         peak="BF16_FLOPS", peak_flops=BF16_FLOPS, cost_wall_s=wall,
+         cpu_flops=cpu_cost["flops"],
+         cpu_bytes_accessed=cpu_cost["bytes accessed"],
+         cpu_cost_wall_s=cpu_wall, cost_launches=launched, **fields)
+    if cpu_cost["flops"] != cost["flops"]:
+        raise AssertionError(f"{model}: {cost['flops']} FLOPs on the card, "
+                             f"{cpu_cost['flops']} on the CPU")
+    if changed or state.step != step:
+        raise AssertionError(f"{model}: the cost call changed the state: "
+                             f"{changed[:8]}, step {step} -> {state.step}")
+    return cost
 
 
 PALLAS = "elasticdl_tpu/ops/pallas_attention.py"
@@ -1274,7 +1364,7 @@ def phase_lm_parity():
     return launches
 
 
-def phase_lm_train():
+def phase_lm_train(smi):
     """The LM's train step at full width; returns each flash kernel's
     launches over the train, eval and predict steps."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
@@ -1340,6 +1430,9 @@ def phase_lm_train():
          launches={"train": train, "eval": evaluate, "predict": predict},
          eval=trainer.metric_results(metric_states),
          predict_shape=list(preds.shape))
+    step_cost("lm", trainer, state, batch, step_ms,
+              lambda: load_spec(LM_PARAMS, model_def=LM_DEF), smi,
+              batch_size=[LM_BATCH, LM_T])
     phase_profile(trainer, state, batch, step_ms)
     return {name: train[name] + evaluate[name] + predict[name]
             for name in train}
@@ -2668,10 +2761,13 @@ def moe_layer_routes(smi):
     (`switch_moe_plain`): outputs, aux and the expert kernels' gradients
     equal bit for bit, the other gradients (sums in another order) within
     rtol 1e-6 with atol 1e-6 of each one's largest value; the time of
-    each (CUDA events, fwd + bwd) beside the dense route's one-hot FLOPs."""
+    each (CUDA events, fwd + bwd) beside the dense route's one-hot FLOPs,
+    and each route's fwd + bwd FLOPs as `training.step_cost` counts them,
+    whose difference must be the dense dispatch's 10 N E Cap C."""
     from elasticdl_tpu_torch.api.layers import MoE
     from elasticdl_tpu_torch.common import runtime
     from elasticdl_tpu_torch.ops import moe as moe_ops
+    from elasticdl_tpu_torch.training import step_cost as cost_lib
 
     runtime.configure_torch_runtime()
     dev = runtime.resolve_device(None)       # the card
@@ -2704,6 +2800,19 @@ def moe_layer_routes(smi):
             raise AssertionError(f"{name} gradients differ by route "
                                  f"({ratio} of the tolerance)")
     cap = max(1, int(MOE_CAPACITY * n / MOE_EXPERTS))
+    # the dense route's one-hot products, which the reference's step
+    # computes and the index route does not: the dispatch and the combine
+    # forward, dx, d(combine) and dy backward, 2 N E Cap C each
+    counted = {}
+    for route, fn in (("index", moe_ops.switch_moe),
+                      ("dense", moe_ops.switch_moe_plain)):
+        with cost_lib.StepCost() as cost:
+            fwd_bwd(fn)
+        counted[route] = cost.flops
+    gap = counted["dense"] - counted["index"]
+    if gap != 5 * 2 * n * MOE_EXPERTS * cap * c:
+        raise AssertionError(f"the dense route counts {gap} FLOPs more than "
+                             f"the index route")
     index_ms = time_ms(lambda: fwd_bwd(moe_ops.switch_moe), groups=7,
                        per_group=3, warmup=1)
     dense_ms = time_ms(lambda: fwd_bwd(moe_ops.switch_moe_plain), groups=7,
@@ -2713,6 +2822,9 @@ def moe_layer_routes(smi):
     return dict(tokens=n, experts=MOE_EXPERTS, capacity=cap,
                 index_fwd_bwd_ms=index_ms, dense_fwd_bwd_ms=dense_ms,
                 dense_over_index=dense_ms / index_ms,
+                index_fwd_bwd_flops=counted["index"],
+                dense_fwd_bwd_flops=counted["dense"],
+                dense_dispatch_flops=gap,
                 expert_ffn_gflop=ffn_flops / 1e9,
                 one_hot_product_gflop=onehot_flops / 1e9,
                 ffn_bound_ms=ffn_flops / F32_FLOPS * 1e3,
@@ -2737,6 +2849,10 @@ def phase_moe_train(smi):
          aux_loss_weight=trainer.spec.aux_loss_weight,
          aux_last_step=buffers, aux_eval=aux, dropped_share=dropped,
          layer_routes=moe_layer_routes(smi))
+    # the experts' FFN runs in float32; the peak is the model's bf16
+    step_cost("moe_lm", trainer, state, batch, fields["step_ms"],
+              lambda: load_spec(MOE_PARAMS, model_def=LM_DEF), smi,
+              batch_size=[LM_BATCH, LM_T])
     phase_profile(trainer, state, batch, fields["step_ms"], model="moe_lm")
     return launches
 
@@ -4894,6 +5010,8 @@ def phase_zoo_train(smi):
                  "bn_hand_update_max_abs_diff": bn_err}
         if name == "resnet50":
             entry["remat"] = remat_equal(spec_fn, state, batch)
+        step_cost(name, trainer, state, batch, step_ms, spec_fn, smi,
+                  batch_size=b)
         report[name] = entry
         want = placement.PASSES * ZOO_STEPS if recsys else 0
         problems = []
@@ -5098,8 +5216,8 @@ def main():
     ring_launches = timed("ring_attn", phase_ring_attn, dev, smi)
     timed("parity", phase_parity)
     f32_lm_launches = timed("lm_parity", phase_lm_parity)
-    launches = timed("train", phase_train)
-    lm_launches = timed("lm_train", phase_lm_train)
+    launches = timed("train", phase_train, smi)
+    lm_launches = timed("lm_train", phase_lm_train, smi)
     seq_launches, unsplit_losses = timed("seq_train", phase_seq_train, smi)
     seq_mix_launches = timed("seq_mix", phase_seq_mix, dev, smi,
                              unsplit_losses)

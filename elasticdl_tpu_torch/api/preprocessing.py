@@ -3,7 +3,8 @@ numpy.
 
 Counterpart of `elasticdl_tpu/api/preprocessing.py`. The device half
 (integer hashing, bucketization, normalization, integer lookup, the
-id-space concatenation with offsets) runs on whatever device the batch
+multi-hot encoding of an id bag, the id-space concatenation with
+offsets) runs on whatever device the batch
 lives on. The host half (string hashing and lookups, ragged bags to
 padded rows, fitting bucket boundaries, vocabulary files) runs in the
 data pipeline.
@@ -60,6 +61,22 @@ def normalize(values: torch.Tensor, mean, std) -> torch.Tensor:
 def log_normalize(values: torch.Tensor) -> torch.Tensor:
     """log(1+x) squashing of max(x, 0) — the Criteo dense transform."""
     return torch.log1p(torch.clamp_min(values.to(torch.float32), 0.0))
+
+
+def multi_hot(ids: torch.Tensor, num_classes: int,
+              weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multi-hot / count encoding of an id bag: (..., L) int ids ->
+    (..., num_classes) float32 on the ids' device. A negative id (a
+    padding slot) or one >= num_classes matches no class and adds
+    nothing; `weights` (..., L), when given, weigh each slot. Built as
+    the reference builds it, a one-hot sum over L, so the weighted sums
+    add in its order; fine at preprocessing vocabulary sizes (use an
+    Embedding table beyond a few thousand classes)."""
+    classes = torch.arange(int(num_classes), device=ids.device)
+    onehot = (ids.to(torch.int64)[..., None] == classes).to(torch.float32)
+    if weights is not None:
+        onehot = onehot * weights.to(ids.device, torch.float32)[..., None]
+    return torch.sum(onehot, dim=-2)
 
 
 def concat_with_offset(id_groups: Sequence[torch.Tensor],

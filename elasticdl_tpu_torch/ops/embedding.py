@@ -80,11 +80,12 @@ def sorted_stream(ids: torch.Tensor, ct: torch.Tensor):
 def _table_grad(ids: torch.Tensor, ct: torch.Tensor, num_rows: int,
                 dtype: torch.dtype) -> torch.Tensor:
     """Dense (num_rows, D) gradient of a gather at `ids` with cotangent
-    `ct` (..., D): the sorted stream, then K1."""
+    `ct` (..., D): the sorted stream, then K1 through its dispatcher op."""
     if ids.numel() == 0:
         return torch.zeros((num_rows, ct.shape[-1]), dtype=dtype,
                            device=ct.device)
-    d_table = placement.place_sorted_grads(*sorted_stream(ids, ct), num_rows)
+    d_table = placement.place_sorted_grads_op(*sorted_stream(ids, ct),
+                                             num_rows)
     return d_table.to(dtype)
 
 

@@ -45,7 +45,12 @@ The split computes the same function, so K2', K3' and K4' share K2's,
 K3's and K4's plain versions. The autograd Function's forward calls
 `flash_fwd` through the dispatcher op `edl::flash_fwd` (`flash_fwd_op`,
 with a fake rule), so `torch.export` traces it into a serving program
-that launches K2' or K2 (`training/export.export_saved_model`).
+that launches K2' or K2 (`training/export.export_saved_model`); its
+backward calls `flash_bwd` through `edl::flash_bwd` (`flash_bwd_op`).
+Each op has a FLOP formula (`torch.utils.flop_counter`), so a counter
+that sees the op and not its body (`Trainer.train_step_cost`) counts the
+same on the CPU, where the plain versions run, as on the card, where the
+kernels run behind ctypes (`attention_flops`).
 
 The reference transposes to (B, H, T, D) and lane-broadcasts lse to 128
 only because Mosaic tiles need it; neither is ported, and neither is its
@@ -60,6 +65,7 @@ import os
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from elasticdl_tpu_torch.ops import native
 
@@ -321,6 +327,29 @@ def _flash_fwd_fake(q, k, v, causal, q_offset, kv_offset):
             q.new_empty((b, h, tq), dtype=torch.float32))
 
 
+def attention_flops(q_shape, k_shape, backward: bool = False) -> int:
+    """The FLOPs of one launch's attention, forward or backward, over q
+    (B, Tq, H, D) and k (B, Tk, H, D): the work the reference's program
+    describes, whatever implements it. XLA counts its materialized
+    attention (EDL_FLASH=0) as 2 B H Tq Tk D a product: q.k^T and p.v
+    forward (4), dP = dO.v^T, dS.k, dS^T.q and p^T.dO backward (8); the
+    causal mask and the kernels' recompute of p do not count.
+
+    The count is per launch, at the launch's own Tq and Tk: a ring of n
+    blocks launches n^2 block pairs of (T/n)^2 that sum to the unsplit
+    count, as Ulysses' head groups sum to it over H. A schedule that
+    skips wholly masked block pairs (ROADMAP P10) must add the pairs it
+    skips, so that its count stays the unsplit one's."""
+    b, tq, h, d = q_shape
+    return (8 if backward else 4) * b * h * tq * k_shape[1] * d
+
+
+@register_flop_formula(torch.ops.edl.flash_fwd)
+def _flash_fwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs):
+    del args, out_shape, kwargs
+    return attention_flops(q_shape, k_shape)
+
+
 def _check_residuals(q, lse, g_lse):
     want = (q.shape[0], q.shape[2], q.shape[1])
     for name, t in (("lse", lse), ("g_lse", g_lse)):
@@ -472,6 +501,36 @@ def flash_bwd(q, k, v, out, dout, lse, g_lse=None, causal=True, q_offset=0,
     return dq, dk, dv
 
 
+@torch.library.custom_op("edl::flash_bwd", mutates_args=())
+def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                 g_lse: Optional[torch.Tensor], causal: bool, q_offset: int,
+                 kv_offset: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`flash_bwd` as the dispatcher op `edl::flash_bwd`, the backward's
+    boundary: a counter that sees the op and not its body counts its
+    formula, where the plain versions on the CPU would show it their
+    einsums (`_p_and_ds` twice) and the kernels on the card nothing.
+    Its body is `flash_bwd`, whose dQ, dK and dV come back contiguous,
+    as the kernels write them."""
+    return tuple(g.contiguous() for g in flash_bwd(
+        q, k, v, out, dout, lse, g_lse, causal, q_offset, kv_offset))
+
+
+@flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, out, dout, lse, g_lse, causal, q_offset,
+                    kv_offset):
+    del out, dout, lse, g_lse, causal, q_offset, kv_offset
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
+@register_flop_formula(torch.ops.edl.flash_bwd)
+def _flash_bwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs):
+    del args, out_shape, kwargs
+    return attention_flops(q_shape, k_shape, backward=True)
+
+
 def _library(name: str) -> ctypes.CDLL:
     lib = native.load(name)
     if getattr(lib, _KERNELS[name][0]).argtypes is None:
@@ -493,8 +552,9 @@ def _library(name: str) -> ctypes.CDLL:
 
 class _FlashAttention(torch.autograd.Function):
     """(out, lse) with the forward kernel and `flash_bwd`'s backward, both
-    routed by `_sm90`. An unused lse (the out-only `flash_attention`)
-    reaches the backward as None, which the kernels read as g_lse = 0.
+    routed by `_sm90` and each called through its dispatcher op. An
+    unused lse (the out-only `flash_attention`) reaches the backward as
+    None, which the kernels read as g_lse = 0.
 
     Under a non-reentrant `torch.utils.checkpoint` (the trainer's remat)
     the saved q, k, v, out and lse are dropped and the forward runs again
@@ -518,7 +578,8 @@ class _FlashAttention(torch.autograd.Function):
                  else g_out.contiguous())
         if g_lse is not None:
             g_lse = g_lse.to(torch.float32).contiguous()
-        dq, dk, dv = flash_bwd(q, k, v, out, g_out, lse, g_lse, *ctx.args)
+        dq, dk, dv = flash_bwd_op(q, k, v, out, g_out, lse, g_lse,
+                                  *ctx.args)
         return dq, dk, dv, None, None, None
 
 

@@ -21,6 +21,13 @@ fallback. On a CPU tensor it runs `place_sorted_grads_plain`.
 calls), so a run can show that its main path went through the kernels.
 The count is taken under a lock: the embedding tier's client pushes to
 its shards from a thread pool.
+
+The embedding backward calls it through the dispatcher op
+`edl::place_sorted_grads` (`place_sorted_grads_op`), the kernel's
+boundary for a counter that sees ops and not their bodies
+(`Trainer.train_step_cost`): a placement sums rows, so the op has no
+FLOP formula and counts none, and its bytes are the op's operands and
+result, on the CPU as on the card.
 """
 
 from __future__ import annotations
@@ -105,6 +112,21 @@ def place_sorted_grads(sorted_ids: torch.Tensor, rows: torch.Tensor,
     with _launches_lock:
         launches += PASSES
     return out
+
+
+@torch.library.custom_op("edl::place_sorted_grads", mutates_args=())
+def place_sorted_grads_op(sorted_ids: torch.Tensor, rows: torch.Tensor,
+                          num_rows: int) -> torch.Tensor:
+    """`place_sorted_grads` as the dispatcher op `edl::place_sorted_grads`:
+    its body is the wrapper, so it launches K1 on the card and runs the
+    plain version on the CPU."""
+    return place_sorted_grads(sorted_ids, rows, num_rows)
+
+
+@place_sorted_grads_op.register_fake
+def _place_sorted_grads_fake(sorted_ids, rows, num_rows):
+    del sorted_ids
+    return rows.new_empty((num_rows, rows.shape[1]), dtype=torch.float32)
 
 
 def _library() -> ctypes.CDLL:

@@ -91,7 +91,7 @@ def aval_signature(tree: Any) -> Tuple:
 
 class CompileCache:
     """Thread-safe LRU of built programs: `get_or_build` counts a hit or a
-    miss, `peek` looks up without counting."""
+    miss, `peek` and `contains` look up without counting."""
 
     def __init__(self, max_entries: int = DEFAULT_MAX_ENTRIES):
         self.max_entries = max(1, int(max_entries))
@@ -127,6 +127,11 @@ class CompileCache:
                 self._entries.move_to_end(key)
                 return self._entries[key]
             return None
+
+    def contains(self, key: Tuple) -> bool:
+        """Whether `key` has an entry; uncounted, the LRU order kept."""
+        with self._lock:
+            return key in self._entries
 
     def stats(self) -> Dict[str, float]:
         with self._lock:

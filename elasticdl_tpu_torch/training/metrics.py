@@ -185,6 +185,12 @@ def init_states(metrics: Dict[str, Metric]) -> Dict[str, np.ndarray]:
     return {k: m.init_state() for k, m in metrics.items()}
 
 
+def merge_states(a: Dict[str, Any], b: Dict[str, Any]) -> Dict[str, Any]:
+    """Cross-batch / cross-worker merge: plain elementwise sum over `a`'s
+    keys, as numpy."""
+    return {k: np.asarray(a[k]) + np.asarray(b[k]) for k in a}
+
+
 def results(metrics: Dict[str, Metric],
             states: Dict[str, Any]) -> Dict[str, float]:
     return {k: metrics[k].result(np.asarray(states[k])) for k in metrics}

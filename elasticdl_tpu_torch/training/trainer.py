@@ -70,6 +70,7 @@ routing. A weight of 0 skips all of it.
 
 from __future__ import annotations
 
+import copy
 import functools
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -86,8 +87,10 @@ from elasticdl_tpu_torch.common.log_utils import default_logger
 from elasticdl_tpu_torch.data.prefetch import tree_map
 from elasticdl_tpu_torch.parallel import mesh as mesh_lib
 from elasticdl_tpu_torch.parallel import pipeline
+from elasticdl_tpu_torch.training import compile_cache
 from elasticdl_tpu_torch.training import lr_modulation
 from elasticdl_tpu_torch.training import metrics as metrics_lib
+from elasticdl_tpu_torch.training import step_cost
 from elasticdl_tpu_torch.training.model_spec import ModelSpec
 
 logger = default_logger(__name__)
@@ -257,6 +260,43 @@ def _group_size(stacked: Dict[str, Any]) -> int:
     return int(leaf.shape[0])
 
 
+class _StateCopy:
+    """What a train step changes in a `TrainState`, copied, so that
+    `restore` puts the state back bit for bit: the parameters and their
+    gradients, the buffers, the optimizer's slots and hyperparameters,
+    the step and the generator's state."""
+
+    @torch.no_grad()
+    def __init__(self, state: TrainState):
+        self.params = {n: p.detach().clone() for n, p in state.params.items()}
+        self.grads = {n: p.grad for n, p in state.params.items()}
+        self.buffers = {n: b.clone() for n, b in state.buffers.items()}
+        opt = state.optimizer
+        self.slots = {p: copy.deepcopy(s) for p, s in opt.state.items()}
+        self.groups = [{k: copy.deepcopy(v) for k, v in g.items()
+                        if k != "params"} for g in opt.param_groups]
+        self.step = state.step
+        self.generator = state.generator.get_state()
+
+    @torch.no_grad()
+    def restore(self, state: TrainState) -> None:
+        for n, p in state.params.items():
+            p.copy_(self.params[n])
+            p.grad = self.grads[n]
+        for n, b in state.buffers.items():
+            b.copy_(self.buffers[n])
+        opt = state.optimizer
+        for p in [p for p in opt.state if p not in self.slots]:
+            del opt.state[p]
+        for p, slots in self.slots.items():
+            opt.state[p].clear()
+            opt.state[p].update(slots)
+        for group, saved in zip(opt.param_groups, self.groups):
+            group.update(saved)
+        state.step = self.step
+        state.generator.set_state(self.generator)
+
+
 def _check_mesh(mesh: mesh_lib.Mesh, partition) -> None:
     """Refuse what the port does not run under a mesh: a batch partition
     that does not lead with the data axis or that cuts a later dimension
@@ -322,6 +362,8 @@ class Trainer:
         self.metrics: Dict[str, metrics_lib.Metric] = (
             dict(spec.eval_metrics_fn()) if spec.eval_metrics_fn else {}
         )
+        # `train_step_cost`'s results by the (state, batch) signature
+        self._cost_cache: Dict[Tuple, Dict[str, float]] = {}
 
     # ------------------------------------------------------------------ #
     # Batches
@@ -577,6 +619,43 @@ class Trainer:
             state, logs = self.train_step(state, _unstack(stacked, i))
             losses.append(logs["loss"])
         return state, {"loss": torch.stack(losses)}
+
+    def train_step_cost(self, state: TrainState,
+                        batch: Dict[str, Any]) -> Dict[str, float]:
+        """{'flops', 'bytes accessed'} of ONE train step (`train_step`,
+        the body `train_many` runs K times) on `batch`, under the
+        trainer's knobs: the counterpart of the reference's cost analysis
+        of its lowered step. It runs that step once under
+        `training.step_cost.StepCost` and then puts `state` back as it
+        was, bit for bit: the parameters, their gradients, the buffers,
+        the optimizer's slots and hyperparameters, the step and the
+        generator. So it costs one step's time (on the card its kernels
+        launch and count in their `launches`) and a second copy of the
+        parameters and slots while it runs. Memoized by the (state,
+        batch) shapes and dtypes, as the reference's `_cost_cache` is.
+        Under a mesh it runs the step's collectives, so every rank calls
+        it, and counts this rank's part.
+
+        'flops' counts the products (matmuls, convolutions, attention) and
+        no elementwise op: the MFU numerator. The hand-written kernels
+        count by formula at their dispatcher ops, so it is the same on
+        the CPU as on the card. 'bytes accessed' counts each op's
+        operands and results once, before fusion, and so upper-bounds
+        the device memory traffic. See `training/step_cost.py`."""
+        features, labels, mask = self._device_batch(batch)
+        key = compile_cache.aval_signature(
+            (state.params, state.buffers, features, labels, mask))
+        if key not in self._cost_cache:
+            saved = _StateCopy(state)
+            try:
+                with step_cost.StepCost() as cost:
+                    self.train_step(state, {"features": features,
+                                            "labels": labels, "mask": mask})
+            finally:
+                saved.restore(state)
+            self._cost_cache[key] = {"flops": float(cost.flops),
+                                     "bytes accessed": float(cost.bytes)}
+        return dict(self._cost_cache[key])
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch, metric_states):

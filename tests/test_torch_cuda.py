@@ -9,9 +9,10 @@ and dense routes, the sequence-parallel ring in one process against
 unsplit attention (also over tensor-parallel head groups, each launch
 against its plain version), a ResNet-20 step (convolutions, BatchNorm), a device-mode
 embedding-tier store (K1 on every push), zoo callbacks whose pushed
-learning rate lands in the worker's optimizer on the card, and an LM's
-serving export, whose program launches K2' or K2. They skip where no
-CUDA device is present.
+learning rate lands in the worker's optimizer on the card, an LM's
+serving export, whose program launches K2' or K2, and `train_step_cost`,
+whose FLOPs on the card equal the CPU's. They skip where no CUDA device
+is present.
 
 This file imports torch and the port only, so it also runs on a GPU
 machine without JAX:
@@ -661,6 +662,56 @@ def _card_trainer(model_def, params, dtype, **knobs):
     return Trainer(ModelSpec.from_config(cfg), **knobs)  # device: the card
 
 
+def case_step_cost_on_the_card_matches_cpu(cuda):
+    """`Trainer.train_step_cost` on the card counts the FLOPs the CPU
+    counts for the same model and batch: the bf16 LM at D 64 (K2', K3',
+    K4' and the delta pass behind `edl::flash_fwd` and `edl::flash_bwd`)
+    and DeepFM (K1 behind `edl::place_sorted_grads`), under remat and
+    accumulation too. The call launches one step's kernels and leaves the
+    state bit-equal."""
+    r = np.random.RandomState(9)
+    toks = r.randint(0, 64, (4, 65)).astype(np.int32)
+    lm_batch = {"features": toks[:, :-1], "labels": toks[:, 1:],
+                "mask": np.ones((4,), np.float32)}
+    fm_batch = {"features": {
+        "dense": (r.rand(64, 13) * 20).astype(np.float32),
+        "cat": r.randint(0, 1 << 30, (64, 26)).astype(np.int32)},
+        "labels": r.randint(0, 2, (64,)).astype(np.int32)}
+    lm = ("transformer.transformer_lm.custom_model",
+          "vocab=64;num_layers=2;dim=128;heads=2;max_len=64")
+    fm = ("deepfm.deepfm.custom_model", "field_vocab=1000;hidden=32,32")
+    for (model_def, params), batch, knobs, launched in (
+            (lm, lm_batch, {}, {fa.FWD_SM90: 2, fa.BWD_DQ_SM90: 2,
+                                fa.BWD_DKV_SM90: 2, fa.BWD_DELTA_SM90: 2}),
+            (lm, lm_batch, {"remat": True, "grad_accum": 2},
+             {fa.FWD_SM90: 8, fa.BWD_DQ_SM90: 4, fa.BWD_DKV_SM90: 4,
+              fa.BWD_DELTA_SM90: 4}),
+            (fm, fm_batch, {}, {})):
+        counts = {}
+        for device in ("cuda", "cpu"):
+            tr = _card_trainer(model_def, params, "bfloat16",
+                               device=device, **knobs)
+            state = tr.init_state(batch)
+            tr.train_step(state, batch)
+            before = {n: p.detach().clone() for n, p in state.params.items()}
+            slots = {n: {k: v.clone() for k, v in state.optimizer.state[
+                p].items()} for n, p in state.params.items()}
+            flash, k1 = dict(fa.launches), placement.launches
+            counts[device] = tr.train_step_cost(state, batch)["flops"]
+            if device == "cuda":
+                torch.cuda.synchronize()
+                assert {k: n - flash[k] for k, n in fa.launches.items()
+                        if n != flash[k]} == launched, fa.launches
+                assert placement.launches - k1 == (
+                    0 if launched else placement.PASSES)
+            assert state.step == 1
+            for n, p in state.params.items():
+                assert torch.equal(p, before[n]), n
+                for k, v in slots[n].items():
+                    assert torch.equal(state.optimizer.state[p][k], v), n
+        assert counts["cuda"] == counts["cpu"] > 0, (model_def, counts)
+
+
 def case_lm_knobs_on_the_card(cuda):
     """The bf16 LM at D 64 on the card (K2', K3', K4', the delta pass):
     remat (`dots`, `nothing`) takes the same kernels on the same inputs,
@@ -1005,6 +1056,7 @@ def test_kernels_on_the_card(cuda, tmp_path):
     case_ring_on_the_card(cuda)
     case_ring_over_head_groups_on_the_card(cuda)
     case_lm_knobs_on_the_card(cuda)
+    case_step_cost_on_the_card_matches_cpu(cuda)
     case_grouped_deepfm_on_the_card(cuda)
     case_job_on_the_card(cuda, str(tmp_path))
     case_callbacks_lr_lands_on_the_card(cuda, str(tmp_path))
