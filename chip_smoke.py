@@ -13,9 +13,10 @@ configuration as a step and a job and its pipelined one as a step, its
 sequence-parallel ring and Ulysses schedules and its steps on a `seq`
 mesh, those schedules over tensor-parallel head groups and the MoE's
 routing over (data, seq) blocks (flash-attention
-kernels: for its bfloat16 D 64 attention the Hopper kernels K2', K3', K4'
-and the delta pass, which runs once a backward; K2, K3 and K4 for every
-other input, such as the float32 LM), the trainer's knobs (remat,
+kernels: for its bfloat16 attention at D 64, and at D 128 in the LM with
+128-wide heads, the Hopper kernels K2', K3', K4' and the delta pass, which
+runs once a backward; K2, K3 and K4 for every other input, such as the
+float32 LM), the trainer's knobs (remat,
 gradient accumulation, grouped steps) over both, and the elastic control
 loop over the DeepFM job (the autoscaler's decisions and its drain-first
 eviction, zoo callbacks, the hybrid multi-slice mesh), and the DeepFM job
@@ -62,26 +63,36 @@ caught):
 7. attn_kernel  the flash kernels against their plain versions on the
            card, each case through the routing wrappers (the forward, then
            the whole backward `flash_bwd`), which must take the Hopper
-           kernels for bf16 at D 64 and 128 (K4' at D 64 only; one delta
-           pass a backward) and K2-K4 elsewhere: at the LM's full shape (B8
-           T1024 H8, causal) in bf16 at D 64 and 128 and in float32 at
-           D 64; on small float32 cases at D 16 and their bf16 twins at
-           D 64 (offsets (32,0), (16,0), (64,32); not causal with Tq 32,
-           Tk 96 (bf16: Tq 100, Tk 230, tails); a fully masked geometry,
-           q_offset 0 and kv_offset 1024, where out and every gradient
-           must be 0 and finite; lse with a random g_lse). A second
-           backward must give the same bits. Every bf16 case on the Hopper
-           route also holds the delta pass to (dout . out).sum(-1) -
-           g_lse. Tolerances: float32 out, lse and delta 2e-5, gradients
-           5e-5 with atol 5e-5 of the largest value (the reference's own
-           for its kernel); bf16 rtol 2**-7 (one bf16 ulp: both sides
-           compute in float32 from the same inputs and round once) with
-           atol 1e-2 of the output's rms. Times at the bf16 full shape
-           (D 64) beside the bound and the scaled_dot_product_attention
-           (flash backend) yardstick, with K2, K3 and K4 timed on the same
-           bf16 inputs through their launchers, the Hopper kernels' device
-           times from torch.profiler, and the whole backward against
-           SDPA's backward in turns over 7 rounds.
+           kernels K2', K3' and K4' for bf16 at D 64 and 128 (one delta
+           pass a backward, no K2-K4) and K2-K4 elsewhere: at the LM's
+           full shape (B8 T1024 H8, causal) in bf16 at D 16, 64 and 128
+           and in float32 at D 64; on small float32 cases at D 16 and
+           their bf16 twins at D 64 (offsets (32,0), (16,0), (64,32); not
+           causal with Tq 32, Tk 96 (bf16: Tq 100, Tk 230, tails); a fully
+           masked geometry, q_offset 0 and kv_offset 1024, where out and
+           every gradient must be 0 and finite; lse with a random g_lse),
+           and bf16 twins at D 128 of the offsets (64,32), the tails, the
+           fully masked geometry and g_lse. A second backward must give
+           the same bits. Every bf16 case on the Hopper route also holds
+           the delta pass to (dout . out).sum(-1) - g_lse. Tolerances:
+           float32 out, lse and delta 2e-5, gradients 5e-5 with atol 5e-5
+           of the largest value (the reference's own for its kernel); bf16
+           rtol 2**-7 (one bf16 ulp: both sides compute in float32 from
+           the same inputs and round once) with atol 1e-2 of the output's
+           rms. Times at the bf16 full shape (D 64) beside the bound and
+           the scaled_dot_product_attention yardstick, with K2, K3 and K4
+           timed on the same bf16 inputs through their launchers, the
+           Hopper kernels' device times from torch.profiler, and the whole
+           backward against SDPA's backward in turns over 7 rounds. At
+           bf16 D 128 the same for K4' (alone and with the delta pass, its
+           device time, a bit-identical rerun) beside K4 through its
+           launcher and the whole backward against SDPA's. K2, K3 and K4
+           also on the inputs only they take, float32 at D 64 and bf16 at
+           D 16 (the zoo LM's default head dim), each against its plain
+           version's time and SDPA's forward or backward on the same
+           inputs. SDPA's backend is pinned and named: flash for bf16,
+           memory-efficient for float32 (flash takes no float32). Each
+           timing line carries the card's name and power limit.
 8. lm_parity  a small LM (vocab 64, 2 layers, dim 64, 4 heads, float32,
            T 32) on the card and on the CPU from the same weights: loss
            rtol 5e-5, every gradient rtol 5e-5 with atol 5e-5 of its
@@ -444,13 +455,22 @@ width and batch counts the same FLOPs, or the run fails.
 Every phase line carries `phase_wall_s`, the seconds since its phase
 began, and the `wall` line the list of each phase's wall in the order
 they ran.
+34. lm_train_d128 (after `lm_train`)  the LM at 9's width with 4 heads of
+           128 (`LM_D128_PARAMS`, bf16, 8 x 1024 random tokens): 6 train
+           steps (one warm-up), eval and predict, no profile and no step
+           cost. Losses must be finite and fall; K2', K3', K4' (its D 128
+           layout) and the delta pass must each launch 4 times in every
+           train step and K2-K4 never, and K2' 4 times in each of eval and
+           predict.
 Then the `kernels` line (K1's `launches` are the job's, with the
 `grouped`, `cohort_job`, `manual_shards`, `tier`, `autoscale_job`,
 `callbacks_job`, `hybrid_mesh`, `k8s_job` and `tools` phases' beside
 them; the Hopper kernels' are `lm_train`'s, with `lm_job`'s,
 `moe_train`'s, `pp_train`'s, `moe_job`'s, `ring_attn`'s,
-`seq_train`'s and `seq_mix`'s beside them, and K2''s `serve_export`'s),
-the nvidia-smi line, and last the `ok` line.
+`seq_train`'s and `seq_mix`'s beside them, and K2''s `serve_export`'s;
+K4' at D 128 is an entry of its own, `lm_train_d128`'s launches; K2-K4
+report float32 at D 64 first, with bf16 at D 16 and 64 (and K4 at 128)
+beside), the nvidia-smi line, and last the `ok` line.
 
 It exits non-zero without a result where CUDA is unavailable, and where
 the port's package is absent.
@@ -596,8 +616,9 @@ def k1_streams(dev):
 
 def device_ms(fn, names, calls=20):
     """{name: device ms a call} of each kernel whose symbol contains one of
-    `names`, from torch.profiler over `calls` calls of `fn` after one
-    warm-up; "not measured" where the profiler saw no device time."""
+    `names` (the name "" matches all the call's device work), from
+    torch.profiler over `calls` calls of `fn` after one warm-up; "not
+    measured" where the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -907,6 +928,7 @@ def step_cost(model, trainer, state, batch, step_ms, cpu_spec, smi,
 
 PALLAS = "elasticdl_tpu/ops/pallas_attention.py"
 CSRC = "elasticdl_tpu_torch/csrc"
+DKV128 = "flash_bwd_dkv_sm90<D=128>"
 # name: (source, the TPU kernel's pallas_call it replaces)
 ATTN_KERNELS = {
     "flash_fwd": (f"{CSRC}/flash_attention.cu", f"{PALLAS}:256"),
@@ -917,6 +939,9 @@ ATTN_KERNELS = {
     "flash_bwd_dkv": (f"{CSRC}/flash_attention.cu", f"{PALLAS}:433"),
     "flash_bwd_dkv_sm90": (f"{CSRC}/flash_attention_sm90.cu",
                            f"{PALLAS}:433"),
+    # K4' at D 128: the same wrapper and source, one consumer warpgroup a
+    # block
+    DKV128: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:433"),
     # the delta fold of both backward kernels (pallas_attention.py:302-307)
     "flash_bwd_delta_sm90": (f"{CSRC}/flash_attention_sm90.cu",
                              f"{PALLAS}:404"),
@@ -1002,10 +1027,10 @@ def over_tol(got, want, rtol, atol_of_max=0.0, atol_of_rms=0.0):
 def attn_bound(b, t, h, d, itemsize, kernel):
     """(bound ms, "operations" or "bytes") of one causal call at the full
     shape: FLOPs 4, 6 or 8 x B.H.T^2.D / 2 (forward, dQ, dK/dV; 14 for
-    the whole backward) at the bf16 peak, bytes of each input read once
-    and each output written once. K3' and K4' read delta where K3 and K4
-    read O; the delta pass does 2 B.T.H.D FLOPs on float32 (the CUDA
-    cores' peak)."""
+    the whole backward) at the bf16 peak (float32 inputs: the float32
+    peak), bytes of each input read once and each output written once.
+    K3' and K4' read delta where K3 and K4 read O; the delta pass does
+    2 B.T.H.D FLOPs on float32 (the CUDA cores' peak)."""
     act = b * t * h * d * itemsize
     rows = b * h * t * 4
     flops, moved, peak = {
@@ -1018,6 +1043,8 @@ def attn_bound(b, t, h, d, itemsize, kernel):
         "flash_bwd": (14, 5 * act + rows + 3 * act, BF16_FLOPS),
         "flash_bwd_delta_sm90": (0, 2 * act + rows, F32_FLOPS),
     }[kernel.replace("flash_fwd_sm90", "flash_fwd")]
+    if itemsize == 4:
+        peak = F32_FLOPS
     flops = (flops * b * h * t * t * d / 2 if flops
              else 2 * b * t * h * d)
     by_ops, by_bytes = flops / peak, moved / HBM_BYTES_PER_S
@@ -1039,12 +1066,15 @@ def phase_attn_kernel(dev):
     f32, bf16 = torch.float32, torch.bfloat16
     full = (LM_BATCH, LM_T, LM_T, 8, 64, bf16)
     small, twin = (2, 32, 32, 2, 16, f32), (2, 32, 32, 2, 64, bf16)
+    twin128 = twin[:4] + (128, bf16)
     cases = [  # name, (B, Tq, Tk, H, D, dtype), causal, q_off, kv_off, g_lse
         ("full_b8_t1024_h8_d64_bf16_causal", full, True, 0, 0, False),
         ("full_b8_t1024_h8_d128_bf16_causal", full[:4] + (128, bf16), True,
          0, 0, False),
         ("full_b8_t1024_h8_d64_f32_causal", full[:5] + (f32,), True, 0, 0,
          False),
+        ("full_b8_t1024_h8_d16_bf16_causal", full[:4] + (16, bf16), True,
+         0, 0, False),
         ("f32_offsets_32_0", small, True, 32, 0, False),
         ("f32_offsets_16_0", small, True, 16, 0, False),
         ("f32_offsets_64_32", small, True, 64, 32, False),
@@ -1059,6 +1089,13 @@ def phase_attn_kernel(dev):
          0, False),
         ("bf16_fully_masked_kv_offset_1024", twin, True, 0, 1024, False),
         ("bf16_lse_with_g_lse", (2, 64, 64, 2, 64, bf16), True, 0, 0, True),
+        ("bf16_d128_offsets_64_32", twin128, True, 64, 32, False),
+        ("bf16_d128_not_causal_tq100_tk230", (2, 100, 230, 2, 128, bf16),
+         False, 0, 0, False),
+        ("bf16_d128_fully_masked_kv_offset_1024", twin128, True, 0, 1024,
+         False),
+        ("bf16_d128_lse_with_g_lse", (2, 64, 64, 2, 128, bf16), True, 0, 0,
+         True),
     ]
     worst = {name: [0.0, 0.0] for name in ATTN_KERNELS}
     report = {}
@@ -1078,14 +1115,12 @@ def phase_attn_kernel(dev):
                if fa.launches[n] > before[n]}
         again = fa.flash_bwd(q, k, v, out, dout, lse, glse, *args)
         torch.cuda.synchronize()
-        hopper_fwd = fa._sm90(dtype, d)
-        hopper_dq = fa._sm90(dtype, d, fa.BWD_DQ_SM90)
-        hopper_dkv = fa._sm90(dtype, d, fa.BWD_DKV_SM90)
-        want_bwd = {fa.BWD_DQ_SM90 if hopper_dq else fa.BWD_DQ: 1,
-                    fa.BWD_DKV_SM90 if hopper_dkv else fa.BWD_DKV: 1}
-        if hopper_dq or hopper_dkv:
-            want_bwd[fa.BWD_DELTA_SM90] = 1
-        want_route = ([fa.FWD_SM90] if hopper_fwd else [fa.FWD], want_bwd)
+        # bf16 at D 64 and 128 takes the Hopper kernels, all of them
+        hopper = dtype == bf16 and d in (64, 128)
+        want_bwd = ({fa.BWD_DQ_SM90: 1, fa.BWD_DKV_SM90: 1,
+                     fa.BWD_DELTA_SM90: 1} if hopper
+                    else {fa.BWD_DQ: 1, fa.BWD_DKV: 1})
+        want_route = ([fa.FWD_SM90] if hopper else [fa.FWD], want_bwd)
         if (fwd, bwd) != want_route:
             raise AssertionError(f"{name}: launched {fwd} and {bwd}, the "
                                  f"route wants {want_route}")
@@ -1097,16 +1132,17 @@ def phase_attn_kernel(dev):
         is_f32 = dtype == f32
         out_tol = (2e-5, 2e-5) if is_f32 else bf16_tol
         grad_tol = (5e-5, 5e-5) if is_f32 else bf16_tol
+        dkv = (DKV128 if d == 128 else fa.BWD_DKV_SM90) if hopper \
+            else fa.BWD_DKV
         checks = {
             fwd[0]: [over_tol(out, want_out, *out_tol),
                      over_tol(lse, want_lse, 2e-5, 2e-5)],
-            (fa.BWD_DQ_SM90 if hopper_dq else fa.BWD_DQ):
+            (fa.BWD_DQ_SM90 if hopper else fa.BWD_DQ):
                 [over_tol(dq, want_dq, *grad_tol)],
-            (fa.BWD_DKV_SM90 if hopper_dkv else fa.BWD_DKV):
-                [over_tol(dk, want_dk, *grad_tol),
-                 over_tol(dv, want_dv, *grad_tol)],
+            dkv: [over_tol(dk, want_dk, *grad_tol),
+                  over_tol(dv, want_dv, *grad_tol)],
         }
-        if hopper_dq:
+        if hopper:
             delta = fa.flash_bwd_delta(out, dout, glse)
             checks[fa.BWD_DELTA_SM90] = [over_tol(
                 delta, fa.flash_bwd_delta_plain(out, dout, glse), 2e-5, 2e-5)]
@@ -1136,7 +1172,7 @@ def phase_attn_kernel(dev):
     return report, worst
 
 
-def attn_times(dev, report, worst):
+def attn_times(dev, report, worst, smi):
     """Every flash kernel at the bf16 full shape (D 64): K2' and K2, K3'
     and K4' (alone, and each with the delta pass) and K3 and K4 on the same
     inputs, through their launchers; K2, K3 and K4 are held to the plain
@@ -1196,7 +1232,7 @@ def attn_times(dev, report, worst):
                                                True, 0, 0, False),
                      plain_dkv),
     }
-    lib_fwd = sdpa_fwd_ms(q, k, v)
+    lib_fwd, _, lib_fwd_dev, _ = sdpa_ms(q, k, v, dout)
     bwd = whole_backward(q, k, v, out, dout, lse)
     result = {}
     for kernel, (run_kernel, run_plain) in calls.items():
@@ -1210,6 +1246,9 @@ def attn_times(dev, report, worst):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": (None if kernel == fa.BWD_DELTA_SM90
                            else lib_fwd if fwd else bwd["sdpa_ms"]),
+            "library_device_ms": (None if kernel == fa.BWD_DELTA_SM90
+                                  else lib_fwd_dev if fwd
+                                  else bwd["sdpa_device_ms"]),
             "library": (None if kernel == fa.BWD_DELTA_SM90 else
                         "scaled_dot_product_attention forward, flash backend"
                         if fwd else
@@ -1235,20 +1274,160 @@ def attn_times(dev, report, worst):
             < result[fa.BWD_DKV]["ms"],
         "whole_backward_under_sdpa": bwd["ms"] < bwd["sdpa_ms"],
     }
-    emit("attn_kernel", cases=report, timed_shape=[b, t, h, d],
+    for kernel in result:
+        result[kernel]["timed_on"] = f"bfloat16 B{b} T{t} H{h} D{d} causal"
+    served = {f"{str(dtype)[6:]}_d{dim}": served_times(dev, dtype, dim)
+              for dtype, dim in ((torch.float32, 64), (torch.bfloat16, 16))}
+    d128, k4_d128 = d128_times(dev, worst)
+    emit("attn_kernel", card=smi, cases=report, timed_shape=[b, t, h, d],
          timed_dtype="bfloat16", kernels=result, whole_backward=bwd,
-         faster=faster)
+         faster=faster, served=served, d128=d128, k4_d128=k4_d128)
+    # K2-K4 report the inputs they serve: float32 at D 64 first, with the
+    # rest and their bf16 D 64 times (K2', K3' and K4' take those) beside
+    for kernel in (fa.FWD, fa.BWD_DQ, fa.BWD_DKV):
+        on_bf16_d64 = result[kernel]
+        result[kernel] = {
+            **served["float32_d64"][kernel],
+            "max_abs_err": on_bf16_d64["max_abs_err"],
+            "err_over_tol": on_bf16_d64["err_over_tol"],
+            "on_bfloat16_d16": served["bfloat16_d16"][kernel],
+            "on_bfloat16_d64": {k: on_bf16_d64[k] for k in (
+                "ms", "bound_ms", "bound_by", "library_ms",
+                "library_device_ms")},
+        }
+    result[fa.BWD_DKV]["on_bfloat16_d128"] = k4_d128
+    result[DKV128] = d128
     return result
+
+
+def served_times(dev, dtype, d):
+    """K2, K3 and K4 at B8 T1024 H8 `d` causal in `dtype`, inputs that
+    only they take (`phase_attn_kernel` holds them to their plain versions
+    there): each one's ms through its launcher, its plain version's, the
+    bound and SDPA's forward or backward on the same inputs."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    b, t, h = LM_BATCH, LM_T, 8
+    q, k, v, dout, _ = attn_inputs(dev, b, t, t, h, d, dtype, 0)
+    out, lse = fa.launch_fwd(q, k, v, True, 0, 0, False)
+    calls = {   # kernel: (its launch, its plain version)
+        fa.FWD: (lambda: fa.launch_fwd(q, k, v, True, 0, 0, False),
+                 lambda: fa.flash_fwd_plain(q, k, v)),
+        fa.BWD_DQ: (lambda: fa.launch_bwd_dq(q, k, v, out, dout, lse, None,
+                                             True, 0, 0, False),
+                    lambda: fa.flash_bwd_dq_plain(q, k, v, out, dout, lse)),
+        fa.BWD_DKV: (lambda: fa.launch_bwd_dkv(q, k, v, out, dout, lse, None,
+                                               True, 0, 0, False),
+                     lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout,
+                                                    lse)),
+    }
+    lib_fwd, lib_bwd, lib_fwd_dev, lib_bwd_dev = sdpa_ms(q, k, v, dout)
+    backend = sdpa_backend(dtype)[1]
+    result = {}
+    for kernel, (run_kernel, run_plain) in calls.items():
+        bound_ms, bound_by = attn_bound(b, t, h, d, q.element_size(), kernel)
+        fwd = kernel == fa.FWD
+        result[kernel] = {
+            "timed_on": f"{str(dtype)[6:]} B{b} T{t} H{h} D{d} causal",
+            "ms": time_ms(run_kernel),
+            "plain_ms": time_ms(run_plain, groups=5, per_group=3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_fwd if fwd else lib_bwd,
+            "library_device_ms": lib_fwd_dev if fwd else lib_bwd_dev,
+            "library": (f"scaled_dot_product_attention forward, {backend} "
+                        "backend" if fwd else
+                        "scaled_dot_product_attention backward (dq, dk and "
+                        f"dv in one call), {backend} backend"),
+        }
+    return result
+
+
+def d128_times(dev, worst):
+    """K4' at D 128 (bf16 B8 T1024 H8, causal): held to its plain version
+    and to itself over two runs, its ms (CUDA events, alone and with the
+    delta pass), device ms (profiler), plain ms and bound beside SDPA's
+    backward (flash) on the same inputs, and the whole backward against
+    SDPA's in turns; and K4 on the same inputs through its launcher, held
+    to the plain version too. Returns (K4''s entry, K4's)."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, d = LM_BATCH, LM_T, 8, 128
+    q, k, v, dout, _ = attn_inputs(dev, b, t, t, h, d, torch.bfloat16, 0)
+    out, lse = fa.flash_fwd(q, k, v)
+    delta = fa.flash_bwd_delta(out, dout)
+    new = lambda: fa.launch_dkv_sm90(q, k, v, dout, lse, delta, True, 0, 0)
+    old = lambda: fa.launch_bwd_dkv(q, k, v, out, dout, lse, None, True, 0,
+                                    0, False)
+    plain = lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse)
+    (dk, dv), (dk2, dv2), (old_dk, old_dv) = new(), new(), old()
+    torch.cuda.synchronize()
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError("K4' at D 128 differs between two runs")
+    want_dk, want_dv = plain()
+    errs = {}
+    for kernel, (gk, gv) in ((DKV128, (dk, dv)), (fa.BWD_DKV,
+                                                  (old_dk, old_dv))):
+        results = [over_tol(gk, want_dk, *KERNEL_TOL),
+                   over_tol(gv, want_dv, *KERNEL_TOL)]
+        err, ratio = max(r[0] for r in results), max(r[1] for r in results)
+        if ratio > 1.0:
+            raise AssertionError(f"{kernel} disagrees with its plain version "
+                                 f"at bf16 D 128 ({ratio})")
+        errs[kernel] = (err, ratio)
+    worst[DKV128] = [max(worst[DKV128][0], errs[DKV128][0]),
+                     max(worst[DKV128][1], errs[DKV128][1])]
+    bwd = whole_backward(q, k, v, out, dout, lse)
+    bound_ms, bound_by = attn_bound(b, t, h, d, 2, fa.BWD_DKV_SM90)
+    k4_bound_ms, k4_bound_by = attn_bound(b, t, h, d, 2, fa.BWD_DKV)
+    symbol = f"{fa.BWD_DKV_SM90}_kernel"
+    entry = {
+        "timed_on": f"bfloat16 B{b} T{t} H{h} D{d} causal",
+        "max_abs_err": worst[DKV128][0], "err_over_tol": worst[DKV128][1],
+        "ms": time_ms(new),
+        "device_ms": device_ms(new, (symbol,))[symbol],
+        "ms_with_delta_pass": time_ms(lambda: fa.launch_bwd_dkv(
+            q, k, v, out, dout, lse, None, True, 0, 0, True)),
+        "plain_ms": time_ms(plain, groups=5, per_group=3),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": bwd["sdpa_ms"],
+        "library_device_ms": bwd["sdpa_device_ms"],
+        "library": "scaled_dot_product_attention backward (dq, dk and dv "
+                   f"in one call), {bwd['sdpa_backend']} backend",
+        "whole_backward": bwd,
+    }
+    k4 = {"timed_on": entry["timed_on"], "max_abs_err": errs[fa.BWD_DKV][0],
+          "err_over_tol": errs[fa.BWD_DKV][1], "ms": time_ms(old),
+          "bound_ms": k4_bound_ms, "bound_by": k4_bound_by,
+          "library_ms": bwd["sdpa_ms"],
+          "library_device_ms": bwd["sdpa_device_ms"],
+          "library": entry["library"]}
+    entry["faster"] = {
+        "k4_prime_under_k4": entry["ms"] < k4["ms"],
+        "k4_prime_with_delta_under_k4": entry["ms_with_delta_pass"]
+        < k4["ms"],
+        "whole_backward_under_sdpa": bwd["ms"] < bwd["sdpa_ms"]}
+    return entry, k4
+
+
+def sdpa_backend(dtype):
+    """The backend SDPA is pinned to as the yardstick, by dtype, and its
+    name: flash for bf16, memory-efficient for float32 (flash takes no
+    float32)."""
+    from torch.nn.attention import SDPBackend
+
+    if dtype == torch.float32:
+        return SDPBackend.EFFICIENT_ATTENTION, "memory-efficient"
+    return SDPBackend.FLASH_ATTENTION, "flash"
 
 
 def whole_backward(q, k, v, out, dout, lse, rounds=7):
     """The port's whole backward (`flash_bwd`: the delta pass, K3' and K4')
-    against SDPA's backward (flash backend, the same dq, dk and dv; the
-    port never calls it) on the same inputs, alternating the two over `rounds` rounds: each one's
-    median and spread (ms), its device time from the profiler, and the
-    bound of the whole backward."""
+    against SDPA's backward (`sdpa_backend`, the same dq, dk and dv; the
+    port never calls it) on the same inputs, alternating the two over
+    `rounds` rounds: each one's median and spread (ms), its device time
+    from the profiler, and the bound of the whole backward."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention import sdpa_kernel
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     b, t, h, d = q.shape
@@ -1256,7 +1435,8 @@ def whole_backward(q, k, v, out, dout, lse, rounds=7):
     qg, kg, vg = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
     dot = dout.transpose(1, 2).contiguous()
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+    backend, backend_name = sdpa_backend(q.dtype)
+    with sdpa_kernel(backend):
         o = sdpa(qg, kg, vg, is_causal=True)
         theirs = lambda: torch.autograd.grad(o, (qg, kg, vg), dot,
                                              retain_graph=True)
@@ -1265,6 +1445,10 @@ def whole_backward(q, k, v, out, dout, lse, rounds=7):
             for name, fn in (("ours", ours), ("sdpa", theirs),
                              ("sdpa", theirs), ("ours", ours)):
                 times[name].append(time_ms(fn, groups=5))
+        # the autograd call is host-bound on a shared host (on an H100 at
+        # B8 T1024 H8 D64 its events read 0.18 to 0.60 ms within one run);
+        # its device time is not
+        sdpa_dev = device_ms(theirs, ("",))[""]
     ours_dev = device_ms(ours, ("flash_bwd_delta_sm90_kernel",
                                 "flash_bwd_dq_sm90_kernel",
                                 "flash_bwd_dkv_sm90_kernel"))
@@ -1275,21 +1459,31 @@ def whole_backward(q, k, v, out, dout, lse, rounds=7):
         "ms_spread": [min(times["ours"]), max(times["ours"])],
         "sdpa_ms": statistics.median(times["sdpa"]),
         "sdpa_ms_spread": [min(times["sdpa"]), max(times["sdpa"])],
+        "sdpa_backend": backend_name, "sdpa_device_ms": sdpa_dev,
         "rounds": rounds, "device_ms": ours_dev,
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
 
 
-def sdpa_fwd_ms(q, k, v):
-    """ms of scaled_dot_product_attention's forward (flash backend,
-    causal) on the same inputs, in its (B, H, T, D) layout: the library
-    yardstick. The port never calls it."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+def sdpa_ms(q, k, v, dout):
+    """(forward ms, backward ms, forward device ms, backward device ms) of
+    scaled_dot_product_attention (causal, `sdpa_backend`) on the same
+    inputs, in its (B, H, T, D) layout: the library yardstick; the
+    backward computes dq, dk and dv in one call. The port never calls
+    it."""
+    from torch.nn.attention import sdpa_kernel
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        return time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = dout.transpose(1, 2).contiguous()
+    with sdpa_kernel(sdpa_backend(q.dtype)[0]):
+        run_fwd = lambda: sdpa(qt, kt, vt, is_causal=True)
+        o = run_fwd()
+        run_bwd = lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                              retain_graph=True)
+        return (time_ms(run_fwd), time_ms(run_bwd),
+                device_ms(run_fwd, ("",))[""], device_ms(run_bwd, ("",))[""])
 
 
 def lm_batch(seed, b=LM_BATCH, t=LM_T, vocab=LM_VOCAB):
@@ -2658,6 +2852,10 @@ LM_DEF = "transformer.transformer_lm.custom_model"
 MOE_EXPERTS, MOE_CAPACITY = 8, 1.25       # the layer's default capacity
 MOE_PARAMS = f"{LM_PARAMS};moe_experts={MOE_EXPERTS}"
 PP_PARAMS = f"{LM_PARAMS};pp_axis=pp;pp_microbatches=4;seq_parallel=none"
+# the LM's width with 4 heads of 128 (K4' at D 128), as public decoder LMs
+# shape their heads; train steps in all, the first a warm-up
+LM_D128_PARAMS = "vocab=8192;num_layers=4;dim=512;heads=4;max_len=1024"
+LM_D128_STEPS = 6
 
 
 def hopper_launches(steps, evals=0):
@@ -2692,10 +2890,10 @@ def routing_stats(trainer, state, batch):
     return [a for a, _ in seen], float(np.mean([d for _, d in seen]))
 
 
-def lm_variant_train(params, name, smi):
+def lm_variant_train(params, name, smi, steps=STEPS):
     """The bf16 LM variant `params` at `lm_train`'s width and batch: a
-    warm-up step, then STEPS timed train steps, eval and predict; returns
-    (trainer, state, the fields to emit, its flash launches)."""
+    warm-up step, then `steps` timed train steps, eval and predict;
+    returns (trainer, state, the fields to emit, its flash launches)."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
     from elasticdl_tpu_torch.training.trainer import Trainer
 
@@ -2714,13 +2912,13 @@ def lm_variant_train(params, name, smi):
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    for _ in range(STEPS):
+    for _ in range(steps):
         state, logs = trainer.train_step(state, batch)
         losses.append(logs["loss"])
     end.record()
     end.synchronize()
     host_s = time.perf_counter() - t0
-    step_ms = start.elapsed_time(end) / STEPS
+    step_ms = start.elapsed_time(end) / steps
     train = dict(fa.launches)
     reset_launches()
     metric_states = trainer.eval_step(state, batch,
@@ -2732,9 +2930,9 @@ def lm_variant_train(params, name, smi):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{name} losses not finite and falling: "
                              f"{losses}")
-    if train != hopper_launches(STEPS + 1) or forward != hopper_launches(
+    if train != hopper_launches(steps + 1) or forward != hopper_launches(
             0, evals=2):
-        raise AssertionError(f"{name}: flash launches {train} in {STEPS + 1}"
+        raise AssertionError(f"{name}: flash launches {train} in {steps + 1}"
                              f" train steps, {forward} in eval and predict")
     if tuple(preds.shape) != (LM_BATCH, LM_T, LM_VOCAB) or not bool(
             torch.isfinite(preds).all()):
@@ -2742,12 +2940,12 @@ def lm_variant_train(params, name, smi):
                              "not finite")
     fields = dict(
         card=smi, params=params, batch=[LM_BATCH, LM_T],
-        compute_dtype="bfloat16", steps=STEPS, losses=losses,
+        compute_dtype="bfloat16", steps=steps, losses=losses,
         first_loss=losses[0], last_loss=losses[-1], step_ms=step_ms,
-        host_step_ms=host_s * 1e3 / STEPS,
+        host_step_ms=host_s * 1e3 / steps,
         tokens_per_s=LM_BATCH * LM_T / (step_ms / 1e3),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-        launches_per_step={k: v / (STEPS + 1) for k, v in train.items()
+        launches_per_step={k: v / (steps + 1) for k, v in train.items()
                            if v},
         eval=trainer.metric_results(metric_states))
     launches = {k: train[k] + forward[k] for k in train}
@@ -2829,6 +3027,18 @@ def moe_layer_routes(smi):
                 one_hot_product_gflop=onehot_flops / 1e9,
                 ffn_bound_ms=ffn_flops / F32_FLOPS * 1e3,
                 worst_grad_err_over_tol=worst, card=smi)
+
+
+def phase_lm_train_d128(smi):
+    """The LM at `lm_train`'s width with 128-wide heads (LM_D128_PARAMS):
+    a warm-up step and LM_D128_STEPS - 1 timed train steps, eval and
+    predict, as `lm_variant_train` holds them: finite falling losses, K2',
+    K3', K4' (at D 128) and the delta pass 4 times a train step and K2-K4
+    never. Returns the flash kernels' launches."""
+    _, _, _, fields, launches = lm_variant_train(
+        LM_D128_PARAMS, "lm_train_d128", smi, steps=LM_D128_STEPS - 1)
+    emit("lm_train_d128", **fields, head_dim=LM_DIM // 4)
+    return launches
 
 
 def phase_moe_train(smi):
@@ -5192,19 +5402,25 @@ def main():
     hopper = ((0, "flash_fwd_sm90_kernel", 64),
               (0, "flash_fwd_sm90_kernel", 128),
               (1, "flash_bwd_dkv_sm90_kernel", 64),
+              (1, "flash_bwd_dkv_sm90_kernel", 128),
               (2, "flash_bwd_dq_sm90_kernel", 64),
               (2, "flash_bwd_dq_sm90_kernel", 128))
     shared = {f"{name}<D={d}>": sm90.flash_sm90_shared_bytes(which, d)
               for which, name, d in hopper}
+    ptxas = {k: ptxas_summary(v["log"]) for k, v in built.items()}
     emit("build", seconds=seconds,
          kernels={k: {"path": os.path.relpath(v["path"], REPO),
-                      "seconds": v["seconds"],
-                      "ptxas": ptxas_summary(v["log"])}
+                      "seconds": v["seconds"], "ptxas": ptxas[k]}
                   for k, v in built.items()},
          hgmma=hgmma, dynamic_shared_bytes=shared)
     for kernel in shared:
         if not hgmma.get(kernel):
             raise AssertionError(f"{kernel} has no HGMMA instruction")
+    # K4' at D 128 is laid out so that ptxas spills nothing
+    dkv128 = ptxas[fa.LIBRARY_SM90].get("flash_bwd_dkv_sm90_kernel<D=128>",
+                                        "")
+    if "0 bytes spill stores, 0 bytes spill loads" not in dkv128:
+        raise AssertionError(f"K4' at D 128 spills: {dkv128!r}")
     PHASE_WALLS.append(["build", time.perf_counter() - t0])
 
     k1 = timed("kernel", phase_kernel, dev)
@@ -5212,12 +5428,13 @@ def main():
     manual_shard_launches = timed("manual_shards", phase_manual_shards,
                                   dev, smi)
     report, worst = timed("attn_kernel", phase_attn_kernel, dev)
-    attn = timed("attn_times", attn_times, dev, report, worst)
+    attn = timed("attn_times", attn_times, dev, report, worst, smi)
     ring_launches = timed("ring_attn", phase_ring_attn, dev, smi)
     timed("parity", phase_parity)
     f32_lm_launches = timed("lm_parity", phase_lm_parity)
     launches = timed("train", phase_train, smi)
     lm_launches = timed("lm_train", phase_lm_train, smi)
+    d128_launches = timed("lm_train_d128", phase_lm_train_d128, smi)
     seq_launches, unsplit_losses = timed("seq_train", phase_seq_train, smi)
     seq_mix_launches = timed("seq_mix", phase_seq_mix, dev, smi,
                              unsplit_losses)
@@ -5312,7 +5529,8 @@ def main():
                      else lm_launches[name]),
         "launches_in": "lm_parity" if name in f32_lm else "lm_train",
         **({} if name in f32_lm else
-           {"lm_job_launches": lm_job_launches[name],
+           {"lm_train_d128_launches": d128_launches[name],
+            "lm_job_launches": lm_job_launches[name],
             "moe_train_launches": moe_launches[name],
             "pp_train_launches": pp_launches[name],
             "moe_job_launches": moe_job_launches[name],
@@ -5324,8 +5542,16 @@ def main():
            if name == fa.FWD_SM90 else {}),
         **attn[name],
     } for name in (fa.FWD, fa.FWD_SM90, fa.BWD_DQ, fa.BWD_DQ_SM90,
-                   fa.BWD_DKV, fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90)]}),
-          flush=True)
+                   fa.BWD_DKV, fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90)] + [{
+        "name": DKV128,
+        "route": "cuda",
+        "source": ATTN_KERNELS[DKV128][0],
+        "replaces": ATTN_KERNELS[DKV128][1],
+        # K4' launches at D 128 come from the LM with 128-wide heads only
+        "launches": d128_launches[fa.BWD_DKV_SM90],
+        "launches_in": "lm_train_d128",
+        **attn[DKV128],
+    }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,8 @@
 // `_flash_bwd`), the Pallas TPU kernels behind every attention of the
 // transformer LM, for the inputs the tensor-core kernels of
 // csrc/flash_attention_sm90.cu do not take: float32 at any head dim, and
-// bfloat16 at head dims other than 64 (other than 64 and 128 for K2).
-// bfloat16 at D 64, the LM's attention, runs K2', K3' and K4' there.
+// bfloat16 at head dims other than 64 and 128. bfloat16 at D 64 (the
+// LM's attention) and D 128 runs K2', K3' and K4' there.
 //
 // Contract (see ops/flash_attention.py): q (B, Tq, H, D), k and v
 // (B, Tk, H, D), out and dout like q, all float32 or all bfloat16, read in

@@ -1,6 +1,6 @@
-// Flash attention on Hopper's tensor cores: the forward (K2') and dQ (K3')
-// for bfloat16 with D = 64 or 128, dK/dV (K4') for bfloat16 with D = 64,
-// and the pass that writes the delta K3' and K4' read.
+// Flash attention on Hopper's tensor cores: the forward (K2'), dQ (K3') and
+// dK/dV (K4') for bfloat16 with D = 64 or 128, and the pass that writes the
+// delta K3' and K4' read.
 //
 // Replaces, for those inputs, elasticdl_tpu/ops/pallas_attention.py
 // `_fwd_kernel` (`pallas_call` at 256), `_bwd_dq_kernel` (`pallas_call` at
@@ -34,18 +34,24 @@
 //   float32 product the reference forms, at twice the tensor work of those
 //   four products.
 // - Blocks. Two consumer warpgroups of 64 rows each (q rows in K2' and
-//   K3', kv rows in K4') and one producer warp, which brings the streamed
-//   tiles (K, V in K2' and K3'; Q, dO in K4') in by TMA, 64 rows a tile,
-//   into a ring of kStages stages guarded by full/empty mbarriers. Tiles
-//   land with the 128-byte swizzle the wgmma descriptors read; D = 64 bf16
-//   is one 128-byte row, D = 128 two such column blocks. Tails past T come
-//   as zeros from TMA's out-of-bounds fill and are masked.
-// - Registers. ptxas gives 168 a thread to a block of this size. K2'
+//   K3', kv rows in K4'; K4' at D 128 has one) and one producer warp,
+//   which brings the streamed tiles (K, V in K2' and K3'; Q, dO in K4') in
+//   by TMA, 64 rows a tile, into a ring of kStages stages guarded by
+//   full/empty mbarriers. Tiles land with the 128-byte swizzle the wgmma
+//   descriptors read; D = 64 bf16 is one 128-byte row, D = 128 two such
+//   column blocks. Tails past T come as zeros from TMA's out-of-bounds
+//   fill and are masked.
+// - Registers. ptxas gives 168 a thread to a block of 288 threads. K2'
 //   needs ~2 x 32 (D 64) or 32 + 64 (D 128) floats of accumulators, K3'
 //   3 x 32 (D 64) or 2 x 32 + 64 (D 128), K4' at D 64 4 x 32; all of these
-//   fit. K4' at D 128 would need 2 x 64 + 2 x 32 beside the split
-//   fragments and spills, so it is not built: bfloat16 at D 128 takes K4
-//   for dK/dV.
+//   fit (K4' at D 64 with 4 bytes of spill). K4' at D 128 holds 2 x 64
+//   (dK, dV) + 2 x 32 (S^T, dP^T, then their split fragments), which
+//   spills at 168, also in a 384-thread block whose producer warpgroup
+//   gives registers to the consumers with setmaxnreg: ptxas still
+//   allocates 168. So K4' at D 128 runs one
+//   consumer warpgroup of 64 kv rows and the producer warp, 160 threads,
+//   for which ptxas allows 255 a thread (it takes 253, no spill), over
+//   twice the blocks.
 // - K2'. S = Q.K^T (shared-memory A and B, both K-major) into registers;
 //   the online softmax runs on the accumulator's own layout (a thread holds
 //   two rows, quad shuffles reduce them); p goes straight into register A
@@ -58,12 +64,12 @@
 //   accumulator layout; dQ += dS.K with dS as split register A fragments
 //   and K MN-major through the transpose bit, as V in K2''s P.V. dQ times
 //   the scale is rounded to bf16 once; each row has one writer.
-// - K4'. A block owns 128 kv rows (K, V loaded once) and walks the q tiles
-//   from the first one the causal mask lets through. S^T = K.Q^T and
-//   dP^T = V.dO^T on wgmma; p^T = exp(s^T - lse), ds^T = p^T (dp^T - delta);
-//   dV += P^T.dO and dK += dS^T.Q with split A operands; dK and dV stay in
-//   registers and each output row has one writer: no atomics, runs are
-//   bit-reproducible.
+// - K4'. A block owns 128 kv rows (64 at D 128; K, V loaded once) and
+//   walks the q tiles from the first one the causal mask lets through.
+//   S^T = K.Q^T and dP^T = V.dO^T on wgmma; p^T = exp(s^T - lse),
+//   ds^T = p^T (dp^T - delta); dV += P^T.dO and dK += dS^T.Q with split A
+//   operands; dK and dV stay in registers and each output row has one
+//   writer: no atomics, runs are bit-reproducible.
 // - delta = rowsum(dO . O) - g_lse is computed once a row by
 //   flash_bwd_delta_sm90, once a backward, and read by both K3' and K4'
 //   (K3 and K4 recompute it from O in every block).
@@ -343,13 +349,14 @@ __device__ __forceinline__ int kv_rows_seen(int q_hi, int Tk, int q_off,
   return static_cast<int>(max(0LL, min(static_cast<long long>(Tk), last + 1)));
 }
 
-__device__ __forceinline__ void init_barriers(uint64_t* bars) {
+__device__ __forceinline__ void init_barriers(uint64_t* bars,
+                                              int consumers = kConsumers) {
   // bars[0]: the block's resident tiles; then kStages full, kStages empty
   mbar_init(&bars[0], 1);
 #pragma unroll
   for (int s = 0; s < kStages; ++s) {
     mbar_init(&bars[1 + s], 1);
-    mbar_init(&bars[1 + kStages + s], 4 * kConsumers);  // a warp each
+    mbar_init(&bars[1 + kStages + s], 4 * consumers);  // a warp each
   }
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
@@ -579,9 +586,19 @@ flash_bwd_delta_sm90_kernel(const __nv_bfloat16* __restrict__ o,
 
 // ------------------------------------------------------------------ K4'
 
+// K4''s consumer warpgroups of 64 kv rows each: two at D 64, as in K2' and
+// K3'; one at D 128, where the block's 160 threads may take 255 registers
+// a thread (see Registers above). One producer warp either way.
+template <int kD>
+struct DkvShape {
+  static constexpr int kConsumers = kD == 64 ? 2 : 1;
+  static constexpr int kThreads = 128 * kConsumers + 32;
+  static constexpr int kRows = 64 * kConsumers;
+};
+
 template <int kD>
 struct DkvLayout {
-  static constexpr int kKVBytes = kBlockRows * kD * 2;
+  static constexpr int kKVBytes = DkvShape<kD>::kRows * kD * 2;
   static constexpr int kTileBytes = kTileRows * kD * 2;
   static constexpr int kBytes = 1024 + 2 * kKVBytes +
                                 2 * kStages * kTileBytes +
@@ -590,7 +607,7 @@ struct DkvLayout {
 };
 
 template <int kD>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(DkvShape<kD>::kThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
@@ -602,8 +619,10 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           Strides sdv, int H, int Tq, int Tk, int q_off,
                           int kv_off, bool causal, float scale) {
   using L = DkvLayout<kD>;
+  using S = DkvShape<kD>;
+  constexpr int kBlockRows = S::kRows;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* ksm = align_1024(smem_raw);            // kD/64 blocks [128][64]
+  uint8_t* ksm = align_1024(smem_raw);            // kD/64 blocks [rows][64]
   uint8_t* vsm = ksm + L::kKVBytes;
   uint8_t* qs = vsm + L::kKVBytes;                // [stage] kD/64 [64][64]
   uint8_t* dos = qs + kStages * L::kTileBytes;
@@ -627,12 +646,12 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int n_tiles = (Tq - i_start + kTileRows - 1) / kTileRows;
   const long long lse_row = static_cast<long long>(blockIdx.y) * Tq;
 
-  if (threadIdx.x == 0) init_barriers(bars);
+  if (threadIdx.x == 0) init_barriers(bars, S::kConsumers);
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
-  if (wg == kConsumers) {  // the producer warp, all 32 lanes
+  if (wg == S::kConsumers) {  // the producer warp, all 32 lanes
     if (n_tiles == 0) return;
     if (lane == 0) {
       mbar_expect_tx(kv_bar, 2 * L::kKVBytes);
@@ -1047,10 +1066,11 @@ cudaError_t run_fwd(const Args& a) {
 
 template <int kD>
 cudaError_t run_dkv(const Args& a) {
+  using S = DkvShape<kD>;
   CUtensorMap mq, mk, mv, mdo;
   if (!make_map(&mq, a.q, a.at(0), a.B, a.Tq, a.H, kD, kTileRows) ||
-      !make_map(&mk, a.k, a.at(1), a.B, a.Tk, a.H, kD, kBlockRows) ||
-      !make_map(&mv, a.v, a.at(2), a.B, a.Tk, a.H, kD, kBlockRows) ||
+      !make_map(&mk, a.k, a.at(1), a.B, a.Tk, a.H, kD, S::kRows) ||
+      !make_map(&mv, a.v, a.at(2), a.B, a.Tk, a.H, kD, S::kRows) ||
       !make_map(&mdo, a.dout, a.at(3), a.B, a.Tq, a.H, kD, kTileRows)) {
     return cudaErrorInvalidValue;
   }
@@ -1058,8 +1078,8 @@ cudaError_t run_dkv(const Args& a) {
   constexpr int smem = DkvLayout<kD>::kBytes;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Tk + kBlockRows - 1) / kBlockRows, a.B * a.H);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
+  const dim3 grid((a.Tk + S::kRows - 1) / S::kRows, a.B * a.H);
+  kernel<<<grid, S::kThreads, smem, a.stream>>>(
       mq, mk, mv, mdo, static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.out0),
       static_cast<__nv_bfloat16*>(a.out1), a.at(4), a.at(5), a.H, a.Tq, a.Tk,
@@ -1105,8 +1125,8 @@ cudaError_t run_delta(const Args& a) {
 
 typedef cudaError_t (*Run)(const Args&);
 
-// `d64` for bfloat16 (dtype code 1) at D 64, `d128` at D 128 where there is
-// one; anything else is refused.
+// `d64` for bfloat16 (dtype code 1) at D 64, `d128` at D 128; anything else
+// is refused.
 int dispatch(int dtype, const Args& a, Run d64, Run d128) {
   Run run = nullptr;
   if (dtype == 1 && a.D == 64) run = d64;
@@ -1126,7 +1146,7 @@ extern "C" {
 // Each launcher enqueues one kernel on `stream` and returns its
 // cudaError_t (0 on success). `strides` holds the (b, t, h) element
 // strides of the tensors in argument order. dtype must be 1 (bfloat16) and
-// D 64 (or 128, for all but K4').
+// D 64 or 128.
 
 int flash_fwd_sm90(int dtype, const void* q, const void* k, const void* v,
                    void* out, void* lse, const long long* strides, int B,
@@ -1160,7 +1180,7 @@ int flash_bwd_dkv_sm90(int dtype, const void* q, const void* k, const void* v,
   const Args a{q, k, v, nullptr, dout, lse, nullptr, delta,
                dk, dv, strides, B, H, Tq, Tk, D, q_off, kv_off,
                causal != 0, scale_of(D), static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, a, run_dkv<64>, nullptr);
+  return dispatch(dtype, a, run_dkv<64>, run_dkv<128>);
 }
 
 // dQ from q, k, v, dout, lse and the delta pass's output. Strides: q, k, v,
@@ -1184,6 +1204,7 @@ int flash_sm90_shared_bytes(int kernel, int D) {
   if (kernel == 0 && D == 64) return FwdLayout<64>::kBytes;
   if (kernel == 0 && D == 128) return FwdLayout<128>::kBytes;
   if (kernel == 1 && D == 64) return DkvLayout<64>::kBytes;
+  if (kernel == 1 && D == 128) return DkvLayout<128>::kBytes;
   if (kernel == 2 && D == 64) return DqLayout<64>::kBytes;
   if (kernel == 2 && D == 128) return DqLayout<128>::kBytes;
   return -1;

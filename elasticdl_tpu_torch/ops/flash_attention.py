@@ -9,8 +9,8 @@ Counterpart of `elasticdl_tpu/ops/pallas_attention.py`:
 
 Two CUDA C++ sources hold the kernels (see the notes in each):
 - `csrc/flash_attention_sm90.cu`, on Hopper's tensor cores (`wgmma`, TMA):
-  K2' `flash_fwd_sm90` and K3' `flash_bwd_dq_sm90` for bfloat16 at D 64
-  and 128, K4' `flash_bwd_dkv_sm90` at D 64, and the delta pass
+  K2' `flash_fwd_sm90`, K3' `flash_bwd_dq_sm90` and K4'
+  `flash_bwd_dkv_sm90` for bfloat16 at D 64 and 128, and the delta pass
   `flash_bwd_delta_sm90` that K3' and K4' read (`_sm90`): the LM's
   attention;
 - `csrc/flash_attention.cu`, float32 FMAs on the CUDA cores: K2, K3 and K4
@@ -77,7 +77,7 @@ BWD_DQ_SM90, BWD_DELTA_SM90 = "flash_bwd_dq_sm90", "flash_bwd_delta_sm90"
 launches = {FWD: 0, BWD_DQ: 0, BWD_DKV: 0, FWD_SM90: 0, BWD_DQ_SM90: 0,
             BWD_DKV_SM90: 0, BWD_DELTA_SM90: 0}
 _SM90_HEAD_DIMS = {FWD_SM90: (64, 128), BWD_DQ_SM90: (64, 128),
-                   BWD_DKV_SM90: (64,)}
+                   BWD_DKV_SM90: (64, 128)}
 _KERNELS = {LIBRARY: (FWD, BWD_DQ, BWD_DKV),
             LIBRARY_SM90: (FWD_SM90, BWD_DQ_SM90, BWD_DKV_SM90,
                            BWD_DELTA_SM90)}
@@ -228,9 +228,8 @@ def _on_card(x: torch.Tensor) -> bool:
 
 def _sm90(dtype, d, kernel: str = FWD_SM90) -> bool:
     """True where the Hopper kernel `kernel` takes the inputs: bfloat16
-    with head dim 64 or 128 for K2' (`FWD_SM90`) and K3' (`BWD_DQ_SM90`),
-    64 for K4' (`BWD_DKV_SM90`): at 128 its dK and dV accumulators (2 x 64
-    floats a thread) would spill. K3' and K4' read the delta pass."""
+    with head dim 64 or 128 for K2' (`FWD_SM90`), K3' (`BWD_DQ_SM90`) and
+    K4' (`BWD_DKV_SM90`). K3' and K4' read the delta pass."""
     return dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS[kernel]
 
 
@@ -407,8 +406,8 @@ def launch_dq_sm90(q, k, v, dout, lse, delta, causal, q_offset, kv_offset):
 
 def flash_bwd_dkv(q, k, v, out, dout, lse, g_lse=None, causal=True,
                   q_offset=0, kv_offset=0):
-    """K4 (the delta pass, then K4', for bfloat16 at D 64): (dK, dV) in
-    k's and v's dtypes."""
+    """K4 (the delta pass, then K4', for bfloat16 at D 64 or 128): (dK,
+    dV) in k's and v's dtypes."""
     _validate(q, k, v, out, dout)
     _check_residuals(q, lse, g_lse)
     if not _on_card(q):

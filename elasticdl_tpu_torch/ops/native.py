@@ -55,6 +55,10 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _log_path(library: Path) -> Path:
+    return library.with_name(f"{library.name}.log")
+
+
 def _start_build(name: str):
     out = library_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -69,14 +73,16 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
     """Compile every named kernel that has no current build, one `nvcc`
     per source, all started together. Returns {name: {"path", "seconds",
     "log"}} ("log" holds the compiler's output, register and spill counts
-    included; "seconds" is 0 for a build that was already current).
-    Raises if any compile fails."""
+    included, and is kept beside the library for a build that was already
+    current, whose "seconds" is 0). Raises if any compile fails."""
     t0 = time.perf_counter()
     started, report = {}, {}
     for name in names:
         path = library_path(name)
         if path.is_file():
-            report[name] = {"path": str(path), "seconds": 0.0, "log": ""}
+            log = _log_path(path)
+            report[name] = {"path": str(path), "seconds": 0.0,
+                            "log": log.read_text() if log.is_file() else ""}
         else:
             started[name] = _start_build(name)
     failures = []
@@ -86,6 +92,7 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
             tmp.unlink(missing_ok=True)
             failures.append(f"{' '.join(cmd)}\n{log}")
             continue
+        _log_path(out).write_text(log)
         os.replace(tmp, out)
         report[name] = {"path": str(out),
                         "seconds": time.perf_counter() - t0, "log": log}

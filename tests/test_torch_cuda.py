@@ -387,8 +387,8 @@ def case_flash_fully_masked_is_zero(cuda):
                 assert bool((g == 0).all())
 
 
-def case_flash_is_deterministic_and_counts_launches(cuda):
-    q, k, v, dout, glse = _attn_inputs(cuda, 2, 256, 256, 4, 64,
+def case_flash_is_deterministic_and_counts_launches(cuda, d):
+    q, k, v, dout, glse = _attn_inputs(cuda, 2, 256, 256, 4, d,
                                        torch.bfloat16, seed=1)
     before = dict(fa.launches)
     outs = []
@@ -396,12 +396,64 @@ def case_flash_is_deterministic_and_counts_launches(cuda):
         out, lse = fa.flash_fwd(q, k, v)
         outs.append((out, lse,
                      *fa.flash_bwd(q, k, v, out, dout, lse, glse)))
-    route = _route(torch.bfloat16, 64)
+    route = _route(torch.bfloat16, d)
     assert route[fa.FWD_SM90] and route[fa.BWD_DQ_SM90]
     assert route[fa.BWD_DKV_SM90] and route[fa.BWD_DELTA_SM90] == 1
     assert fa.launches == {n: before[n] + 2 * route[n] for n in before}
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+def case_k4_prime_at_d128_matches_k4_and_plain(cuda):
+    """K4' at D 128 (one consumer warpgroup a block) against K4, the
+    CUDA-core kernel it replaces there, and against the plain version, on
+    the same inputs (causal with the lse cotangent, and at offsets with
+    tails): each within the bf16 tolerance of the plain version and of
+    each other."""
+    for tq, tk, q_off, kv_off, with_glse in ((256, 256, 0, 0, True),
+                                             (200, 130, 70, 0, False)):
+        q, k, v, dout, glse = _attn_inputs(cuda, 2, tq, tk, 3, 128,
+                                           torch.bfloat16, seed=4)
+        glse = glse if with_glse else None
+        args = (True, q_off, kv_off)
+        out, lse = fa.flash_fwd(q, k, v, *args)
+        before = dict(fa.launches)
+        new = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args, True)
+        old = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args, False)
+        torch.cuda.synchronize()
+        assert {n: fa.launches[n] - before[n] for n in before
+                if fa.launches[n] != before[n]} == {
+            fa.BWD_DELTA_SM90: 1, fa.BWD_DKV_SM90: 1, fa.BWD_DKV: 1}
+        want = fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse, glse, *args)
+        for name, a, b, w in zip(("dk", "dv"), new, old, want):
+            _close(a, w, f"K4' {name}", *BF16)
+            _close(b, w, f"K4 {name}", *BF16)
+            _close(a, b, f"K4' against K4, {name}", *BF16)
+
+
+def case_bf16_lm_with_128_wide_heads_runs_k4_prime(cuda):
+    """A bf16 LM step with 128-wide heads (dim 256, 2 heads) on the card:
+    K2', K3', K4' and the delta pass once a layer and K2-K4 never, with a
+    finite loss and finite gradients."""
+    r = np.random.RandomState(10)
+    toks = r.randint(0, 64, (4, 65)).astype(np.int32)
+    batch = {"features": toks[:, :-1], "labels": toks[:, 1:],
+             "mask": np.ones((4,), np.float32)}
+    tr = _card_trainer("transformer.transformer_lm.custom_model",
+                       "vocab=64;num_layers=2;dim=256;heads=2;max_len=64",
+                       "bfloat16")
+    state = tr.init_state(batch)
+    before = dict(fa.launches)
+    loss, grads = tr.compute_grads(state, batch)
+    torch.cuda.synchronize()
+    layers = 2
+    assert {n: fa.launches[n] - before[n] for n in before} == {
+        **{n: 0 for n in before}, fa.FWD_SM90: layers,
+        fa.BWD_DQ_SM90: layers, fa.BWD_DKV_SM90: layers,
+        fa.BWD_DELTA_SM90: layers}
+    assert np.isfinite(float(loss))
+    for n, g in grads.items():
+        assert bool(torch.isfinite(g).all()), n
 
 
 def case_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -1045,7 +1097,10 @@ def test_kernels_on_the_card(cuda, tmp_path):
                                        True, 0, 0, True, views=True)
     case_full_attention_takes_the_kernels_at_any_length(cuda)
     case_flash_fully_masked_is_zero(cuda)
-    case_flash_is_deterministic_and_counts_launches(cuda)
+    for d in (64, 128):
+        case_flash_is_deterministic_and_counts_launches(cuda, d)
+    case_k4_prime_at_d128_matches_k4_and_plain(cuda)
+    case_bf16_lm_with_128_wide_heads_runs_k4_prime(cuda)
     case_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda)
     case_hopper_wrapper_rejects_strides_tma_cannot_take(cuda)
     case_lm_grads_on_the_card_match_cpu(cuda)

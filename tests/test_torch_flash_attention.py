@@ -59,7 +59,7 @@ def _port_value_and_grads(q, k, v, causal, q_off=0, kv_off=0, with_lse=False,
 
 
 def _ref_value_and_grads(q, k, v, causal, q_off=0, kv_off=0, with_lse=False,
-                         w_lse=None):
+                         w_lse=None, block=16):
     """Reference Pallas kernels in interpret mode, forward and backward in
     one call."""
 
@@ -67,12 +67,12 @@ def _ref_value_and_grads(q, k, v, causal, q_off=0, kv_off=0, with_lse=False,
         if with_lse:
             out, lse = jflash.flash_attention_lse(
                 q, k, v, causal=causal, q_offset=q_off, kv_offset=kv_off,
-                block_q=16, block_k=16, interpret=True)
+                block_q=block, block_k=block, interpret=True)
             return (jnp.sum(out ** 2) + jnp.sum(jnp.sin(lse) * w_lse),
                     (out, lse))
         out = jflash.flash_attention(
             q, k, v, causal=causal, q_offset=q_off, kv_offset=kv_off,
-            block_q=16, block_k=16, interpret=True)
+            block_q=block, block_k=block, interpret=True)
         return jnp.sum(out ** 2), (out, None)
 
     (_, (out, lse)), grads = jax.value_and_grad(
@@ -88,6 +88,27 @@ def case_forward_and_backward_against_the_kernel(causal):
     np.testing.assert_allclose(out, want_out, **F32)
     for name, g, w in zip("qkv", grads, want_grads):
         np.testing.assert_allclose(g, w, err_msg=f"d{name}", **GRAD)
+
+
+def case_head_dim_128_backward_against_the_kernel():
+    """Head dim 128, the width K4' takes on the card in its one-warpgroup
+    layout: the port's forward and all three gradients (on the CPU the
+    plain versions the card's kernels are held to) against the
+    interpret-mode kernels at B1 T128 H2 D128 with 64-row blocks, causal
+    and at offsets (64, 32), with the lse cotangent live. Tolerances as
+    at D 16: out and lse 2e-5, gradients 5e-5."""
+    r = np.random.RandomState(15)
+    q, k, v = (r.randn(1, 128, 2, 128).astype(np.float32) for _ in range(3))
+    w = r.randn(1, 2, 128).astype(np.float32)
+    for q_off, kv_off in ((0, 0), (64, 32)):
+        got = _port_value_and_grads(q, k, v, True, q_off, kv_off,
+                                    with_lse=True, w_lse=w)
+        want = _ref_value_and_grads(q, k, v, True, q_off, kv_off,
+                                    with_lse=True, w_lse=w, block=64)
+        np.testing.assert_allclose(got[0], want[0], **F32)
+        np.testing.assert_allclose(got[1], want[1], **F32)
+        for name, g, wg in zip("qkv", got[2], want[2]):
+            np.testing.assert_allclose(g, wg, err_msg=f"d{name}", **GRAD)
 
 
 def case_offsets_position_the_causal_mask():
@@ -267,9 +288,9 @@ def case_materialized_path_matches_the_reference(dtype):
 
 
 def case_hopper_route_by_dtype_and_head_dim():
-    """`_sm90` decides the route before any launch: K2' and K3' take
-    bfloat16 at D 64 and 128, K4' bfloat16 at D 64 (K3' and K4' read the
-    delta pass); everything else goes to the CUDA-core kernels."""
+    """`_sm90` decides the route before any launch: K2', K3' and K4' take
+    bfloat16 at D 64 and 128 (K3' and K4' read the delta pass); everything
+    else goes to the CUDA-core kernels."""
     for dtype in (torch.bfloat16, torch.float32):
         for d in (16, 64, 100, 128, 256):
             bf16 = dtype == torch.bfloat16
@@ -277,7 +298,7 @@ def case_hopper_route_by_dtype_and_head_dim():
             assert tflash._sm90(dtype, d, tflash.BWD_DQ_SM90) == (
                 bf16 and d in (64, 128))
             assert tflash._sm90(dtype, d, tflash.BWD_DKV_SM90) == (
-                bf16 and d == 64)
+                bf16 and d in (64, 128))
 
 
 def case_whole_backward_is_the_single_wrappers():
@@ -338,6 +359,7 @@ def test_flash_attention_against_the_reference():
         mp.delenv("EDL_FLASH", raising=False)
         for causal in (True, False):
             case_forward_and_backward_against_the_kernel(causal)
+        case_head_dim_128_backward_against_the_kernel()
         case_offsets_position_the_causal_mask()
         case_fully_masked_block_is_zero_with_finite_zero_grads()
         case_row_fully_masked_inside_a_live_tile_is_zero()
