@@ -15,8 +15,9 @@ mesh, those schedules over tensor-parallel head groups and the MoE's
 routing over (data, seq) blocks (flash-attention
 kernels: for its bfloat16 attention at D 64, and at D 128 in the LM with
 128-wide heads, the Hopper kernels K2', K3', K4' and the delta pass, which
-runs once a backward; K2, K3 and K4 for every other input, such as the
-float32 LM), the trainer's knobs (remat,
+runs once a backward; at D 16 and 32, in the LMs with 16- and 32-wide
+heads, K2', K4' and the delta pass with K3 for dQ; K2, K3 and K4 for every
+other input, such as the float32 LM), the trainer's knobs (remat,
 gradient accumulation, grouped steps) over both, and the elastic control
 loop over the DeepFM job (the autoscaler's decisions and its drain-first
 eviction, zoo callbacks, the hybrid multi-slice mesh), and the DeepFM job
@@ -36,7 +37,10 @@ caught):
            with ptxas's registers and spills for each kernel, the dynamic
            shared memory each Hopper kernel's launch asks for, and the
            HGMMA (wgmma) instructions in each kernel's SASS (`cuobjdump
-           --dump-sass`): K2', K3' and K4' must have some.
+           --dump-sass`): K2' and K4' at D 16, 32, 64 and 128 and K3' at
+           64 and 128 must have some; K4' at D 128 and K2' and K4' at D
+           16 and 32 must spill nothing; the delta pass must be built at
+           D 16, 32, 64 and 128.
 3. kernel  K1 (`place_sorted_grads`) against its plain version on the card
            over the DeepFM shape (uniform hashed ids, D=17 and 16), a
            stream with 30% of its slots on one id, one with all of them on
@@ -64,15 +68,18 @@ caught):
            card, each case through the routing wrappers (the forward, then
            the whole backward `flash_bwd`), which must take the Hopper
            kernels K2', K3' and K4' for bf16 at D 64 and 128 (one delta
-           pass a backward, no K2-K4) and K2-K4 elsewhere: at the LM's
-           full shape (B8 T1024 H8, causal) in bf16 at D 16, 64 and 128
-           and in float32 at D 64; on small float32 cases at D 16 and
+           pass a backward, no K2-K4), K2', K4' and one delta pass with K3
+           for bf16 at D 16 and 32 (no K2, K4 or K3'), and K2-K4
+           elsewhere: at the LM's full shape (B8 T1024 H8, causal) in
+           bf16 at D 16, 32, 64 and 128 and in float32 at D 64; on small
+           float32 cases at D 16 and
            their bf16 twins at D 64 (offsets (32,0), (16,0), (64,32); not
            causal with Tq 32, Tk 96 (bf16: Tq 100, Tk 230, tails); a fully
            masked geometry, q_offset 0 and kv_offset 1024, where out and
            every gradient must be 0 and finite; lse with a random g_lse),
-           and bf16 twins at D 128 of the offsets (64,32), the tails, the
-           fully masked geometry and g_lse. A second backward must give
+           and bf16 twins at D 128, 16 and 32 of the offsets (64,32), the
+           tails, the fully masked geometry and g_lse. A second backward
+           must give
            the same bits. Every bf16 case on the Hopper route also holds
            the delta pass to (dout . out).sum(-1) - g_lse. Tolerances:
            float32 out, lse and delta 2e-5, gradients 5e-5 with atol 5e-5
@@ -86,13 +93,19 @@ caught):
            backward against SDPA's backward in turns over 7 rounds. At
            bf16 D 128 the same for K4' (alone and with the delta pass, its
            device time, a bit-identical rerun) beside K4 through its
-           launcher and the whole backward against SDPA's. K2, K3 and K4
-           also on the inputs only they take, float32 at D 64 and bf16 at
-           D 16 (the zoo LM's default head dim), each against its plain
-           version's time and SDPA's forward or backward on the same
-           inputs. SDPA's backend is pinned and named: flash for bf16,
-           memory-efficient for float32 (flash takes no float32). Each
-           timing line carries the card's name and power limit.
+           launcher and the whole backward against SDPA's. At bf16 D 16
+           (the zoo LM's default head dim) and 32 the same for K2' and K4'
+           (each held to its plain version and rerun bit-identical; ms,
+           device ms, plain ms, bound; K4' also with the delta pass) beside
+           K2 and K4 through their launchers, SDPA's device time and the
+           whole backward (the delta pass, K3, K4') against SDPA's. K2, K3
+           and K4 also on the inputs they take, float32 at D 64, and bf16
+           at D 16 and 32 (K3 for dQ; K2 and K4 through their launchers),
+           each against its plain version's time and SDPA's forward or
+           backward on the same inputs. SDPA's backend is pinned and
+           named: flash for bf16, memory-efficient for float32 (flash
+           takes no float32). Each timing line carries the card's name
+           and power limit.
 8. lm_parity  a small LM (vocab 64, 2 layers, dim 64, 4 heads, float32,
            T 32) on the card and on the CPU from the same weights: loss
            rtol 5e-5, every gradient rtol 5e-5 with atol 5e-5 of its
@@ -462,15 +475,26 @@ they ran.
            layout) and the delta pass must each launch 4 times in every
            train step and K2-K4 never, and K2' 4 times in each of eval and
            predict.
+35. lm_train_d16, lm_train_d32 (after `lm_train_d128`)  the LM at 9's
+           width with 32 heads of 16 (`LM_D16_PARAMS`; D 16 is the head
+           dim of the zoo LM's default configuration) and with 16 heads of
+           32 (`LM_D32_PARAMS`), bf16, 8 x 1024 random tokens: 6 train
+           steps (one warm-up), eval and predict, as 34. Losses must be
+           finite and fall; K2', K4' (at the narrow D), the delta pass and
+           K3 must each launch 4 times in every train step and K2, K4 and
+           K3' never, and K2' 4 times in each of eval and predict.
 Then the `kernels` line (K1's `launches` are the job's, with the
 `grouped`, `cohort_job`, `manual_shards`, `tier`, `autoscale_job`,
 `callbacks_job`, `hybrid_mesh`, `k8s_job` and `tools` phases' beside
 them; the Hopper kernels' are `lm_train`'s, with `lm_job`'s,
 `moe_train`'s, `pp_train`'s, `moe_job`'s, `ring_attn`'s,
 `seq_train`'s and `seq_mix`'s beside them, and K2''s `serve_export`'s;
-K4' at D 128 is an entry of its own, `lm_train_d128`'s launches; K2-K4
-report float32 at D 64 first, with bf16 at D 16 and 64 (and K4 at 128)
-beside), the nvidia-smi line, and last the `ok` line.
+K4' at D 128 is an entry of its own, `lm_train_d128`'s launches, and so
+are K2' and K4' at D 16 and 32, `lm_train_d16`'s and `lm_train_d32`'s;
+K2-K4 report float32 at D 64 first, with bf16 at D 16, 32 and 64 (and K4
+at 128) beside, K3 and the delta pass also their launches in
+`lm_train_d16` and `lm_train_d32`), the nvidia-smi line, and last the
+`ok` line.
 
 It exits non-zero without a result where CUDA is unavailable, and where
 the port's package is absent.
@@ -929,6 +953,10 @@ def step_cost(model, trainer, state, batch, step_ms, cpu_spec, smi,
 PALLAS = "elasticdl_tpu/ops/pallas_attention.py"
 CSRC = "elasticdl_tpu_torch/csrc"
 DKV128 = "flash_bwd_dkv_sm90<D=128>"
+# K2' and K4' at the narrow head dims, entries of their own
+FWD16, FWD32 = "flash_fwd_sm90<D=16>", "flash_fwd_sm90<D=32>"
+DKV16, DKV32 = "flash_bwd_dkv_sm90<D=16>", "flash_bwd_dkv_sm90<D=32>"
+NARROW = {16: (FWD16, DKV16), 32: (FWD32, DKV32)}
 # name: (source, the TPU kernel's pallas_call it replaces)
 ATTN_KERNELS = {
     "flash_fwd": (f"{CSRC}/flash_attention.cu", f"{PALLAS}:256"),
@@ -942,6 +970,12 @@ ATTN_KERNELS = {
     # K4' at D 128: the same wrapper and source, one consumer warpgroup a
     # block
     DKV128: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:433"),
+    # K2' and K4' at D 16 and 32: the same wrappers and source, 32- and
+    # 64-byte swizzled rows, N 16 and 32 products into O, dK and dV
+    FWD16: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:256"),
+    FWD32: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:256"),
+    DKV16: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:433"),
+    DKV32: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:433"),
     # the delta fold of both backward kernels (pallas_attention.py:302-307)
     "flash_bwd_delta_sm90": (f"{CSRC}/flash_attention_sm90.cu",
                              f"{PALLAS}:404"),
@@ -1096,7 +1130,19 @@ def phase_attn_kernel(dev):
          False),
         ("bf16_d128_lse_with_g_lse", (2, 64, 64, 2, 128, bf16), True, 0, 0,
          True),
+        ("full_b8_t1024_h8_d32_bf16_causal", full[:4] + (32, bf16), True,
+         0, 0, False),
     ]
+    for d in (16, 32):       # the D 128 cases' twins at the narrow widths
+        cases += [
+            (f"bf16_d{d}_offsets_64_32", twin[:4] + (d, bf16), True, 64, 32,
+             False),
+            (f"bf16_d{d}_not_causal_tq100_tk230", (2, 100, 230, 2, d, bf16),
+             False, 0, 0, False),
+            (f"bf16_d{d}_fully_masked_kv_offset_1024", twin[:4] + (d, bf16),
+             True, 0, 1024, False),
+            (f"bf16_d{d}_lse_with_g_lse", (2, 64, 64, 2, d, bf16), True, 0,
+             0, True)]
     worst = {name: [0.0, 0.0] for name in ATTN_KERNELS}
     report = {}
     bf16_tol = (2 ** -7, 0.0, 1e-2)     # rtol, atol of max, of rms
@@ -1115,12 +1161,15 @@ def phase_attn_kernel(dev):
                if fa.launches[n] > before[n]}
         again = fa.flash_bwd(q, k, v, out, dout, lse, glse, *args)
         torch.cuda.synchronize()
-        # bf16 at D 64 and 128 takes the Hopper kernels, all of them
-        hopper = dtype == bf16 and d in (64, 128)
-        want_bwd = ({fa.BWD_DQ_SM90: 1, fa.BWD_DKV_SM90: 1,
-                     fa.BWD_DELTA_SM90: 1} if hopper
-                    else {fa.BWD_DQ: 1, fa.BWD_DKV: 1})
-        want_route = ([fa.FWD_SM90] if hopper else [fa.FWD], want_bwd)
+        # bf16 takes K2' and K4' at D 16, 32, 64 and 128, K3' at D 64 and
+        # 128 (K3 at D 16 and 32), with one delta pass a backward
+        hopper = fa._sm90(dtype, d)
+        hopper_dq = fa._sm90(dtype, d, fa.BWD_DQ_SM90)
+        want_route = (
+            [fa.FWD_SM90 if hopper else fa.FWD],
+            {fa.BWD_DQ_SM90 if hopper_dq else fa.BWD_DQ: 1,
+             **({fa.BWD_DKV_SM90: 1, fa.BWD_DELTA_SM90: 1} if hopper
+                else {fa.BWD_DKV: 1})})
         if (fwd, bwd) != want_route:
             raise AssertionError(f"{name}: launched {fwd} and {bwd}, the "
                                  f"route wants {want_route}")
@@ -1132,12 +1181,17 @@ def phase_attn_kernel(dev):
         is_f32 = dtype == f32
         out_tol = (2e-5, 2e-5) if is_f32 else bf16_tol
         grad_tol = (5e-5, 5e-5) if is_f32 else bf16_tol
-        dkv = (DKV128 if d == 128 else fa.BWD_DKV_SM90) if hopper \
-            else fa.BWD_DKV
+        # each kernel's entry on the `kernels` line: K2' and K4' at D 16
+        # and 32, and K4' at D 128, have entries of their own
+        fwd_entry, dkv = fwd[0], fa.BWD_DKV_SM90 if hopper else fa.BWD_DKV
+        if hopper and d in NARROW:
+            fwd_entry, dkv = NARROW[d]
+        elif hopper and d == 128:
+            dkv = DKV128
         checks = {
-            fwd[0]: [over_tol(out, want_out, *out_tol),
-                     over_tol(lse, want_lse, 2e-5, 2e-5)],
-            (fa.BWD_DQ_SM90 if hopper else fa.BWD_DQ):
+            fwd_entry: [over_tol(out, want_out, *out_tol),
+                        over_tol(lse, want_lse, 2e-5, 2e-5)],
+            (fa.BWD_DQ_SM90 if hopper_dq else fa.BWD_DQ):
                 [over_tol(dq, want_dq, *grad_tol)],
             dkv: [over_tol(dk, want_dk, *grad_tol),
                   over_tol(dv, want_dv, *grad_tol)],
@@ -1277,13 +1331,21 @@ def attn_times(dev, report, worst, smi):
     for kernel in result:
         result[kernel]["timed_on"] = f"bfloat16 B{b} T{t} H{h} D{d} causal"
     served = {f"{str(dtype)[6:]}_d{dim}": served_times(dev, dtype, dim)
-              for dtype, dim in ((torch.float32, 64), (torch.bfloat16, 16))}
+              for dtype, dim in ((torch.float32, 64), (torch.bfloat16, 16),
+                                 (torch.bfloat16, 32))}
     d128, k4_d128 = d128_times(dev, worst)
+    narrow = {}
+    for dim in NARROW:
+        narrow.update(narrow_times(dev, worst, dim,
+                                   served[f"bfloat16_d{dim}"]))
     emit("attn_kernel", card=smi, cases=report, timed_shape=[b, t, h, d],
          timed_dtype="bfloat16", kernels=result, whole_backward=bwd,
-         faster=faster, served=served, d128=d128, k4_d128=k4_d128)
+         faster=faster, served=served, d128=d128, k4_d128=k4_d128,
+         narrow=narrow)
     # K2-K4 report the inputs they serve: float32 at D 64 first, with the
-    # rest and their bf16 D 64 times (K2', K3' and K4' take those) beside
+    # rest and their bf16 D 64 times (K2', K3' and K4' take those) beside;
+    # on bf16 D 16 and 32 K3 serves dQ, and K2 and K4 are timed there
+    # beside K2' and K4'
     for kernel in (fa.FWD, fa.BWD_DQ, fa.BWD_DKV):
         on_bf16_d64 = result[kernel]
         result[kernel] = {
@@ -1291,12 +1353,83 @@ def attn_times(dev, report, worst, smi):
             "max_abs_err": on_bf16_d64["max_abs_err"],
             "err_over_tol": on_bf16_d64["err_over_tol"],
             "on_bfloat16_d16": served["bfloat16_d16"][kernel],
+            "on_bfloat16_d32": served["bfloat16_d32"][kernel],
             "on_bfloat16_d64": {k: on_bf16_d64[k] for k in (
                 "ms", "bound_ms", "bound_by", "library_ms",
                 "library_device_ms")},
         }
     result[fa.BWD_DKV]["on_bfloat16_d128"] = k4_d128
     result[DKV128] = d128
+    result.update(narrow)
+    return result
+
+
+def narrow_times(dev, worst, d, served):
+    """K2' and K4' at D `d` (16 or 32; bf16 B8 T1024 H8, causal): each held
+    to its plain version and to itself over two runs; its ms (CUDA events;
+    K4' also with the delta pass), device ms (profiler), plain ms and
+    bound beside K2 or K4 through its launcher on the same inputs
+    (`served`, from `served_times`) and SDPA's device time (flash); and
+    the whole backward (the delta pass, K3 and K4') against SDPA's in
+    turns. Returns {entry name: its fields}."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    b, t, h = LM_BATCH, LM_T, 8
+    q, k, v, dout, _ = attn_inputs(dev, b, t, t, h, d, torch.bfloat16, 0)
+    out, lse = fa.flash_fwd(q, k, v)
+    delta = fa.flash_bwd_delta(out, dout)
+    fwd_name, dkv_name = NARROW[d]
+    calls = {   # entry: (its launch, its plain version, its symbol, K2/K4)
+        fwd_name: (lambda: fa.launch_fwd(q, k, v, True, 0, 0, True),
+                   lambda: fa.flash_fwd_plain(q, k, v),
+                   f"{fa.FWD_SM90}_kernel", fa.FWD),
+        dkv_name: (lambda: fa.launch_dkv_sm90(q, k, v, dout, lse, delta,
+                                              True, 0, 0),
+                   lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse),
+                   f"{fa.BWD_DKV_SM90}_kernel", fa.BWD_DKV),
+    }
+    bwd = whole_backward(q, k, v, out, dout, lse)
+    result = {}
+    for name, (run_kernel, run_plain, symbol, old) in calls.items():
+        got, again = run_kernel(), run_kernel()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{name} differs between two runs")
+        want = run_plain()
+        results = [over_tol(g, w, *KERNEL_TOL) for g, w in zip(got, want)]
+        if name == fwd_name:            # lse: float32 on both sides
+            results[1] = over_tol(got[1], want[1], 2e-5, 2e-5)
+        err, ratio = max(r[0] for r in results), max(r[1] for r in results)
+        if ratio > 1.0:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at bf16 D {d} ({ratio})")
+        worst[name] = [max(worst[name][0], err), max(worst[name][1], ratio)]
+        fwd = name == fwd_name
+        was = "k2" if fwd else "k4"     # the CUDA-core kernel it replaces
+        bound_ms, bound_by = attn_bound(
+            b, t, h, d, 2, fa.FWD_SM90 if fwd else fa.BWD_DKV_SM90)
+        entry = result[name] = {
+            "timed_on": f"bfloat16 B{b} T{t} H{h} D{d} causal",
+            "max_abs_err": worst[name][0], "err_over_tol": worst[name][1],
+            "ms": time_ms(run_kernel),
+            "device_ms": device_ms(run_kernel, (symbol,))[symbol],
+            "plain_ms": time_ms(run_plain, groups=5, per_group=3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": served[old]["library_ms"] if fwd
+            else bwd["sdpa_ms"],
+            "library_device_ms": served[old]["library_device_ms"] if fwd
+            else bwd["sdpa_device_ms"],
+            "library": served[old]["library"],
+            f"{was}_ms": served[old]["ms"],
+        }
+        entry["faster"] = {f"{was}_prime_under_{was}":
+                           entry["ms"] < served[old]["ms"]}
+        if not fwd:
+            entry["ms_with_delta_pass"] = time_ms(lambda: fa.launch_bwd_dkv(
+                q, k, v, out, dout, lse, None, True, 0, 0, True))
+            entry["whole_backward"] = bwd
+            entry["faster"]["whole_backward_under_sdpa"] = \
+                bwd["ms"] < bwd["sdpa_ms"]
     return result
 
 
@@ -1421,9 +1554,9 @@ def sdpa_backend(dtype):
 
 
 def whole_backward(q, k, v, out, dout, lse, rounds=7):
-    """The port's whole backward (`flash_bwd`: the delta pass, K3' and K4')
-    against SDPA's backward (`sdpa_backend`, the same dq, dk and dv; the
-    port never calls it) on the same inputs, alternating the two over
+    """The port's whole backward (`flash_bwd`: the delta pass, K3' or K3,
+    and K4') against SDPA's backward (`sdpa_backend`, the same dq, dk and
+    dv; the port never calls it) on the same inputs, alternating the two over
     `rounds` rounds: each one's median and spread (ms), its device time
     from the profiler, and the bound of the whole backward."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
@@ -1449,8 +1582,10 @@ def whole_backward(q, k, v, out, dout, lse, rounds=7):
         # B8 T1024 H8 D64 its events read 0.18 to 0.60 ms within one run);
         # its device time is not
         sdpa_dev = device_ms(theirs, ("",))[""]
-    ours_dev = device_ms(ours, ("flash_bwd_delta_sm90_kernel",
-                                "flash_bwd_dq_sm90_kernel",
+    # the backward's kernels by the route: K3' or K3 for dQ
+    dq = ("flash_bwd_dq_sm90_kernel"
+          if fa._sm90(q.dtype, d, fa.BWD_DQ_SM90) else "flash_bwd_dq_kernel")
+    ours_dev = device_ms(ours, ("flash_bwd_delta_sm90_kernel", dq,
                                 "flash_bwd_dkv_sm90_kernel"))
     bound_ms, bound_by = attn_bound(b, t, h, d, q.element_size(),
                                     "flash_bwd")
@@ -2856,18 +2991,39 @@ PP_PARAMS = f"{LM_PARAMS};pp_axis=pp;pp_microbatches=4;seq_parallel=none"
 # shape their heads; train steps in all, the first a warm-up
 LM_D128_PARAMS = "vocab=8192;num_layers=4;dim=512;heads=4;max_len=1024"
 LM_D128_STEPS = 6
+# the same width with 32 heads of 16, the head dim of the zoo LM's default
+# configuration (dim 128, 8 heads), and with 16 heads of 32 (K2' and K4'
+# at D 16 and 32, K3 for dQ)
+LM_D16_PARAMS = "vocab=8192;num_layers=4;dim=512;heads=32;max_len=1024"
+LM_D32_PARAMS = "vocab=8192;num_layers=4;dim=512;heads=16;max_len=1024"
+LM_NARROW_STEPS = 6
 
 
-def hopper_launches(steps, evals=0):
-    """The Hopper flash kernels' launches over `steps` bf16 LM train steps
-    and `evals` forward-only steps: one of each a layer a step."""
+def hopper_launches(steps, evals=0, d=64):
+    """The flash kernels' launches over `steps` bf16 LM train steps and
+    `evals` forward-only steps at head dim `d`, by the route `_sm90`
+    names: one of each a layer a step, and the delta pass once a backward
+    where K3' or K4' reads it."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
 
+    bf16 = torch.bfloat16
     want = {name: 0 for name in fa.launches}
-    for name in (fa.BWD_DQ_SM90, fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90):
+    fwd = fa.FWD_SM90 if fa._sm90(bf16, d) else fa.FWD
+    dq = fa.BWD_DQ_SM90 if fa._sm90(bf16, d, fa.BWD_DQ_SM90) else fa.BWD_DQ
+    dkv = (fa.BWD_DKV_SM90 if fa._sm90(bf16, d, fa.BWD_DKV_SM90)
+           else fa.BWD_DKV)
+    for name in (dq, dkv):
         want[name] = LM_LAYERS * steps
-    want[fa.FWD_SM90] = LM_LAYERS * (steps + evals)
+    if dq == fa.BWD_DQ_SM90 or dkv == fa.BWD_DKV_SM90:
+        want[fa.BWD_DELTA_SM90] = LM_LAYERS * steps
+    want[fwd] = LM_LAYERS * (steps + evals)
     return want
+
+
+def head_dim(params):
+    """D of an LM's `model_params`: dim / heads."""
+    fields = dict(kv.split("=") for kv in params.split(";"))
+    return int(fields["dim"]) // int(fields["heads"])
 
 
 def routing_stats(trainer, state, batch):
@@ -2930,8 +3086,9 @@ def lm_variant_train(params, name, smi, steps=STEPS):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{name} losses not finite and falling: "
                              f"{losses}")
-    if train != hopper_launches(steps + 1) or forward != hopper_launches(
-            0, evals=2):
+    d = head_dim(params)
+    if train != hopper_launches(steps + 1, d=d) or \
+            forward != hopper_launches(0, evals=2, d=d):
         raise AssertionError(f"{name}: flash launches {train} in {steps + 1}"
                              f" train steps, {forward} in eval and predict")
     if tuple(preds.shape) != (LM_BATCH, LM_T, LM_VOCAB) or not bool(
@@ -3038,6 +3195,20 @@ def phase_lm_train_d128(smi):
     _, _, _, fields, launches = lm_variant_train(
         LM_D128_PARAMS, "lm_train_d128", smi, steps=LM_D128_STEPS - 1)
     emit("lm_train_d128", **fields, head_dim=LM_DIM // 4)
+    return launches
+
+
+def phase_lm_train_narrow(smi, params):
+    """The LM at `lm_train`'s width with 16- or 32-wide heads (`params`,
+    LM_D16_PARAMS or LM_D32_PARAMS): a warm-up step and LM_NARROW_STEPS - 1
+    timed train steps, eval and predict, as `lm_variant_train` holds them:
+    finite falling losses; K2', K4' (at the narrow D), the delta pass and
+    K3 4 times a train step, K2' 4 times in each of eval and predict, and
+    K2, K4 and K3' never. Returns the flash kernels' launches."""
+    d = head_dim(params)
+    _, _, _, fields, launches = lm_variant_train(
+        params, f"lm_train_d{d}", smi, steps=LM_NARROW_STEPS - 1)
+    emit(f"lm_train_d{d}", **fields, head_dim=d)
     return launches
 
 
@@ -5399,12 +5570,10 @@ def main():
     seconds = time.perf_counter() - t0
     hgmma = hgmma_counts(built[fa.LIBRARY_SM90]["path"])
     sm90 = ctypes.CDLL(built[fa.LIBRARY_SM90]["path"])
-    hopper = ((0, "flash_fwd_sm90_kernel", 64),
-              (0, "flash_fwd_sm90_kernel", 128),
-              (1, "flash_bwd_dkv_sm90_kernel", 64),
-              (1, "flash_bwd_dkv_sm90_kernel", 128),
-              (2, "flash_bwd_dq_sm90_kernel", 64),
-              (2, "flash_bwd_dq_sm90_kernel", 128))
+    hopper = ([(0, "flash_fwd_sm90_kernel", d) for d in (16, 32, 64, 128)]
+              + [(1, "flash_bwd_dkv_sm90_kernel", d)
+                 for d in (16, 32, 64, 128)]
+              + [(2, "flash_bwd_dq_sm90_kernel", d) for d in (64, 128)])
     shared = {f"{name}<D={d}>": sm90.flash_sm90_shared_bytes(which, d)
               for which, name, d in hopper}
     ptxas = {k: ptxas_summary(v["log"]) for k, v in built.items()}
@@ -5416,11 +5585,22 @@ def main():
     for kernel in shared:
         if not hgmma.get(kernel):
             raise AssertionError(f"{kernel} has no HGMMA instruction")
-    # K4' at D 128 is laid out so that ptxas spills nothing
-    dkv128 = ptxas[fa.LIBRARY_SM90].get("flash_bwd_dkv_sm90_kernel<D=128>",
-                                        "")
-    if "0 bytes spill stores, 0 bytes spill loads" not in dkv128:
-        raise AssertionError(f"K4' at D 128 spills: {dkv128!r}")
+    # K4' at D 128, and K2' and K4' at D 16 and 32, are laid out so that
+    # ptxas spills nothing; the delta pass is built at every width K4'
+    # takes
+    for kernel in ("flash_bwd_dkv_sm90_kernel<D=128>",
+                   "flash_fwd_sm90_kernel<D=16>",
+                   "flash_fwd_sm90_kernel<D=32>",
+                   "flash_bwd_dkv_sm90_kernel<D=16>",
+                   "flash_bwd_dkv_sm90_kernel<D=32>"):
+        info = ptxas[fa.LIBRARY_SM90].get(kernel, "")
+        if "0 bytes spill stores, 0 bytes spill loads" not in info:
+            raise AssertionError(f"{kernel} spills or was not built: "
+                                 f"{info!r}")
+    for d in (16, 32, 64, 128):
+        if f"flash_bwd_delta_sm90_kernel<D={d}>" not in ptxas[
+                fa.LIBRARY_SM90]:
+            raise AssertionError(f"the delta pass is not built at D {d}")
     PHASE_WALLS.append(["build", time.perf_counter() - t0])
 
     k1 = timed("kernel", phase_kernel, dev)
@@ -5435,6 +5615,10 @@ def main():
     launches = timed("train", phase_train, smi)
     lm_launches = timed("lm_train", phase_lm_train, smi)
     d128_launches = timed("lm_train_d128", phase_lm_train_d128, smi)
+    d16_launches = timed("lm_train_d16", phase_lm_train_narrow, smi,
+                         LM_D16_PARAMS)
+    d32_launches = timed("lm_train_d32", phase_lm_train_narrow, smi,
+                         LM_D32_PARAMS)
     seq_launches, unsplit_losses = timed("seq_train", phase_seq_train, smi)
     seq_mix_launches = timed("seq_mix", phase_seq_mix, dev, smi,
                              unsplit_losses)
@@ -5528,6 +5712,11 @@ def main():
         "launches": (f32_lm_launches[name] if name in f32_lm
                      else lm_launches[name]),
         "launches_in": "lm_parity" if name in f32_lm else "lm_train",
+        # the bf16 LMs with 16- and 32-wide heads: K3 for dQ beside K2',
+        # K4' (entries of their own below) and the delta pass
+        **({"lm_train_d16_launches": d16_launches[name],
+            "lm_train_d32_launches": d32_launches[name]}
+           if name in (fa.BWD_DQ, fa.BWD_DELTA_SM90) else {}),
         **({} if name in f32_lm else
            {"lm_train_d128_launches": d128_launches[name],
             "lm_job_launches": lm_job_launches[name],
@@ -5551,7 +5740,20 @@ def main():
         "launches": d128_launches[fa.BWD_DKV_SM90],
         "launches_in": "lm_train_d128",
         **attn[DKV128],
-    }]}), flush=True)
+    }] + [{
+        "name": entry,
+        "route": "cuda",
+        "source": ATTN_KERNELS[entry][0],
+        "replaces": ATTN_KERNELS[entry][1],
+        # K2' and K4' at D 16 and 32 come from the LMs with 16- and
+        # 32-wide heads (train, eval and predict)
+        "launches": launches[kernel],
+        "launches_in": f"lm_train_d{d}",
+        **attn[entry],
+    } for d, launches in ((16, d16_launches), (32, d32_launches))
+        for entry, kernel in zip(NARROW[d], (fa.FWD_SM90,
+                                             fa.BWD_DKV_SM90))]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,11 @@
-// Flash attention on Hopper's tensor cores: the forward (K2'), dQ (K3') and
-// dK/dV (K4') for bfloat16 with D = 64 or 128, and the pass that writes the
-// delta K3' and K4' read.
+// Flash attention on Hopper's tensor cores: the forward (K2') and dK/dV
+// (K4') for bfloat16 with D = 16, 32, 64 or 128, dQ (K3') for bfloat16 with
+// D = 64 or 128, and the pass that writes the delta K3' and K4' read.
 //
 // Replaces, for those inputs, elasticdl_tpu/ops/pallas_attention.py
 // `_fwd_kernel` (`pallas_call` at 256), `_bwd_dq_kernel` (`pallas_call` at
 // 404) and `_bwd_dkv_kernel` (`pallas_call` at 433). csrc/flash_attention.cu
-// keeps every other case (float32, other head dims).
+// keeps every other case (float32, other head dims, dQ at D 16 and 32).
 //
 // Contract: that of ops/flash_attention.py, unchanged. q (B, Tq, H, D),
 // k and v (B, Tk, H, D), dout like q, read in place through (b, t, h)
@@ -37,10 +37,21 @@
 //   K3', kv rows in K4'; K4' at D 128 has one) and one producer warp,
 //   which brings the streamed tiles (K, V in K2' and K3'; Q, dO in K4') in
 //   by TMA, 64 rows a tile, into a ring of kStages stages guarded by
-//   full/empty mbarriers. Tiles land with the 128-byte swizzle the wgmma
-//   descriptors read; D = 64 bf16 is one 128-byte row, D = 128 two such
-//   column blocks. Tails past T come as zeros from TMA's out-of-bounds
-//   fill and are masked.
+//   full/empty mbarriers. Tiles land in the swizzle the wgmma descriptors
+//   read (`Cols`): D = 64 bf16 is one 128-byte row in the 128-byte
+//   swizzle, D = 128 two such column blocks, D = 32 one 64-byte row in the
+//   64-byte swizzle and D = 16 one 32-byte row in the 32-byte swizzle (TMA
+//   takes no box wider than its swizzle). Tails past T come as zeros from
+//   TMA's out-of-bounds fill and are masked.
+// - Narrow heads (D 16, 32). S = Q.K^T and dP^T = V.dO^T keep N = 64 and
+//   take one or two k16 steps; P.V, P^T.dO and dS^T.Q are m64n16k16 or
+//   m64n32k16 products into 8 or 16 accumulator floats a thread. The tensor
+//   work per score is a quarter (D 16) or a half (D 32) of D 64's while
+//   the exp, max, rescale and hi/lo split per score stay, so these bind on
+//   the softmax's CUDA-core work and on latency, not on the tensor cores.
+//   Registers set their blocks (`FwdLayout`, `DkvShape`): K2' fits two
+//   blocks a SM in 96 registers a thread, K4' at D 16 three one-warpgroup
+//   blocks in 128; K4' at D 32 keeps D 64's two warpgroups, one block.
 // - Registers. ptxas gives 168 a thread to a block of 288 threads. K2'
 //   needs ~2 x 32 (D 64) or 32 + 64 (D 128) floats of accumulators, K3'
 //   3 x 32 (D 64) or 2 x 32 + 64 (D 128), K4' at D 64 4 x 32; all of these
@@ -163,25 +174,52 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma descriptor of an operand in 128-byte-swizzled rows (the TMA
+// How a tile of kD bf16 columns lies in shared memory: kBlocks column
+// blocks of [rows][kCols], each row kRowBytes long, in the TMA swizzle of
+// that width (32, 64 or 128 bytes), which the wgmma descriptors name by
+// their layout type (3, 2 or 1: cute's GMMA::LayoutType B32, B64, B128).
+template <int kD>
+struct Cols {
+  static_assert(kD == 16 || kD == 32 || kD == 64 || kD == 128,
+                "the Hopper kernels are built at D 16, 32, 64 and 128");
+  static constexpr int kCols = kD < 64 ? kD : 64;
+  static constexpr int kRowBytes = 2 * kCols;
+  static constexpr int kBlocks = kD / kCols;
+  static constexpr uint64_t kLayout =
+      kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kRowBytes == 128   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : kRowBytes == 64  ? CU_TENSOR_MAP_SWIZZLE_64B
+                         : CU_TENSOR_MAP_SWIZZLE_32B;
+};
+
+// wgmma descriptor of an operand in Cols<kD>'s swizzled rows (the TMA
 // layout): start address, leading and stride byte offsets (in 16 bytes),
-// layout type 1 = 128-byte swizzle. The stride byte offset is 1024 bytes,
-// from one group of 8 rows to the next. K-major operands ignore the leading
+// layout type. The stride byte offset is 8 rows (1024, 512 or 256 bytes),
+// from one group of 8 rows to the next: along M or N of a K-major
+// operand, along K of an MN-major one. K-major operands ignore the leading
 // offset; MN-major ones (N = D) take the distance between the two 64-column
-// blocks of a D = 128 tile.
+// blocks of a D = 128 tile (cute's make_gmma_desc: Major::MN swizzled
+// layouts ((T,w,m),(8,k)) : ((1,T,LBO),(wT,SBO))).
+template <int kD>
 __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lead_bytes) {
+  using C = Cols<kD>;
   return static_cast<uint64_t>((smem_addr(p) & 0x3FFFFu) >> 4) |
          static_cast<uint64_t>(lead_bytes >> 4) << 16 |
-         static_cast<uint64_t>(1024 >> 4) << 32 | 1ull << 62;
+         static_cast<uint64_t>(8 * C::kRowBytes >> 4) << 32 |
+         C::kLayout << 62;
 }
 
-// Step kk (16 dims) of a K-major tile of `rows` rows stored as D / 64
-// column blocks of [rows][64]: column block kk / 4, byte 32 (kk % 4) of
-// each 128-byte row (the swizzle is applied to the address, so a step
-// inside the row moves the start address only).
+// Step kk (16 dims, 32 bytes) of a K-major tile of `rows` rows in
+// Cols<kD>'s layout: its column block and its 32 bytes inside each row
+// (the swizzle is applied to the address, so a step inside the row moves
+// the start address only). A 32-byte row (D 16) is one step.
+template <int kD>
 __device__ __forceinline__ const uint8_t* kstep(const uint8_t* tile, int rows,
                                                 int kk) {
-  return tile + (kk / 4) * rows * 128 + (kk % 4) * 32;
+  using C = Cols<kD>;
+  constexpr int kSteps = C::kCols / 16;  // k16 steps a row
+  return tile + (kk / kSteps) * rows * C::kRowBytes + (kk % kSteps) * 32;
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -230,6 +268,39 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 16) += A (64 x 16) . B (16 x 16): A from registers, B from
+// shared memory, MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 32) += A (64 x 16) . B (16 x 32): A from registers, B from
+// shared memory, MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // d (64 x 64) += A (64 x 16) . B (16 x 64): A from registers, B from
@@ -292,10 +363,17 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x kD) += A . B with N = kD, the products into O, dQ, dK and dV.
 template <int kD>
 __device__ __forceinline__ void wgmma_rs(float (&d)[kD / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (kD == 64) {
+  static_assert(kD == 16 || kD == 32 || kD == 64 || kD == 128,
+                "wgmma_rs is written for N = 16, 32, 64 and 128");
+  if constexpr (kD == 16) {
+    wgmma_rs_n16(d, a, b);
+  } else if constexpr (kD == 32) {
+    wgmma_rs_n32(d, a, b);
+  } else if constexpr (kD == 64) {
     wgmma_rs_n64(d, a, b);
   } else {
     wgmma_rs_n128(d, a, b);
@@ -365,6 +443,10 @@ __device__ __forceinline__ void init_barriers(uint64_t* bars,
 
 template <int kD>
 struct FwdLayout {
+  // Blocks a SM that ptxas must fit: two at D 16 and 32 (96 registers a
+  // thread, no spill; the second block's warpgroups run their softmax
+  // while the first's wait on their products), one at D 64 and 128.
+  static constexpr int kMinBlocks = kD < 64 ? 2 : 1;
   static constexpr int kQBytes = kBlockRows * kD * 2;
   static constexpr int kTileBytes = kTileRows * kD * 2;
   static constexpr int kBytes =
@@ -372,7 +454,7 @@ struct FwdLayout {
 };
 
 template <int kD>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, FwdLayout<kD>::kMinBlocks)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
@@ -381,9 +463,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       int Tk, int q_off, int kv_off, bool causal,
                       float scale) {
   using L = FwdLayout<kD>;
+  using C = Cols<kD>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* qs = align_1024(smem_raw);             // kD/64 blocks [128][64]
-  uint8_t* ks = qs + L::kQBytes;                  // [stage] kD/64 [64][64]
+  uint8_t* qs = align_1024(smem_raw);  // kBlocks x [128][kCols]
+  uint8_t* ks = qs + L::kQBytes;  // [stage] kBlocks x [64][kCols]
   uint8_t* vs = ks + kStages * L::kTileBytes;
   uint64_t* bars = reinterpret_cast<uint64_t*>(vs + kStages * L::kTileBytes);
   uint64_t* q_bar = bars;
@@ -406,25 +489,28 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane != 0 || n_tiles == 0) return;
     mbar_expect_tx(q_bar, L::kQBytes);
 #pragma unroll
-    for (int a = 0; a < kD / 64; ++a) {
-      tma_load(qs + a * kBlockRows * 128, &tq, q_bar, 64 * a, q0, h, b);
+    for (int a = 0; a < C::kBlocks; ++a) {
+      tma_load(qs + a * kBlockRows * C::kRowBytes, &tq, q_bar, C::kCols * a,
+               q0, h, b);
     }
     for (int j = 0; j < n_tiles; ++j) {
       const int s = j % kStages;
       if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
       mbar_expect_tx(&full[s], 2 * L::kTileBytes);
 #pragma unroll
-      for (int a = 0; a < kD / 64; ++a) {
-        const int at = s * L::kTileBytes + a * kTileRows * 128;
-        tma_load(ks + at, &tk, &full[s], 64 * a, j * kTileRows, h, b);
-        tma_load(vs + at, &tv, &full[s], 64 * a, j * kTileRows, h, b);
+      for (int a = 0; a < C::kBlocks; ++a) {
+        const int at = s * L::kTileBytes + a * kTileRows * C::kRowBytes;
+        tma_load(ks + at, &tk, &full[s], C::kCols * a, j * kTileRows, h, b);
+        tma_load(vs + at, &tv, &full[s], C::kCols * a, j * kTileRows, h, b);
       }
     }
     return;
   }
 
-  // a consumer warpgroup: q rows row0 .. row0 + 63
+  // a consumer warpgroup: q rows row0 .. row0 + 63, at byte `mine` of each
+  // column block of the resident tiles
   const int tw = threadIdx.x % 128;
+  const int mine = wg * 64 * C::kRowBytes;
   const int r0 = (tw / 32) * 16 + lane / 4;
   const int c0 = 2 * (lane % 4);
   const int row0 = q0 + wg * 64;
@@ -453,8 +539,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        wgmma_ss_n64(sc, desc(kstep(qs, kBlockRows, kk) + wg * 64 * 128, 16),
-                     desc(kstep(kt, kTileRows, kk), 16), 1);
+        wgmma_ss_n64(sc, desc<kD>(kstep<kD>(qs + mine, kBlockRows, kk), 16),
+                     desc<kD>(kstep<kD>(kt, kTileRows, kk), 16), 1);
       }
       wg_commit();
       wg_wait_all();
@@ -507,7 +593,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t bv = desc(vt + kk * 16 * 128, kTileRows * 128);
+        const uint64_t bv = desc<kD>(vt + kk * 16 * C::kRowBytes,
+                                      kTileRows * C::kRowBytes);
         wgmma_rs<kD>(o, hi[kk], bv);
         wgmma_rs<kD>(o, lo[kk], bv);
       }
@@ -586,12 +673,20 @@ flash_bwd_delta_sm90_kernel(const __nv_bfloat16* __restrict__ o,
 
 // ------------------------------------------------------------------ K4'
 
-// K4''s consumer warpgroups of 64 kv rows each: two at D 64, as in K2' and
-// K3'; one at D 128, where the block's 160 threads may take 255 registers
-// a thread (see Registers above). One producer warp either way.
+// K4''s consumer warpgroups of 64 kv rows each, and the blocks a SM that
+// ptxas must fit in registers. One producer warp either way.
+// - D 32 and 64: two warpgroups, as in K2' and K3', one block a SM (168
+//   registers a thread).
+// - D 128: one warpgroup, where the block's 160 threads may take 255
+//   registers a thread (see Registers above).
+// - D 16: one warpgroup and three blocks a SM, 128 registers a thread
+//   with no spill: three warpgroups share a SM where D 32's layout gives
+//   two, so one's products overlap another's softmax (0.135 against
+//   0.171 ms at B8 T1024 H8 on an H100). D 32 spills in that layout.
 template <int kD>
 struct DkvShape {
-  static constexpr int kConsumers = kD == 64 ? 2 : 1;
+  static constexpr int kConsumers = kD == 32 || kD == 64 ? 2 : 1;
+  static constexpr int kMinBlocks = kD == 16 ? 3 : 1;
   static constexpr int kThreads = 128 * kConsumers + 32;
   static constexpr int kRows = 64 * kConsumers;
 };
@@ -607,7 +702,8 @@ struct DkvLayout {
 };
 
 template <int kD>
-__global__ void __launch_bounds__(DkvShape<kD>::kThreads, 1)
+__global__ void __launch_bounds__(DkvShape<kD>::kThreads,
+                                  DkvShape<kD>::kMinBlocks)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
@@ -619,12 +715,13 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           Strides sdv, int H, int Tq, int Tk, int q_off,
                           int kv_off, bool causal, float scale) {
   using L = DkvLayout<kD>;
+  using C = Cols<kD>;
   using S = DkvShape<kD>;
   constexpr int kBlockRows = S::kRows;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* ksm = align_1024(smem_raw);            // kD/64 blocks [rows][64]
+  uint8_t* ksm = align_1024(smem_raw);  // kBlocks x [rows][kCols]
   uint8_t* vsm = ksm + L::kKVBytes;
-  uint8_t* qs = vsm + L::kKVBytes;                // [stage] kD/64 [64][64]
+  uint8_t* qs = vsm + L::kKVBytes;  // [stage] kBlocks x [64][kCols]
   uint8_t* dos = qs + kStages * L::kTileBytes;
   float* lse_s = reinterpret_cast<float*>(dos + kStages * L::kTileBytes);
   float* delta_s = lse_s + kStages * kTileRows;
@@ -656,10 +753,10 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) {
       mbar_expect_tx(kv_bar, 2 * L::kKVBytes);
 #pragma unroll
-      for (int a = 0; a < kD / 64; ++a) {
-        const int at = a * kBlockRows * 128;
-        tma_load(ksm + at, &tk, kv_bar, 64 * a, kv0, h, b);
-        tma_load(vsm + at, &tv, kv_bar, 64 * a, kv0, h, b);
+      for (int a = 0; a < C::kBlocks; ++a) {
+        const int at = a * kBlockRows * C::kRowBytes;
+        tma_load(ksm + at, &tk, kv_bar, C::kCols * a, kv0, h, b);
+        tma_load(vsm + at, &tv, kv_bar, C::kCols * a, kv0, h, b);
       }
     }
     for (int j = 0; j < n_tiles; ++j) {
@@ -676,18 +773,20 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       if (lane == 0) {
         mbar_expect_tx(&full[s], 2 * L::kTileBytes);
 #pragma unroll
-        for (int a = 0; a < kD / 64; ++a) {
-          const int at = s * L::kTileBytes + a * kTileRows * 128;
-          tma_load(qs + at, &tq, &full[s], 64 * a, i0, h, b);
-          tma_load(dos + at, &tdo, &full[s], 64 * a, i0, h, b);
+        for (int a = 0; a < C::kBlocks; ++a) {
+          const int at = s * L::kTileBytes + a * kTileRows * C::kRowBytes;
+          tma_load(qs + at, &tq, &full[s], C::kCols * a, i0, h, b);
+          tma_load(dos + at, &tdo, &full[s], C::kCols * a, i0, h, b);
         }
       }
     }
     return;
   }
 
-  // a consumer warpgroup: kv rows kv_row0 .. kv_row0 + 63
+  // a consumer warpgroup: kv rows kv_row0 .. kv_row0 + 63, at byte `mine`
+  // of each column block of the resident tiles
   const int tw = threadIdx.x % 128;
+  const int mine = wg * 64 * C::kRowBytes;
   const int r0 = (tw / 32) * 16 + lane / 4;
   const int c0 = 2 * (lane % 4);
   const int kv_row0 = kv0 + wg * 64;
@@ -717,13 +816,13 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        wgmma_ss_n64(st, desc(kstep(ksm, kBlockRows, kk) + wg * 64 * 128, 16),
-                     desc(kstep(qt, kTileRows, kk), 16), 1);
+        wgmma_ss_n64(st, desc<kD>(kstep<kD>(ksm + mine, kBlockRows, kk), 16),
+                     desc<kD>(kstep<kD>(qt, kTileRows, kk), 16), 1);
       }
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        wgmma_ss_n64(dp, desc(kstep(vsm, kBlockRows, kk) + wg * 64 * 128, 16),
-                     desc(kstep(dot, kTileRows, kk), 16), 1);
+        wgmma_ss_n64(dp, desc<kD>(kstep<kD>(vsm + mine, kBlockRows, kk), 16),
+                     desc<kD>(kstep<kD>(dot, kTileRows, kk), 16), 1);
       }
       wg_commit();
       wg_wait_all();
@@ -762,13 +861,15 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t bdo = desc(dot + kk * 16 * 128, kTileRows * 128);
+        const uint64_t bdo = desc<kD>(dot + kk * 16 * C::kRowBytes,
+                                      kTileRows * C::kRowBytes);
         wgmma_rs<kD>(dv_acc, p_hi[kk], bdo);
         wgmma_rs<kD>(dv_acc, p_lo[kk], bdo);
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t bq = desc(qt + kk * 16 * 128, kTileRows * 128);
+        const uint64_t bq = desc<kD>(qt + kk * 16 * C::kRowBytes,
+                                      kTileRows * C::kRowBytes);
         wgmma_rs<kD>(dk_acc, ds_hi[kk], bq);
         wgmma_rs<kD>(dk_acc, ds_lo[kk], bq);
       }
@@ -820,10 +921,11 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          int Tq, int Tk, int q_off, int kv_off, bool causal,
                          float scale) {
   using L = DqLayout<kD>;
+  using C = Cols<kD>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* qs = align_1024(smem_raw);             // kD/64 blocks [128][64]
+  uint8_t* qs = align_1024(smem_raw);  // kBlocks x [128][kCols]
   uint8_t* dos = qs + L::kQBytes;
-  uint8_t* ks = dos + L::kQBytes;                 // [stage] kD/64 [64][64]
+  uint8_t* ks = dos + L::kQBytes;  // [stage] kBlocks x [64][kCols]
   uint8_t* vs = ks + kStages * L::kTileBytes;
   uint64_t* bars = reinterpret_cast<uint64_t*>(vs + kStages * L::kTileBytes);
   uint64_t* q_bar = bars;
@@ -846,26 +948,30 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane != 0 || n_tiles == 0) return;
     mbar_expect_tx(q_bar, 2 * L::kQBytes);
 #pragma unroll
-    for (int a = 0; a < kD / 64; ++a) {
-      tma_load(qs + a * kBlockRows * 128, &tq, q_bar, 64 * a, q0, h, b);
-      tma_load(dos + a * kBlockRows * 128, &tdo, q_bar, 64 * a, q0, h, b);
+    for (int a = 0; a < C::kBlocks; ++a) {
+      tma_load(qs + a * kBlockRows * C::kRowBytes, &tq, q_bar, C::kCols * a,
+               q0, h, b);
+      tma_load(dos + a * kBlockRows * C::kRowBytes, &tdo, q_bar,
+               C::kCols * a, q0, h, b);
     }
     for (int j = 0; j < n_tiles; ++j) {
       const int s = j % kStages;
       if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
       mbar_expect_tx(&full[s], 2 * L::kTileBytes);
 #pragma unroll
-      for (int a = 0; a < kD / 64; ++a) {
-        const int at = s * L::kTileBytes + a * kTileRows * 128;
-        tma_load(ks + at, &tk, &full[s], 64 * a, j * kTileRows, h, b);
-        tma_load(vs + at, &tv, &full[s], 64 * a, j * kTileRows, h, b);
+      for (int a = 0; a < C::kBlocks; ++a) {
+        const int at = s * L::kTileBytes + a * kTileRows * C::kRowBytes;
+        tma_load(ks + at, &tk, &full[s], C::kCols * a, j * kTileRows, h, b);
+        tma_load(vs + at, &tv, &full[s], C::kCols * a, j * kTileRows, h, b);
       }
     }
     return;
   }
 
-  // a consumer warpgroup: q rows row0 .. row0 + 63
+  // a consumer warpgroup: q rows row0 .. row0 + 63, at byte `mine` of each
+  // column block of the resident tiles
   const int tw = threadIdx.x % 128;
+  const int mine = wg * 64 * C::kRowBytes;
   const int r0 = (tw / 32) * 16 + lane / 4;
   const int c0 = 2 * (lane % 4);
   const int row0 = q0 + wg * 64;
@@ -903,13 +1009,13 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        wgmma_ss_n64(sc, desc(kstep(qs, kBlockRows, kk) + wg * 64 * 128, 16),
-                     desc(kstep(kt, kTileRows, kk), 16), 1);
+        wgmma_ss_n64(sc, desc<kD>(kstep<kD>(qs + mine, kBlockRows, kk), 16),
+                     desc<kD>(kstep<kD>(kt, kTileRows, kk), 16), 1);
       }
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        wgmma_ss_n64(dp, desc(kstep(dos, kBlockRows, kk) + wg * 64 * 128, 16),
-                     desc(kstep(vt, kTileRows, kk), 16), 1);
+        wgmma_ss_n64(dp, desc<kD>(kstep<kD>(dos + mine, kBlockRows, kk), 16),
+                     desc<kD>(kstep<kD>(vt, kTileRows, kk), 16), 1);
       }
       wg_commit();
       wg_wait_all();
@@ -942,7 +1048,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t bk = desc(kt + kk * 16 * 128, kTileRows * 128);
+        const uint64_t bk = desc<kD>(kt + kk * 16 * C::kRowBytes,
+                                      kTileRows * C::kRowBytes);
         wgmma_rs<kD>(dq_acc, hi[kk], bk);
         wgmma_rs<kD>(dq_acc, lo[kk], bk);
       }
@@ -1010,13 +1117,17 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// Tensor map over a (B, T, H, D) bfloat16 tensor at `p` with (b, t, h)
-// element strides, in boxes of 64 dims x `rows` rows, 128-byte swizzle,
-// zeros past T. A dim of extent 1 may carry any stride in PyTorch; it gets
-// the contiguous one. TMA takes strides that are multiples of 16 bytes and
-// a 16-byte-aligned address (the wrapper checks both).
+// Tensor map over a (B, T, H, kD) bfloat16 tensor at `p` with (b, t, h)
+// element strides, in boxes of Cols<kD>::kCols dims x `rows` rows in that
+// column block's swizzle (TMA refuses an inner box wider than its
+// swizzle), zeros past T. A dim of extent 1 may carry any stride in
+// PyTorch; it gets the contiguous one. TMA takes strides that are multiples
+// of 16 bytes and a 16-byte-aligned address (the wrapper checks both).
+template <int kD>
 bool make_map(CUtensorMap* map, const void* p, Strides s, int B, int T,
-              int H, int D, int rows) {
+              int H, int rows) {
+  using C = Cols<kD>;
+  constexpr int D = kD;
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
   const long long st = T == 1 ? static_cast<long long>(H) * D : s.t;
@@ -1029,11 +1140,12 @@ bool make_map(CUtensorMap* map, const void* p, Strides s, int B, int T,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2,
                                  static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {C::kCols, static_cast<cuuint32_t>(rows), 1,
+                             1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(p), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, C::kSwizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1047,9 +1159,9 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 template <int kD>
 cudaError_t run_fwd(const Args& a) {
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, a.q, a.at(0), a.B, a.Tq, a.H, kD, kBlockRows) ||
-      !make_map(&mk, a.k, a.at(1), a.B, a.Tk, a.H, kD, kTileRows) ||
-      !make_map(&mv, a.v, a.at(2), a.B, a.Tk, a.H, kD, kTileRows)) {
+  if (!make_map<kD>(&mq, a.q, a.at(0), a.B, a.Tq, a.H, kBlockRows) ||
+      !make_map<kD>(&mk, a.k, a.at(1), a.B, a.Tk, a.H, kTileRows) ||
+      !make_map<kD>(&mv, a.v, a.at(2), a.B, a.Tk, a.H, kTileRows)) {
     return cudaErrorInvalidValue;
   }
   auto kernel = flash_fwd_sm90_kernel<kD>;
@@ -1068,10 +1180,10 @@ template <int kD>
 cudaError_t run_dkv(const Args& a) {
   using S = DkvShape<kD>;
   CUtensorMap mq, mk, mv, mdo;
-  if (!make_map(&mq, a.q, a.at(0), a.B, a.Tq, a.H, kD, kTileRows) ||
-      !make_map(&mk, a.k, a.at(1), a.B, a.Tk, a.H, kD, S::kRows) ||
-      !make_map(&mv, a.v, a.at(2), a.B, a.Tk, a.H, kD, S::kRows) ||
-      !make_map(&mdo, a.dout, a.at(3), a.B, a.Tq, a.H, kD, kTileRows)) {
+  if (!make_map<kD>(&mq, a.q, a.at(0), a.B, a.Tq, a.H, kTileRows) ||
+      !make_map<kD>(&mk, a.k, a.at(1), a.B, a.Tk, a.H, S::kRows) ||
+      !make_map<kD>(&mv, a.v, a.at(2), a.B, a.Tk, a.H, S::kRows) ||
+      !make_map<kD>(&mdo, a.dout, a.at(3), a.B, a.Tq, a.H, kTileRows)) {
     return cudaErrorInvalidValue;
   }
   auto kernel = flash_bwd_dkv_sm90_kernel<kD>;
@@ -1090,10 +1202,10 @@ cudaError_t run_dkv(const Args& a) {
 template <int kD>
 cudaError_t run_dq(const Args& a) {
   CUtensorMap mq, mk, mv, mdo;
-  if (!make_map(&mq, a.q, a.at(0), a.B, a.Tq, a.H, kD, kBlockRows) ||
-      !make_map(&mk, a.k, a.at(1), a.B, a.Tk, a.H, kD, kTileRows) ||
-      !make_map(&mv, a.v, a.at(2), a.B, a.Tk, a.H, kD, kTileRows) ||
-      !make_map(&mdo, a.dout, a.at(3), a.B, a.Tq, a.H, kD, kBlockRows)) {
+  if (!make_map<kD>(&mq, a.q, a.at(0), a.B, a.Tq, a.H, kBlockRows) ||
+      !make_map<kD>(&mk, a.k, a.at(1), a.B, a.Tk, a.H, kTileRows) ||
+      !make_map<kD>(&mv, a.v, a.at(2), a.B, a.Tk, a.H, kTileRows) ||
+      !make_map<kD>(&mdo, a.dout, a.at(3), a.B, a.Tq, a.H, kBlockRows)) {
     return cudaErrorInvalidValue;
   }
   auto kernel = flash_bwd_dq_sm90_kernel<kD>;
@@ -1125,13 +1237,20 @@ cudaError_t run_delta(const Args& a) {
 
 typedef cudaError_t (*Run)(const Args&);
 
-// `d64` for bfloat16 (dtype code 1) at D 64, `d128` at D 128; anything else
-// is refused.
-int dispatch(int dtype, const Args& a, Run d64, Run d128) {
-  Run run = nullptr;
-  if (dtype == 1 && a.D == 64) run = d64;
-  if (dtype == 1 && a.D == 128) run = d128;
-  return static_cast<int>(run != nullptr ? run(a) : cudaErrorInvalidValue);
+// One instantiation of a launch: the head dim it is built for.
+struct Built {
+  int D;
+  Run run;
+};
+
+// The launch built for bfloat16 (dtype code 1) at the head dim a.D;
+// anything else is refused.
+template <size_t N>
+int dispatch(int dtype, const Args& a, const Built (&built)[N]) {
+  for (const Built& b : built) {
+    if (dtype == 1 && a.D == b.D) return static_cast<int>(b.run(a));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // D^-0.5 as the reference computes it: in double, then rounded to float32
@@ -1146,7 +1265,8 @@ extern "C" {
 // Each launcher enqueues one kernel on `stream` and returns its
 // cudaError_t (0 on success). `strides` holds the (b, t, h) element
 // strides of the tensors in argument order. dtype must be 1 (bfloat16) and
-// D 64 or 128.
+// D 16, 32, 64 or 128 (dQ: 64 or 128); anything else returns
+// cudaErrorInvalidValue.
 
 int flash_fwd_sm90(int dtype, const void* q, const void* k, const void* v,
                    void* out, void* lse, const long long* strides, int B,
@@ -1155,7 +1275,9 @@ int flash_fwd_sm90(int dtype, const void* q, const void* k, const void* v,
   const Args a{q, k, v, nullptr, nullptr, nullptr, nullptr, nullptr,
                out, lse, strides, B, H, Tq, Tk, D, q_off, kv_off,
                causal != 0, scale_of(D), static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, a, run_fwd<64>, run_fwd<128>);
+  static const Built built[] = {{16, run_fwd<16>}, {32, run_fwd<32>},
+                                 {64, run_fwd<64>}, {128, run_fwd<128>}};
+  return dispatch(dtype, a, built);
 }
 
 // delta (B, H, Tq) = rowsum(dout . out) - g_lse; glse may be null (0).
@@ -1167,7 +1289,9 @@ int flash_bwd_delta_sm90(int dtype, const void* out, const void* dout,
   const Args a{nullptr, nullptr, nullptr, out, dout, nullptr, glse, nullptr,
                delta, nullptr, strides, B, H, Tq, 0, D, 0, 0,
                false, 0.0f, static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, a, run_delta<64>, run_delta<128>);
+  static const Built built[] = {{16, run_delta<16>}, {32, run_delta<32>},
+                                 {64, run_delta<64>}, {128, run_delta<128>}};
+  return dispatch(dtype, a, built);
 }
 
 // dK, dV from q, k, v, dout, lse and the delta pass's output. Strides: q,
@@ -1180,7 +1304,9 @@ int flash_bwd_dkv_sm90(int dtype, const void* q, const void* k, const void* v,
   const Args a{q, k, v, nullptr, dout, lse, nullptr, delta,
                dk, dv, strides, B, H, Tq, Tk, D, q_off, kv_off,
                causal != 0, scale_of(D), static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, a, run_dkv<64>, run_dkv<128>);
+  static const Built built[] = {{16, run_dkv<16>}, {32, run_dkv<32>},
+                                 {64, run_dkv<64>}, {128, run_dkv<128>}};
+  return dispatch(dtype, a, built);
 }
 
 // dQ from q, k, v, dout, lse and the delta pass's output. Strides: q, k, v,
@@ -1193,7 +1319,8 @@ int flash_bwd_dq_sm90(int dtype, const void* q, const void* k, const void* v,
   const Args a{q, k, v, nullptr, dout, lse, nullptr, delta,
                dq, nullptr, strides, B, H, Tq, Tk, D, q_off, kv_off,
                causal != 0, scale_of(D), static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, a, run_dq<64>, run_dq<128>);
+  static const Built built[] = {{64, run_dq<64>}, {128, run_dq<128>}};
+  return dispatch(dtype, a, built);
 }
 
 // Dynamic shared memory a launch of K2' (kernel 0), K4' (kernel 1) or K3'
@@ -1201,8 +1328,12 @@ int flash_bwd_dq_sm90(int dtype, const void* q, const void* k, const void* v,
 // ptxas does not report dynamic shared memory; chip_smoke.py prints this
 // beside it.
 int flash_sm90_shared_bytes(int kernel, int D) {
+  if (kernel == 0 && D == 16) return FwdLayout<16>::kBytes;
+  if (kernel == 0 && D == 32) return FwdLayout<32>::kBytes;
   if (kernel == 0 && D == 64) return FwdLayout<64>::kBytes;
   if (kernel == 0 && D == 128) return FwdLayout<128>::kBytes;
+  if (kernel == 1 && D == 16) return DkvLayout<16>::kBytes;
+  if (kernel == 1 && D == 32) return DkvLayout<32>::kBytes;
   if (kernel == 1 && D == 64) return DkvLayout<64>::kBytes;
   if (kernel == 1 && D == 128) return DkvLayout<128>::kBytes;
   if (kernel == 2 && D == 64) return DqLayout<64>::kBytes;

@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Block layouts of the Hopper flash kernels K2' and K4' on one card.
+
+    python3 sm90_layouts.py        # from the repository root, one CUDA card
+
+Builds `elasticdl_tpu_torch/csrc/flash_attention_sm90.cu` as it is and
+variants of it made by text substitution (`VARIANTS`: the layouts the
+source does not keep), one nvcc each, all started together. Each build
+is loaded in turn, the source's own first and last, and K2' and K4' run
+at B8 T1024 H8 causal bf16 at D 16, 32 and 64 on the same inputs: each
+launch held to its plain version (`chip_smoke.KERNEL_TOL`), its device
+time from torch.profiler (`chip_smoke.device_ms`). Prints one JSON line
+a build: ptxas's registers and spills of each Hopper kernel at D 16 and
+32, and the times; then the card's name and power limit. A layout that
+spills is not one to keep.
+"""
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+
+FWD_BLOCKS = "static constexpr int kMinBlocks = kD < 64 ? 2 : 1;"
+DKV_SHAPE = ("static constexpr int kConsumers = kD == 32 || kD == 64 ? 2 : "
+             "1;\n  static constexpr int kMinBlocks = kD == 16 ? 3 : 1;")
+
+
+def dkv(consumers, blocks):
+    return [(DKV_SHAPE,
+             f"static constexpr int kConsumers = {consumers};\n"
+             f"  static constexpr int kMinBlocks = {blocks};")]
+
+
+# name: [(text of the source, its replacement)]
+VARIANTS = {
+    # K2' at D 16 and 32 with one block a SM (168 registers)
+    "k2_one_block": [(FWD_BLOCKS, "static constexpr int kMinBlocks = 1;")],
+    # K4' at D 16 and 32 in D 64's shape: two warpgroups, one block
+    "k4_two_warpgroups": dkv("kD == 128 ? 1 : 2", "1"),
+    # K4' at D 16 and 32: two warpgroups, two blocks (96 registers)
+    "k4_two_warpgroups_two_blocks": dkv("kD == 128 ? 1 : 2",
+                                        "kD < 64 ? 2 : 1"),
+    # K4' at D 16 and 32: one warpgroup, three blocks (128 registers)
+    "k4_one_warpgroup_three_blocks": dkv("kD == 64 ? 2 : 1",
+                                         "kD < 64 ? 3 : 1"),
+    # a ring of four stages for every kernel
+    "four_stages": [("constexpr int kStages = 2;",
+                     "constexpr int kStages = 4;")],
+}
+
+
+def build_all(names):
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.ops import native
+
+    src_path = native.CSRC / f"{fa.LIBRARY_SM90}.cu"
+    source = src_path.read_text()
+    out_dir = native.BUILD_DIR / "layouts"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    started = {}
+    for name in names:
+        text = source
+        for old, new in VARIANTS[name]:
+            if text.count(old) != 1:
+                raise AssertionError(f"{name}: {old!r} is not in the source "
+                                     "once")
+            text = text.replace(old, new)
+        src = out_dir / f"{name}.cu"
+        src.write_text(text)
+        lib = out_dir / f"lib{name}.so"
+        started[name] = (lib, subprocess.Popen(
+            [native.nvcc(), *native.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    own = native.build([fa.LIBRARY_SM90])[fa.LIBRARY_SM90]
+    built = {"source": (own["path"], own["log"])}
+    for name, (lib, proc) in started.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+        built[name] = (str(lib), log)
+    return built
+
+
+def measure(name, path, log):
+    import chip_smoke as cs
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.ops import native
+
+    lib = ctypes.CDLL(path)
+    lib.edl_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.edl_cuda_error_string.restype = ctypes.c_char_p
+    native._loaded[fa.LIBRARY_SM90] = lib
+    ptxas = {k: v for k, v in cs.ptxas_summary(log).items()
+             if ("fwd_sm90" in k or "dkv_sm90" in k)
+             and ("D=16" in k or "D=32" in k)}
+    times = {}
+    b, t, h = cs.LM_BATCH, cs.LM_T, 8
+    for d in (16, 32, 64):
+        q, k, v, dout, _ = cs.attn_inputs("cuda", b, t, t, h, d,
+                                          torch.bfloat16, 0)
+        fwd = lambda: fa.launch_fwd(q, k, v, True, 0, 0, True)
+        out, lse = fwd()
+        delta = fa.flash_bwd_delta(out, dout)
+        bwd = lambda: fa.launch_dkv_sm90(q, k, v, dout, lse, delta, True, 0,
+                                         0)
+        want_out, _ = fa.flash_fwd_plain(q, k, v)
+        want = fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse)
+        ratio = max(cs.over_tol(got, w, *cs.KERNEL_TOL)[1]
+                    for got, w in zip((out, *bwd()), (want_out, *want)))
+        if ratio > 1.0:
+            raise AssertionError(f"{name} at D {d}: {ratio} of the "
+                                 "tolerance")
+        times[f"d{d}"] = {
+            "k2_prime_device_ms":
+                cs.device_ms(fwd, ("flash_fwd_sm90_kernel",))[
+                    "flash_fwd_sm90_kernel"],
+            "k4_prime_device_ms":
+                cs.device_ms(bwd, ("flash_bwd_dkv_sm90_kernel",))[
+                    "flash_bwd_dkv_sm90_kernel"],
+            "err_over_tol": ratio}
+    print(json.dumps({"layout": name, "ptxas": ptxas, "times": times}),
+          flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("sm90_layouts: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+
+    built = build_all(list(VARIANTS))
+    order = ["source", *VARIANTS, "source"]
+    for name in order:
+        measure(name, *built[name])
+    print(cs.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                  "--format=csv,noheader"]), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -25,8 +25,9 @@ values in different orders (the kernel in a fixed order of its own,
 sum of the magnitudes of its terms — the scale that summation rounding
 grows with.
 
-Tolerances for the flash kernels (K2-K4, and for bfloat16 at D 64 / 128
-the Hopper kernels K2', K3', K4' and the delta pass) against their plain
+Tolerances for the flash kernels (K2-K4, and for bfloat16 the Hopper
+kernels K2' and K4' at D 16, 32, 64 and 128, K3' at D 64 and 128, and the
+delta pass) against their plain
 versions, the reference's own for its kernel against its naive path:
 float32 out, lse and delta 2e-5, gradients 5e-5 with atol 5e-5 of the
 largest value (the kernels sum tile by tile, the plain versions whole
@@ -328,7 +329,7 @@ def case_flash_kernels_match_plain(cuda, dtype, d, tq, tk, causal, q_off,
                        dq)
     assert all(torch.equal(a, b) for a, b in zip(
         fa.flash_bwd_dkv(q, k, v, out, dout, lse, glse, *args), (dk, dv)))
-    if fa._sm90(dtype, d, fa.BWD_DQ_SM90):
+    if fa._sm90(dtype, d, fa.BWD_DKV_SM90):
         _close(fa.flash_bwd_delta(out, dout, glse),
                fa.flash_bwd_delta_plain(out, dout, glse), "delta", 2e-5,
                2e-5)
@@ -397,8 +398,11 @@ def case_flash_is_deterministic_and_counts_launches(cuda, d):
         outs.append((out, lse,
                      *fa.flash_bwd(q, k, v, out, dout, lse, glse)))
     route = _route(torch.bfloat16, d)
-    assert route[fa.FWD_SM90] and route[fa.BWD_DQ_SM90]
-    assert route[fa.BWD_DKV_SM90] and route[fa.BWD_DELTA_SM90] == 1
+    assert route[fa.FWD_SM90] and route[fa.BWD_DKV_SM90]
+    assert route[fa.BWD_DELTA_SM90] == 1
+    # dQ on K3' at D 64 and 128, on K3 at D 16 and 32
+    assert route[fa.BWD_DQ_SM90] == int(d in (64, 128))
+    assert route[fa.BWD_DQ] == int(d in (16, 32))
     assert fa.launches == {n: before[n] + 2 * route[n] for n in before}
     for a, b in zip(*outs):
         assert torch.equal(a, b)
@@ -429,6 +433,81 @@ def case_k4_prime_at_d128_matches_k4_and_plain(cuda):
             _close(a, w, f"K4' {name}", *BF16)
             _close(b, w, f"K4 {name}", *BF16)
             _close(a, b, f"K4' against K4, {name}", *BF16)
+
+
+def case_narrow_hopper_kernels_match_k2_k4_and_plain(cuda, d):
+    """K2' and K4' at D 16 or 32 against K2 and K4, the CUDA-core kernels
+    they replace there, through their launchers, and against the plain
+    versions, on the same inputs: causal with the lse cotangent, at
+    offsets with tails, not causal with tails, and the fully masked
+    geometry (out, lse and dK/dV 0 or NEG_BIG and finite); each within
+    the bf16 tolerance of the plain version and of each other, and a
+    rerun bit-identical."""
+    for tq, tk, causal, q_off, kv_off, with_glse in (
+            (256, 256, True, 0, 0, True), (200, 130, True, 70, 0, False),
+            (130, 200, True, 64, 32, True), (100, 230, False, 0, 0, True),
+            (100, 100, True, 0, 1024, False)):
+        q, k, v, dout, glse = _attn_inputs(cuda, 2, tq, tk, 3, d,
+                                           torch.bfloat16, seed=d + tq)
+        glse = glse if with_glse else None
+        args = (causal, q_off, kv_off)
+        before = dict(fa.launches)
+        out, lse = fa.launch_fwd(q, k, v, *args, True)
+        old_out, old_lse = fa.launch_fwd(q, k, v, *args, False)
+        new = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args, True)
+        again = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args,
+                                  True)
+        old = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args, False)
+        torch.cuda.synchronize()
+        assert {n: fa.launches[n] - before[n] for n in before
+                if fa.launches[n] != before[n]} == {
+            fa.FWD_SM90: 1, fa.FWD: 1, fa.BWD_DELTA_SM90: 2,
+            fa.BWD_DKV_SM90: 2, fa.BWD_DKV: 1}
+        assert all(torch.equal(a, b) for a, b in zip(new, again))
+        want_out, want_lse = fa.flash_fwd_plain(q, k, v, *args)
+        _close(out, want_out, f"K2' out D {d}", *BF16)
+        _close(old_out, want_out, f"K2 out D {d}", *BF16)
+        _close(out, old_out, f"K2' against K2, D {d}", *BF16)
+        masked = want_lse <= -1e29
+        assert bool((lse[masked] <= -1e29).all())
+        _close(lse[~masked], want_lse[~masked], f"lse D {d}", 2e-5, 2e-5)
+        _close(old_lse[~masked], want_lse[~masked], f"K2 lse D {d}", 2e-5,
+               2e-5)
+        want = fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse, glse, *args)
+        for name, a, b, w in zip(("dk", "dv"), new, old, want):
+            _close(a, w, f"K4' {name} D {d}", *BF16)
+            _close(b, w, f"K4 {name} D {d}", *BF16)
+            _close(a, b, f"K4' against K4, {name} D {d}", *BF16)
+        if kv_off >= tq + q_off:            # every row fully masked
+            for x in (out, *new):
+                assert bool((x == 0).all()) and bool(torch.isfinite(x).all())
+            assert bool((lse <= -1e29).all())
+
+
+def case_bf16_lm_with_16_wide_heads_runs_k2_k4_prime(cuda):
+    """A bf16 LM step with 16-wide heads (dim 64, 4 heads: the zoo LM's
+    default head width) on the card: K2', K4', the delta pass and K3 once
+    a layer, and K2, K4 and K3' never, with a finite loss and finite
+    gradients."""
+    r = np.random.RandomState(11)
+    toks = r.randint(0, 64, (4, 65)).astype(np.int32)
+    batch = {"features": toks[:, :-1], "labels": toks[:, 1:],
+             "mask": np.ones((4,), np.float32)}
+    tr = _card_trainer("transformer.transformer_lm.custom_model",
+                       "vocab=64;num_layers=2;dim=64;heads=4;max_len=64",
+                       "bfloat16")
+    state = tr.init_state(batch)
+    before = dict(fa.launches)
+    loss, grads = tr.compute_grads(state, batch)
+    torch.cuda.synchronize()
+    layers = 2
+    assert {n: fa.launches[n] - before[n] for n in before} == {
+        **{n: 0 for n in before}, fa.FWD_SM90: layers,
+        fa.BWD_DQ: layers, fa.BWD_DKV_SM90: layers,
+        fa.BWD_DELTA_SM90: layers}
+    assert np.isfinite(float(loss))
+    for n, g in grads.items():
+        assert bool(torch.isfinite(g).all()), n
 
 
 def case_bf16_lm_with_128_wide_heads_runs_k4_prime(cuda):
@@ -469,23 +548,32 @@ def case_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fa.flash_fwd(big, big, big)
 
 
-def case_hopper_wrapper_rejects_strides_tma_cannot_take(cuda):
-    """A bf16 D 64 view whose h stride is 68 elements (136 bytes, not a
-    multiple of 16) is on the Hopper route (K2', K3', K4'), which raises
-    before any launch rather than falling back to the CUDA-core kernels."""
-    wide = torch.randn((1, 32, 2, 68), device=cuda).to(torch.bfloat16)
-    q = wide[..., :64]
+def case_hopper_wrapper_rejects_strides_tma_cannot_take(cuda, d=64):
+    """A bf16 view whose h stride is d + 4 elements (2d + 8 bytes, not a
+    multiple of 16) is on the Hopper route (K2' and K4', and K3' at D 64),
+    which raises before any launch rather than falling back to the
+    CUDA-core kernels. At D 16 dQ alone takes K3, which reads the view
+    through its strides; the whole backward still raises before it."""
+    wide = torch.randn((1, 32, 2, d + 4), device=cuda).to(torch.bfloat16)
+    q = wide[..., :d]
     before = dict(fa.launches)
     with pytest.raises(ValueError, match="TMA"):
         fa.flash_fwd(q, q, q)
     out, lse = fa.flash_fwd(*(q.contiguous() for _ in range(3)))
-    for backward in (fa.flash_bwd_dkv, fa.flash_bwd_dq, fa.flash_bwd):
+    hopper_dq = fa._sm90(q.dtype, d, fa.BWD_DQ_SM90)
+    for backward in ((fa.flash_bwd_dkv, fa.flash_bwd_dq, fa.flash_bwd)
+                     if hopper_dq else (fa.flash_bwd_dkv, fa.flash_bwd)):
         with pytest.raises(ValueError, match="TMA"):
             backward(q, q, q, out, out, lse)
     assert fa.launches[fa.FWD] == before[fa.FWD]
     assert fa.launches[fa.BWD_DQ] == before[fa.BWD_DQ]
     assert fa.launches[fa.BWD_DKV] == before[fa.BWD_DKV]
     assert fa.launches[fa.BWD_DELTA_SM90] == before[fa.BWD_DELTA_SM90]
+    if not hopper_dq:
+        dq = fa.flash_bwd_dq(q, q, q, out, out, lse)
+        _close(dq, fa.flash_bwd_dq_plain(q, q, q, out, out, lse),
+               f"K3 on a view, D {d}", *BF16)
+        assert fa.launches[fa.BWD_DQ] == before[fa.BWD_DQ] + 1
 
 
 def case_lm_grads_on_the_card_match_cpu(cuda, extra=""):
@@ -1085,7 +1173,7 @@ def test_kernels_on_the_card(cuda, tmp_path):
                 (200, 130, True, 70, 0, True)):
             case_flash_kernels_match_plain(cuda, dtype, 64, tq, tk, causal,
                                            q_off, kv_off, glse)
-    for d in (64, 128):         # the Hopper route's tails, offsets, g_lse
+    for d in (16, 32, 64, 128):  # the Hopper route's tails, offsets, g_lse
         for tq, tk, causal, q_off, kv_off, glse in (
                 (130, 130, True, 0, 0, True), (200, 200, True, 0, 0, False),
                 (100, 230, False, 0, 0, True), (130, 200, True, 70, 0, True),
@@ -1097,12 +1185,16 @@ def test_kernels_on_the_card(cuda, tmp_path):
                                        True, 0, 0, True, views=True)
     case_full_attention_takes_the_kernels_at_any_length(cuda)
     case_flash_fully_masked_is_zero(cuda)
-    for d in (64, 128):
+    for d in (16, 32, 64, 128):
         case_flash_is_deterministic_and_counts_launches(cuda, d)
+    for d in (16, 32):
+        case_narrow_hopper_kernels_match_k2_k4_and_plain(cuda, d)
     case_k4_prime_at_d128_matches_k4_and_plain(cuda)
+    case_bf16_lm_with_16_wide_heads_runs_k2_k4_prime(cuda)
     case_bf16_lm_with_128_wide_heads_runs_k4_prime(cuda)
     case_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda)
-    case_hopper_wrapper_rejects_strides_tma_cannot_take(cuda)
+    for d in (64, 16):
+        case_hopper_wrapper_rejects_strides_tma_cannot_take(cuda, d)
     case_lm_grads_on_the_card_match_cpu(cuda)
     for extra in (";moe_experts=4", ";pp_axis=pp;seq_parallel=none",
                   ";tp_axis=model"):

@@ -142,8 +142,10 @@ def case_no_source_file_of_the_port_imports_them():
 
 
 def case_chip_smoke_imports_no_jax():
-    bad = [m for m in _imports(REPO / "chip_smoke.py") if _forbidden(m)]
-    assert bad == []
+    """Nor do the scripts that run on the card."""
+    for script in ("chip_smoke.py", "sm90_layouts.py"):
+        bad = [m for m in _imports(REPO / script) if _forbidden(m)]
+        assert bad == [], script
 
 
 def case_trainer_without_device_raises_where_cuda_is_absent():
