@@ -13,11 +13,10 @@ configuration as a step and a job and its pipelined one as a step, its
 sequence-parallel ring and Ulysses schedules and its steps on a `seq`
 mesh, those schedules over tensor-parallel head groups and the MoE's
 routing over (data, seq) blocks (flash-attention
-kernels: for its bfloat16 attention at D 64, and at D 128 in the LM with
-128-wide heads, the Hopper kernels K2', K3', K4' and the delta pass, which
-runs once a backward; at D 16 and 32, in the LMs with 16- and 32-wide
-heads, K2', K4' and the delta pass with K3 for dQ; K2, K3 and K4 for every
-other input, such as the float32 LM), the trainer's knobs (remat,
+kernels: for its bfloat16 attention at D 64, and at D 128, 16 and 32 in
+the LMs with 128-, 16- and 32-wide heads, the Hopper kernels K2', K3',
+K4' and the delta pass, which runs once a backward; K2, K3 and K4 for
+every other input, such as the float32 LM), the trainer's knobs (remat,
 gradient accumulation, grouped steps) over both, and the elastic control
 loop over the DeepFM job (the autoscaler's decisions and its drain-first
 eviction, zoo callbacks, the hybrid multi-slice mesh), and the DeepFM job
@@ -37,10 +36,10 @@ caught):
            with ptxas's registers and spills for each kernel, the dynamic
            shared memory each Hopper kernel's launch asks for, and the
            HGMMA (wgmma) instructions in each kernel's SASS (`cuobjdump
-           --dump-sass`): K2' and K4' at D 16, 32, 64 and 128 and K3' at
-           64 and 128 must have some; K4' at D 128 and K2' and K4' at D
-           16 and 32 must spill nothing; the delta pass must be built at
-           D 16, 32, 64 and 128.
+           --dump-sass`): K2', K3' and K4' at D 16, 32, 64 and 128 must
+           have some; K4' at D 128 and K2', K3' and K4' at D 16 and 32
+           must spill nothing; the delta pass must be built at D 16, 32,
+           64 and 128.
 3. kernel  K1 (`place_sorted_grads`) against its plain version on the card
            over the DeepFM shape (uniform hashed ids, D=17 and 16), a
            stream with 30% of its slots on one id, one with all of them on
@@ -67,11 +66,10 @@ caught):
 7. attn_kernel  the flash kernels against their plain versions on the
            card, each case through the routing wrappers (the forward, then
            the whole backward `flash_bwd`), which must take the Hopper
-           kernels K2', K3' and K4' for bf16 at D 64 and 128 (one delta
-           pass a backward, no K2-K4), K2', K4' and one delta pass with K3
-           for bf16 at D 16 and 32 (no K2, K4 or K3'), and K2-K4
-           elsewhere: at the LM's full shape (B8 T1024 H8, causal) in
-           bf16 at D 16, 32, 64 and 128 and in float32 at D 64; on small
+           kernels K2', K3' and K4' for bf16 at D 16, 32, 64 and 128 (one
+           delta pass a backward, no K2-K4), and K2-K4 elsewhere: at the
+           LM's full shape (B8 T1024 H8, causal) in bf16 at D 16, 32, 64
+           and 128 and in float32 at D 64; on small
            float32 cases at D 16 and
            their bf16 twins at D 64 (offsets (32,0), (16,0), (64,32); not
            causal with Tq 32, Tk 96 (bf16: Tq 100, Tk 230, tails); a fully
@@ -94,18 +92,19 @@ caught):
            bf16 D 128 the same for K4' (alone and with the delta pass, its
            device time, a bit-identical rerun) beside K4 through its
            launcher and the whole backward against SDPA's. At bf16 D 16
-           (the zoo LM's default head dim) and 32 the same for K2' and K4'
-           (each held to its plain version and rerun bit-identical; ms,
-           device ms, plain ms, bound; K4' also with the delta pass) beside
-           K2 and K4 through their launchers, SDPA's device time and the
-           whole backward (the delta pass, K3, K4') against SDPA's. K2, K3
-           and K4 also on the inputs they take, float32 at D 64, and bf16
-           at D 16 and 32 (K3 for dQ; K2 and K4 through their launchers),
-           each against its plain version's time and SDPA's forward or
-           backward on the same inputs. SDPA's backend is pinned and
-           named: flash for bf16, memory-efficient for float32 (flash
-           takes no float32). Each timing line carries the card's name
-           and power limit.
+           (the zoo LM's default head dim) and 32 the same for K2', K3'
+           and K4' (each held to its plain version and rerun
+           bit-identical; ms, device ms, plain ms, bound; K3' and K4' also
+           with the delta pass) beside K2, K3 and K4 through their
+           launchers (K3 held to the plain version there too), SDPA's
+           device time and the whole backward (the delta pass, K3', K4')
+           against SDPA's. K2, K3 and K4 also on the inputs they take,
+           float32 at D 64, and through their launchers on bf16 at D 16
+           and 32, each against its plain version's time and SDPA's
+           forward or backward on the same inputs. SDPA's backend is
+           pinned and named: flash for bf16, memory-efficient for
+           float32 (flash takes no float32). Each timing line carries the
+           card's name and power limit.
 8. lm_parity  a small LM (vocab 64, 2 layers, dim 64, 4 heads, float32,
            T 32) on the card and on the CPU from the same weights: loss
            rtol 5e-5, every gradient rtol 5e-5 with atol 5e-5 of its
@@ -480,9 +479,9 @@ they ran.
            dim of the zoo LM's default configuration) and with 16 heads of
            32 (`LM_D32_PARAMS`), bf16, 8 x 1024 random tokens: 6 train
            steps (one warm-up), eval and predict, as 34. Losses must be
-           finite and fall; K2', K4' (at the narrow D), the delta pass and
-           K3 must each launch 4 times in every train step and K2, K4 and
-           K3' never, and K2' 4 times in each of eval and predict.
+           finite and fall; K2', K3', K4' (at the narrow D) and the delta
+           pass must each launch 4 times in every train step and K2, K3
+           and K4 never, and K2' 4 times in each of eval and predict.
 Then the `kernels` line (K1's `launches` are the job's, with the
 `grouped`, `cohort_job`, `manual_shards`, `tier`, `autoscale_job`,
 `callbacks_job`, `hybrid_mesh`, `k8s_job` and `tools` phases' beside
@@ -490,9 +489,9 @@ them; the Hopper kernels' are `lm_train`'s, with `lm_job`'s,
 `moe_train`'s, `pp_train`'s, `moe_job`'s, `ring_attn`'s,
 `seq_train`'s and `seq_mix`'s beside them, and K2''s `serve_export`'s;
 K4' at D 128 is an entry of its own, `lm_train_d128`'s launches, and so
-are K2' and K4' at D 16 and 32, `lm_train_d16`'s and `lm_train_d32`'s;
-K2-K4 report float32 at D 64 first, with bf16 at D 16, 32 and 64 (and K4
-at 128) beside, K3 and the delta pass also their launches in
+are K2', K3' and K4' at D 16 and 32, `lm_train_d16`'s and
+`lm_train_d32`'s; K2-K4 report float32 at D 64 first, with bf16 at D 16,
+32 and 64 (and K4 at 128) beside, the delta pass also its launches in
 `lm_train_d16` and `lm_train_d32`), the nvidia-smi line, and last the
 `ok` line.
 
@@ -638,29 +637,38 @@ def k1_streams(dev):
     return out
 
 
-def device_ms(fn, names, calls=20):
+def device_ms(fn, names, calls=20, tries=3):
     """{name: device ms a call} of each kernel whose symbol contains one of
     `names` (the name "" matches all the call's device work), from
     torch.profiler over `calls` calls of `fn` after one warm-up; "not
-    measured" where the profiler saw no device time."""
+    measured" where the profiler saw no device time. Every call launches
+    the same kernels, so a name's count of kernels that is no multiple of
+    `calls` means the trace lost some: the calls are traced again, at most
+    `tries` times in all, and then the name is "not measured"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = {name: 0.0 for name in names}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        for name in names:
-            if name in e.name:
-                us[name] += e.time_range.elapsed_us()
-    return {name: (t / 1e3 / calls if t else "not measured")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = {name: 0.0 for name in names}
+        seen = {name: 0 for name in names}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for name in names:
+                if name in e.name:
+                    us[name] += e.time_range.elapsed_us()
+                    seen[name] += 1
+        whole = {name: seen[name] % calls == 0 for name in names}
+        if all(whole.values()):
+            break
+    return {name: (t / 1e3 / calls if t and whole[name] else "not measured")
             for name, t in us.items()}
 
 
@@ -953,10 +961,11 @@ def step_cost(model, trainer, state, batch, step_ms, cpu_spec, smi,
 PALLAS = "elasticdl_tpu/ops/pallas_attention.py"
 CSRC = "elasticdl_tpu_torch/csrc"
 DKV128 = "flash_bwd_dkv_sm90<D=128>"
-# K2' and K4' at the narrow head dims, entries of their own
+# K2', K4' and K3' at the narrow head dims, entries of their own
 FWD16, FWD32 = "flash_fwd_sm90<D=16>", "flash_fwd_sm90<D=32>"
 DKV16, DKV32 = "flash_bwd_dkv_sm90<D=16>", "flash_bwd_dkv_sm90<D=32>"
-NARROW = {16: (FWD16, DKV16), 32: (FWD32, DKV32)}
+DQ16, DQ32 = "flash_bwd_dq_sm90<D=16>", "flash_bwd_dq_sm90<D=32>"
+NARROW = {16: (FWD16, DKV16, DQ16), 32: (FWD32, DKV32, DQ32)}
 # name: (source, the TPU kernel's pallas_call it replaces)
 ATTN_KERNELS = {
     "flash_fwd": (f"{CSRC}/flash_attention.cu", f"{PALLAS}:256"),
@@ -976,6 +985,10 @@ ATTN_KERNELS = {
     FWD32: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:256"),
     DKV16: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:433"),
     DKV32: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:433"),
+    # K3' at D 16 and 32: one consumer warpgroup a block, N 16 and 32
+    # products into dQ
+    DQ16: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:404"),
+    DQ32: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:404"),
     # the delta fold of both backward kernels (pallas_attention.py:302-307)
     "flash_bwd_delta_sm90": (f"{CSRC}/flash_attention_sm90.cu",
                              f"{PALLAS}:404"),
@@ -1161,15 +1174,13 @@ def phase_attn_kernel(dev):
                if fa.launches[n] > before[n]}
         again = fa.flash_bwd(q, k, v, out, dout, lse, glse, *args)
         torch.cuda.synchronize()
-        # bf16 takes K2' and K4' at D 16, 32, 64 and 128, K3' at D 64 and
-        # 128 (K3 at D 16 and 32), with one delta pass a backward
+        # bf16 takes K2', K3' and K4' at D 16, 32, 64 and 128, with one
+        # delta pass a backward
         hopper = fa._sm90(dtype, d)
-        hopper_dq = fa._sm90(dtype, d, fa.BWD_DQ_SM90)
         want_route = (
             [fa.FWD_SM90 if hopper else fa.FWD],
-            {fa.BWD_DQ_SM90 if hopper_dq else fa.BWD_DQ: 1,
-             **({fa.BWD_DKV_SM90: 1, fa.BWD_DELTA_SM90: 1} if hopper
-                else {fa.BWD_DKV: 1})})
+            {fa.BWD_DQ_SM90: 1, fa.BWD_DKV_SM90: 1, fa.BWD_DELTA_SM90: 1}
+            if hopper else {fa.BWD_DQ: 1, fa.BWD_DKV: 1})
         if (fwd, bwd) != want_route:
             raise AssertionError(f"{name}: launched {fwd} and {bwd}, the "
                                  f"route wants {want_route}")
@@ -1181,18 +1192,18 @@ def phase_attn_kernel(dev):
         is_f32 = dtype == f32
         out_tol = (2e-5, 2e-5) if is_f32 else bf16_tol
         grad_tol = (5e-5, 5e-5) if is_f32 else bf16_tol
-        # each kernel's entry on the `kernels` line: K2' and K4' at D 16
-        # and 32, and K4' at D 128, have entries of their own
+        # each kernel's entry on the `kernels` line: K2', K3' and K4' at
+        # D 16 and 32, and K4' at D 128, have entries of their own
         fwd_entry, dkv = fwd[0], fa.BWD_DKV_SM90 if hopper else fa.BWD_DKV
+        dq_entry = fa.BWD_DQ_SM90 if hopper else fa.BWD_DQ
         if hopper and d in NARROW:
-            fwd_entry, dkv = NARROW[d]
+            fwd_entry, dkv, dq_entry = NARROW[d]
         elif hopper and d == 128:
             dkv = DKV128
         checks = {
             fwd_entry: [over_tol(out, want_out, *out_tol),
                         over_tol(lse, want_lse, 2e-5, 2e-5)],
-            (fa.BWD_DQ_SM90 if hopper_dq else fa.BWD_DQ):
-                [over_tol(dq, want_dq, *grad_tol)],
+            dq_entry: [over_tol(dq, want_dq, *grad_tol)],
             dkv: [over_tol(dk, want_dk, *grad_tol),
                   over_tol(dv, want_dv, *grad_tol)],
         }
@@ -1343,9 +1354,8 @@ def attn_times(dev, report, worst, smi):
          faster=faster, served=served, d128=d128, k4_d128=k4_d128,
          narrow=narrow)
     # K2-K4 report the inputs they serve: float32 at D 64 first, with the
-    # rest and their bf16 D 64 times (K2', K3' and K4' take those) beside;
-    # on bf16 D 16 and 32 K3 serves dQ, and K2 and K4 are timed there
-    # beside K2' and K4'
+    # rest and their bf16 D 16, 32 and 64 times (K2', K3' and K4' take
+    # those) beside
     for kernel in (fa.FWD, fa.BWD_DQ, fa.BWD_DKV):
         on_bf16_d64 = result[kernel]
         result[kernel] = {
@@ -1365,32 +1375,48 @@ def attn_times(dev, report, worst, smi):
 
 
 def narrow_times(dev, worst, d, served):
-    """K2' and K4' at D `d` (16 or 32; bf16 B8 T1024 H8, causal): each held
-    to its plain version and to itself over two runs; its ms (CUDA events;
-    K4' also with the delta pass), device ms (profiler), plain ms and
-    bound beside K2 or K4 through its launcher on the same inputs
-    (`served`, from `served_times`) and SDPA's device time (flash); and
-    the whole backward (the delta pass, K3 and K4') against SDPA's in
-    turns. Returns {entry name: its fields}."""
+    """K2', K4' and K3' at D `d` (16 or 32; bf16 B8 T1024 H8, causal): each
+    held to its plain version and to itself over two runs; its ms (CUDA
+    events; K3' and K4' also with the delta pass), device ms (profiler),
+    plain ms and bound beside K2, K4 or K3 through its launcher on the same
+    inputs (`served`, from `served_times`; K3 also held to the plain
+    version here) and SDPA's device time (flash); and the whole backward
+    (the delta pass, K3' and K4') against SDPA's in turns. Returns {entry
+    name: its fields}."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
 
     b, t, h = LM_BATCH, LM_T, 8
     q, k, v, dout, _ = attn_inputs(dev, b, t, t, h, d, torch.bfloat16, 0)
     out, lse = fa.flash_fwd(q, k, v)
     delta = fa.flash_bwd_delta(out, dout)
-    fwd_name, dkv_name = NARROW[d]
-    calls = {   # entry: (its launch, its plain version, its symbol, K2/K4)
+    fwd_name, dkv_name, dq_name = NARROW[d]
+    plain_dq = lambda: fa.flash_bwd_dq_plain(q, k, v, out, dout, lse)
+    # entry: (its launch, its plain version, its kernel, the CUDA-core
+    # kernel it replaces here)
+    calls = {
         fwd_name: (lambda: fa.launch_fwd(q, k, v, True, 0, 0, True),
-                   lambda: fa.flash_fwd_plain(q, k, v),
-                   f"{fa.FWD_SM90}_kernel", fa.FWD),
+                   lambda: fa.flash_fwd_plain(q, k, v), fa.FWD_SM90,
+                   fa.FWD),
         dkv_name: (lambda: fa.launch_dkv_sm90(q, k, v, dout, lse, delta,
                                               True, 0, 0),
                    lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse),
-                   f"{fa.BWD_DKV_SM90}_kernel", fa.BWD_DKV),
+                   fa.BWD_DKV_SM90, fa.BWD_DKV),
+        dq_name: (lambda: (fa.launch_dq_sm90(q, k, v, dout, lse, delta,
+                                             True, 0, 0),),
+                  lambda: (plain_dq(),), fa.BWD_DQ_SM90, fa.BWD_DQ),
     }
+    # K3, which K3' replaces here, on the same inputs
+    old_dq = fa.launch_bwd_dq(q, k, v, out, dout, lse, None, True, 0, 0,
+                              False)
+    err, ratio = over_tol(old_dq, plain_dq(), *KERNEL_TOL)
+    if ratio > 1.0:
+        raise AssertionError(f"{fa.BWD_DQ} disagrees with its plain version "
+                             f"at bf16 D {d} ({ratio})")
+    worst[fa.BWD_DQ] = [max(worst[fa.BWD_DQ][0], err),
+                        max(worst[fa.BWD_DQ][1], ratio)]
     bwd = whole_backward(q, k, v, out, dout, lse)
     result = {}
-    for name, (run_kernel, run_plain, symbol, old) in calls.items():
+    for name, (run_kernel, run_plain, kernel, old) in calls.items():
         got, again = run_kernel(), run_kernel()
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
@@ -1405,9 +1431,10 @@ def narrow_times(dev, worst, d, served):
                                  f"at bf16 D {d} ({ratio})")
         worst[name] = [max(worst[name][0], err), max(worst[name][1], ratio)]
         fwd = name == fwd_name
-        was = "k2" if fwd else "k4"     # the CUDA-core kernel it replaces
-        bound_ms, bound_by = attn_bound(
-            b, t, h, d, 2, fa.FWD_SM90 if fwd else fa.BWD_DKV_SM90)
+        # the CUDA-core kernel it replaces
+        was = {fa.FWD: "k2", fa.BWD_DKV: "k4", fa.BWD_DQ: "k3"}[old]
+        bound_ms, bound_by = attn_bound(b, t, h, d, 2, kernel)
+        symbol = f"{kernel}_kernel"
         entry = result[name] = {
             "timed_on": f"bfloat16 B{b} T{t} H{h} D{d} causal",
             "max_abs_err": worst[name][0], "err_over_tol": worst[name][1],
@@ -1425,7 +1452,9 @@ def narrow_times(dev, worst, d, served):
         entry["faster"] = {f"{was}_prime_under_{was}":
                            entry["ms"] < served[old]["ms"]}
         if not fwd:
-            entry["ms_with_delta_pass"] = time_ms(lambda: fa.launch_bwd_dkv(
+            launch = fa.launch_bwd_dq if old == fa.BWD_DQ else \
+                fa.launch_bwd_dkv
+            entry["ms_with_delta_pass"] = time_ms(lambda: launch(
                 q, k, v, out, dout, lse, None, True, 0, 0, True))
             entry["whole_backward"] = bwd
             entry["faster"]["whole_backward_under_sdpa"] = \
@@ -1582,10 +1611,8 @@ def whole_backward(q, k, v, out, dout, lse, rounds=7):
         # B8 T1024 H8 D64 its events read 0.18 to 0.60 ms within one run);
         # its device time is not
         sdpa_dev = device_ms(theirs, ("",))[""]
-    # the backward's kernels by the route: K3' or K3 for dQ
-    dq = ("flash_bwd_dq_sm90_kernel"
-          if fa._sm90(q.dtype, d, fa.BWD_DQ_SM90) else "flash_bwd_dq_kernel")
-    ours_dev = device_ms(ours, ("flash_bwd_delta_sm90_kernel", dq,
+    ours_dev = device_ms(ours, ("flash_bwd_delta_sm90_kernel",
+                                "flash_bwd_dq_sm90_kernel",
                                 "flash_bwd_dkv_sm90_kernel"))
     bound_ms, bound_by = attn_bound(b, t, h, d, q.element_size(),
                                     "flash_bwd")
@@ -2992,8 +3019,8 @@ PP_PARAMS = f"{LM_PARAMS};pp_axis=pp;pp_microbatches=4;seq_parallel=none"
 LM_D128_PARAMS = "vocab=8192;num_layers=4;dim=512;heads=4;max_len=1024"
 LM_D128_STEPS = 6
 # the same width with 32 heads of 16, the head dim of the zoo LM's default
-# configuration (dim 128, 8 heads), and with 16 heads of 32 (K2' and K4'
-# at D 16 and 32, K3 for dQ)
+# configuration (dim 128, 8 heads), and with 16 heads of 32 (K2', K3' and
+# K4' at D 16 and 32)
 LM_D16_PARAMS = "vocab=8192;num_layers=4;dim=512;heads=32;max_len=1024"
 LM_D32_PARAMS = "vocab=8192;num_layers=4;dim=512;heads=16;max_len=1024"
 LM_NARROW_STEPS = 6
@@ -3002,20 +3029,16 @@ LM_NARROW_STEPS = 6
 def hopper_launches(steps, evals=0, d=64):
     """The flash kernels' launches over `steps` bf16 LM train steps and
     `evals` forward-only steps at head dim `d`, by the route `_sm90`
-    names: one of each a layer a step, and the delta pass once a backward
-    where K3' or K4' reads it."""
+    names: one of each a layer a step (on the Hopper route the delta pass
+    once a backward, read by K3' and K4')."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
 
-    bf16 = torch.bfloat16
     want = {name: 0 for name in fa.launches}
-    fwd = fa.FWD_SM90 if fa._sm90(bf16, d) else fa.FWD
-    dq = fa.BWD_DQ_SM90 if fa._sm90(bf16, d, fa.BWD_DQ_SM90) else fa.BWD_DQ
-    dkv = (fa.BWD_DKV_SM90 if fa._sm90(bf16, d, fa.BWD_DKV_SM90)
-           else fa.BWD_DKV)
-    for name in (dq, dkv):
+    fwd, *bwd = ((fa.FWD_SM90, fa.BWD_DQ_SM90, fa.BWD_DKV_SM90,
+                  fa.BWD_DELTA_SM90) if fa._sm90(torch.bfloat16, d)
+                 else (fa.FWD, fa.BWD_DQ, fa.BWD_DKV))
+    for name in bwd:
         want[name] = LM_LAYERS * steps
-    if dq == fa.BWD_DQ_SM90 or dkv == fa.BWD_DKV_SM90:
-        want[fa.BWD_DELTA_SM90] = LM_LAYERS * steps
     want[fwd] = LM_LAYERS * (steps + evals)
     return want
 
@@ -3202,9 +3225,9 @@ def phase_lm_train_narrow(smi, params):
     """The LM at `lm_train`'s width with 16- or 32-wide heads (`params`,
     LM_D16_PARAMS or LM_D32_PARAMS): a warm-up step and LM_NARROW_STEPS - 1
     timed train steps, eval and predict, as `lm_variant_train` holds them:
-    finite falling losses; K2', K4' (at the narrow D), the delta pass and
-    K3 4 times a train step, K2' 4 times in each of eval and predict, and
-    K2, K4 and K3' never. Returns the flash kernels' launches."""
+    finite falling losses; K2', K3', K4' (at the narrow D) and the delta
+    pass 4 times a train step, K2' 4 times in each of eval and predict,
+    and K2, K3 and K4 never. Returns the flash kernels' launches."""
     d = head_dim(params)
     _, _, _, fields, launches = lm_variant_train(
         params, f"lm_train_d{d}", smi, steps=LM_NARROW_STEPS - 1)
@@ -5573,7 +5596,8 @@ def main():
     hopper = ([(0, "flash_fwd_sm90_kernel", d) for d in (16, 32, 64, 128)]
               + [(1, "flash_bwd_dkv_sm90_kernel", d)
                  for d in (16, 32, 64, 128)]
-              + [(2, "flash_bwd_dq_sm90_kernel", d) for d in (64, 128)])
+              + [(2, "flash_bwd_dq_sm90_kernel", d)
+                 for d in (16, 32, 64, 128)])
     shared = {f"{name}<D={d}>": sm90.flash_sm90_shared_bytes(which, d)
               for which, name, d in hopper}
     ptxas = {k: ptxas_summary(v["log"]) for k, v in built.items()}
@@ -5585,14 +5609,16 @@ def main():
     for kernel in shared:
         if not hgmma.get(kernel):
             raise AssertionError(f"{kernel} has no HGMMA instruction")
-    # K4' at D 128, and K2' and K4' at D 16 and 32, are laid out so that
-    # ptxas spills nothing; the delta pass is built at every width K4'
-    # takes
+    # K4' at D 128, and K2', K3' and K4' at D 16 and 32, are laid out so
+    # that ptxas spills nothing; the delta pass is built at every width K3'
+    # and K4' take
     for kernel in ("flash_bwd_dkv_sm90_kernel<D=128>",
                    "flash_fwd_sm90_kernel<D=16>",
                    "flash_fwd_sm90_kernel<D=32>",
                    "flash_bwd_dkv_sm90_kernel<D=16>",
-                   "flash_bwd_dkv_sm90_kernel<D=32>"):
+                   "flash_bwd_dkv_sm90_kernel<D=32>",
+                   "flash_bwd_dq_sm90_kernel<D=16>",
+                   "flash_bwd_dq_sm90_kernel<D=32>"):
         info = ptxas[fa.LIBRARY_SM90].get(kernel, "")
         if "0 bytes spill stores, 0 bytes spill loads" not in info:
             raise AssertionError(f"{kernel} spills or was not built: "
@@ -5712,11 +5738,11 @@ def main():
         "launches": (f32_lm_launches[name] if name in f32_lm
                      else lm_launches[name]),
         "launches_in": "lm_parity" if name in f32_lm else "lm_train",
-        # the bf16 LMs with 16- and 32-wide heads: K3 for dQ beside K2',
-        # K4' (entries of their own below) and the delta pass
+        # the bf16 LMs with 16- and 32-wide heads: the delta pass beside
+        # K2', K3' and K4' (entries of their own below)
         **({"lm_train_d16_launches": d16_launches[name],
             "lm_train_d32_launches": d32_launches[name]}
-           if name in (fa.BWD_DQ, fa.BWD_DELTA_SM90) else {}),
+           if name == fa.BWD_DELTA_SM90 else {}),
         **({} if name in f32_lm else
            {"lm_train_d128_launches": d128_launches[name],
             "lm_job_launches": lm_job_launches[name],
@@ -5745,14 +5771,14 @@ def main():
         "route": "cuda",
         "source": ATTN_KERNELS[entry][0],
         "replaces": ATTN_KERNELS[entry][1],
-        # K2' and K4' at D 16 and 32 come from the LMs with 16- and
+        # K2', K4' and K3' at D 16 and 32 come from the LMs with 16- and
         # 32-wide heads (train, eval and predict)
         "launches": launches[kernel],
         "launches_in": f"lm_train_d{d}",
         **attn[entry],
     } for d, launches in ((16, d16_launches), (32, d32_launches))
-        for entry, kernel in zip(NARROW[d], (fa.FWD_SM90,
-                                             fa.BWD_DKV_SM90))]}),
+        for entry, kernel in zip(NARROW[d], (fa.FWD_SM90, fa.BWD_DKV_SM90,
+                                             fa.BWD_DQ_SM90))]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
-// Flash attention on Hopper's tensor cores: the forward (K2') and dK/dV
-// (K4') for bfloat16 with D = 16, 32, 64 or 128, dQ (K3') for bfloat16 with
-// D = 64 or 128, and the pass that writes the delta K3' and K4' read.
+// Flash attention on Hopper's tensor cores: the forward (K2'), dQ (K3') and
+// dK/dV (K4') for bfloat16 with D = 16, 32, 64 or 128, and the pass that
+// writes the delta K3' and K4' read.
 //
 // Replaces, for those inputs, elasticdl_tpu/ops/pallas_attention.py
 // `_fwd_kernel` (`pallas_call` at 256), `_bwd_dq_kernel` (`pallas_call` at
 // 404) and `_bwd_dkv_kernel` (`pallas_call` at 433). csrc/flash_attention.cu
-// keeps every other case (float32, other head dims, dQ at D 16 and 32).
+// keeps every other case (float32, other head dims).
 //
 // Contract: that of ops/flash_attention.py, unchanged. q (B, Tq, H, D),
 // k and v (B, Tk, H, D), dout like q, read in place through (b, t, h)
@@ -34,7 +34,8 @@
 //   float32 product the reference forms, at twice the tensor work of those
 //   four products.
 // - Blocks. Two consumer warpgroups of 64 rows each (q rows in K2' and
-//   K3', kv rows in K4'; K4' at D 128 has one) and one producer warp,
+//   K3', kv rows in K4'; K4' at D 16 and 128 and K3' at D 16 and 32 have
+//   one) and one producer warp,
 //   which brings the streamed tiles (K, V in K2' and K3'; Q, dO in K4') in
 //   by TMA, 64 rows a tile, into a ring of kStages stages guarded by
 //   full/empty mbarriers. Tiles land in the swizzle the wgmma descriptors
@@ -43,15 +44,17 @@
 //   64-byte swizzle and D = 16 one 32-byte row in the 32-byte swizzle (TMA
 //   takes no box wider than its swizzle). Tails past T come as zeros from
 //   TMA's out-of-bounds fill and are masked.
-// - Narrow heads (D 16, 32). S = Q.K^T and dP^T = V.dO^T keep N = 64 and
-//   take one or two k16 steps; P.V, P^T.dO and dS^T.Q are m64n16k16 or
-//   m64n32k16 products into 8 or 16 accumulator floats a thread. The tensor
-//   work per score is a quarter (D 16) or a half (D 32) of D 64's while
-//   the exp, max, rescale and hi/lo split per score stay, so these bind on
-//   the softmax's CUDA-core work and on latency, not on the tensor cores.
-//   Registers set their blocks (`FwdLayout`, `DkvShape`): K2' fits two
-//   blocks a SM in 96 registers a thread, K4' at D 16 three one-warpgroup
-//   blocks in 128; K4' at D 32 keeps D 64's two warpgroups, one block.
+// - Narrow heads (D 16, 32). S = Q.K^T, dP = dO.V^T and their transposes
+//   keep N = 64 and take one or two k16 steps; P.V, P^T.dO, dS^T.Q and
+//   dS.K are m64n16k16 or m64n32k16 products into 8 or 16 accumulator
+//   floats a thread. The tensor work per score is a quarter (D 16) or a
+//   half (D 32) of D 64's while the exp, max, rescale and hi/lo split per
+//   score stay, so these bind on the softmax's CUDA-core work and on
+//   latency, not on the tensor cores. Registers set their blocks
+//   (`FwdLayout`, `DkvShape`, `DqShape`): K2' fits two blocks a SM in 96
+//   registers a thread, K4' at D 16 three one-warpgroup blocks in 128,
+//   K3' at D 16 and 32 the same in 106 and 115; K4' at D 32 keeps D 64's
+//   two warpgroups, one block.
 // - Registers. ptxas gives 168 a thread to a block of 288 threads. K2'
 //   needs ~2 x 32 (D 64) or 32 + 64 (D 128) floats of accumulators, K3'
 //   3 x 32 (D 64) or 2 x 32 + 64 (D 128), K4' at D 64 4 x 32; all of these
@@ -68,13 +71,14 @@
 //   two rows, quad shuffles reduce them); p goes straight into register A
 //   fragments as hi and lo; O += P.V reads V MN-major through the transpose
 //   bit. O / l is rounded to bf16 once.
-// - K3'. K2''s loop with one product more: a block owns 128 q rows (Q and
-//   dO loaded once), lse and delta of its rows sit in registers, and the
-//   K and V tiles stream through the ring. S = Q.K^T and dP = dO.V^T on
-//   wgmma (all K-major); p = exp(s - lse), ds = p (dp - delta) on the
-//   accumulator layout; dQ += dS.K with dS as split register A fragments
-//   and K MN-major through the transpose bit, as V in K2''s P.V. dQ times
-//   the scale is rounded to bf16 once; each row has one writer.
+// - K3'. K2''s loop with one product more: a block owns 128 q rows (64 at
+//   D 16 and 32; Q and dO loaded once), lse and delta of its rows sit in
+//   registers, and the K and V tiles stream through the ring. S = Q.K^T
+//   and dP = dO.V^T on wgmma (all K-major); p = exp(s - lse),
+//   ds = p (dp - delta) on the accumulator layout; dQ += dS.K with dS as
+//   split register A fragments and K MN-major through the transpose bit,
+//   as V in K2''s P.V. dQ times the scale is rounded to bf16 once; each
+//   row has one writer.
 // - K4'. A block owns 128 kv rows (64 at D 128; K, V loaded once) and
 //   walks the q tiles from the first one the causal mask lets through.
 //   S^T = K.Q^T and dP^T = V.dO^T on wgmma; p^T = exp(s^T - lse),
@@ -673,9 +677,19 @@ flash_bwd_delta_sm90_kernel(const __nv_bfloat16* __restrict__ o,
 
 // ------------------------------------------------------------------ K4'
 
+// A block of `consumers` warpgroups of 64 rows each and one producer
+// warp, of which ptxas must fit `blocks` a SM in registers.
+template <int consumers, int blocks>
+struct BlockShape {
+  static constexpr int kConsumers = consumers;
+  static constexpr int kMinBlocks = blocks;
+  static constexpr int kThreads = 128 * kConsumers + 32;
+  static constexpr int kRows = 64 * kConsumers;
+};
+
 // K4''s consumer warpgroups of 64 kv rows each, and the blocks a SM that
 // ptxas must fit in registers. One producer warp either way.
-// - D 32 and 64: two warpgroups, as in K2' and K3', one block a SM (168
+// - D 32 and 64: two warpgroups, as in K2', one block a SM (168
 //   registers a thread).
 // - D 128: one warpgroup, where the block's 160 threads may take 255
 //   registers a thread (see Registers above).
@@ -684,12 +698,8 @@ flash_bwd_delta_sm90_kernel(const __nv_bfloat16* __restrict__ o,
 //   two, so one's products overlap another's softmax (0.135 against
 //   0.171 ms at B8 T1024 H8 on an H100). D 32 spills in that layout.
 template <int kD>
-struct DkvShape {
-  static constexpr int kConsumers = kD == 32 || kD == 64 ? 2 : 1;
-  static constexpr int kMinBlocks = kD == 16 ? 3 : 1;
-  static constexpr int kThreads = 128 * kConsumers + 32;
-  static constexpr int kRows = 64 * kConsumers;
-};
+using DkvShape =
+    BlockShape<(kD == 32 || kD == 64 ? 2 : 1), (kD == 16 ? 3 : 1)>;
 
 template <int kD>
 struct DkvLayout {
@@ -901,16 +911,30 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ------------------------------------------------------------------ K3'
 
+// K3''s consumer warpgroups of 64 q rows each, and the blocks a SM that
+// ptxas must fit in registers. One producer warp either way.
+// - D 64 and 128: two warpgroups, one block a SM (168 registers a thread).
+// - D 16 and 32: one warpgroup and three blocks a SM, for which ptxas
+//   allows 128 registers a thread (K3' takes 106 at D 16 and 115 at D 32,
+//   no spill: 32 floats of S, 32 of dP, 32 words of their hi/lo split and
+//   kD / 2 of dQ). Three warpgroups share a SM, so one's products overlap
+//   another's exp and split: D 64's shape (two warpgroups, one block) ran
+//   24% slower on an H100 at B8 T1024 H8, and two warpgroups in two
+//   blocks or one in four spill at ptxas's 96 (sm90_layouts.py).
+template <int kD>
+using DqShape = BlockShape<(kD < 64 ? 1 : 2), (kD < 64 ? 3 : 1)>;
+
 template <int kD>
 struct DqLayout {
-  static constexpr int kQBytes = kBlockRows * kD * 2;
+  static constexpr int kQBytes = DqShape<kD>::kRows * kD * 2;
   static constexpr int kTileBytes = kTileRows * kD * 2;
   static constexpr int kBytes =
       1024 + 2 * kQBytes + 2 * kStages * kTileBytes + 8 * (1 + 2 * kStages);
 };
 
 template <int kD>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(DqShape<kD>::kThreads,
+                                  DqShape<kD>::kMinBlocks)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
@@ -922,8 +946,10 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          float scale) {
   using L = DqLayout<kD>;
   using C = Cols<kD>;
+  using S = DqShape<kD>;
+  constexpr int kBlockRows = S::kRows;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* qs = align_1024(smem_raw);  // kBlocks x [128][kCols]
+  uint8_t* qs = align_1024(smem_raw);  // kBlocks x [rows][kCols]
   uint8_t* dos = qs + L::kQBytes;
   uint8_t* ks = dos + L::kQBytes;  // [stage] kBlocks x [64][kCols]
   uint8_t* vs = ks + kStages * L::kTileBytes;
@@ -939,12 +965,12 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       (kv_rows_seen(min(Tq, q0 + kBlockRows), Tk, q_off, kv_off, causal) +
        kTileRows - 1) / kTileRows;
 
-  if (threadIdx.x == 0) init_barriers(bars);
+  if (threadIdx.x == 0) init_barriers(bars, S::kConsumers);
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
-  if (wg == kConsumers) {  // the producer warp: one thread starts the loads
+  if (wg == S::kConsumers) {  // the producer warp: one thread starts the loads
     if (lane != 0 || n_tiles == 0) return;
     mbar_expect_tx(q_bar, 2 * L::kQBytes);
 #pragma unroll
@@ -1201,19 +1227,20 @@ cudaError_t run_dkv(const Args& a) {
 
 template <int kD>
 cudaError_t run_dq(const Args& a) {
+  using S = DqShape<kD>;
   CUtensorMap mq, mk, mv, mdo;
-  if (!make_map<kD>(&mq, a.q, a.at(0), a.B, a.Tq, a.H, kBlockRows) ||
+  if (!make_map<kD>(&mq, a.q, a.at(0), a.B, a.Tq, a.H, S::kRows) ||
       !make_map<kD>(&mk, a.k, a.at(1), a.B, a.Tk, a.H, kTileRows) ||
       !make_map<kD>(&mv, a.v, a.at(2), a.B, a.Tk, a.H, kTileRows) ||
-      !make_map<kD>(&mdo, a.dout, a.at(3), a.B, a.Tq, a.H, kBlockRows)) {
+      !make_map<kD>(&mdo, a.dout, a.at(3), a.B, a.Tq, a.H, S::kRows)) {
     return cudaErrorInvalidValue;
   }
   auto kernel = flash_bwd_dq_sm90_kernel<kD>;
   constexpr int smem = DqLayout<kD>::kBytes;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Tq + kBlockRows - 1) / kBlockRows, a.B * a.H);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
+  const dim3 grid((a.Tq + S::kRows - 1) / S::kRows, a.B * a.H);
+  kernel<<<grid, S::kThreads, smem, a.stream>>>(
       mq, mk, mv, mdo, static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.out0),
       a.at(4), a.H, a.Tq, a.Tk, a.q_off, a.kv_off, a.causal, a.scale);
@@ -1265,8 +1292,7 @@ extern "C" {
 // Each launcher enqueues one kernel on `stream` and returns its
 // cudaError_t (0 on success). `strides` holds the (b, t, h) element
 // strides of the tensors in argument order. dtype must be 1 (bfloat16) and
-// D 16, 32, 64 or 128 (dQ: 64 or 128); anything else returns
-// cudaErrorInvalidValue.
+// D 16, 32, 64 or 128; anything else returns cudaErrorInvalidValue.
 
 int flash_fwd_sm90(int dtype, const void* q, const void* k, const void* v,
                    void* out, void* lse, const long long* strides, int B,
@@ -1319,7 +1345,8 @@ int flash_bwd_dq_sm90(int dtype, const void* q, const void* k, const void* v,
   const Args a{q, k, v, nullptr, dout, lse, nullptr, delta,
                dq, nullptr, strides, B, H, Tq, Tk, D, q_off, kv_off,
                causal != 0, scale_of(D), static_cast<cudaStream_t>(stream)};
-  static const Built built[] = {{64, run_dq<64>}, {128, run_dq<128>}};
+  static const Built built[] = {{16, run_dq<16>}, {32, run_dq<32>},
+                                 {64, run_dq<64>}, {128, run_dq<128>}};
   return dispatch(dtype, a, built);
 }
 
@@ -1336,6 +1363,8 @@ int flash_sm90_shared_bytes(int kernel, int D) {
   if (kernel == 1 && D == 32) return DkvLayout<32>::kBytes;
   if (kernel == 1 && D == 64) return DkvLayout<64>::kBytes;
   if (kernel == 1 && D == 128) return DkvLayout<128>::kBytes;
+  if (kernel == 2 && D == 16) return DqLayout<16>::kBytes;
+  if (kernel == 2 && D == 32) return DqLayout<32>::kBytes;
   if (kernel == 2 && D == 64) return DqLayout<64>::kBytes;
   if (kernel == 2 && D == 128) return DqLayout<128>::kBytes;
   return -1;

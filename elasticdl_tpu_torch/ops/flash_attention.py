@@ -9,17 +9,16 @@ Counterpart of `elasticdl_tpu/ops/pallas_attention.py`:
 
 Two CUDA C++ sources hold the kernels (see the notes in each):
 - `csrc/flash_attention_sm90.cu`, on Hopper's tensor cores (`wgmma`, TMA):
-  K2' `flash_fwd_sm90` and K4' `flash_bwd_dkv_sm90` for bfloat16 at D 16,
-  32, 64 and 128, K3' `flash_bwd_dq_sm90` for bfloat16 at D 64 and 128,
-  and the delta pass `flash_bwd_delta_sm90` that K3' and K4' read
-  (`_sm90`): the LM's attention;
+  K2' `flash_fwd_sm90`, K3' `flash_bwd_dq_sm90` and K4'
+  `flash_bwd_dkv_sm90` for bfloat16 at D 16, 32, 64 and 128, and the
+  delta pass `flash_bwd_delta_sm90` that K3' and K4' read (`_sm90`): the
+  LM's attention;
 - `csrc/flash_attention.cu`, float32 FMAs on the CUDA cores: K2, K3 and K4
-  for every other input (float32, other head dims, and K3 for dQ at
-  bfloat16 D 16 and 32).
+  for every other input (float32, other head dims).
 The route is decided by dtype and D alone, before any launch; a failed
 launch raises and is never retried on the other kernels. The autograd
 backward (`flash_bwd`) launches the delta pass once and hands it to
-K3' and K4' (at D 16 and 32 to K4' alone, beside K3).
+K3' and K4'.
 
 The contract, shared by kernel and plain version:
 - scores s = (q . k) * D**-0.5 in float32, with the causal mask taken in
@@ -77,8 +76,7 @@ FWD_SM90, BWD_DKV_SM90 = "flash_fwd_sm90", "flash_bwd_dkv_sm90"
 BWD_DQ_SM90, BWD_DELTA_SM90 = "flash_bwd_dq_sm90", "flash_bwd_delta_sm90"
 launches = {FWD: 0, BWD_DQ: 0, BWD_DKV: 0, FWD_SM90: 0, BWD_DQ_SM90: 0,
             BWD_DKV_SM90: 0, BWD_DELTA_SM90: 0}
-_SM90_HEAD_DIMS = {FWD_SM90: (16, 32, 64, 128), BWD_DQ_SM90: (64, 128),
-                   BWD_DKV_SM90: (16, 32, 64, 128)}
+_SM90_HEAD_DIMS = (16, 32, 64, 128)  # K2', K3', K4' and the delta pass
 _KERNELS = {LIBRARY: (FWD, BWD_DQ, BWD_DKV),
             LIBRARY_SM90: (FWD_SM90, BWD_DQ_SM90, BWD_DKV_SM90,
                            BWD_DELTA_SM90)}
@@ -227,12 +225,11 @@ def _on_card(x: torch.Tensor) -> bool:
     return True
 
 
-def _sm90(dtype, d, kernel: str = FWD_SM90) -> bool:
-    """True where the Hopper kernel `kernel` takes the inputs: bfloat16
-    with head dim 16, 32, 64 or 128 for K2' (`FWD_SM90`) and K4'
-    (`BWD_DKV_SM90`), 64 or 128 for K3' (`BWD_DQ_SM90`). K3' and K4' read
-    the delta pass."""
-    return dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS[kernel]
+def _sm90(dtype, d) -> bool:
+    """True where the Hopper kernels take the inputs: bfloat16 with head
+    dim 16, 32, 64 or 128, for each of K2', K3' and K4' alike. K3' and K4'
+    read the delta pass."""
+    return dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS
 
 
 def _check_tma(*tensors) -> None:
@@ -365,15 +362,15 @@ def _check_residuals(q, lse, g_lse):
 
 def flash_bwd_dq(q, k, v, out, dout, lse, g_lse=None, causal=True,
                  q_offset=0, kv_offset=0):
-    """K3 (the delta pass, then K3', for bfloat16 at D 64 or 128): dQ in
-    q's dtype. g_lse (B, H, Tq) float32 or None (zero)."""
+    """K3 (the delta pass, then K3', for bfloat16 at D 16, 32, 64 or
+    128): dQ in q's dtype. g_lse (B, H, Tq) float32 or None (zero)."""
     _validate(q, k, v, out, dout)
     _check_residuals(q, lse, g_lse)
     if not _on_card(q):
         return flash_bwd_dq_plain(q, k, v, out, dout, lse, g_lse, causal,
                                   q_offset, kv_offset)
     return launch_bwd_dq(q, k, v, out, dout, lse, g_lse, causal, q_offset,
-                         kv_offset, _sm90(q.dtype, q.shape[3], BWD_DQ_SM90))
+                         kv_offset, _sm90(q.dtype, q.shape[3]))
 
 
 def launch_bwd_dq(q, k, v, out, dout, lse, g_lse, causal, q_offset,
@@ -416,7 +413,7 @@ def flash_bwd_dkv(q, k, v, out, dout, lse, g_lse=None, causal=True,
         return flash_bwd_dkv_plain(q, k, v, out, dout, lse, g_lse, causal,
                                    q_offset, kv_offset)
     return launch_bwd_dkv(q, k, v, out, dout, lse, g_lse, causal, q_offset,
-                          kv_offset, _sm90(q.dtype, q.shape[3], BWD_DKV_SM90))
+                          kv_offset, _sm90(q.dtype, q.shape[3]))
 
 
 def launch_bwd_dkv(q, k, v, out, dout, lse, g_lse, causal, q_offset,
@@ -468,40 +465,32 @@ def flash_bwd_delta(out, dout, g_lse=None):
     if not _on_card(out):
         return flash_bwd_delta_plain(out, dout, g_lse)
     d = out.shape[3]
-    if not (_sm90(out.dtype, d, BWD_DQ_SM90)
-            or _sm90(out.dtype, d, BWD_DKV_SM90)):
+    if not _sm90(out.dtype, d):
         raise ValueError(f"the delta pass serves K3' and K4' only, which "
-                         f"take bfloat16 at D "
-                         f"{_SM90_HEAD_DIMS[BWD_DKV_SM90]}; got {out.dtype} "
-                         f"D {d}")
+                         f"take bfloat16 at D {_SM90_HEAD_DIMS}; got "
+                         f"{out.dtype} D {d}")
     return _launch_delta(out, dout, g_lse)
 
 
 def flash_bwd(q, k, v, out, dout, lse, g_lse=None, causal=True, q_offset=0,
               kv_offset=0):
-    """The whole backward: (dQ, dK, dV). Where K3' or K4' takes the inputs
-    the delta pass runs once and they read it (at bfloat16 D 16 and 32 K4'
-    beside K3, which computes its own delta); elsewhere K3 and K4 run (on
-    the CPU, their plain versions)."""
+    """The whole backward: (dQ, dK, dV). Where K3' and K4' take the inputs
+    the delta pass runs once and both read it; elsewhere K3 and K4 run,
+    each computing its own delta (on the CPU, their plain versions)."""
     _validate(q, k, v, out, dout)
     _check_residuals(q, lse, g_lse)
     args = (causal, q_offset, kv_offset)
     if not _on_card(q):
         return (flash_bwd_dq_plain(q, k, v, out, dout, lse, g_lse, *args),
                 *flash_bwd_dkv_plain(q, k, v, out, dout, lse, g_lse, *args))
-    d = q.shape[3]
-    hopper_dq = _sm90(q.dtype, d, BWD_DQ_SM90)
-    hopper_dkv = _sm90(q.dtype, d, BWD_DKV_SM90)
-    delta = None
-    if hopper_dq or hopper_dkv:
-        _check_tma(q, k, v, dout)
-        delta = _launch_delta(out, dout, g_lse)
-    dq = (launch_dq_sm90(q, k, v, dout, lse, delta, *args) if hopper_dq
-          else launch_bwd_dq(q, k, v, out, dout, lse, g_lse, *args, False))
-    dk, dv = (launch_dkv_sm90(q, k, v, dout, lse, delta, *args)
-              if hopper_dkv else
-              launch_bwd_dkv(q, k, v, out, dout, lse, g_lse, *args, False))
-    return dq, dk, dv
+    if not _sm90(q.dtype, q.shape[3]):
+        return (launch_bwd_dq(q, k, v, out, dout, lse, g_lse, *args, False),
+                *launch_bwd_dkv(q, k, v, out, dout, lse, g_lse, *args,
+                                False))
+    _check_tma(q, k, v, dout)
+    delta = _launch_delta(out, dout, g_lse)
+    return (launch_dq_sm90(q, k, v, dout, lse, delta, *args),
+            *launch_dkv_sm90(q, k, v, dout, lse, delta, *args))
 
 
 @torch.library.custom_op("edl::flash_bwd", mutates_args=())

@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
-"""Block layouts of the Hopper flash kernels K2' and K4' on one card.
+"""Block layouts of the Hopper flash kernels K2', K3' and K4' on one card.
 
     python3 sm90_layouts.py        # from the repository root, one CUDA card
 
 Builds `elasticdl_tpu_torch/csrc/flash_attention_sm90.cu` as it is and
 variants of it made by text substitution (`VARIANTS`: the layouts the
 source does not keep), one nvcc each, all started together. Each build
-is loaded in turn, the source's own first and last, and K2' and K4' run
-at B8 T1024 H8 causal bf16 at D 16, 32 and 64 on the same inputs: each
-launch held to its plain version (`chip_smoke.KERNEL_TOL`), its device
-time from torch.profiler (`chip_smoke.device_ms`). Prints one JSON line
-a build: ptxas's registers and spills of each Hopper kernel at D 16 and
-32, and the times; then the card's name and power limit. A layout that
-spills is not one to keep.
+is loaded in turn, the source's own first and last, and K2', K3' and K4'
+run at B8 T1024 H8 causal bf16 at D 16, 32 and 64 on the same inputs:
+each launch held to its plain version (`chip_smoke.KERNEL_TOL`), its
+device time from torch.profiler (`chip_smoke.device_ms`). Prints one
+JSON line a build: ptxas's registers and spills of each Hopper kernel at
+D 16 and 32, and the times; then the card's name and power limit. A
+layout that spills is not one to keep.
 """
 
 import ctypes
@@ -27,14 +27,22 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 FWD_BLOCKS = "static constexpr int kMinBlocks = kD < 64 ? 2 : 1;"
-DKV_SHAPE = ("static constexpr int kConsumers = kD == 32 || kD == 64 ? 2 : "
-             "1;\n  static constexpr int kMinBlocks = kD == 16 ? 3 : 1;")
+DKV_SHAPE = ("using DkvShape =\n    BlockShape<(kD == 32 || kD == 64 ? 2 : 1), "
+             "(kD == 16 ? 3 : 1)>;")
+DQ_SHAPE = "using DqShape = BlockShape<(kD < 64 ? 1 : 2), (kD < 64 ? 3 : 1)>;"
+
+
+def shape(old, consumers, blocks):
+    name = old.split()[1]
+    return [(old, f"using {name} = BlockShape<({consumers}), ({blocks})>;")]
 
 
 def dkv(consumers, blocks):
-    return [(DKV_SHAPE,
-             f"static constexpr int kConsumers = {consumers};\n"
-             f"  static constexpr int kMinBlocks = {blocks};")]
+    return shape(DKV_SHAPE, consumers, blocks)
+
+
+def dq(consumers, blocks):
+    return shape(DQ_SHAPE, consumers, blocks)
 
 
 # name: [(text of the source, its replacement)]
@@ -49,6 +57,13 @@ VARIANTS = {
     # K4' at D 16 and 32: one warpgroup, three blocks (128 registers)
     "k4_one_warpgroup_three_blocks": dkv("kD == 64 ? 2 : 1",
                                          "kD < 64 ? 3 : 1"),
+    # K3' at D 16 and 32 in D 64's shape: two warpgroups, one block
+    "k3_two_warpgroups": dq("2", "1"),
+    # K3' at D 16 and 32: two warpgroups, two blocks (96 registers)
+    "k3_two_warpgroups_two_blocks": dq("2", "kD < 64 ? 2 : 1"),
+    # K3' at D 16 and 32: one warpgroup, four blocks (96 registers)
+    "k3_one_warpgroup_four_blocks": dq("kD < 64 ? 1 : 2",
+                                       "kD < 64 ? 4 : 1"),
     # a ring of four stages for every kernel
     "four_stages": [("constexpr int kStages = 2;",
                      "constexpr int kStages = 4;")],
@@ -97,7 +112,7 @@ def measure(name, path, log):
     lib.edl_cuda_error_string.restype = ctypes.c_char_p
     native._loaded[fa.LIBRARY_SM90] = lib
     ptxas = {k: v for k, v in cs.ptxas_summary(log).items()
-             if ("fwd_sm90" in k or "dkv_sm90" in k)
+             if ("fwd_sm90" in k or "dkv_sm90" in k or "dq_sm90" in k)
              and ("D=16" in k or "D=32" in k)}
     times = {}
     b, t, h = cs.LM_BATCH, cs.LM_T, 8
@@ -109,10 +124,13 @@ def measure(name, path, log):
         delta = fa.flash_bwd_delta(out, dout)
         bwd = lambda: fa.launch_dkv_sm90(q, k, v, dout, lse, delta, True, 0,
                                          0)
+        dq = lambda: fa.launch_dq_sm90(q, k, v, dout, lse, delta, True, 0, 0)
         want_out, _ = fa.flash_fwd_plain(q, k, v)
         want = fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse)
+        want_dq = fa.flash_bwd_dq_plain(q, k, v, out, dout, lse)
         ratio = max(cs.over_tol(got, w, *cs.KERNEL_TOL)[1]
-                    for got, w in zip((out, *bwd()), (want_out, *want)))
+                    for got, w in zip((out, *bwd(), dq()),
+                                      (want_out, *want, want_dq)))
         if ratio > 1.0:
             raise AssertionError(f"{name} at D {d}: {ratio} of the "
                                  "tolerance")
@@ -123,6 +141,9 @@ def measure(name, path, log):
             "k4_prime_device_ms":
                 cs.device_ms(bwd, ("flash_bwd_dkv_sm90_kernel",))[
                     "flash_bwd_dkv_sm90_kernel"],
+            "k3_prime_device_ms":
+                cs.device_ms(dq, ("flash_bwd_dq_sm90_kernel",))[
+                    "flash_bwd_dq_sm90_kernel"],
             "err_over_tol": ratio}
     print(json.dumps({"layout": name, "ptxas": ptxas, "times": times}),
           flush=True)

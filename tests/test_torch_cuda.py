@@ -26,8 +26,8 @@ sum of the magnitudes of its terms — the scale that summation rounding
 grows with.
 
 Tolerances for the flash kernels (K2-K4, and for bfloat16 the Hopper
-kernels K2' and K4' at D 16, 32, 64 and 128, K3' at D 64 and 128, and the
-delta pass) against their plain
+kernels K2', K3' and K4' at D 16, 32, 64 and 128, and the delta pass)
+against their plain
 versions, the reference's own for its kernel against its naive path:
 float32 out, lse and delta 2e-5, gradients 5e-5 with atol 5e-5 of the
 largest value (the kernels sum tile by tile, the plain versions whole
@@ -290,16 +290,12 @@ def _close(got, want, what, rtol, atol_of_max=0.0, atol_of_rms=0.0):
 
 def _route(dtype, d):
     """The launches one forward and one whole backward (`flash_bwd`)
-    should add, by `_sm90`: on the Hopper route the delta pass once, read
-    by K3' and K4'."""
-    fwd = fa.FWD_SM90 if fa._sm90(dtype, d) else fa.FWD
-    dq = fa.BWD_DQ_SM90 if fa._sm90(dtype, d, fa.BWD_DQ_SM90) else fa.BWD_DQ
-    dkv = (fa.BWD_DKV_SM90 if fa._sm90(dtype, d, fa.BWD_DKV_SM90)
-           else fa.BWD_DKV)
-    bwd = [dq, dkv]
-    if fa.BWD_DQ_SM90 in bwd or fa.BWD_DKV_SM90 in bwd:
-        bwd.append(fa.BWD_DELTA_SM90)
-    return {n: int(n in [fwd] + bwd) for n in fa.launches}
+    should add, by `_sm90`: K2', K3', K4' and the delta pass once (read
+    by K3' and K4') on the Hopper route, K2-K4 elsewhere."""
+    kernels = ((fa.FWD_SM90, fa.BWD_DQ_SM90, fa.BWD_DKV_SM90,
+                fa.BWD_DELTA_SM90) if fa._sm90(dtype, d)
+               else (fa.FWD, fa.BWD_DQ, fa.BWD_DKV))
+    return {n: int(n in kernels) for n in fa.launches}
 
 
 def case_flash_kernels_match_plain(cuda, dtype, d, tq, tk, causal, q_off,
@@ -329,7 +325,7 @@ def case_flash_kernels_match_plain(cuda, dtype, d, tq, tk, causal, q_off,
                        dq)
     assert all(torch.equal(a, b) for a, b in zip(
         fa.flash_bwd_dkv(q, k, v, out, dout, lse, glse, *args), (dk, dv)))
-    if fa._sm90(dtype, d, fa.BWD_DKV_SM90):
+    if fa._sm90(dtype, d):
         _close(fa.flash_bwd_delta(out, dout, glse),
                fa.flash_bwd_delta_plain(out, dout, glse), "delta", 2e-5,
                2e-5)
@@ -400,9 +396,8 @@ def case_flash_is_deterministic_and_counts_launches(cuda, d):
     route = _route(torch.bfloat16, d)
     assert route[fa.FWD_SM90] and route[fa.BWD_DKV_SM90]
     assert route[fa.BWD_DELTA_SM90] == 1
-    # dQ on K3' at D 64 and 128, on K3 at D 16 and 32
-    assert route[fa.BWD_DQ_SM90] == int(d in (64, 128))
-    assert route[fa.BWD_DQ] == int(d in (16, 32))
+    # dQ on K3' at every Hopper width
+    assert route[fa.BWD_DQ_SM90] == 1 and route[fa.BWD_DQ] == 0
     assert fa.launches == {n: before[n] + 2 * route[n] for n in before}
     for a, b in zip(*outs):
         assert torch.equal(a, b)
@@ -435,12 +430,12 @@ def case_k4_prime_at_d128_matches_k4_and_plain(cuda):
             _close(a, b, f"K4' against K4, {name}", *BF16)
 
 
-def case_narrow_hopper_kernels_match_k2_k4_and_plain(cuda, d):
-    """K2' and K4' at D 16 or 32 against K2 and K4, the CUDA-core kernels
-    they replace there, through their launchers, and against the plain
-    versions, on the same inputs: causal with the lse cotangent, at
+def case_narrow_hopper_kernels_match_k2_k3_k4_and_plain(cuda, d):
+    """K2', K3' and K4' at D 16 or 32 against K2, K3 and K4, the CUDA-core
+    kernels they replace there, through their launchers, and against the
+    plain versions, on the same inputs: causal with the lse cotangent, at
     offsets with tails, not causal with tails, and the fully masked
-    geometry (out, lse and dK/dV 0 or NEG_BIG and finite); each within
+    geometry (out, lse, dQ and dK/dV 0 or NEG_BIG and finite); each within
     the bf16 tolerance of the plain version and of each other, and a
     rerun bit-identical."""
     for tq, tk, causal, q_off, kv_off, with_glse in (
@@ -458,12 +453,17 @@ def case_narrow_hopper_kernels_match_k2_k4_and_plain(cuda, d):
         again = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args,
                                   True)
         old = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args, False)
+        dq, dq_again, old_dq = (
+            fa.launch_bwd_dq(q, k, v, out, dout, lse, glse, *args, hopper)
+            for hopper in (True, True, False))
         torch.cuda.synchronize()
         assert {n: fa.launches[n] - before[n] for n in before
                 if fa.launches[n] != before[n]} == {
-            fa.FWD_SM90: 1, fa.FWD: 1, fa.BWD_DELTA_SM90: 2,
-            fa.BWD_DKV_SM90: 2, fa.BWD_DKV: 1}
+            fa.FWD_SM90: 1, fa.FWD: 1, fa.BWD_DELTA_SM90: 4,
+            fa.BWD_DKV_SM90: 2, fa.BWD_DKV: 1, fa.BWD_DQ_SM90: 2,
+            fa.BWD_DQ: 1}
         assert all(torch.equal(a, b) for a, b in zip(new, again))
+        assert torch.equal(dq, dq_again)
         want_out, want_lse = fa.flash_fwd_plain(q, k, v, *args)
         _close(out, want_out, f"K2' out D {d}", *BF16)
         _close(old_out, want_out, f"K2 out D {d}", *BF16)
@@ -478,16 +478,20 @@ def case_narrow_hopper_kernels_match_k2_k4_and_plain(cuda, d):
             _close(a, w, f"K4' {name} D {d}", *BF16)
             _close(b, w, f"K4 {name} D {d}", *BF16)
             _close(a, b, f"K4' against K4, {name} D {d}", *BF16)
+        want_dq = fa.flash_bwd_dq_plain(q, k, v, out, dout, lse, glse, *args)
+        _close(dq, want_dq, f"K3' dq D {d}", *BF16)
+        _close(old_dq, want_dq, f"K3 dq D {d}", *BF16)
+        _close(dq, old_dq, f"K3' against K3, dq D {d}", *BF16)
         if kv_off >= tq + q_off:            # every row fully masked
-            for x in (out, *new):
+            for x in (out, dq, *new):
                 assert bool((x == 0).all()) and bool(torch.isfinite(x).all())
             assert bool((lse <= -1e29).all())
 
 
-def case_bf16_lm_with_16_wide_heads_runs_k2_k4_prime(cuda):
+def case_bf16_lm_with_16_wide_heads_runs_the_hopper_kernels(cuda):
     """A bf16 LM step with 16-wide heads (dim 64, 4 heads: the zoo LM's
-    default head width) on the card: K2', K4', the delta pass and K3 once
-    a layer, and K2, K4 and K3' never, with a finite loss and finite
+    default head width) on the card: K2', K3', K4' and the delta pass once
+    a layer, and K2, K3 and K4 never, with a finite loss and finite
     gradients."""
     r = np.random.RandomState(11)
     toks = r.randint(0, 64, (4, 65)).astype(np.int32)
@@ -503,7 +507,7 @@ def case_bf16_lm_with_16_wide_heads_runs_k2_k4_prime(cuda):
     layers = 2
     assert {n: fa.launches[n] - before[n] for n in before} == {
         **{n: 0 for n in before}, fa.FWD_SM90: layers,
-        fa.BWD_DQ: layers, fa.BWD_DKV_SM90: layers,
+        fa.BWD_DQ_SM90: layers, fa.BWD_DKV_SM90: layers,
         fa.BWD_DELTA_SM90: layers}
     assert np.isfinite(float(loss))
     for n, g in grads.items():
@@ -550,30 +554,21 @@ def case_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 def case_hopper_wrapper_rejects_strides_tma_cannot_take(cuda, d=64):
     """A bf16 view whose h stride is d + 4 elements (2d + 8 bytes, not a
-    multiple of 16) is on the Hopper route (K2' and K4', and K3' at D 64),
-    which raises before any launch rather than falling back to the
-    CUDA-core kernels. At D 16 dQ alone takes K3, which reads the view
-    through its strides; the whole backward still raises before it."""
+    multiple of 16) is on the Hopper route (K2', K3' and K4' at every
+    Hopper width), which raises before any launch rather than falling back
+    to the CUDA-core kernels: the forward, each single-gradient wrapper
+    and the whole backward."""
     wide = torch.randn((1, 32, 2, d + 4), device=cuda).to(torch.bfloat16)
     q = wide[..., :d]
     before = dict(fa.launches)
     with pytest.raises(ValueError, match="TMA"):
         fa.flash_fwd(q, q, q)
     out, lse = fa.flash_fwd(*(q.contiguous() for _ in range(3)))
-    hopper_dq = fa._sm90(q.dtype, d, fa.BWD_DQ_SM90)
-    for backward in ((fa.flash_bwd_dkv, fa.flash_bwd_dq, fa.flash_bwd)
-                     if hopper_dq else (fa.flash_bwd_dkv, fa.flash_bwd)):
+    for backward in (fa.flash_bwd_dkv, fa.flash_bwd_dq, fa.flash_bwd):
         with pytest.raises(ValueError, match="TMA"):
             backward(q, q, q, out, out, lse)
-    assert fa.launches[fa.FWD] == before[fa.FWD]
-    assert fa.launches[fa.BWD_DQ] == before[fa.BWD_DQ]
-    assert fa.launches[fa.BWD_DKV] == before[fa.BWD_DKV]
-    assert fa.launches[fa.BWD_DELTA_SM90] == before[fa.BWD_DELTA_SM90]
-    if not hopper_dq:
-        dq = fa.flash_bwd_dq(q, q, q, out, out, lse)
-        _close(dq, fa.flash_bwd_dq_plain(q, q, q, out, out, lse),
-               f"K3 on a view, D {d}", *BF16)
-        assert fa.launches[fa.BWD_DQ] == before[fa.BWD_DQ] + 1
+    assert {n: fa.launches[n] - before[n] for n in before
+            if fa.launches[n] != before[n]} == {fa.FWD_SM90: 1}
 
 
 def case_lm_grads_on_the_card_match_cpu(cuda, extra=""):
@@ -1188,12 +1183,12 @@ def test_kernels_on_the_card(cuda, tmp_path):
     for d in (16, 32, 64, 128):
         case_flash_is_deterministic_and_counts_launches(cuda, d)
     for d in (16, 32):
-        case_narrow_hopper_kernels_match_k2_k4_and_plain(cuda, d)
+        case_narrow_hopper_kernels_match_k2_k3_k4_and_plain(cuda, d)
     case_k4_prime_at_d128_matches_k4_and_plain(cuda)
-    case_bf16_lm_with_16_wide_heads_runs_k2_k4_prime(cuda)
+    case_bf16_lm_with_16_wide_heads_runs_the_hopper_kernels(cuda)
     case_bf16_lm_with_128_wide_heads_runs_k4_prime(cuda)
     case_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda)
-    for d in (64, 16):
+    for d in (64, 16, 32):
         case_hopper_wrapper_rejects_strides_tma_cannot_take(cuda, d)
     case_lm_grads_on_the_card_match_cpu(cuda)
     for extra in (";moe_experts=4", ";pp_axis=pp;seq_parallel=none",

@@ -288,18 +288,13 @@ def case_materialized_path_matches_the_reference(dtype):
 
 
 def case_hopper_route_by_dtype_and_head_dim():
-    """`_sm90` decides the route before any launch: K2' and K4' take
-    bfloat16 at D 16, 32, 64 and 128, K3' at D 64 and 128 only (K3' and K4'
-    read the delta pass); everything else, dQ at bfloat16 D 16 and 32
-    included, goes to the CUDA-core kernels."""
+    """`_sm90` decides the route before any launch: K2', K3' and K4' take
+    bfloat16 at D 16, 32, 64 and 128 (K3' and K4' read the delta pass);
+    everything else goes to the CUDA-core kernels."""
     for dtype in (torch.bfloat16, torch.float32):
         for d in (8, 16, 24, 32, 48, 64, 100, 128, 256):
             bf16 = dtype == torch.bfloat16
             assert tflash._sm90(dtype, d) == (bf16 and d in (16, 32, 64, 128))
-            assert tflash._sm90(dtype, d, tflash.BWD_DQ_SM90) == (
-                bf16 and d in (64, 128))
-            assert tflash._sm90(dtype, d, tflash.BWD_DKV_SM90) == (
-                bf16 and d in (16, 32, 64, 128))
 
 
 def case_whole_backward_is_the_single_wrappers():

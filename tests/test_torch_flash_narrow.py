@@ -1,11 +1,11 @@
-"""The port's flash attention at head dims 16 and 32, the widths K2' and
-K4' take on the card since they run on Hopper's tensor cores, against the
-reference's Pallas kernels run in interpret mode on the CPU.
+"""The port's flash attention at head dims 16 and 32, the widths K2', K3'
+and K4' take on the card since they run on Hopper's tensor cores, against
+the reference's Pallas kernels run in interpret mode on the CPU.
 
 On the CPU the port's wrappers run their plain versions: the functions the
-card's K2' and K4' (and K3, for dQ at these widths) are held to. Each case
-takes the forward, the lse and all three gradients of one loss, sum(out^2)
-+ sum(sin(lse) * w), so the lse cotangent is live and folds into delta:
+card's K2', K3' and K4' are held to. Each case takes the forward, the lse
+and all three gradients of one loss, sum(out^2) + sum(sin(lse) * w), so
+the lse cotangent is live and folds into delta:
 - float32: out and lse 2e-5, gradients 5e-5, the reference's own
   tolerances for its kernel against its naive path (the two sum in
   different orders);
@@ -120,12 +120,11 @@ def case_against_the_reference(d, dtype, tq, tk, causal, q_off, kv_off,
 
 
 def case_narrow_widths_take_the_hopper_route():
-    """On the card these inputs go to K2' and K4' (one delta pass) and to
-    K3 for dQ."""
+    """On the card these inputs go to K2', K3' and K4' (one delta pass a
+    backward, read by K3' and K4'), as D 64 and 128 do; float32 stays on
+    the CUDA-core kernels."""
     for d in (16, 32):
         assert tflash._sm90(torch.bfloat16, d)
-        assert tflash._sm90(torch.bfloat16, d, tflash.BWD_DKV_SM90)
-        assert not tflash._sm90(torch.bfloat16, d, tflash.BWD_DQ_SM90)
         assert not tflash._sm90(torch.float32, d)
 
 
