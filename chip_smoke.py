@@ -15,8 +15,10 @@ mesh, those schedules over tensor-parallel head groups and the MoE's
 routing over (data, seq) blocks (flash-attention
 kernels: for its bfloat16 attention at D 64, and at D 128, 16 and 32 in
 the LMs with 128-, 16- and 32-wide heads, the Hopper kernels K2', K3',
-K4' and the delta pass, which runs once a backward; K2, K3 and K4 for
-every other input, such as the float32 LM), the trainer's knobs (remat,
+K4' and the delta pass, which runs once a backward; for the float32
+LMs at D 16, 32 and 64 K2-tf32 forward (3xTF32 on the tensor cores) and
+K3 and K4 backward; K2, K3 and K4 for every other input, such as the
+float32 LM at D 128), the trainer's knobs (remat,
 gradient accumulation, grouped steps) over both, and the elastic control
 loop over the DeepFM job (the autoscaler's decisions and its drain-first
 eviction, zoo callbacks, the hybrid multi-slice mesh), and the DeepFM job
@@ -36,10 +38,10 @@ caught):
            with ptxas's registers and spills for each kernel, the dynamic
            shared memory each Hopper kernel's launch asks for, and the
            HGMMA (wgmma) instructions in each kernel's SASS (`cuobjdump
-           --dump-sass`): K2', K3' and K4' at D 16, 32, 64 and 128 must
-           have some; K4' at D 128 and K2', K3' and K4' at D 16 and 32
-           must spill nothing; the delta pass must be built at D 16, 32,
-           64 and 128.
+           --dump-sass`): K2', K3' and K4' at D 16, 32, 64 and 128 and
+           K2-tf32 at D 16, 32 and 64 must have some; K4' at D 128, K2',
+           K3' and K4' at D 16 and 32 and K2-tf32 must spill nothing; the
+           delta pass must be built at D 16, 32, 64 and 128.
 3. kernel  K1 (`place_sorted_grads`) against its plain version on the card
            over the DeepFM shape (uniform hashed ids, D=17 and 16), a
            stream with 30% of its slots on one id, one with all of them on
@@ -103,14 +105,27 @@ caught):
            and 32, each against its plain version's time and SDPA's
            forward or backward on the same inputs. SDPA's backend is
            pinned and named: flash for bf16, memory-efficient for
-           float32 (flash takes no float32). Each timing line carries the
-           card's name and power limit.
-8. lm_parity  a small LM (vocab 64, 2 layers, dim 64, 4 heads, float32,
-           T 32) on the card and on the CPU from the same weights: loss
-           rtol 5e-5, every gradient rtol 5e-5 with atol 5e-5 of its
-           largest value (the k biases, 0 in exact arithmetic, within 1e-6
-           of the largest gradient entry of 0). This float32 LM is the
-           main path that launches K2, K3 and K4 (D 16).
+           float32 (flash takes no float32). Float32 at D 16, 32 and 64
+           takes K2-tf32 forward and K3 and K4 backward: its cases (the
+           small float32 ones at D 16; a full float32 case at D 16 and
+           64; D 32 with a tail, offsets and g_lse, D 64 with offsets and
+           fully masked) hold out and lse to 2e-5, reruns bit-identical
+           (forward and backward, every case), fully masked rows 0 with
+           lse <= -1e29. At float32 B8 T1024 H8 D 16, 32 and 64 K2-tf32
+           is held to its plain version and to a rerun, beside K2 through
+           its launcher (held too) and SDPA's memory-efficient forward:
+           ms, device ms, plain ms and the bound (float32 products
+           counted as three TF32 products at the TF32 peak,
+           `attn_bound`). Each timing line carries the card's name and
+           power limit.
+8. lm_parity  a small LM (vocab 64, 2 layers, dim 64, float32, T 32) at
+           D 16 (4 heads), 32 (2 heads) and, dim 256, 128 (2 heads), on
+           the card and on the CPU from the same weights: loss rtol 5e-5,
+           every gradient rtol 5e-5 with atol 5e-5 of its largest value
+           (the k biases, 0 in exact arithmetic, within 1e-6 of the
+           largest gradient entry of 0). These float32 LMs are the main
+           path that launches K2-tf32 (D 16, 32), K2 (D 128), K3 and K4,
+           each twice a step.
 9. lm_train  the LM at the width bench.py benchmarks it (vocab 8192, 4
            layers, dim 512, 8 heads, bf16, 8 x 1024 random tokens): 20
            train steps (one warm-up), eval_step, predict_step. Losses must
@@ -482,6 +497,13 @@ they ran.
            finite and fall; K2', K3', K4' (at the narrow D) and the delta
            pass must each launch 4 times in every train step and K2, K3
            and K4 never, and K2' 4 times in each of eval and predict.
+36. lm_train_f32 (after `lm_train`)  the LM at 9's width (D 64) in
+           float32 on 9's batch: 6 train steps (one warm-up), eval and
+           predict, as 34. Losses must be finite and fall; K2-tf32, K3 and
+           K4 must each launch 4 times in every train step, K2-tf32 4
+           times in each of eval and predict, and K2, K2', K3', K4' and
+           the delta pass never. Step ms, host ms, tokens/s, peak memory;
+           then its profile, as in 6.
 Then the `kernels` line (K1's `launches` are the job's, with the
 `grouped`, `cohort_job`, `manual_shards`, `tier`, `autoscale_job`,
 `callbacks_job`, `hybrid_mesh`, `k8s_job` and `tools` phases' beside
@@ -490,10 +512,13 @@ them; the Hopper kernels' are `lm_train`'s, with `lm_job`'s,
 `seq_train`'s and `seq_mix`'s beside them, and K2''s `serve_export`'s;
 K4' at D 128 is an entry of its own, `lm_train_d128`'s launches, and so
 are K2', K3' and K4' at D 16 and 32, `lm_train_d16`'s and
-`lm_train_d32`'s; K2-K4 report float32 at D 64 first, with bf16 at D 16,
-32 and 64 (and K4 at 128) beside, the delta pass also its launches in
-`lm_train_d16` and `lm_train_d32`), the nvidia-smi line, and last the
-`ok` line.
+`lm_train_d32`'s; K2-tf32 at D 16, 32 and 64 are entries of their own,
+`lm_parity`'s at D 16 and 32 and `lm_train_f32`'s at D 64; K2-K4 report
+float32 at D 64 first, with float32 at D 16 and 32 and bf16 at D 16, 32
+and 64 (and K4 at 128) beside, K2's launches from `lm_parity` at D 128,
+K3's and K4's from `lm_parity` with `lm_train_f32`'s beside, the delta
+pass also its launches in `lm_train_d16` and `lm_train_d32`), the
+nvidia-smi line, and last the `ok` line.
 
 It exits non-zero without a result where CUDA is unavailable, and where
 the port's package is absent.
@@ -528,10 +553,16 @@ FIELD_VOCAB = 100_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12              # H100 SXM dense bf16
+TF32_FLOPS = 495e12              # H100 SXM dense TF32 (tensor cores)
 # the LM as bench.py's transformer_lm leg runs it (bench.py:4398-4407)
 LM_PARAMS = "vocab=8192;num_layers=4;dim=512;heads=8;max_len=1024"
 LM_LAYERS, LM_BATCH, LM_T, LM_VOCAB, LM_DIM = 4, 8, 1024, 8192, 512
 LM_SMALL = "vocab=64;num_layers=2;dim=64;heads=4;max_len=64"
+# the small float32 LM at D 16 (LM_SMALL), 32 (K2-tf32 forward, K3 and K4
+# backward) and 128 (K2, K3 and K4): `lm_parity`'s configurations
+LM_PARITY = {16: LM_SMALL,
+             32: "vocab=64;num_layers=2;dim=64;heads=2;max_len=64",
+             128: "vocab=64;num_layers=2;dim=256;heads=2;max_len=64"}
 # the job phases: Criteo records per training task, and the variables a
 # polluted environment can carry that would make a spawned worker a member
 # of a cohort that never forms
@@ -966,6 +997,8 @@ FWD16, FWD32 = "flash_fwd_sm90<D=16>", "flash_fwd_sm90<D=32>"
 DKV16, DKV32 = "flash_bwd_dkv_sm90<D=16>", "flash_bwd_dkv_sm90<D=32>"
 DQ16, DQ32 = "flash_bwd_dq_sm90<D=16>", "flash_bwd_dq_sm90<D=32>"
 NARROW = {16: (FWD16, DKV16, DQ16), 32: (FWD32, DKV32, DQ32)}
+# K2-tf32 (float32, 3xTF32 products) at each head dim it takes
+TF32 = {d: f"flash_fwd_tf32_sm90<D={d}>" for d in (16, 32, 64)}
 # name: (source, the TPU kernel's pallas_call it replaces)
 ATTN_KERNELS = {
     "flash_fwd": (f"{CSRC}/flash_attention.cu", f"{PALLAS}:256"),
@@ -992,6 +1025,9 @@ ATTN_KERNELS = {
     # the delta fold of both backward kernels (pallas_attention.py:302-307)
     "flash_bwd_delta_sm90": (f"{CSRC}/flash_attention_sm90.cu",
                              f"{PALLAS}:404"),
+    # K2-tf32: the float32 forward on the tensor cores, an entry a head dim
+    **{name: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:256")
+       for name in TF32.values()},
 }
 
 
@@ -1004,7 +1040,8 @@ def short_name(mangled):
         dtype = "bf16" if "bfloat16" in k.group(2) else "f32"
         return f"{k.group(1)}<{dtype},G={k.group(3)}>"
     k = re.search(
-        r"(flash_(?:fwd|bwd_dq|bwd_dkv|bwd_delta)_sm90_kernel)ILi(\d+)E",
+        r"(flash_(?:fwd|fwd_tf32|bwd_dq|bwd_dkv|bwd_delta)_sm90_kernel)"
+        r"ILi(\d+)E",
         mangled)
     if k:
         return f"{k.group(1)}<D={k.group(2)}>"
@@ -1074,10 +1111,14 @@ def over_tol(got, want, rtol, atol_of_max=0.0, atol_of_rms=0.0):
 def attn_bound(b, t, h, d, itemsize, kernel):
     """(bound ms, "operations" or "bytes") of one causal call at the full
     shape: FLOPs 4, 6 or 8 x B.H.T^2.D / 2 (forward, dQ, dK/dV; 14 for
-    the whole backward) at the bf16 peak (float32 inputs: the float32
-    peak), bytes of each input read once and each output written once.
-    K3' and K4' read delta where K3 and K4 read O; the delta pass does
-    2 B.T.H.D FLOPs on float32 (the CUDA cores' peak)."""
+    the whole backward) at the bf16 peak, bytes of each input read once
+    and each output written once. For float32 inputs each product counts
+    as three TF32 products (hi.hi + hi.lo + lo.hi of a 3xTF32 split) at
+    the TF32 peak: the least tensor work that holds float32's contract
+    (one TF32 product errs by ~2^-11), and below the CUDA cores' float32
+    FMAs at F32_FLOPS, which a tensor-core kernel can beat. K3' and K4'
+    read delta where K3 and K4 read O; the delta pass does 2 B.T.H.D
+    FLOPs on float32 (the CUDA cores' peak)."""
     act = b * t * h * d * itemsize
     rows = b * h * t * 4
     flops, moved, peak = {
@@ -1089,9 +1130,9 @@ def attn_bound(b, t, h, d, itemsize, kernel):
         # q k v o do lse -> dq dk dv
         "flash_bwd": (14, 5 * act + rows + 3 * act, BF16_FLOPS),
         "flash_bwd_delta_sm90": (0, 2 * act + rows, F32_FLOPS),
-    }[kernel.replace("flash_fwd_sm90", "flash_fwd")]
-    if itemsize == 4:
-        peak = F32_FLOPS
+    }[re.sub(r"flash_fwd_(?:tf32_)?sm90", "flash_fwd", kernel)]
+    if itemsize == 4 and flops:
+        flops, peak = 3 * flops, TF32_FLOPS
     flops = (flops * b * h * t * t * d / 2 if flops
              else 2 * b * t * h * d)
     by_ops, by_bytes = flops / peak, moved / HBM_BYTES_PER_S
@@ -1106,8 +1147,9 @@ def ran(before, after):
 
 def phase_attn_kernel(dev):
     """The flash kernels against their plain versions through the routing
-    wrappers, which must take the route `_sm90` names; returns the cases'
-    report and each kernel's worst (max abs error, share of tolerance)."""
+    wrappers, which must take the kernels `route` names; returns the
+    cases' report and each kernel's worst (max abs error, share of
+    tolerance)."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1145,6 +1187,30 @@ def phase_attn_kernel(dev):
          True),
         ("full_b8_t1024_h8_d32_bf16_causal", full[:4] + (32, bf16), True,
          0, 0, False),
+        # K2-tf32 at the float32 LM's width (D 16), and at D 32 and 64
+        # with tails and offsets
+        ("full_b8_t1024_h8_d16_f32_causal", full[:4] + (16, f32), True, 0,
+         0, False),
+        ("f32_d32_tq200_tk230_offsets_37_5", (2, 200, 230, 3, 32, f32), True,
+         37, 5, False),
+        ("f32_d32_not_causal_tq100_tk230", (2, 100, 230, 2, 32, f32), False,
+         0, 0, True),
+        ("f32_d64_offsets_64_32", small[:4] + (64, f32), True, 64, 32,
+         False),
+        ("f32_d64_fully_masked_kv_offset_1024", small[:4] + (64, f32), True,
+         0, 1024, False),
+        # K2, K3 and K4 at float32 D 128, the input they keep: the bf16
+        # D 128 cases' twins and lm_parity's shape (B8 T32 H2)
+        ("f32_d128_offsets_64_32", twin128[:4] + (128, f32), True, 64, 32,
+         False),
+        ("f32_d128_not_causal_tq100_tk230", (2, 100, 230, 2, 128, f32),
+         False, 0, 0, False),
+        ("f32_d128_fully_masked_kv_offset_1024", twin128[:4] + (128, f32),
+         True, 0, 1024, False),
+        ("f32_d128_lse_with_g_lse", (2, 64, 64, 2, 128, f32), True, 0, 0,
+         True),
+        ("f32_d128_lm_parity_b8_t32_h2", (8, 32, 32, 2, 128, f32), True, 0,
+         0, False),
     ]
     for d in (16, 32):       # the D 128 cases' twins at the narrow widths
         cases += [
@@ -1168,6 +1234,7 @@ def phase_attn_kernel(dev):
         before = dict(fa.launches)
         out, lse = fa.flash_fwd(q, k, v, *args)
         fwd = ran(before, fa.launches)
+        out2, lse2 = fa.flash_fwd(q, k, v, *args)
         before = dict(fa.launches)
         dq, dk, dv = fa.flash_bwd(q, k, v, out, dout, lse, glse, *args)
         bwd = {n: fa.launches[n] - before[n] for n in before
@@ -1175,16 +1242,16 @@ def phase_attn_kernel(dev):
         again = fa.flash_bwd(q, k, v, out, dout, lse, glse, *args)
         torch.cuda.synchronize()
         # bf16 takes K2', K3' and K4' at D 16, 32, 64 and 128, with one
-        # delta pass a backward
-        hopper = fa._sm90(dtype, d)
-        want_route = (
-            [fa.FWD_SM90 if hopper else fa.FWD],
-            {fa.BWD_DQ_SM90: 1, fa.BWD_DKV_SM90: 1, fa.BWD_DELTA_SM90: 1}
-            if hopper else {fa.BWD_DQ: 1, fa.BWD_DKV: 1})
+        # delta pass a backward; float32 K2-tf32 at D 16, 32 and 64
+        fwd_kernel, bwd_kernels = fa.route(dtype, d)
+        dq_kernel, dkv_kernel = bwd_kernels[:2]
+        hopper = fwd_kernel == fa.FWD_SM90
+        want_route = ([fwd_kernel], {n: 1 for n in bwd_kernels})
         if (fwd, bwd) != want_route:
             raise AssertionError(f"{name}: launched {fwd} and {bwd}, the "
                                  f"route wants {want_route}")
         same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+        fwd_same = torch.equal(out, out2) and torch.equal(lse, lse2)
         want_out, want_lse = fa.flash_fwd_plain(q, k, v, *args)
         want_dq = fa.flash_bwd_dq_plain(q, k, v, out, dout, lse, glse, *args)
         want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse,
@@ -1193,13 +1260,15 @@ def phase_attn_kernel(dev):
         out_tol = (2e-5, 2e-5) if is_f32 else bf16_tol
         grad_tol = (5e-5, 5e-5) if is_f32 else bf16_tol
         # each kernel's entry on the `kernels` line: K2', K3' and K4' at
-        # D 16 and 32, and K4' at D 128, have entries of their own
-        fwd_entry, dkv = fwd[0], fa.BWD_DKV_SM90 if hopper else fa.BWD_DKV
-        dq_entry = fa.BWD_DQ_SM90 if hopper else fa.BWD_DQ
+        # D 16 and 32, K4' at D 128 and K2-tf32 at each D have entries of
+        # their own
+        fwd_entry, dq_entry, dkv = fwd_kernel, dq_kernel, dkv_kernel
         if hopper and d in NARROW:
             fwd_entry, dkv, dq_entry = NARROW[d]
         elif hopper and d == 128:
             dkv = DKV128
+        elif fwd_kernel == fa.FWD_TF32:
+            fwd_entry = TF32[d]
         checks = {
             fwd_entry: [over_tol(out, want_out, *out_tol),
                         over_tol(lse, want_lse, 2e-5, 2e-5)],
@@ -1214,8 +1283,9 @@ def phase_attn_kernel(dev):
         entry = {"shape": [b, tq, tk, h, d], "dtype": str(dtype)[6:],
                  "causal": causal, "q_offset": q_off, "kv_offset": kv_off,
                  "g_lse": with_glse, "route": fwd + sorted(bwd),
+                 "fwd_bit_identical_rerun": fwd_same,
                  "bwd_bit_identical_rerun": same}
-        ok = same
+        ok = same and fwd_same
         for kernel, results in checks.items():
             err = max(r[0] for r in results)
             ratio = max(r[1] for r in results)
@@ -1254,7 +1324,7 @@ def attn_times(dev, report, worst, smi):
     want_dq = fa.flash_bwd_dq_plain(q, k, v, out, dout, lse)
     want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse)
     bf16_tol = (2 ** -7, 0.0, 1e-2)
-    old_out, _ = fa.launch_fwd(q, k, v, True, 0, 0, False)
+    old_out, _ = fa.launch_fwd(q, k, v, True, 0, 0, fa.FWD)
     old_dq = fa.launch_bwd_dq(q, k, v, out, dout, lse, None, True, 0, 0,
                               False)
     old_dk, old_dv = fa.launch_bwd_dkv(q, k, v, out, dout, lse, None, True,
@@ -1280,9 +1350,9 @@ def attn_times(dev, report, worst, smi):
     plain_dq = lambda: fa.flash_bwd_dq_plain(q, k, v, out, dout, lse)
     plain_dkv = lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse)
     calls = {   # kernel: (its launch, its plain version)
-        fa.FWD_SM90: (lambda: fa.launch_fwd(q, k, v, True, 0, 0, True),
+        fa.FWD_SM90: (lambda: fa.launch_fwd(q, k, v, True, 0, 0, fa.FWD_SM90),
                       plain_fwd),
-        fa.FWD: (lambda: fa.launch_fwd(q, k, v, True, 0, 0, False),
+        fa.FWD: (lambda: fa.launch_fwd(q, k, v, True, 0, 0, fa.FWD),
                  plain_fwd),
         fa.BWD_DQ_SM90: (lambda: fa.launch_dq_sm90(q, k, v, dout, lse, delta,
                                                    True, 0, 0), plain_dq),
@@ -1343,25 +1413,34 @@ def attn_times(dev, report, worst, smi):
         result[kernel]["timed_on"] = f"bfloat16 B{b} T{t} H{h} D{d} causal"
     served = {f"{str(dtype)[6:]}_d{dim}": served_times(dev, dtype, dim)
               for dtype, dim in ((torch.float32, 64), (torch.bfloat16, 16),
-                                 (torch.bfloat16, 32))}
+                                 (torch.bfloat16, 32), (torch.float32, 16),
+                                 (torch.float32, 32), (torch.float32, 128))}
     d128, k4_d128 = d128_times(dev, worst)
     narrow = {}
     for dim in NARROW:
         narrow.update(narrow_times(dev, worst, dim,
                                    served[f"bfloat16_d{dim}"]))
+    tf32 = {TF32[dim]: tf32_times(dev, worst, dim, served[f"float32_d{dim}"])
+            for dim in TF32}
     emit("attn_kernel", card=smi, cases=report, timed_shape=[b, t, h, d],
          timed_dtype="bfloat16", kernels=result, whole_backward=bwd,
          faster=faster, served=served, d128=d128, k4_d128=k4_d128,
-         narrow=narrow)
-    # K2-K4 report the inputs they serve: float32 at D 64 first, with the
-    # rest and their bf16 D 16, 32 and 64 times (K2', K3' and K4' take
-    # those) beside
+         narrow=narrow, tf32=tf32)
+    # K2-K4 report first an input they serve: K3 and K4 float32 at D 64,
+    # K2 float32 at D 128 (K2-tf32 takes float32 at D 16, 32 and 64); the
+    # rest and their float32 and bf16 times at the other widths (K2-tf32,
+    # K2', K3' and K4' take those) beside
     for kernel in (fa.FWD, fa.BWD_DQ, fa.BWD_DKV):
         on_bf16_d64 = result[kernel]
+        first, beside = (("float32_d128", "float32_d64") if kernel == fa.FWD
+                         else ("float32_d64", "float32_d128"))
         result[kernel] = {
-            **served["float32_d64"][kernel],
-            "max_abs_err": on_bf16_d64["max_abs_err"],
-            "err_over_tol": on_bf16_d64["err_over_tol"],
+            **served[first][kernel],
+            "max_abs_err": worst[kernel][0],
+            "err_over_tol": worst[kernel][1],
+            f"on_{beside}": served[beside][kernel],
+            "on_float32_d16": served["float32_d16"][kernel],
+            "on_float32_d32": served["float32_d32"][kernel],
             "on_bfloat16_d16": served["bfloat16_d16"][kernel],
             "on_bfloat16_d32": served["bfloat16_d32"][kernel],
             "on_bfloat16_d64": {k: on_bf16_d64[k] for k in (
@@ -1371,7 +1450,62 @@ def attn_times(dev, report, worst, smi):
     result[fa.BWD_DKV]["on_bfloat16_d128"] = k4_d128
     result[DKV128] = d128
     result.update(narrow)
+    result.update(tf32)
     return result
+
+
+def tf32_times(dev, worst, d, served):
+    """K2-tf32 at D `d` (float32 B8 T1024 H8, causal): held to its plain
+    version (out and lse 2e-5) and to itself over two runs; its ms (CUDA
+    events), device ms (profiler), plain ms and bound beside K2 through
+    its launcher on the same inputs (held to the plain version too; its
+    ms from `served`, `served_times`) and SDPA's memory-efficient forward
+    (its ms and device ms from `served`)."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    b, t, h = LM_BATCH, LM_T, 8
+    q, k, v, _, _ = attn_inputs(dev, b, t, t, h, d, torch.float32, 0)
+    name = TF32[d]
+    run_kernel = lambda: fa.launch_fwd(q, k, v, True, 0, 0, fa.FWD_TF32)
+    run_plain = lambda: fa.flash_fwd_plain(q, k, v)
+    got, again = run_kernel(), run_kernel()
+    old = fa.launch_fwd(q, k, v, True, 0, 0, fa.FWD)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{name} differs between two runs")
+    want = run_plain()
+    for kernel, outs in ((name, got), (fa.FWD, old)):
+        results = [over_tol(g, w, 2e-5, 2e-5) for g, w in zip(outs, want)]
+        err, ratio = max(r[0] for r in results), max(r[1] for r in results)
+        if ratio > 1.0:
+            raise AssertionError(f"{kernel} disagrees with its plain version "
+                                 f"at float32 D {d} ({ratio})")
+        worst[kernel] = [max(worst[kernel][0], err),
+                         max(worst[kernel][1], ratio)]
+    bound_ms, bound_by = attn_bound(b, t, h, d, 4, fa.FWD_TF32)
+    symbol = f"{fa.FWD_TF32}_kernel"
+    entry = {
+        "timed_on": f"float32 B{b} T{t} H{h} D{d} causal",
+        "max_abs_err": worst[name][0], "err_over_tol": worst[name][1],
+        "ms": time_ms(run_kernel),
+        "device_ms": device_ms(run_kernel, (symbol,))[symbol],
+        "plain_ms": time_ms(run_plain, groups=5, per_group=3),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": served[fa.FWD]["library_ms"],
+        "library_device_ms": served[fa.FWD]["library_device_ms"],
+        "library": served[fa.FWD]["library"],
+        "k2_ms": served[fa.FWD]["ms"],
+        "k2_device_ms": device_ms(lambda: fa.launch_fwd(
+            q, k, v, True, 0, 0, fa.FWD), ("flash_fwd_kernel",))[
+                "flash_fwd_kernel"],
+    }
+    entry["faster"] = {
+        "k2_tf32_under_k2": entry["ms"] < entry["k2_ms"],
+        "k2_tf32_device_under_sdpa_device":
+            isinstance(entry["device_ms"], float)
+            and isinstance(entry["library_device_ms"], float)
+            and entry["device_ms"] < entry["library_device_ms"]}
+    return entry
 
 
 def narrow_times(dev, worst, d, served):
@@ -1394,7 +1528,7 @@ def narrow_times(dev, worst, d, served):
     # entry: (its launch, its plain version, its kernel, the CUDA-core
     # kernel it replaces here)
     calls = {
-        fwd_name: (lambda: fa.launch_fwd(q, k, v, True, 0, 0, True),
+        fwd_name: (lambda: fa.launch_fwd(q, k, v, True, 0, 0, fa.FWD_SM90),
                    lambda: fa.flash_fwd_plain(q, k, v), fa.FWD_SM90,
                    fa.FWD),
         dkv_name: (lambda: fa.launch_dkv_sm90(q, k, v, dout, lse, delta,
@@ -1463,17 +1597,18 @@ def narrow_times(dev, worst, d, served):
 
 
 def served_times(dev, dtype, d):
-    """K2, K3 and K4 at B8 T1024 H8 `d` causal in `dtype`, inputs that
-    only they take (`phase_attn_kernel` holds them to their plain versions
-    there): each one's ms through its launcher, its plain version's, the
-    bound and SDPA's forward or backward on the same inputs."""
+    """K2, K3 and K4 at B8 T1024 H8 `d` causal in `dtype`, through their
+    launchers whichever kernels `route` gives these inputs (the callers
+    that compare a Hopper kernel with K2-K4 hold them to their plain
+    versions): each one's ms, its plain version's, the bound and SDPA's
+    forward or backward on the same inputs."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
 
     b, t, h = LM_BATCH, LM_T, 8
     q, k, v, dout, _ = attn_inputs(dev, b, t, t, h, d, dtype, 0)
-    out, lse = fa.launch_fwd(q, k, v, True, 0, 0, False)
+    out, lse = fa.launch_fwd(q, k, v, True, 0, 0, fa.FWD)
     calls = {   # kernel: (its launch, its plain version)
-        fa.FWD: (lambda: fa.launch_fwd(q, k, v, True, 0, 0, False),
+        fa.FWD: (lambda: fa.launch_fwd(q, k, v, True, 0, 0, fa.FWD),
                  lambda: fa.flash_fwd_plain(q, k, v)),
         fa.BWD_DQ: (lambda: fa.launch_bwd_dq(q, k, v, out, dout, lse, None,
                                              True, 0, 0, False),
@@ -1665,9 +1800,10 @@ def reset_launches():
 
 
 def phase_lm_parity():
-    """The float32 LM on the card against the CPU; returns the flash
-    kernels' launches in its card step (K2, K3 and K4: float32 takes the
-    CUDA-core kernels)."""
+    """The small float32 LM on the card against the CPU at each head dim
+    of LM_PARITY; returns {D: the flash kernels' launches in its card
+    step} (K2-tf32 forward at D 16 and 32, K2 at D 128; K3 and K4
+    backward: float32 takes the CUDA-core backward)."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
     from elasticdl_tpu_torch.training.trainer import Trainer
 
@@ -1676,48 +1812,55 @@ def phase_lm_parity():
     mask = np.ones((8,), np.float32)
     mask[[2, 5]] = 0.0
     batch = {"features": toks[:, :-1], "labels": toks[:, 1:], "mask": mask}
-    results, weights = [], None
-    for dev in ("cpu", "cuda"):
-        tr = Trainer(load_spec(LM_SMALL, "float32",
-                               "transformer.transformer_lm.custom_model"),
-                     device=dev)
-        state = tr.init_state(batch)
-        if weights is None:
-            weights = {n: t.detach().clone()
-                       for n, t in tr.model.state_dict().items()}
-        tr.model.load_state_dict(weights)
-        reset_launches()
-        loss, grads = tr.compute_grads(state, batch)
-        results.append((float(loss), {n: g.cpu() for n, g in grads.items()}))
-    torch.cuda.synchronize()
-    launches = dict(fa.launches)
-    layers = 2                          # LM_SMALL's num_layers
-    if launches != {**{n: 0 for n in launches}, fa.FWD: layers,
-                    fa.BWD_DQ: layers, fa.BWD_DKV: layers}:
-        raise AssertionError(f"flash launches in the float32 LM's step: "
-                             f"{launches}")
-    (cpu_loss, cpu_grads), (gpu_loss, gpu_grads) = results
-    largest = max(float(g.abs().max()) for g in cpu_grads.values())
-    worst = 0.0
-    for name, want in cpu_grads.items():
-        got = gpu_grads[name]
-        if name.endswith(".k.bias"):       # 0 in exact arithmetic
-            if max(float(got.abs().max()), float(want.abs().max())) \
-                    > 1e-6 * largest:
-                raise AssertionError(f"{name} is not ~0 on both devices")
-            continue
-        _, ratio = over_tol(got, want, 5e-5, 5e-5)
-        worst = max(worst, ratio)
-        if ratio > 1.0:
-            raise AssertionError(f"gradient of {name} differs between cuda "
-                                 f"and cpu ({ratio} of its tolerance)")
-    if abs(gpu_loss - cpu_loss) > 5e-5 * abs(cpu_loss):
-        raise AssertionError(
-            f"LM loss {gpu_loss} on cuda vs {cpu_loss} on cpu")
-    emit("lm_parity", loss_cuda=gpu_loss, loss_cpu=cpu_loss,
-         params=len(cpu_grads), worst_grad_err_over_tol=worst,
-         launches=launches)
-    return launches
+    layers = 2                          # LM_PARITY's num_layers
+    report, by_dim = {}, {}
+    for d, params in LM_PARITY.items():
+        results, weights = [], None
+        for dev in ("cpu", "cuda"):
+            tr = Trainer(load_spec(params, "float32", LM_DEF), device=dev)
+            state = tr.init_state(batch)
+            if weights is None:
+                weights = {n: t.detach().clone()
+                           for n, t in tr.model.state_dict().items()}
+            tr.model.load_state_dict(weights)
+            reset_launches()
+            loss, grads = tr.compute_grads(state, batch)
+            results.append((float(loss),
+                            {n: g.cpu() for n, g in grads.items()}))
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+        fwd, bwd = fa.route(torch.float32, d)
+        if launches != {**{n: 0 for n in launches}, fwd: layers,
+                        **{n: layers for n in bwd}}:
+            raise AssertionError(f"flash launches in the float32 LM's step "
+                                 f"at D {d}: {launches}")
+        (cpu_loss, cpu_grads), (gpu_loss, gpu_grads) = results
+        largest = max(float(g.abs().max()) for g in cpu_grads.values())
+        worst = 0.0
+        for name, want in cpu_grads.items():
+            got = gpu_grads[name]
+            if name.endswith(".k.bias"):       # 0 in exact arithmetic
+                if max(float(got.abs().max()), float(want.abs().max())) \
+                        > 1e-6 * largest:
+                    raise AssertionError(f"{name} is not ~0 on both devices "
+                                         f"at D {d}")
+                continue
+            _, ratio = over_tol(got, want, 5e-5, 5e-5)
+            worst = max(worst, ratio)
+            if ratio > 1.0:
+                raise AssertionError(f"gradient of {name} differs between "
+                                     f"cuda and cpu at D {d} ({ratio} of "
+                                     f"its tolerance)")
+        if abs(gpu_loss - cpu_loss) > 5e-5 * abs(cpu_loss):
+            raise AssertionError(f"LM loss {gpu_loss} on cuda vs {cpu_loss} "
+                                 f"on cpu at D {d}")
+        report[f"d{d}"] = dict(
+            params=params, loss_cuda=gpu_loss, loss_cpu=cpu_loss,
+            params_count=len(cpu_grads), worst_grad_err_over_tol=worst,
+            launches={n: c for n, c in launches.items() if c})
+        by_dim[d] = launches
+    emit("lm_parity", **report)
+    return by_dim
 
 
 def phase_lm_train(smi):
@@ -3024,19 +3167,18 @@ LM_D128_STEPS = 6
 LM_D16_PARAMS = "vocab=8192;num_layers=4;dim=512;heads=32;max_len=1024"
 LM_D32_PARAMS = "vocab=8192;num_layers=4;dim=512;heads=16;max_len=1024"
 LM_NARROW_STEPS = 6
+LM_F32_STEPS = 5
 
 
-def hopper_launches(steps, evals=0, d=64):
-    """The flash kernels' launches over `steps` bf16 LM train steps and
-    `evals` forward-only steps at head dim `d`, by the route `_sm90`
-    names: one of each a layer a step (on the Hopper route the delta pass
-    once a backward, read by K3' and K4')."""
+def hopper_launches(steps, evals=0, d=64, dtype=torch.bfloat16):
+    """The flash kernels' launches over `steps` LM train steps and `evals`
+    forward-only steps in `dtype` at head dim `d`, by the kernels `route`
+    names: one of each a layer a step (on the bf16 Hopper route the delta
+    pass once a backward, read by K3' and K4')."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
 
     want = {name: 0 for name in fa.launches}
-    fwd, *bwd = ((fa.FWD_SM90, fa.BWD_DQ_SM90, fa.BWD_DKV_SM90,
-                  fa.BWD_DELTA_SM90) if fa._sm90(torch.bfloat16, d)
-                 else (fa.FWD, fa.BWD_DQ, fa.BWD_DKV))
+    fwd, bwd = fa.route(dtype, d)
     for name in bwd:
         want[name] = LM_LAYERS * steps
     want[fwd] = LM_LAYERS * (steps + evals)
@@ -3069,14 +3211,14 @@ def routing_stats(trainer, state, batch):
     return [a for a, _ in seen], float(np.mean([d for _, d in seen]))
 
 
-def lm_variant_train(params, name, smi, steps=STEPS):
-    """The bf16 LM variant `params` at `lm_train`'s width and batch: a
-    warm-up step, then `steps` timed train steps, eval and predict;
+def lm_variant_train(params, name, smi, steps=STEPS, dtype="bfloat16"):
+    """The LM variant `params` in `dtype` at `lm_train`'s width and batch:
+    a warm-up step, then `steps` timed train steps, eval and predict;
     returns (trainer, state, the fields to emit, its flash launches)."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
     from elasticdl_tpu_torch.training.trainer import Trainer
 
-    trainer = Trainer(load_spec(params, model_def=LM_DEF))   # the card
+    trainer = Trainer(load_spec(params, dtype, model_def=LM_DEF))  # card
     if trainer.device.type != "cuda":
         raise AssertionError(f"Trainer defaulted to {trainer.device}")
     batch = lm_batch(100)
@@ -3109,9 +3251,9 @@ def lm_variant_train(params, name, smi, steps=STEPS):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{name} losses not finite and falling: "
                              f"{losses}")
-    d = head_dim(params)
-    if train != hopper_launches(steps + 1, d=d) or \
-            forward != hopper_launches(0, evals=2, d=d):
+    d, kind = head_dim(params), getattr(torch, dtype)
+    if train != hopper_launches(steps + 1, d=d, dtype=kind) or \
+            forward != hopper_launches(0, evals=2, d=d, dtype=kind):
         raise AssertionError(f"{name}: flash launches {train} in {steps + 1}"
                              f" train steps, {forward} in eval and predict")
     if tuple(preds.shape) != (LM_BATCH, LM_T, LM_VOCAB) or not bool(
@@ -3120,7 +3262,7 @@ def lm_variant_train(params, name, smi, steps=STEPS):
                              "not finite")
     fields = dict(
         card=smi, params=params, batch=[LM_BATCH, LM_T],
-        compute_dtype="bfloat16", steps=steps, losses=losses,
+        compute_dtype=dtype, steps=steps, losses=losses,
         first_loss=losses[0], last_loss=losses[-1], step_ms=step_ms,
         host_step_ms=host_s * 1e3 / steps,
         tokens_per_s=LM_BATCH * LM_T / (step_ms / 1e3),
@@ -3218,6 +3360,21 @@ def phase_lm_train_d128(smi):
     _, _, _, fields, launches = lm_variant_train(
         LM_D128_PARAMS, "lm_train_d128", smi, steps=LM_D128_STEPS - 1)
     emit("lm_train_d128", **fields, head_dim=LM_DIM // 4)
+    return launches
+
+
+def phase_lm_train_f32(smi):
+    """The LM at `lm_train`'s full width (LM_PARAMS: D 64) in float32 on
+    `lm_train`'s batch: a warm-up step and LM_F32_STEPS timed train steps,
+    eval and predict, as `lm_variant_train` holds them: finite falling
+    losses; K2-tf32, K3 and K4 4 times a train step, K2-tf32 4 times in
+    each of eval and predict, and K2, K2', K3', K4' and the delta pass
+    never. Then its profile, as in `profile`. Returns the flash kernels'
+    launches."""
+    trainer, state, batch, fields, launches = lm_variant_train(
+        LM_PARAMS, "lm_train_f32", smi, steps=LM_F32_STEPS, dtype="float32")
+    emit("lm_train_f32", **fields, head_dim=head_dim(LM_PARAMS))
+    phase_profile(trainer, state, batch, fields["step_ms"], model="lm_f32")
     return launches
 
 
@@ -5597,7 +5754,8 @@ def main():
               + [(1, "flash_bwd_dkv_sm90_kernel", d)
                  for d in (16, 32, 64, 128)]
               + [(2, "flash_bwd_dq_sm90_kernel", d)
-                 for d in (16, 32, 64, 128)])
+                 for d in (16, 32, 64, 128)]
+              + [(3, "flash_fwd_tf32_sm90_kernel", d) for d in TF32])
     shared = {f"{name}<D={d}>": sm90.flash_sm90_shared_bytes(which, d)
               for which, name, d in hopper}
     ptxas = {k: ptxas_summary(v["log"]) for k, v in built.items()}
@@ -5609,10 +5767,11 @@ def main():
     for kernel in shared:
         if not hgmma.get(kernel):
             raise AssertionError(f"{kernel} has no HGMMA instruction")
-    # K4' at D 128, and K2', K3' and K4' at D 16 and 32, are laid out so
-    # that ptxas spills nothing; the delta pass is built at every width K3'
-    # and K4' take
+    # K4' at D 128, K2', K3' and K4' at D 16 and 32, and K2-tf32 are laid
+    # out so that ptxas spills nothing; the delta pass is built at every
+    # width K3' and K4' take
     for kernel in ("flash_bwd_dkv_sm90_kernel<D=128>",
+                   *(f"flash_fwd_tf32_sm90_kernel<D={d}>" for d in TF32),
                    "flash_fwd_sm90_kernel<D=16>",
                    "flash_fwd_sm90_kernel<D=32>",
                    "flash_bwd_dkv_sm90_kernel<D=16>",
@@ -5637,9 +5796,10 @@ def main():
     attn = timed("attn_times", attn_times, dev, report, worst, smi)
     ring_launches = timed("ring_attn", phase_ring_attn, dev, smi)
     timed("parity", phase_parity)
-    f32_lm_launches = timed("lm_parity", phase_lm_parity)
+    parity_launches = timed("lm_parity", phase_lm_parity)
     launches = timed("train", phase_train, smi)
     lm_launches = timed("lm_train", phase_lm_train, smi)
+    f32_launches = timed("lm_train_f32", phase_lm_train_f32, smi)
     d128_launches = timed("lm_train_d128", phase_lm_train_d128, smi)
     d16_launches = timed("lm_train_d16", phase_lm_train_narrow, smi,
                          LM_D16_PARAMS)
@@ -5673,6 +5833,8 @@ def main():
     emit("wall", seconds=time.perf_counter() - started, phases=PHASE_WALLS)
 
     f32_lm = (fa.FWD, fa.BWD_DQ, fa.BWD_DKV)
+    f32_lm_launches = {name: sum(c[name] for c in parity_launches.values())
+                       for name in fa.launches}
     print(json.dumps({"kernels": [{
         "name": placement.KERNEL,
         "route": "cuda",
@@ -5729,7 +5891,8 @@ def main():
         "route": "cuda",
         "source": ATTN_KERNELS[name][0],
         "replaces": ATTN_KERNELS[name][1],
-        # K2-K4 serve the float32 LM (lm_parity); the Hopper kernels the
+        # K2-K4 serve the float32 LMs' steps (lm_parity: K2 at D 128, K3
+        # and K4 at D 16, 32 and 128); the Hopper kernels the
         # bf16 LM's train, eval and predict steps (lm_train), and those of
         # the MoE and pipelined LMs, the MoE job, the in-process ring and
         # Ulysses (ring_attn), the seq mesh's and ring LM's steps
@@ -5743,6 +5906,9 @@ def main():
         **({"lm_train_d16_launches": d16_launches[name],
             "lm_train_d32_launches": d32_launches[name]}
            if name == fa.BWD_DELTA_SM90 else {}),
+        # the full-width float32 LM's backward (lm_train_f32)
+        **({"lm_train_f32_launches": f32_launches[name]}
+           if name in (fa.BWD_DQ, fa.BWD_DKV) else {}),
         **({} if name in f32_lm else
            {"lm_train_d128_launches": d128_launches[name],
             "lm_job_launches": lm_job_launches[name],
@@ -5778,8 +5944,19 @@ def main():
         **attn[entry],
     } for d, launches in ((16, d16_launches), (32, d32_launches))
         for entry, kernel in zip(NARROW[d], (fa.FWD_SM90, fa.BWD_DKV_SM90,
-                                             fa.BWD_DQ_SM90))]}),
-          flush=True)
+                                             fa.BWD_DQ_SM90))] + [{
+        "name": TF32[d],
+        "route": "cuda",
+        "source": ATTN_KERNELS[TF32[d]][0],
+        "replaces": ATTN_KERNELS[TF32[d]][1],
+        # K2-tf32 comes from the float32 LMs: the small ones at D 16 and 32
+        # (lm_parity), the full-width one at D 64 (train, eval, predict)
+        "launches": (parity_launches[d][fa.FWD_TF32] if d in parity_launches
+                     else f32_launches[fa.FWD_TF32]),
+        "launches_in": (f"lm_parity_d{d}" if d in parity_launches
+                        else "lm_train_f32"),
+        **attn[TF32[d]],
+    } for d in TF32]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
 // Flash attention on Hopper's tensor cores: the forward (K2'), dQ (K3') and
-// dK/dV (K4') for bfloat16 with D = 16, 32, 64 or 128, and the pass that
-// writes the delta K3' and K4' read.
+// dK/dV (K4') for bfloat16 with D = 16, 32, 64 or 128, the pass that
+// writes the delta K3' and K4' read, and the forward for float32 with
+// D = 16, 32 or 64 in 3xTF32 products (K2-tf32).
 //
 // Replaces, for those inputs, elasticdl_tpu/ops/pallas_attention.py
 // `_fwd_kernel` (`pallas_call` at 256), `_bwd_dq_kernel` (`pallas_call` at
 // 404) and `_bwd_dkv_kernel` (`pallas_call` at 433). csrc/flash_attention.cu
-// keeps every other case (float32, other head dims).
+// keeps every other case (the float32 backward, float32 at D 128 and other
+// head dims, bfloat16 at other head dims).
 //
 // Contract: that of ops/flash_attention.py, unchanged. q (B, Tq, H, D),
 // k and v (B, Tk, H, D), dout like q, read in place through (b, t, h)
@@ -91,6 +93,42 @@
 // - Causal tiles wholly above the diagonal are not visited: the bounds come
 //   from the runtime offsets. K2' and K3' start the blocks with the most
 //   tiles first.
+// - K2-tf32, K2 for float32. In float32 every product of the reference
+//   has float32 operands (q.k and p.v), which no bf16 wgmma holds, and a
+//   single TF32 product errs by ~2^-11, 25x the 2e-5 that out and lse are
+//   held to. So each float32 operand x is split into hi = tf32(x)
+//   (cvt.rna, low 13 bits cleared) and lo = tf32(x - hi), and a.b is
+//   summed as lo_a.hi_b + hi_a.lo_b + hi_a.hi_b on `wgmma ... k8.tf32`,
+//   accumulated in float32: the dropped lo_a.lo_b and the rounding of the
+//   two lo are <= 3 2^-22 |a b| (~7e-7 relative a product). A score of
+//   D terms errs by at most ~7e-7 x the sum of its |q_i k_i| D^-0.5,
+//   which moves p by that relative part and lse by that absolute amount.
+//   Emulated on the CPU at this kernel's tile (64 x 64, D 64, unit-normal
+//   inputs; tests/test_torch_flash_attention.py), the split's q.k^T and
+//   p.v spend 0.8% and 0.3% of the 2e-5 bound (rtol and atol of the
+//   largest entry); one TF32 product spends 13x and 8.5x it.
+//   Layouts: a float32 row of D dims has the bytes of a bf16 row of 2D,
+//   so Cols<2D> gives Q's, K's and V's TMA swizzles and descriptors, and a
+//   k8 TF32 step is 32 bytes, as a k16 bf16 step is. TF32 wgmma reads
+//   shared-memory operands K-major only: Q and K are K-major as they lie,
+//   V is not, so each V tile is written transposed (V^T, kv contiguous).
+//   The accumulator of S gives thread t of a quad kv columns 2t and
+//   2t + 1 of each k8 step where a TF32 A fragment wants t and t + 4; the
+//   fragment is taken as it lies and V^T's kv columns are written in the
+//   matching order (`pv_slot`), so p needs no shuffle. A block is two
+//   consumer warpgroups of 64 q rows and a producer warpgroup (384
+//   threads, 168 registers each): its warp 0 lands Q once and K and V a
+//   stage at a time by TMA; its warps 1-3 split Q once (hi in place, lo
+//   beside it) and each stage (K hi in place, K lo, V^T hi and lo in
+//   Cols<128>'s swizzle), while the consumers run the previous stage's
+//   products. The consumers wait on barriers, run 3 D/8 k8 products for S
+//   and 24 for O a tile, K2''s online softmax, and split p into hi and lo
+//   register fragments (at D 64 half of them at a time, two commit groups
+//   of 12 products: all of them beside O spilled 64 bytes at 168
+//   registers). Every operand's descriptor is its tile's base descriptor
+//   plus a constant. Shared memory at D 64: Q hi + lo 64 KB, a stage
+//   5 x 16 KB, two stages: 224 KB of 227 (D 128 would need 5 x 32 KB a
+//   stage and stays on K2).
 // Tensor maps are built on the host over each tensor's strides; the
 // encoder comes from the CUDA runtime's entry-point lookup (no -lcuda).
 
@@ -214,16 +252,21 @@ __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lead_bytes) {
          C::kLayout << 62;
 }
 
-// Step kk (16 dims, 32 bytes) of a K-major tile of `rows` rows in
-// Cols<kD>'s layout: its column block and its 32 bytes inside each row
-// (the swizzle is applied to the address, so a step inside the row moves
-// the start address only). A 32-byte row (D 16) is one step.
+// Byte offset of step kk (16 dims, 32 bytes) of a K-major tile of `rows`
+// rows in Cols<kD>'s layout: its column block and its 32 bytes inside each
+// row (the swizzle is applied to the address, so a step inside the row
+// moves the start address only). A 32-byte row (D 16) is one step.
+template <int kD>
+__device__ __forceinline__ int kstep_bytes(int rows, int kk) {
+  using C = Cols<kD>;
+  constexpr int kSteps = C::kCols / 16;  // k16 steps a row
+  return (kk / kSteps) * rows * C::kRowBytes + (kk % kSteps) * 32;
+}
+
 template <int kD>
 __device__ __forceinline__ const uint8_t* kstep(const uint8_t* tile, int rows,
                                                 int kk) {
-  using C = Cols<kD>;
-  constexpr int kSteps = C::kCols / 16;  // k16 steps a row
-  return tile + (kk / kSteps) * rows * C::kRowBytes + (kk % kSteps) * 32;
+  return tile + kstep_bytes<kD>(rows, kk);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -243,9 +286,10 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
-__device__ __forceinline__ void pin(uint32_t (&r)[4][4]) {
+template <int M>
+__device__ __forceinline__ void pin(uint32_t (&r)[M][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < M; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
   }
@@ -622,6 +666,463 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     for (int g = 0; g < kD / 8; ++g) {
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * g) = __floats2bfloat162_rn(
           o[4 * g + 2 * r] / l_safe, o[4 * g + 2 * r + 1] / l_safe);
+    }
+    if (lane % 4 == 0) lse[lse_row + row] = m[r] + logf(l_safe);
+  }
+}
+
+// ------------------------------------------------------------- K2-tf32
+
+// A float32 x as tf32 in a float32 word: cvt.rna.tf32.f32 (round to
+// nearest, ties away from zero, to 10 mantissa bits), with the low 13 bits
+// cleared explicitly, so that what the tensor core reads does not depend
+// on how it treats them.
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+// x = hi + lo + O(2^-22 |x|): hi = tf32(x), lo = tf32(x - hi); x - hi is
+// exact in float32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = tf32_bits(x - __uint_as_float(hi));
+}
+
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma's operand reads) once a barrier orders them.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Byte offset `o` of a row-major tile of kRowBytes-long rows, in the TMA
+// swizzle of that width (cute's Swizzle<3,4,3>, <2,4,3>: the 16-byte chunk
+// index XOR the row group bits 7-9 or 7-8), from a 1024-aligned base.
+template <int kRowBytes>
+__device__ __forceinline__ uint32_t swizzled(uint32_t o) {
+  static_assert(kRowBytes == 64 || kRowBytes == 128,
+                "K2-tf32 reads 64- and 128-byte rows");
+  constexpr uint32_t kMask = kRowBytes == 128 ? 7u : 3u;
+  return o ^ (((o >> 7) & kMask) << 4);
+}
+
+// d (64 x 64) = A (64 x 8) . B (8 x 64) + d in TF32: A and B from shared
+// memory, both K-major.
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t a,
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 16) += A (64 x 8) . B (8 x 16) in TF32: A from registers (a
+// k8 fragment), B from shared memory, K-major (TF32 has no transpose bit).
+__device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[8],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 32) += A (64 x 8) . B (8 x 32) in TF32, as wgmma_tf32_rs_n16.
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64) += A (64 x 8) . B (8 x 64) in TF32, as wgmma_tf32_rs_n16.
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x kD) += A . B in TF32 with N = kD: the products into O.
+template <int kD>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[kD / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  static_assert(kD == 16 || kD == 32 || kD == 64,
+                "K2-tf32 is built at D 16, 32 and 64");
+  if constexpr (kD == 16) {
+    wgmma_tf32_rs_n16(d, a, b);
+  } else if constexpr (kD == 32) {
+    wgmma_tf32_rs_n32(d, a, b);
+  } else {
+    wgmma_tf32_rs_n64(d, a, b);
+  }
+}
+
+// `kstep_bytes` in a descriptor's start-address units (16 bytes): every
+// K2-tf32 operand's descriptor is its tile's base descriptor plus one.
+template <int kD>
+__device__ __forceinline__ uint64_t kstep_desc(int rows, int kk) {
+  return static_cast<uint64_t>(kstep_bytes<kD>(rows, kk) >> 4);
+}
+
+// The slot of kv row `kv` inside its k8 step of P.V. A TF32 A fragment
+// puts columns t and t + 4 of a k8 step in thread t % 4 of a quad; the
+// accumulator of S holds columns 2t and 2t + 1 there. So the accumulator
+// is used as the A fragment as it lies (logical column t <- kv 2t, t + 4
+// <- kv 2t + 1), and V^T's columns are written in that order: kv 2c sits
+// in slot c and kv 2c + 1 in slot c + 4.
+__device__ __forceinline__ int pv_slot(int kv) {
+  return (kv & ~7) | ((kv & 1) << 2) | ((kv & 7) >> 1);
+}
+
+constexpr int kTf32Threads = 128 * (kConsumers + 1);  // + a producer wg
+constexpr int kSplitThreads = 96;  // the producer wg's warps 1-3
+
+// K2-tf32's shared memory at head dim kD. A float32 row of kD dims has the
+// bytes of a bf16 row of 2 kD, so Cols<2 kD> lays out Q, K and V as TMA
+// lands them (D 16: one 64-byte row in the 64-byte swizzle; D 32 one
+// 128-byte row; D 64 two 128-byte column blocks), and one k8 TF32 step is
+// 32 bytes, as one k16 bf16 step is. V^T (kD rows of 64 kv floats) is
+// Cols<128>: two 128-byte column blocks of 32 kv.
+template <int kD>
+struct Tf32Layout {
+  using C = Cols<2 * kD>;
+  // k8 steps of P.V a commit group: all eight at D 16 and 32; at D 64 four
+  // twice, so that p's hi and lo fragments of one group (32 registers, not
+  // 64) beside O's 32 fit 168 registers without a spill
+  static constexpr int kPvSteps = kD == 64 ? 4 : 8;
+  // its ring depth, pinned at two: two stages fill 230,464 of the 232,448
+  // bytes a block may take at D 64, which leaves no room for a third
+  // (another 81,920 bytes)
+  static constexpr int kRing = 2;
+  static constexpr int kQBytes = kBlockRows * kD * 4;     // each of hi, lo
+  static constexpr int kTileBytes = kTileRows * kD * 4;   // each of five
+  // a stage: K (split to hi in place), K lo, V as loaded, V^T hi, V^T lo
+  static constexpr int kStageBytes = 5 * kTileBytes;
+  static constexpr int kBars = 2 + 3 * kRing;
+  static constexpr int kBytes =
+      1024 + 2 * kQBytes + kRing * kStageBytes + 8 * kBars;
+};
+static_assert(Tf32Layout<64>::kBytes <= 232448,
+              "K2-tf32 at D 64 must fit a block's 227 KB");
+
+// Split the `chunks` 16-byte chunks at `hi` into tf32 hi (in place) and lo
+// (at the same offsets of `lo`): an elementwise map, so the TMA swizzle
+// of the tile carries over.
+__device__ __forceinline__ void split_in_place(uint8_t* hi, uint8_t* lo,
+                                               int chunks, int t) {
+  for (int c = t; c < chunks; c += kSplitThreads) {
+    uint4 x = *reinterpret_cast<const uint4*>(hi + 16 * c);
+    uint4 h, l;
+    split_tf32(__uint_as_float(x.x), h.x, l.x);
+    split_tf32(__uint_as_float(x.y), h.y, l.y);
+    split_tf32(__uint_as_float(x.z), h.z, l.z);
+    split_tf32(__uint_as_float(x.w), h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + 16 * c) = h;
+    *reinterpret_cast<uint4*>(lo + 16 * c) = l;
+  }
+}
+
+// V (64 kv rows of kD floats, as TMA landed it) into V^T hi and lo: kD
+// rows of 64 kv, K-major for the TF32 B operand, kv in `pv_slot` order, in
+// Cols<128>'s swizzle. A warp takes 32 neighbouring kv rows of one 16-byte
+// chunk: its reads hit 8 swizzled chunks a quarter-warp and its 4-byte
+// writes 32 words of one row, so neither conflicts on a bank.
+template <int kD>
+__device__ __forceinline__ void split_transposed(const uint8_t* v,
+                                                 uint8_t* th, uint8_t* tl,
+                                                 int t) {
+  using C = Cols<2 * kD>;
+  constexpr int kChunks = kTileRows * kD / 4;
+  for (int c = t; c < kChunks; c += kSplitThreads) {
+    const int kv = c % kTileRows;
+    const int col = 16 * (c / kTileRows);  // byte of the row: dims col / 4..
+    const uint4 x = *reinterpret_cast<const uint4*>(
+        v + (col / C::kRowBytes) * kTileRows * C::kRowBytes +
+        swizzled<C::kRowBytes>(kv * C::kRowBytes + col % C::kRowBytes));
+    const int slot = pv_slot(kv);
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {   // V^T row col / 4 + e, column `slot`
+      const uint32_t o = (slot / 32) * kD * 128 +
+                         swizzled<128>((col / 4 + e) * 128 + 4 * (slot % 32));
+      uint32_t h, l;
+      split_tf32(__uint_as_float(xs[e]), h, l);
+      *reinterpret_cast<uint32_t*>(th + o) = h;
+      *reinterpret_cast<uint32_t*>(tl + o) = l;
+    }
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kTf32Threads, 1)
+flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           float* __restrict__ out, float* __restrict__ lse,
+                           Strides so, int H, int Tq, int Tk, int q_off,
+                           int kv_off, bool causal, float scale) {
+  using L = Tf32Layout<kD>;
+  using C = typename L::C;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align_1024(smem_raw);  // Q, then its hi: kBlocks x [128][..]
+  uint8_t* q_lo = qs + L::kQBytes;
+  uint8_t* stages = q_lo + L::kQBytes;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(stages + L::kRing * L::kStageBytes);
+  uint64_t* q_bar = bars;        // Q landed
+  uint64_t* q_split = bars + 1;  // Q split into hi and lo
+  uint64_t* loaded = bars + 2;   // a stage's K and V landed
+  uint64_t* full = bars + 2 + L::kRing;  // ... and split
+  uint64_t* empty = bars + 2 + 2 * L::kRing;
+
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y - b * H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockRows;
+  const int n_tiles =
+      (kv_rows_seen(min(Tq, q0 + kBlockRows), Tk, q_off, kv_off, causal) +
+       kTileRows - 1) / kTileRows;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    mbar_init(q_split, kSplitThreads / 32);
+#pragma unroll
+    for (int s = 0; s < L::kRing; ++s) {
+      mbar_init(&loaded[s], 1);
+      mbar_init(&full[s], kSplitThreads / 32);
+      mbar_init(&empty[s], 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  if (wg == kConsumers) {  // the producer warpgroup
+    if (n_tiles == 0) return;
+    const int t = threadIdx.x % 128 - 32;
+    if (t < 0) {  // warp 0: one thread starts the loads
+      if (lane != 0) return;
+      mbar_expect_tx(q_bar, L::kQBytes);
+#pragma unroll
+      for (int a = 0; a < C::kBlocks; ++a) {
+        tma_load(qs + a * kBlockRows * C::kRowBytes, &tq, q_bar,
+                 C::kRowBytes / 4 * a, q0, h, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % L::kRing;
+        uint8_t* st = stages + s * L::kStageBytes;
+        if (j >= L::kRing) {
+          mbar_wait(&empty[s], (j / L::kRing - 1) & 1);
+        }
+        mbar_expect_tx(&loaded[s], 2 * L::kTileBytes);
+#pragma unroll
+        for (int a = 0; a < C::kBlocks; ++a) {
+          const int at = a * kTileRows * C::kRowBytes;
+          tma_load(st + at, &tk, &loaded[s], C::kRowBytes / 4 * a,
+                   j * kTileRows, h, b);
+          tma_load(st + 2 * L::kTileBytes + at, &tv, &loaded[s],
+                   C::kRowBytes / 4 * a, j * kTileRows, h, b);
+        }
+      }
+      return;
+    }
+    // warps 1-3 split what landed: Q once, then K and V a stage at a time
+    mbar_wait(q_bar, 0);
+    split_in_place(qs, q_lo, L::kQBytes / 16, t);
+    fence_async_smem();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(q_split);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % L::kRing;
+      uint8_t* st = stages + s * L::kStageBytes;
+      mbar_wait(&loaded[s], (j / L::kRing) & 1);
+      split_in_place(st, st + L::kTileBytes, L::kTileBytes / 16, t);
+      split_transposed<kD>(st + 2 * L::kTileBytes, st + 3 * L::kTileBytes,
+                           st + 4 * L::kTileBytes, t);
+      fence_async_smem();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // a consumer warpgroup: q rows row0 .. row0 + 63, at byte `mine` of each
+  // column block of Q's hi and lo
+  const int tw = threadIdx.x % 128;
+  const int mine = wg * 64 * C::kRowBytes;
+  const int r0 = (tw / 32) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const int row0 = q0 + wg * 64;
+  const long long qpos = static_cast<long long>(q_off) + row0 + r0;
+  const int n_mine =
+      row0 < Tq ? (kv_rows_seen(min(Tq, row0 + 64), Tk, q_off, kv_off,
+                                causal) + kTileRows - 1) / kTileRows
+                : 0;
+
+  const uint64_t q_hi = desc<2 * kD>(qs + mine, 16);
+  float o[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) o[i] = 0.0f;
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.0f, 0.0f};
+  if (n_tiles > 0) mbar_wait(q_split, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % L::kRing;
+    mbar_wait(&full[s], (j / L::kRing) & 1);
+    if (j < n_mine) {
+      const uint8_t* st = stages + s * L::kStageBytes;
+      // descriptors of K hi and V^T hi; K lo and V^T lo lie one and two
+      // tiles past them, Q lo one Q past Q hi
+      const uint64_t k_hi = desc<2 * kD>(st, 16);
+      const uint64_t vt_hi = desc<128>(st + 3 * L::kTileBytes, 16);
+      constexpr uint64_t kLo = L::kTileBytes >> 4, kQLo = L::kQBytes >> 4;
+      // S = Q.K^T as Q_lo.K_hi + Q_hi.K_lo + Q_hi.K_hi, k8 steps
+      float sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+      pin(sc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 8; ++kk) {
+        const uint64_t qh = q_hi + kstep_desc<2 * kD>(kBlockRows, kk);
+        const uint64_t kh = k_hi + kstep_desc<2 * kD>(kTileRows, kk);
+        wgmma_tf32_ss_n64(sc, qh + kQLo, kh);
+        wgmma_tf32_ss_n64(sc, qh, kh + kLo);
+        wgmma_tf32_ss_n64(sc, qh, kh);
+      }
+      wg_commit();
+      wg_wait_all();
+      pin(sc);
+
+      const int j0 = j * kTileRows;
+      const bool edge =
+          j0 + kTileRows > Tk ||
+          (causal && static_cast<long long>(kv_off) + j0 + kTileRows - 1 >
+                         static_cast<long long>(q_off) + row0);
+      unsigned valid = 0xffffffffu;
+      float mt[2] = {kNegBig, kNegBig};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sc[i] *= scale;
+        if (edge) {
+          const int kv = j0 + acc_col(i, c0);
+          const bool ok =
+              kv < Tk && (!causal || static_cast<long long>(kv_off) + kv <=
+                                         qpos + 8 * acc_half(i));
+          if (!ok) valid &= ~(1u << i);
+        }
+        if ((valid >> i) & 1u) mt[acc_half(i)] = fmaxf(mt[acc_half(i)], sc[i]);
+      }
+      float alpha[2], ls[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mt[r]));
+        alpha[r] = __expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sc[i] = ((valid >> i) & 1u) ? __expf(sc[i] - m[acc_half(i)]) : 0.0f;
+        ls[acc_half(i)] += sc[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(ls[r]);
+#pragma unroll
+      for (int i = 0; i < kD / 2; ++i) o[i] *= alpha[acc_half(i)];
+
+      // O += P.V as P_lo.V_hi + P_hi.V_lo + P_hi.V_hi, kPvSteps k8 steps
+      // a commit group. p goes into A fragments (`pv_slot`), hi and lo:
+      // step kk's are accumulator elements 4 kk, 4 kk + 2, 4 kk + 1 and
+      // 4 kk + 3 (rows r0, r0 + 8 at kv 2t; rows r0, r0 + 8 at kv 2t + 1)
+      constexpr int kPv = L::kPvSteps;
+#pragma unroll
+      for (int k0 = 0; k0 < 8; k0 += kPv) {
+        uint32_t hi[kPv][4], lo[kPv][4];
+#pragma unroll
+        for (int kk = 0; kk < kPv; ++kk) {
+          const int i = 4 * (k0 + kk);
+          split_tf32(sc[i], hi[kk][0], lo[kk][0]);
+          split_tf32(sc[i + 2], hi[kk][1], lo[kk][1]);
+          split_tf32(sc[i + 1], hi[kk][2], lo[kk][2]);
+          split_tf32(sc[i + 3], hi[kk][3], lo[kk][3]);
+        }
+        pin(o);
+        pin(hi);
+        pin(lo);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kPv; ++kk) {
+          const uint64_t vh = vt_hi + kstep_desc<128>(kD, k0 + kk);
+          wgmma_tf32_rs<kD>(o, lo[kk], vh);
+          wgmma_tf32_rs<kD>(o, hi[kk], vh + kLo);
+          wgmma_tf32_rs<kD>(o, hi[kk], vh);
+        }
+        wg_commit();
+        wg_wait_all();
+        pin(o);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  const long long lse_row = static_cast<long long>(blockIdx.y) * Tq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r0 + 8 * r;
+    if (row >= Tq) continue;
+    const float l_safe = fmaxf(l[r], 1e-30f);
+    float* dst =
+        out + b * so.b + static_cast<long long>(row) * so.t + h * so.h + c0;
+#pragma unroll
+    for (int g = 0; g < kD / 8; ++g) {
+      *reinterpret_cast<float2*>(dst + 8 * g) =
+          make_float2(o[4 * g + 2 * r] / l_safe, o[4 * g + 2 * r + 1] / l_safe);
     }
     if (lane % 4 == 0) lse[lse_row + row] = m[r] + logf(l_safe);
   }
@@ -1143,16 +1644,17 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// Tensor map over a (B, T, H, kD) bfloat16 tensor at `p` with (b, t, h)
-// element strides, in boxes of Cols<kD>::kCols dims x `rows` rows in that
-// column block's swizzle (TMA refuses an inner box wider than its
-// swizzle), zeros past T. A dim of extent 1 may carry any stride in
+// Tensor map over a (B, T, H, kD) tensor of kElem-byte elements (bfloat16
+// or float32) at `p` with (b, t, h) element strides, in boxes of one
+// column block of Cols<kD kElem / 2> (the row's bytes as bf16 columns) x
+// `rows` rows in that block's swizzle (TMA refuses an inner box wider than
+// its swizzle), zeros past T. A dim of extent 1 may carry any stride in
 // PyTorch; it gets the contiguous one. TMA takes strides that are multiples
 // of 16 bytes and a 16-byte-aligned address (the wrapper checks both).
-template <int kD>
+template <int kD, int kElem = 2>
 bool make_map(CUtensorMap* map, const void* p, Strides s, int B, int T,
               int H, int rows) {
-  using C = Cols<kD>;
+  using C = Cols<kD * kElem / 2>;
   constexpr int D = kD;
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
@@ -1163,14 +1665,16 @@ bool make_map(CUtensorMap* map, const void* p, Strides s, int B, int T,
                               static_cast<cuuint64_t>(T),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {C::kCols, static_cast<cuuint32_t>(rows), 1,
-                             1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * kElem,
+                                 static_cast<cuuint64_t>(sh) * kElem,
+                                 static_cast<cuuint64_t>(sb) * kElem};
+  const cuuint32_t box[4] = {C::kRowBytes / kElem,
+                             static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(p), dims, strides, box, step,
+  return encode(map,
+                kElem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, const_cast<void*>(p), dims, strides, box, step,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, C::kSwizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -1199,6 +1703,25 @@ cudaError_t run_fwd(const Args& a) {
       mq, mk, mv, static_cast<__nv_bfloat16*>(a.out0),
       static_cast<float*>(a.out1), a.at(3), a.H, a.Tq, a.Tk, a.q_off,
       a.kv_off, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <int kD>
+cudaError_t run_fwd_tf32(const Args& a) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map<kD, 4>(&mq, a.q, a.at(0), a.B, a.Tq, a.H, kBlockRows) ||
+      !make_map<kD, 4>(&mk, a.k, a.at(1), a.B, a.Tk, a.H, kTileRows) ||
+      !make_map<kD, 4>(&mv, a.v, a.at(2), a.B, a.Tk, a.H, kTileRows)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = flash_fwd_tf32_sm90_kernel<kD>;
+  constexpr int smem = Tf32Layout<kD>::kBytes;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tq + kBlockRows - 1) / kBlockRows, a.B * a.H);
+  kernel<<<grid, kTf32Threads, smem, a.stream>>>(
+      mq, mk, mv, static_cast<float*>(a.out0), static_cast<float*>(a.out1),
+      a.at(3), a.H, a.Tq, a.Tk, a.q_off, a.kv_off, a.causal, a.scale);
   return cudaGetLastError();
 }
 
@@ -1270,12 +1793,13 @@ struct Built {
   Run run;
 };
 
-// The launch built for bfloat16 (dtype code 1) at the head dim a.D;
-// anything else is refused.
+// The launch built for dtype code `want` (0 float32, 1 bfloat16) at the
+// head dim a.D; anything else is refused.
 template <size_t N>
-int dispatch(int dtype, const Args& a, const Built (&built)[N]) {
+int dispatch(int dtype, const Args& a, const Built (&built)[N],
+             int want = 1) {
   for (const Built& b : built) {
-    if (dtype == 1 && a.D == b.D) return static_cast<int>(b.run(a));
+    if (dtype == want && a.D == b.D) return static_cast<int>(b.run(a));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1292,7 +1816,8 @@ extern "C" {
 // Each launcher enqueues one kernel on `stream` and returns its
 // cudaError_t (0 on success). `strides` holds the (b, t, h) element
 // strides of the tensors in argument order. dtype must be 1 (bfloat16) and
-// D 16, 32, 64 or 128; anything else returns cudaErrorInvalidValue.
+// D 16, 32, 64 or 128, or for flash_fwd_tf32_sm90 0 (float32) and D 16, 32
+// or 64; anything else returns cudaErrorInvalidValue.
 
 int flash_fwd_sm90(int dtype, const void* q, const void* k, const void* v,
                    void* out, void* lse, const long long* strides, int B,
@@ -1304,6 +1829,21 @@ int flash_fwd_sm90(int dtype, const void* q, const void* k, const void* v,
   static const Built built[] = {{16, run_fwd<16>}, {32, run_fwd<32>},
                                  {64, run_fwd<64>}, {128, run_fwd<128>}};
   return dispatch(dtype, a, built);
+}
+
+// K2-tf32: float32 out and lse from float32 q, k, v. Strides: q, k, v,
+// out.
+int flash_fwd_tf32_sm90(int dtype, const void* q, const void* k,
+                        const void* v, void* out, void* lse,
+                        const long long* strides, int B, int H, int Tq,
+                        int Tk, int D, int q_off, int kv_off, int causal,
+                        void* stream) {
+  const Args a{q, k, v, nullptr, nullptr, nullptr, nullptr, nullptr,
+               out, lse, strides, B, H, Tq, Tk, D, q_off, kv_off,
+               causal != 0, scale_of(D), static_cast<cudaStream_t>(stream)};
+  static const Built built[] = {
+      {16, run_fwd_tf32<16>}, {32, run_fwd_tf32<32>}, {64, run_fwd_tf32<64>}};
+  return dispatch(dtype, a, built, 0);
 }
 
 // delta (B, H, Tq) = rowsum(dout . out) - g_lse; glse may be null (0).
@@ -1350,8 +1890,9 @@ int flash_bwd_dq_sm90(int dtype, const void* q, const void* k, const void* v,
   return dispatch(dtype, a, built);
 }
 
-// Dynamic shared memory a launch of K2' (kernel 0), K4' (kernel 1) or K3'
-// (kernel 2) asks for at head dim D, or -1 where that kernel is not built.
+// Dynamic shared memory a launch of K2' (kernel 0), K4' (kernel 1), K3'
+// (kernel 2) or K2-tf32 (kernel 3) asks for at head dim D, or -1 where that
+// kernel is not built.
 // ptxas does not report dynamic shared memory; chip_smoke.py prints this
 // beside it.
 int flash_sm90_shared_bytes(int kernel, int D) {
@@ -1367,6 +1908,9 @@ int flash_sm90_shared_bytes(int kernel, int D) {
   if (kernel == 2 && D == 32) return DqLayout<32>::kBytes;
   if (kernel == 2 && D == 64) return DqLayout<64>::kBytes;
   if (kernel == 2 && D == 128) return DqLayout<128>::kBytes;
+  if (kernel == 3 && D == 16) return Tf32Layout<16>::kBytes;
+  if (kernel == 3 && D == 32) return Tf32Layout<32>::kBytes;
+  if (kernel == 3 && D == 64) return Tf32Layout<64>::kBytes;
   return -1;
 }
 

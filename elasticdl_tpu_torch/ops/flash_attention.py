@@ -11,14 +11,16 @@ Two CUDA C++ sources hold the kernels (see the notes in each):
 - `csrc/flash_attention_sm90.cu`, on Hopper's tensor cores (`wgmma`, TMA):
   K2' `flash_fwd_sm90`, K3' `flash_bwd_dq_sm90` and K4'
   `flash_bwd_dkv_sm90` for bfloat16 at D 16, 32, 64 and 128, and the
-  delta pass `flash_bwd_delta_sm90` that K3' and K4' read (`_sm90`): the
-  LM's attention;
+  delta pass `flash_bwd_delta_sm90` that K3' and K4' read: the bf16 LM's
+  attention; and K2-tf32 `flash_fwd_tf32_sm90`, the forward for float32
+  at D 16, 32 and 64 in 3xTF32 products: the float32 LM's forward;
 - `csrc/flash_attention.cu`, float32 FMAs on the CUDA cores: K2, K3 and K4
-  for every other input (float32, other head dims).
-The route is decided by dtype and D alone, before any launch; a failed
-launch raises and is never retried on the other kernels. The autograd
-backward (`flash_bwd`) launches the delta pass once and hands it to
-K3' and K4'.
+  for every other input (the float32 backward, float32 at other head
+  dims, bfloat16 at other head dims).
+The route (`route`) is decided by dtype and D alone, before any launch; a
+failed launch raises and is never retried on the other kernels. The
+autograd backward (`flash_bwd`) launches the delta pass once and hands it
+to K3' and K4'.
 
 The contract, shared by kernel and plain version:
 - scores s = (q . k) * D**-0.5 in float32, with the causal mask taken in
@@ -29,7 +31,8 @@ The contract, shared by kernel and plain version:
   hi + lo, each product exact in float32, so P.V, P^T.dO, dS^T.Q and dS.K
   are the float32 products to ~2**-17 of p and ds, well under one bf16 ulp of
   the output; q.k and dO.v have bf16 operands on that route and are exact
-  as they are;
+  as they are. K2-tf32 splits every float32 operand (q, k, v and p) into
+  tf32 hi + lo and sums hi.hi + hi.lo + lo.hi: each product to ~2**-21;
 - a masked score gives p = 0. A fully masked row returns 0 with lse ~
   NEG_BIG, whatever the tiling (the Pallas kernel returns the mean of v
   for such a row when it lies in a live block of its tiling);
@@ -45,8 +48,8 @@ The split computes the same function, so K2', K3' and K4' share K2's,
 K3's and K4's plain versions. The autograd Function's forward calls
 `flash_fwd` through the dispatcher op `edl::flash_fwd` (`flash_fwd_op`,
 with a fake rule), so `torch.export` traces it into a serving program
-that launches K2' or K2 (`training/export.export_saved_model`); its
-backward calls `flash_bwd` through `edl::flash_bwd` (`flash_bwd_op`).
+that launches K2', K2-tf32 or K2 (`training/export.export_saved_model`);
+its backward calls `flash_bwd` through `edl::flash_bwd` (`flash_bwd_op`).
 Each op has a FLOP formula (`torch.utils.flop_counter`), so a counter
 that sees the op and not its body (`Trainer.train_step_cost`) counts the
 same on the CPU, where the plain versions run, as on the card, where the
@@ -74,17 +77,19 @@ LIBRARY, LIBRARY_SM90 = "flash_attention", "flash_attention_sm90"
 FWD, BWD_DQ, BWD_DKV = "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"
 FWD_SM90, BWD_DKV_SM90 = "flash_fwd_sm90", "flash_bwd_dkv_sm90"
 BWD_DQ_SM90, BWD_DELTA_SM90 = "flash_bwd_dq_sm90", "flash_bwd_delta_sm90"
+FWD_TF32 = "flash_fwd_tf32_sm90"
 launches = {FWD: 0, BWD_DQ: 0, BWD_DKV: 0, FWD_SM90: 0, BWD_DQ_SM90: 0,
-            BWD_DKV_SM90: 0, BWD_DELTA_SM90: 0}
+            BWD_DKV_SM90: 0, BWD_DELTA_SM90: 0, FWD_TF32: 0}
 _SM90_HEAD_DIMS = (16, 32, 64, 128)  # K2', K3', K4' and the delta pass
+_TF32_HEAD_DIMS = (16, 32, 64)       # K2-tf32
 _KERNELS = {LIBRARY: (FWD, BWD_DQ, BWD_DKV),
             LIBRARY_SM90: (FWD_SM90, BWD_DQ_SM90, BWD_DKV_SM90,
-                           BWD_DELTA_SM90)}
+                           BWD_DELTA_SM90, FWD_TF32)}
 # pointer arguments of each launcher, then the int arguments before the
 # stream: B H Tq Tk D q_off kv_off causal (the delta pass: B H Tq D)
 _SIGNATURES = {FWD: (5, 8), BWD_DQ: (8, 8), BWD_DKV: (9, 8),
                FWD_SM90: (5, 8), BWD_DQ_SM90: (7, 8), BWD_DKV_SM90: (8, 8),
-               BWD_DELTA_SM90: (4, 4)}
+               BWD_DELTA_SM90: (4, 4), FWD_TF32: (5, 8)}
 
 MAX_HEAD_DIM = 256
 MAX_GRID_Y = 65535              # B * H rides on the grid's y dimension
@@ -226,22 +231,43 @@ def _on_card(x: torch.Tensor) -> bool:
 
 
 def _sm90(dtype, d) -> bool:
-    """True where the Hopper kernels take the inputs: bfloat16 with head
-    dim 16, 32, 64 or 128, for each of K2', K3' and K4' alike. K3' and K4'
-    read the delta pass."""
+    """True where the bf16 Hopper kernels take the inputs: bfloat16 with
+    head dim 16, 32, 64 or 128, for each of K2', K3' and K4' alike. K3'
+    and K4' read the delta pass."""
     return dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS
 
 
+def route(dtype, d) -> Tuple[str, Tuple[str, ...]]:
+    """The kernels that take inputs of `dtype` and head dim `d` on the
+    card, decided before any launch: (forward, the backward's launches,
+    each once: dQ, dK/dV and, where K3' and K4' read it, the delta pass):
+    - bfloat16 at D 16, 32, 64, 128: K2'; K3', K4' and the delta pass;
+    - float32 at D 16, 32, 64: K2-tf32; K3 and K4;
+    - everything else: K2; K3 and K4."""
+    if _sm90(dtype, d):
+        return FWD_SM90, (BWD_DQ_SM90, BWD_DKV_SM90, BWD_DELTA_SM90)
+    if dtype == torch.float32 and d in _TF32_HEAD_DIMS:
+        return FWD_TF32, (BWD_DQ, BWD_DKV)
+    return FWD, (BWD_DQ, BWD_DKV)
+
+
+def _check_head_dim(t: torch.Tensor) -> None:
+    if t.stride(3) != 1 and t.shape[3] > 1:
+        raise ValueError(f"the head dim must be contiguous, got strides "
+                         f"{t.stride()}")
+
+
 def _check_tma(*tensors) -> None:
-    """TMA reads a tensor through strides that are multiples of 16 bytes
-    from a 16-byte-aligned address (a dim of extent 1 may carry any
-    stride); raise for one it cannot take."""
+    """TMA reads a tensor with a contiguous head dim through strides that
+    are multiples of 16 bytes from a 16-byte-aligned address (a dim of
+    extent 1 may carry any stride); raise for one it cannot take."""
     for t in tensors:
+        _check_head_dim(t)
         odd = [s for s, n in zip(t.stride()[:3], t.shape[:3])
                if n > 1 and (s * t.element_size()) % 16]
         if odd or t.data_ptr() % 16:
             raise ValueError(
-                f"the Hopper kernels read bfloat16 (B, T, H, D) tensors "
+                f"the Hopper kernels read (B, T, H, D) tensors "
                 f"through TMA, which needs (b, t, h) strides that are "
                 f"multiples of 16 bytes and a 16-byte-aligned address; got "
                 f"strides {t.stride()} at address {t.data_ptr():#x}")
@@ -252,9 +278,7 @@ def _strides(*tensors) -> ctypes.Array:
     stride must be 1."""
     vals = []
     for t in tensors:
-        if t.stride(3) != 1 and t.shape[3] > 1:
-            raise ValueError(f"the head dim must be contiguous, got strides "
-                             f"{t.stride()}")
+        _check_head_dim(t)
         vals += [t.stride(0), t.stride(1), t.stride(2)]
     return (ctypes.c_longlong * len(vals))(*vals)
 
@@ -278,27 +302,30 @@ def _dims(q, k, causal, q_offset, kv_offset):
 
 
 def flash_fwd(q, k, v, causal=True, q_offset=0, kv_offset=0):
-    """K2 (K2' for bfloat16 at D 16, 32, 64 or 128): (out in q's dtype,
-    lse (B, H, Tq) float32)."""
+    """The forward by `route`: K2' (bfloat16 at D 16, 32, 64 or 128),
+    K2-tf32 (float32 at D 16, 32 or 64) or K2: (out in q's dtype, lse
+    (B, H, Tq) float32)."""
     _validate(q, k, v)
     if not _on_card(q):
         return flash_fwd_plain(q, k, v, causal, q_offset, kv_offset)
     return launch_fwd(q, k, v, causal, q_offset, kv_offset,
-                      _sm90(q.dtype, q.shape[3]))
+                      route(q.dtype, q.shape[3])[0])
 
 
-def launch_fwd(q, k, v, causal, q_offset, kv_offset, hopper: bool):
-    """Launch K2' (`hopper`) or K2 on validated CUDA tensors. `flash_fwd`
-    routes by `_sm90`; a caller that times the two kernels side by side
-    names one."""
-    if hopper:
+def launch_fwd(q, k, v, causal, q_offset, kv_offset, kernel: str):
+    """Launch the forward kernel `kernel` (FWD_SM90, FWD_TF32 or FWD) on
+    validated CUDA tensors. `flash_fwd` names the one `route` gives; a
+    caller that times two kernels side by side on the same inputs names
+    each. The Hopper kernels read q, k and v through TMA."""
+    if kernel not in (FWD, FWD_SM90, FWD_TF32):
+        raise ValueError(f"no forward kernel {kernel!r}")
+    if kernel != FWD:
         _check_tma(q, k, v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     b, tq, h, _ = q.shape
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    _launch(FWD_SM90 if hopper else FWD, q, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _strides(q, k, v, out),
+    _launch(kernel, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), _strides(q, k, v, out),
             *_dims(q, k, causal, q_offset, kv_offset))
     return out, lse
 
@@ -309,11 +336,11 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`flash_fwd` as the dispatcher op `edl::flash_fwd`, so that a traced
     program (`torch.export`, `training/export.export_saved_model`) holds
-    a node that launches K2 or K2' where a ctypes call on a fake tensor
-    could not be traced. Its body is `flash_fwd` itself: on the CPU the
-    plain version, on the card K2' or K2 as `_sm90` routes them; both
-    return a contiguous out. `launches` counts real launches only: the
-    fake rule below launches nothing."""
+    a node that launches K2, K2' or K2-tf32 where a ctypes call on a fake
+    tensor could not be traced. Its body is `flash_fwd` itself: on the CPU
+    the plain version, on the card K2', K2-tf32 or K2 as `route` names
+    them; each returns a contiguous out. `launches` counts real launches
+    only: the fake rule below launches nothing."""
     return flash_fwd(q, k, v, causal, q_offset, kv_offset)
 
 
@@ -544,7 +571,7 @@ def _library(name: str) -> ctypes.CDLL:
 
 class _FlashAttention(torch.autograd.Function):
     """(out, lse) with the forward kernel and `flash_bwd`'s backward, both
-    routed by `_sm90` and each called through its dispatcher op. An
+    routed by `route` and each called through its dispatcher op. An
     unused lse (the out-only `flash_attention`) reaches the backward as
     None, which the kernels read as g_lse = 0.
 

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Block layouts of the Hopper flash kernels K2', K3' and K4' on one card.
+"""Block layouts of the Hopper flash kernels K2', K3', K4' and K2-tf32 on
+one card.
 
     python3 sm90_layouts.py        # from the repository root, one CUDA card
 
@@ -7,12 +8,13 @@ Builds `elasticdl_tpu_torch/csrc/flash_attention_sm90.cu` as it is and
 variants of it made by text substitution (`VARIANTS`: the layouts the
 source does not keep), one nvcc each, all started together. Each build
 is loaded in turn, the source's own first and last, and K2', K3' and K4'
-run at B8 T1024 H8 causal bf16 at D 16, 32 and 64 on the same inputs:
-each launch held to its plain version (`chip_smoke.KERNEL_TOL`), its
-device time from torch.profiler (`chip_smoke.device_ms`). Prints one
-JSON line a build: ptxas's registers and spills of each Hopper kernel at
-D 16 and 32, and the times; then the card's name and power limit. A
-layout that spills is not one to keep.
+run at B8 T1024 H8 causal bf16 at D 16, 32 and 64 on the same inputs,
+and K2-tf32 there in float32: each launch held to its plain version
+(`chip_smoke.KERNEL_TOL`; K2-tf32's out and lse to 2e-5), its device
+time from torch.profiler (`chip_smoke.device_ms`). Prints one JSON line
+a build: ptxas's registers and spills of each Hopper kernel at D 16 and
+32 and of K2-tf32 at D 16, 32 and 64, and the times; then the card's
+name and power limit. A layout that spills is not one to keep.
 """
 
 import ctypes
@@ -64,7 +66,13 @@ VARIANTS = {
     # K3' at D 16 and 32: one warpgroup, four blocks (96 registers)
     "k3_one_warpgroup_four_blocks": dq("kD < 64 ? 1 : 2",
                                        "kD < 64 ? 4 : 1"),
-    # a ring of four stages for every kernel
+    # K2-tf32 with all eight k8 steps of P.V in one commit group at D 64
+    # too (p's hi and lo fragments, 64 registers, live at once)
+    "k2_tf32_one_pv_group": [
+        ("static constexpr int kPvSteps = kD == 64 ? 4 : 8;",
+         "static constexpr int kPvSteps = 8;")],
+    # a ring of four stages for K2', K3' and K4' (K2-tf32 keeps its own
+    # two: four do not fit its shared memory at D 64)
     "four_stages": [("constexpr int kStages = 2;",
                      "constexpr int kStages = 4;")],
 }
@@ -112,14 +120,15 @@ def measure(name, path, log):
     lib.edl_cuda_error_string.restype = ctypes.c_char_p
     native._loaded[fa.LIBRARY_SM90] = lib
     ptxas = {k: v for k, v in cs.ptxas_summary(log).items()
-             if ("fwd_sm90" in k or "dkv_sm90" in k or "dq_sm90" in k)
-             and ("D=16" in k or "D=32" in k)}
+             if "fwd_tf32" in k or (
+                 ("fwd_sm90" in k or "dkv_sm90" in k or "dq_sm90" in k)
+                 and ("D=16" in k or "D=32" in k))}
     times = {}
     b, t, h = cs.LM_BATCH, cs.LM_T, 8
     for d in (16, 32, 64):
         q, k, v, dout, _ = cs.attn_inputs("cuda", b, t, t, h, d,
                                           torch.bfloat16, 0)
-        fwd = lambda: fa.launch_fwd(q, k, v, True, 0, 0, True)
+        fwd = lambda: fa.launch_fwd(q, k, v, True, 0, 0, fa.FWD_SM90)
         out, lse = fwd()
         delta = fa.flash_bwd_delta(out, dout)
         bwd = lambda: fa.launch_dkv_sm90(q, k, v, dout, lse, delta, True, 0,
@@ -145,6 +154,18 @@ def measure(name, path, log):
                 cs.device_ms(dq, ("flash_bwd_dq_sm90_kernel",))[
                     "flash_bwd_dq_sm90_kernel"],
             "err_over_tol": ratio}
+        q, k, v, _, _ = cs.attn_inputs("cuda", b, t, t, h, d, torch.float32,
+                                       0)
+        tf32 = lambda: fa.launch_fwd(q, k, v, True, 0, 0, fa.FWD_TF32)
+        ratio = max(cs.over_tol(got, w, 2e-5, 2e-5)[1]
+                    for got, w in zip(tf32(), fa.flash_fwd_plain(q, k, v)))
+        if ratio > 1.0:
+            raise AssertionError(f"{name}: K2-tf32 at D {d}: {ratio} of "
+                                 "the tolerance")
+        symbol = "flash_fwd_tf32_sm90_kernel"
+        times[f"d{d}"].update({
+            "k2_tf32_device_ms": cs.device_ms(tf32, (symbol,))[symbol],
+            "k2_tf32_err_over_tol": ratio})
     print(json.dumps({"layout": name, "ptxas": ptxas, "times": times}),
           flush=True)
 

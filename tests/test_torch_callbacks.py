@@ -36,6 +36,7 @@ that wires a zoo's `callbacks()`, and the worker that applies the push.
   tasks finish than the data holds, and none fails.
 """
 
+import dataclasses
 import importlib
 import logging
 import os
@@ -298,7 +299,13 @@ def case_the_push_lands_in_the_workers_optimizer(tmp):
     lines = _Lines()
     root = logging.getLogger("elasticdl_tpu_torch")
     root.addHandler(lines)
-    master = Master(cfg)
+    # The worker beats every 0.05 s, so that the master's LR push reaches
+    # Adam at a task boundary before EarlyStopping ends the job. The
+    # master declares a worker dead after 3 of its own beats: with the
+    # same 0.05 s, a 0.15 s stall of the worker's thread under a loaded
+    # host killed it, and `wait` then ran to its timeout with every task
+    # queued. The master's config keeps a 10 s beat (30 s to a death).
+    master = Master(dataclasses.replace(cfg, worker_heartbeat_s=10.0))
     master.start()
     worker = Worker(cfg, device="cpu")
     rc = []

@@ -290,12 +290,11 @@ def _close(got, want, what, rtol, atol_of_max=0.0, atol_of_rms=0.0):
 
 def _route(dtype, d):
     """The launches one forward and one whole backward (`flash_bwd`)
-    should add, by `_sm90`: K2', K3', K4' and the delta pass once (read
-    by K3' and K4') on the Hopper route, K2-K4 elsewhere."""
-    kernels = ((fa.FWD_SM90, fa.BWD_DQ_SM90, fa.BWD_DKV_SM90,
-                fa.BWD_DELTA_SM90) if fa._sm90(dtype, d)
-               else (fa.FWD, fa.BWD_DQ, fa.BWD_DKV))
-    return {n: int(n in kernels) for n in fa.launches}
+    should add, by `route`: K2', K3', K4' and the delta pass once (read
+    by K3' and K4') on the bf16 Hopper route, K2-tf32, K3 and K4 for
+    float32 at D 16, 32 and 64, K2-K4 elsewhere."""
+    fwd, bwd = fa.route(dtype, d)
+    return {n: int(n == fwd or n in bwd) for n in fa.launches}
 
 
 def case_flash_kernels_match_plain(cuda, dtype, d, tq, tk, causal, q_off,
@@ -325,7 +324,7 @@ def case_flash_kernels_match_plain(cuda, dtype, d, tq, tk, causal, q_off,
                        dq)
     assert all(torch.equal(a, b) for a, b in zip(
         fa.flash_bwd_dkv(q, k, v, out, dout, lse, glse, *args), (dk, dv)))
-    if fa._sm90(dtype, d):
+    if fa.BWD_DELTA_SM90 in fa.route(dtype, d)[1]:
         _close(fa.flash_bwd_delta(out, dout, glse),
                fa.flash_bwd_delta_plain(out, dout, glse), "delta", 2e-5,
                2e-5)
@@ -447,8 +446,8 @@ def case_narrow_hopper_kernels_match_k2_k3_k4_and_plain(cuda, d):
         glse = glse if with_glse else None
         args = (causal, q_off, kv_off)
         before = dict(fa.launches)
-        out, lse = fa.launch_fwd(q, k, v, *args, True)
-        old_out, old_lse = fa.launch_fwd(q, k, v, *args, False)
+        out, lse = fa.launch_fwd(q, k, v, *args, fa.FWD_SM90)
+        old_out, old_lse = fa.launch_fwd(q, k, v, *args, fa.FWD)
         new = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args, True)
         again = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args,
                                   True)
@@ -486,6 +485,53 @@ def case_narrow_hopper_kernels_match_k2_k3_k4_and_plain(cuda, d):
             for x in (out, dq, *new):
                 assert bool((x == 0).all()) and bool(torch.isfinite(x).all())
             assert bool((lse <= -1e29).all())
+
+
+def case_tf32_forward_matches_k2_and_plain(cuda, d):
+    """K2-tf32 at D 16, 32 or 64 against K2, the CUDA-core kernel it
+    replaces there, through their launchers, and against the plain
+    version, on the same float32 inputs: causal, at offsets with tails,
+    not causal with tails, and the fully masked geometry (out 0, lse
+    <= -1e29); out and lse within 2e-5 of the plain version and of K2, a
+    rerun bit-identical."""
+    for tq, tk, causal, q_off, kv_off in (
+            (256, 256, True, 0, 0), (200, 130, True, 70, 0),
+            (130, 200, True, 64, 32), (100, 230, False, 0, 0),
+            (100, 100, True, 0, 1024)):
+        q, k, v, _, _ = _attn_inputs(cuda, 2, tq, tk, 3, d, torch.float32,
+                                     seed=d + tq)
+        args = (causal, q_off, kv_off)
+        before = dict(fa.launches)
+        out, lse = fa.launch_fwd(q, k, v, *args, fa.FWD_TF32)
+        again = fa.launch_fwd(q, k, v, *args, fa.FWD_TF32)
+        old_out, old_lse = fa.launch_fwd(q, k, v, *args, fa.FWD)
+        torch.cuda.synchronize()
+        assert {n: fa.launches[n] - before[n] for n in before
+                if fa.launches[n] != before[n]} == {fa.FWD_TF32: 2,
+                                                    fa.FWD: 1}
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        want_out, want_lse = fa.flash_fwd_plain(q, k, v, *args)
+        _close(out, want_out, f"K2-tf32 out D {d}", 2e-5, 2e-5)
+        _close(old_out, want_out, f"K2 out D {d}", 2e-5, 2e-5)
+        _close(out, old_out, f"K2-tf32 against K2, D {d}", 2e-5, 2e-5)
+        masked = want_lse <= -1e29
+        assert bool((lse[masked] <= -1e29).all())
+        _close(lse[~masked], want_lse[~masked], f"lse D {d}", 2e-5, 2e-5)
+        _close(lse[~masked], old_lse[~masked], f"K2 lse D {d}", 2e-5, 2e-5)
+        if kv_off >= tq + q_off:            # every row fully masked
+            assert bool((out == 0).all()) and bool((lse <= -1e29).all())
+
+
+def case_tf32_forward_rejects_strides_tma_cannot_take(cuda, d):
+    """A float32 view whose h stride is d + 1 elements (4 d + 4 bytes, not
+    a multiple of 16) is on K2-tf32's route, which raises before any
+    launch rather than falling back to K2."""
+    wide = torch.randn((1, 32, 2, d + 1), device=cuda)
+    q = wide[..., :d]
+    before = dict(fa.launches)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_fwd(q, q, q)
+    assert fa.launches == before
 
 
 def case_bf16_lm_with_16_wide_heads_runs_the_hopper_kernels(cuda):
@@ -597,8 +643,14 @@ def case_lm_grads_on_the_card_match_cpu(cuda, extra=""):
             weights = {n: t.detach().clone()
                        for n, t in tr.model.state_dict().items()}
         tr.model.load_state_dict(weights)
+        before = dict(fa.launches)
         loss, grads = tr.compute_grads(state, batch)
         results.append((float(loss), {n: g.cpu() for n, g in grads.items()}))
+    torch.cuda.synchronize()
+    if not extra:       # D 16, 2 layers: K2-tf32 forward, K3 and K4
+        assert {n: fa.launches[n] - before[n] for n in before
+                if fa.launches[n] != before[n]} == {
+            fa.FWD_TF32: 2, fa.BWD_DQ: 2, fa.BWD_DKV: 2}
     assert results[1][0] == pytest.approx(results[0][0], rel=5e-5)
     for n, want in results[0][1].items():
         got = results[1][1][n]
@@ -1105,8 +1157,8 @@ def case_tier_store_on_the_card(cuda):
 def case_serving_export_on_the_card(cuda, tmp):
     """`export_saved_model` on the card: a small LM exported at batch 4
     serves 4 and 3 rows bit-equal to the eager `load_model` model, its
-    program launching K2' (bf16, D 64) or K2 (float32, D 16) once a layer
-    and nothing else; the program refuses to load for the CPU."""
+    program launching K2' (bf16, D 128) or K2-tf32 (float32, D 16) once a
+    layer and nothing else; the program refuses to load for the CPU."""
     from elasticdl_tpu_torch.training import export
 
     zoo = os.path.join(REPO, "elasticdl_tpu_torch", "model_zoo")
@@ -1115,7 +1167,7 @@ def case_serving_export_on_the_card(cuda, tmp):
     batch = {"features": tokens[:, :-1], "labels": tokens[:, 1:],
              "mask": np.ones((4,), np.float32)}
     for dtype, dim, heads, kernel in (("bfloat16", 128, 2, fa.FWD_SM90),
-                                      ("float32", 64, 4, fa.FWD)):
+                                      ("float32", 64, 4, fa.FWD_TF32)):
         params = (f"vocab=64;num_layers=2;dim={dim};heads={heads};"
                   "max_len=64")
         tr = _card_trainer("transformer.transformer_lm.custom_model",
@@ -1159,7 +1211,7 @@ def test_kernels_on_the_card(cuda, tmp_path):
     case_k1_on_the_census_stream(cuda)
     case_resnet20_step_on_the_card_matches_cpu(cuda)
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (16, 64, 96, 128, 256):
+        for d in (16, 32, 64, 96, 128, 256):
             case_flash_kernels_match_plain(cuda, dtype, d, 100, 100, True, 0,
                                            0, False)
         for tq, tk, causal, q_off, kv_off, glse in (
@@ -1184,6 +1236,9 @@ def test_kernels_on_the_card(cuda, tmp_path):
         case_flash_is_deterministic_and_counts_launches(cuda, d)
     for d in (16, 32):
         case_narrow_hopper_kernels_match_k2_k3_k4_and_plain(cuda, d)
+    for d in (16, 32, 64):
+        case_tf32_forward_matches_k2_and_plain(cuda, d)
+        case_tf32_forward_rejects_strides_tma_cannot_take(cuda, d)
     case_k4_prime_at_d128_matches_k4_and_plain(cuda)
     case_bf16_lm_with_16_wide_heads_runs_the_hopper_kernels(cuda)
     case_bf16_lm_with_128_wide_heads_runs_k4_prime(cuda)

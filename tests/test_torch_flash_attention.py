@@ -288,13 +288,24 @@ def case_materialized_path_matches_the_reference(dtype):
 
 
 def case_hopper_route_by_dtype_and_head_dim():
-    """`_sm90` decides the route before any launch: K2', K3' and K4' take
-    bfloat16 at D 16, 32, 64 and 128 (K3' and K4' read the delta pass);
-    everything else goes to the CUDA-core kernels."""
+    """`route` decides the kernels before any launch, by dtype and D
+    alone: K2', K3' and K4' take bfloat16 at D 16, 32, 64 and 128, with
+    the delta pass that K3' and K4' read in the backward's launches;
+    K2-tf32 takes the float32 forward at D 16, 32 and 64, with K3 and K4
+    behind it; everything else goes to the CUDA-core kernels K2, K3 and
+    K4."""
     for dtype in (torch.bfloat16, torch.float32):
         for d in (8, 16, 24, 32, 48, 64, 100, 128, 256):
             bf16 = dtype == torch.bfloat16
-            assert tflash._sm90(dtype, d) == (bf16 and d in (16, 32, 64, 128))
+            hopper = bf16 and d in (16, 32, 64, 128)
+            tf32 = not bf16 and d in (16, 32, 64)
+            assert tflash._sm90(dtype, d) == hopper
+            want = ((tflash.FWD_SM90, (tflash.BWD_DQ_SM90,
+                                       tflash.BWD_DKV_SM90,
+                                       tflash.BWD_DELTA_SM90)) if hopper else
+                    (tflash.FWD_TF32 if tf32 else tflash.FWD,
+                     (tflash.BWD_DQ, tflash.BWD_DKV)))
+            assert tflash.route(dtype, d) == want, (dtype, d)
 
 
 def case_whole_backward_is_the_single_wrappers():
@@ -348,6 +359,72 @@ def case_hi_lo_split_keeps_float32_p():
         assert single > 10 * split and single > 1e-2, (name, single, split)
 
 
+def _tf32(x):
+    """`cvt.rna.tf32.f32` in plain torch, as K2-tf32 applies it: the
+    float32 mantissa rounded to 10 bits, to nearest with ties away from
+    zero (a carry into the exponent is the rounding's own), the low 13
+    bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def case_tf32_split_keeps_float32_products():
+    """K2-tf32's split in plain torch, at its tile (64 q rows, 64 kv rows,
+    D 64, float32 inputs): every operand of Q.K^T and P.V (p from
+    `flash_fwd_plain`'s own lse) split into hi = tf32(x) and lo =
+    tf32(x - hi), and the product summed as lo.hi + hi.lo + hi.hi, each
+    term exact in float32 (11-bit significands). Both products stay
+    within 5% of the 2e-5 bound chip_smoke.py holds out and lse to
+    (rtol 2e-5, atol 2e-5 of the largest entry) of the float64 product;
+    one TF32 product, for contrast, does not hold the bound."""
+    r = np.random.RandomState(16)
+    q, k, v = (torch.from_numpy(r.randn(1, 64, 1, 64).astype(np.float32))
+               for _ in range(3))
+    _, lse = tflash.flash_fwd_plain(q, k, v, causal=True)
+    p = tflash._p_and_ds(q, k, v, q, q, lse, None, True, 0, 0)[0][0, 0]
+    q32, k32, v32 = (t[0, :, 0] for t in (q, k, v))
+
+    def share_of_bound(got, want):
+        tol = 2e-5 * want.abs() + 2e-5 * want.abs().max()
+        return float(((got.double() - want).abs() / tol).max())
+
+    shares = {}
+    for name, a, b in (("q.k^T", q32, k32.T), ("p.v", p, v32)):
+        want = a.double() @ b.double()
+        a_hi, b_hi = _tf32(a), _tf32(b)
+        a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+        assert torch.equal(a_hi + (a - a_hi), a)     # x - hi is exact
+        split = share_of_bound(a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi, want)
+        single = share_of_bound(_tf32(a) @ _tf32(b), want)
+        shares[name] = (split, single)
+        assert split <= 0.05, (name, split)
+        assert single > 1.0, (name, single)
+    return shares
+
+
+def case_float32_forward_at_tf32_widths_against_the_kernel():
+    """Float32 at D 32 and 64, widths K2-tf32 takes on the card: the port's
+    forward (on the CPU the plain version K2-tf32 is held to there)
+    against the interpret-mode kernel at B1 T128 H2 with 64-row blocks,
+    causal at offsets (0, 0) and (64, 32), out and lse within 2e-5. (D 16
+    is the other cases' width.)"""
+    r = np.random.RandomState(17)
+    for d in (32, 64):
+        q, k, v = (r.randn(1, 128, 2, d).astype(np.float32)
+                   for _ in range(3))
+        for q_off, kv_off in ((0, 0), (64, 32)):
+            out, lse = tflash.flash_attention_lse(
+                *_torch(q, k, v), causal=True, q_offset=q_off,
+                kv_offset=kv_off)
+            want_out, want_lse = jflash.flash_attention_lse(
+                *_jax(q, k, v), causal=True, q_offset=q_off,
+                kv_offset=kv_off, block_q=64, block_k=64, interpret=True)
+            np.testing.assert_allclose(out.detach().numpy(),
+                                       np.asarray(want_out), **F32)
+            np.testing.assert_allclose(lse.detach().numpy(),
+                                       np.asarray(want_lse), **F32)
+
+
 def test_flash_attention_against_the_reference():
     """Every case above, in one collected test (ROADMAP.md, conventions:
     one collected test per port test file)."""
@@ -369,3 +446,5 @@ def test_flash_attention_against_the_reference():
         case_hopper_route_by_dtype_and_head_dim()
         case_whole_backward_is_the_single_wrappers()
         case_hi_lo_split_keeps_float32_p()
+        case_tf32_split_keeps_float32_products()
+        case_float32_forward_at_tf32_widths_against_the_kernel()
