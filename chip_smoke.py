@@ -16,9 +16,9 @@ routing over (data, seq) blocks (flash-attention
 kernels: for its bfloat16 attention at D 64, and at D 128, 16 and 32 in
 the LMs with 128-, 16- and 32-wide heads, the Hopper kernels K2', K3',
 K4' and the delta pass, which runs once a backward; for the float32
-LMs at D 16, 32 and 64 K2-tf32 forward (3xTF32 on the tensor cores) and
-K3 and K4 backward; K2, K3 and K4 for every other input, such as the
-float32 LM at D 128), the trainer's knobs (remat,
+LMs at D 16, 32 and 64 their 3xTF32 twins on the tensor cores, K2-tf32,
+K3-tf32 and K4-tf32, and the float32 delta pass; K2, K3 and K4 for every
+other input, such as the float32 LM at D 128), the trainer's knobs (remat,
 gradient accumulation, grouped steps) over both, and the elastic control
 loop over the DeepFM job (the autoscaler's decisions and its drain-first
 eviction, zoo callbacks, the hybrid multi-slice mesh), and the DeepFM job
@@ -39,9 +39,11 @@ caught):
            shared memory each Hopper kernel's launch asks for, and the
            HGMMA (wgmma) instructions in each kernel's SASS (`cuobjdump
            --dump-sass`): K2', K3' and K4' at D 16, 32, 64 and 128 and
-           K2-tf32 at D 16, 32 and 64 must have some; K4' at D 128, K2',
-           K3' and K4' at D 16 and 32 and K2-tf32 must spill nothing; the
-           delta pass must be built at D 16, 32, 64 and 128.
+           K2-tf32, K3-tf32 and K4-tf32 at D 16, 32 and 64 must have
+           some; K4' at D 128, K2', K3' and K4' at D 16 and 32 and
+           K2-tf32, K3-tf32 and K4-tf32 must spill nothing; the delta pass
+           must be built at D 16, 32, 64 and 128 in bf16 and at D 16, 32
+           and 64 in float32.
 3. kernel  K1 (`place_sorted_grads`) against its plain version on the card
            over the DeepFM shape (uniform hashed ids, D=17 and 16), a
            stream with 30% of its slots on one id, one with all of them on
@@ -68,8 +70,9 @@ caught):
 7. attn_kernel  the flash kernels against their plain versions on the
            card, each case through the routing wrappers (the forward, then
            the whole backward `flash_bwd`), which must take the Hopper
-           kernels K2', K3' and K4' for bf16 at D 16, 32, 64 and 128 (one
-           delta pass a backward, no K2-K4), and K2-K4 elsewhere: at the
+           kernels K2', K3' and K4' for bf16 at D 16, 32, 64 and 128 and
+           K2-tf32, K3-tf32 and K4-tf32 for float32 at D 16, 32 and 64
+           (one delta pass a backward, no K2-K4), and K2-K4 elsewhere: at the
            LM's full shape (B8 T1024 H8, causal) in bf16 at D 16, 32, 64
            and 128 and in float32 at D 64; on small
            float32 cases at D 16 and
@@ -80,8 +83,8 @@ caught):
            and bf16 twins at D 128, 16 and 32 of the offsets (64,32), the
            tails, the fully masked geometry and g_lse. A second backward
            must give
-           the same bits. Every bf16 case on the Hopper route also holds
-           the delta pass to (dout . out).sum(-1) - g_lse. Tolerances:
+           the same bits. Every case on a route with the delta pass also
+           holds it to (dout . out).sum(-1) - g_lse. Tolerances:
            float32 out, lse and delta 2e-5, gradients 5e-5 with atol 5e-5
            of the largest value (the reference's own for its kernel); bf16
            rtol 2**-7 (one bf16 ulp: both sides compute in float32 from
@@ -100,32 +103,39 @@ caught):
            with the delta pass) beside K2, K3 and K4 through their
            launchers (K3 held to the plain version there too), SDPA's
            device time and the whole backward (the delta pass, K3', K4')
-           against SDPA's. K2, K3 and K4 also on the inputs they take,
-           float32 at D 64, and through their launchers on bf16 at D 16
+           against SDPA's. K2, K3 and K4 also on the input they take,
+           float32 at D 128, and through their launchers on float32 at D
+           16, 32 and 64 and bf16 at D 16
            and 32, each against its plain version's time and SDPA's
            forward or backward on the same inputs. SDPA's backend is
            pinned and named: flash for bf16, memory-efficient for
            float32 (flash takes no float32). Float32 at D 16, 32 and 64
-           takes K2-tf32 forward and K3 and K4 backward: its cases (the
-           small float32 ones at D 16; a full float32 case at D 16 and
-           64; D 32 with a tail, offsets and g_lse, D 64 with offsets and
-           fully masked) hold out and lse to 2e-5, reruns bit-identical
-           (forward and backward, every case), fully masked rows 0 with
-           lse <= -1e29. At float32 B8 T1024 H8 D 16, 32 and 64 K2-tf32
-           is held to its plain version and to a rerun, beside K2 through
-           its launcher (held too) and SDPA's memory-efficient forward:
-           ms, device ms, plain ms and the bound (float32 products
-           counted as three TF32 products at the TF32 peak,
-           `attn_bound`). Each timing line carries the card's name and
-           power limit.
+           takes K2-tf32, K3-tf32, K4-tf32 and the float32 delta pass:
+           its cases (the small float32 ones at D 16; a full float32 case
+           at D 16 and 64; D 32 with a tail, offsets and g_lse, D 64 with
+           offsets and fully masked) hold out, lse and delta to 2e-5 and
+           gradients to 5e-5, reruns bit-identical (forward and backward,
+           every case), fully masked rows 0 (gradients too) with lse <=
+           -1e29. At float32 B8 T1024 H8 D 16, 32 and 64 K2-tf32 is held
+           to its plain version and to a rerun, beside K2 through its
+           launcher (held too) and SDPA's memory-efficient forward, and
+           K3-tf32 and K4-tf32 the same (alone and with the delta pass)
+           beside K3 and K4 through their launchers (held too, with their
+           device times) and SDPA's memory-efficient backward; the float32
+           delta pass held to its plain version; at D 64 the whole
+           backward against SDPA's in turns: ms, device ms, plain ms and
+           the bound (float32 products counted as three TF32 products at
+           the TF32 peak, `attn_bound`). K2, K3 and K4 are held to their
+           plain versions at float32 D 128, the input they keep. Each
+           timing line carries the card's name and power limit.
 8. lm_parity  a small LM (vocab 64, 2 layers, dim 64, float32, T 32) at
            D 16 (4 heads), 32 (2 heads) and, dim 256, 128 (2 heads), on
            the card and on the CPU from the same weights: loss rtol 5e-5,
            every gradient rtol 5e-5 with atol 5e-5 of its largest value
            (the k biases, 0 in exact arithmetic, within 1e-6 of the
            largest gradient entry of 0). These float32 LMs are the main
-           path that launches K2-tf32 (D 16, 32), K2 (D 128), K3 and K4,
-           each twice a step.
+           path that launches K2-tf32, K3-tf32, K4-tf32 and the delta pass
+           (D 16, 32) and K2, K3 and K4 (D 128), each twice a step.
 9. lm_train  the LM at the width bench.py benchmarks it (vocab 8192, 4
            layers, dim 512, 8 heads, bf16, 8 x 1024 random tokens): 20
            train steps (one warm-up), eval_step, predict_step. Losses must
@@ -499,11 +509,11 @@ they ran.
            and K4 never, and K2' 4 times in each of eval and predict.
 36. lm_train_f32 (after `lm_train`)  the LM at 9's width (D 64) in
            float32 on 9's batch: 6 train steps (one warm-up), eval and
-           predict, as 34. Losses must be finite and fall; K2-tf32, K3 and
-           K4 must each launch 4 times in every train step, K2-tf32 4
-           times in each of eval and predict, and K2, K2', K3', K4' and
-           the delta pass never. Step ms, host ms, tokens/s, peak memory;
-           then its profile, as in 6.
+           predict, as 34. Losses must be finite and fall; K2-tf32,
+           K3-tf32, K4-tf32 and the delta pass must each launch 4 times in
+           every train step, K2-tf32 4 times in each of eval and predict,
+           and K2-K4, K2', K3' and K4' never. Step ms, host ms, tokens/s,
+           peak memory; then its profile, as in 6.
 Then the `kernels` line (K1's `launches` are the job's, with the
 `grouped`, `cohort_job`, `manual_shards`, `tier`, `autoscale_job`,
 `callbacks_job`, `hybrid_mesh`, `k8s_job` and `tools` phases' beside
@@ -512,13 +522,13 @@ them; the Hopper kernels' are `lm_train`'s, with `lm_job`'s,
 `seq_train`'s and `seq_mix`'s beside them, and K2''s `serve_export`'s;
 K4' at D 128 is an entry of its own, `lm_train_d128`'s launches, and so
 are K2', K3' and K4' at D 16 and 32, `lm_train_d16`'s and
-`lm_train_d32`'s; K2-tf32 at D 16, 32 and 64 are entries of their own,
-`lm_parity`'s at D 16 and 32 and `lm_train_f32`'s at D 64; K2-K4 report
-float32 at D 64 first, with float32 at D 16 and 32 and bf16 at D 16, 32
-and 64 (and K4 at 128) beside, K2's launches from `lm_parity` at D 128,
-K3's and K4's from `lm_parity` with `lm_train_f32`'s beside, the delta
-pass also its launches in `lm_train_d16` and `lm_train_d32`), the
-nvidia-smi line, and last the `ok` line.
+`lm_train_d32`'s; K2-tf32, K3-tf32 and K4-tf32 at D 16, 32 and 64 are
+entries of their own, `lm_parity`'s at D 16 and 32 and `lm_train_f32`'s
+at D 64; K2-K4 report float32 at D 128 first, with float32 at D 16, 32
+and 64 and bf16 at D 16, 32 and 64 (and K4 at 128) beside, their
+launches from `lm_parity` at D 128; the delta pass also its launches in
+`lm_train_d16`, `lm_train_d32`, `lm_train_f32` and `lm_parity`, and its
+float32 times), the nvidia-smi line, and last the `ok` line.
 
 It exits non-zero without a result where CUDA is unavailable, and where
 the port's package is absent.
@@ -558,8 +568,8 @@ TF32_FLOPS = 495e12              # H100 SXM dense TF32 (tensor cores)
 LM_PARAMS = "vocab=8192;num_layers=4;dim=512;heads=8;max_len=1024"
 LM_LAYERS, LM_BATCH, LM_T, LM_VOCAB, LM_DIM = 4, 8, 1024, 8192, 512
 LM_SMALL = "vocab=64;num_layers=2;dim=64;heads=4;max_len=64"
-# the small float32 LM at D 16 (LM_SMALL), 32 (K2-tf32 forward, K3 and K4
-# backward) and 128 (K2, K3 and K4): `lm_parity`'s configurations
+# the small float32 LM at D 16 (LM_SMALL), 32 (K2-tf32, K3-tf32, K4-tf32)
+# and 128 (K2, K3 and K4): `lm_parity`'s configurations
 LM_PARITY = {16: LM_SMALL,
              32: "vocab=64;num_layers=2;dim=64;heads=2;max_len=64",
              128: "vocab=64;num_layers=2;dim=256;heads=2;max_len=64"}
@@ -997,8 +1007,11 @@ FWD16, FWD32 = "flash_fwd_sm90<D=16>", "flash_fwd_sm90<D=32>"
 DKV16, DKV32 = "flash_bwd_dkv_sm90<D=16>", "flash_bwd_dkv_sm90<D=32>"
 DQ16, DQ32 = "flash_bwd_dq_sm90<D=16>", "flash_bwd_dq_sm90<D=32>"
 NARROW = {16: (FWD16, DKV16, DQ16), 32: (FWD32, DKV32, DQ32)}
-# K2-tf32 (float32, 3xTF32 products) at each head dim it takes
+# K2-tf32, K3-tf32 and K4-tf32 (float32, 3xTF32 products) at each head
+# dim they take
 TF32 = {d: f"flash_fwd_tf32_sm90<D={d}>" for d in (16, 32, 64)}
+DQ_TF32 = {d: f"flash_bwd_dq_tf32_sm90<D={d}>" for d in TF32}
+DKV_TF32 = {d: f"flash_bwd_dkv_tf32_sm90<D={d}>" for d in TF32}
 # name: (source, the TPU kernel's pallas_call it replaces)
 ATTN_KERNELS = {
     "flash_fwd": (f"{CSRC}/flash_attention.cu", f"{PALLAS}:256"),
@@ -1028,6 +1041,11 @@ ATTN_KERNELS = {
     # K2-tf32: the float32 forward on the tensor cores, an entry a head dim
     **{name: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:256")
        for name in TF32.values()},
+    # K3-tf32 and K4-tf32: the float32 backward on the tensor cores
+    **{name: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:404")
+       for name in DQ_TF32.values()},
+    **{name: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:433")
+       for name in DKV_TF32.values()},
 }
 
 
@@ -1040,11 +1058,11 @@ def short_name(mangled):
         dtype = "bf16" if "bfloat16" in k.group(2) else "f32"
         return f"{k.group(1)}<{dtype},G={k.group(3)}>"
     k = re.search(
-        r"(flash_(?:fwd|fwd_tf32|bwd_dq|bwd_dkv|bwd_delta)_sm90_kernel)"
-        r"ILi(\d+)E",
+        r"(flash_(?:fwd|fwd_tf32|bwd_dq|bwd_dq_tf32|bwd_dkv|bwd_dkv_tf32|"
+        r"bwd_delta)_sm90_kernel)ILi(\d+)E(f?)",
         mangled)
-    if k:
-        return f"{k.group(1)}<D={k.group(2)}>"
+    if k:   # the delta pass's float32 instantiation carries its type
+        return f"{k.group(1)}<D={k.group(2)}{',f32' if k.group(3) else ''}>"
     for name in K1_SYMBOLS:
         if name in mangled:
             return name
@@ -1116,9 +1134,9 @@ def attn_bound(b, t, h, d, itemsize, kernel):
     as three TF32 products (hi.hi + hi.lo + lo.hi of a 3xTF32 split) at
     the TF32 peak: the least tensor work that holds float32's contract
     (one TF32 product errs by ~2^-11), and below the CUDA cores' float32
-    FMAs at F32_FLOPS, which a tensor-core kernel can beat. K3' and K4'
-    read delta where K3 and K4 read O; the delta pass does 2 B.T.H.D
-    FLOPs on float32 (the CUDA cores' peak)."""
+    FMAs at F32_FLOPS, which a tensor-core kernel can beat. K3', K4',
+    K3-tf32 and K4-tf32 read delta where K3 and K4 read O; the delta pass
+    does 2 B.T.H.D FLOPs on float32 (the CUDA cores' peak)."""
     act = b * t * h * d * itemsize
     rows = b * h * t * 4
     flops, moved, peak = {
@@ -1130,7 +1148,7 @@ def attn_bound(b, t, h, d, itemsize, kernel):
         # q k v o do lse -> dq dk dv
         "flash_bwd": (14, 5 * act + rows + 3 * act, BF16_FLOPS),
         "flash_bwd_delta_sm90": (0, 2 * act + rows, F32_FLOPS),
-    }[re.sub(r"flash_fwd_(?:tf32_)?sm90", "flash_fwd", kernel)]
+    }[re.sub(r"^flash_fwd_sm90$", "flash_fwd", kernel.replace("_tf32", ""))]
     if itemsize == 4 and flops:
         flops, peak = 3 * flops, TF32_FLOPS
     flops = (flops * b * h * t * t * d / 2 if flops
@@ -1241,8 +1259,9 @@ def phase_attn_kernel(dev):
                if fa.launches[n] > before[n]}
         again = fa.flash_bwd(q, k, v, out, dout, lse, glse, *args)
         torch.cuda.synchronize()
-        # bf16 takes K2', K3' and K4' at D 16, 32, 64 and 128, with one
-        # delta pass a backward; float32 K2-tf32 at D 16, 32 and 64
+        # bf16 takes K2', K3' and K4' at D 16, 32, 64 and 128, float32
+        # K2-tf32, K3-tf32 and K4-tf32 at D 16, 32 and 64, each backward
+        # with one delta pass
         fwd_kernel, bwd_kernels = fa.route(dtype, d)
         dq_kernel, dkv_kernel = bwd_kernels[:2]
         hopper = fwd_kernel == fa.FWD_SM90
@@ -1260,15 +1279,15 @@ def phase_attn_kernel(dev):
         out_tol = (2e-5, 2e-5) if is_f32 else bf16_tol
         grad_tol = (5e-5, 5e-5) if is_f32 else bf16_tol
         # each kernel's entry on the `kernels` line: K2', K3' and K4' at
-        # D 16 and 32, K4' at D 128 and K2-tf32 at each D have entries of
-        # their own
+        # D 16 and 32, K4' at D 128 and K2-tf32, K3-tf32 and K4-tf32 at
+        # each D have entries of their own
         fwd_entry, dq_entry, dkv = fwd_kernel, dq_kernel, dkv_kernel
         if hopper and d in NARROW:
             fwd_entry, dkv, dq_entry = NARROW[d]
         elif hopper and d == 128:
             dkv = DKV128
         elif fwd_kernel == fa.FWD_TF32:
-            fwd_entry = TF32[d]
+            fwd_entry, dq_entry, dkv = TF32[d], DQ_TF32[d], DKV_TF32[d]
         checks = {
             fwd_entry: [over_tol(out, want_out, *out_tol),
                         over_tol(lse, want_lse, 2e-5, 2e-5)],
@@ -1276,7 +1295,7 @@ def phase_attn_kernel(dev):
             dkv: [over_tol(dk, want_dk, *grad_tol),
                   over_tol(dv, want_dv, *grad_tol)],
         }
-        if hopper:
+        if fa.BWD_DELTA_SM90 in bwd_kernels:
             delta = fa.flash_bwd_delta(out, dout, glse)
             checks[fa.BWD_DELTA_SM90] = [over_tol(
                 delta, fa.flash_bwd_delta_plain(out, dout, glse), 2e-5, 2e-5)]
@@ -1326,9 +1345,9 @@ def attn_times(dev, report, worst, smi):
     bf16_tol = (2 ** -7, 0.0, 1e-2)
     old_out, _ = fa.launch_fwd(q, k, v, True, 0, 0, fa.FWD)
     old_dq = fa.launch_bwd_dq(q, k, v, out, dout, lse, None, True, 0, 0,
-                              False)
+                              fa.BWD_DQ)
     old_dk, old_dv = fa.launch_bwd_dkv(q, k, v, out, dout, lse, None, True,
-                                       0, 0, False)
+                                       0, 0, fa.BWD_DKV)
     new_dq = [fa.launch_dq_sm90(q, k, v, dout, lse, delta, True, 0, 0)
               for _ in range(2)]
     torch.cuda.synchronize()
@@ -1357,14 +1376,15 @@ def attn_times(dev, report, worst, smi):
         fa.BWD_DQ_SM90: (lambda: fa.launch_dq_sm90(q, k, v, dout, lse, delta,
                                                    True, 0, 0), plain_dq),
         fa.BWD_DQ: (lambda: fa.launch_bwd_dq(q, k, v, out, dout, lse, None,
-                                             True, 0, 0, False), plain_dq),
+                                             True, 0, 0, fa.BWD_DQ),
+                    plain_dq),
         fa.BWD_DKV_SM90: (lambda: fa.launch_dkv_sm90(q, k, v, dout, lse,
                                                      delta, True, 0, 0),
                           plain_dkv),
         fa.BWD_DELTA_SM90: (lambda: fa.flash_bwd_delta(out, dout),
                             lambda: fa.flash_bwd_delta_plain(out, dout)),
         fa.BWD_DKV: (lambda: fa.launch_bwd_dkv(q, k, v, out, dout, lse, None,
-                                               True, 0, 0, False),
+                                               True, 0, 0, fa.BWD_DKV),
                      plain_dkv),
     }
     lib_fwd, _, lib_fwd_dev, _ = sdpa_ms(q, k, v, dout)
@@ -1398,7 +1418,8 @@ def attn_times(dev, report, worst, smi):
     for kernel, launch in ((fa.BWD_DQ_SM90, fa.launch_bwd_dq),
                            (fa.BWD_DKV_SM90, fa.launch_bwd_dkv)):
         result[kernel]["ms_with_delta_pass"] = time_ms(
-            lambda: launch(q, k, v, out, dout, lse, None, True, 0, 0, True))
+            lambda: launch(q, k, v, out, dout, lse, None, True, 0, 0,
+                           kernel))
     faster = {
         "k2_prime_under_k2": result[fa.FWD_SM90]["ms"] < result[fa.FWD]["ms"],
         "k3_prime_under_k3":
@@ -1422,23 +1443,24 @@ def attn_times(dev, report, worst, smi):
                                    served[f"bfloat16_d{dim}"]))
     tf32 = {TF32[dim]: tf32_times(dev, worst, dim, served[f"float32_d{dim}"])
             for dim in TF32}
+    tf32_bwd = {dim: tf32_bwd_times(dev, worst, dim,
+                                    served[f"float32_d{dim}"])
+                for dim in TF32}
     emit("attn_kernel", card=smi, cases=report, timed_shape=[b, t, h, d],
          timed_dtype="bfloat16", kernels=result, whole_backward=bwd,
          faster=faster, served=served, d128=d128, k4_d128=k4_d128,
-         narrow=narrow, tf32=tf32)
-    # K2-K4 report first an input they serve: K3 and K4 float32 at D 64,
-    # K2 float32 at D 128 (K2-tf32 takes float32 at D 16, 32 and 64); the
-    # rest and their float32 and bf16 times at the other widths (K2-tf32,
-    # K2', K3' and K4' take those) beside
+         narrow=narrow, tf32=tf32, tf32_backward=tf32_bwd)
+    # K2-K4 report first the input they serve, float32 at D 128 (K2-tf32,
+    # K3-tf32 and K4-tf32 take float32 at D 16, 32 and 64); their float32
+    # and bf16 times at the other widths (the tensor-core kernels take
+    # those) beside
     for kernel in (fa.FWD, fa.BWD_DQ, fa.BWD_DKV):
         on_bf16_d64 = result[kernel]
-        first, beside = (("float32_d128", "float32_d64") if kernel == fa.FWD
-                         else ("float32_d64", "float32_d128"))
         result[kernel] = {
-            **served[first][kernel],
+            **served["float32_d128"][kernel],
             "max_abs_err": worst[kernel][0],
             "err_over_tol": worst[kernel][1],
-            f"on_{beside}": served[beside][kernel],
+            "on_float32_d64": served["float32_d64"][kernel],
             "on_float32_d16": served["float32_d16"][kernel],
             "on_float32_d32": served["float32_d32"][kernel],
             "on_bfloat16_d16": served["bfloat16_d16"][kernel],
@@ -1451,6 +1473,15 @@ def attn_times(dev, report, worst, smi):
     result[DKV128] = d128
     result.update(narrow)
     result.update(tf32)
+    for dim, entries in tf32_bwd.items():
+        result[fa.BWD_DELTA_SM90][f"on_float32_d{dim}"] = entries.pop(
+            fa.BWD_DELTA_SM90)
+        result.update(entries)
+    # the max error of the delta pass over every input it took, bf16 and
+    # float32
+    result[fa.BWD_DELTA_SM90].update(
+        max_abs_err=worst[fa.BWD_DELTA_SM90][0],
+        err_over_tol=worst[fa.BWD_DELTA_SM90][1])
     return result
 
 
@@ -1508,6 +1539,110 @@ def tf32_times(dev, worst, d, served):
     return entry
 
 
+def tf32_bwd_times(dev, worst, d, served):
+    """K3-tf32 and K4-tf32 at D `d` (float32 B8 T1024 H8, causal): each
+    held to its plain version (gradients 5e-5 with atol 5e-5 of the
+    largest value) and to itself over two runs; its ms (CUDA events, alone
+    and with the delta pass), device ms (profiler), plain ms and bound
+    beside K3 or K4 through its launcher on the same inputs (held to the
+    plain version too; its ms from `served`, `served_times`, and its
+    device ms) and SDPA's memory-efficient backward (dq, dk and dv in one
+    call; its ms and device ms from `served`); and the float32 delta pass
+    held to its plain version (2e-5), its ms, device ms, plain ms and
+    bound. Returns {entry name: its fields}, the delta pass's under
+    BWD_DELTA_SM90."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    b, t, h = LM_BATCH, LM_T, 8
+    q, k, v, dout, _ = attn_inputs(dev, b, t, t, h, d, torch.float32, 0)
+    out, lse = fa.flash_fwd(q, k, v)
+    delta = fa.flash_bwd_delta(out, dout)
+    args = (True, 0, 0)
+    # entry: (its launch, its plain version, its kernel, the CUDA-core
+    # kernel it replaces here and that kernel's launch, the launcher that
+    # runs the delta pass first)
+    calls = {
+        DQ_TF32[d]: (
+            lambda: (fa.launch_dq_sm90(q, k, v, dout, lse, delta, *args,
+                                       fa.BWD_DQ_TF32),),
+            lambda: (fa.flash_bwd_dq_plain(q, k, v, out, dout, lse),),
+            fa.BWD_DQ_TF32, fa.BWD_DQ,
+            lambda: (fa.launch_bwd_dq(q, k, v, out, dout, lse, None, *args,
+                                      fa.BWD_DQ),),
+            fa.launch_bwd_dq),
+        DKV_TF32[d]: (
+            lambda: fa.launch_dkv_sm90(q, k, v, dout, lse, delta, *args,
+                                       fa.BWD_DKV_TF32),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse),
+            fa.BWD_DKV_TF32, fa.BWD_DKV,
+            lambda: fa.launch_bwd_dkv(q, k, v, out, dout, lse, None, *args,
+                                      fa.BWD_DKV),
+            fa.launch_bwd_dkv),
+    }
+    result = {}
+    for name, (run_kernel, run_plain, kernel, old, run_old,
+               launch) in calls.items():
+        got, again, was = run_kernel(), run_kernel(), run_old()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{name} differs between two runs")
+        want = run_plain()
+        for entry_name, outs in ((name, got), (old, was)):
+            results = [over_tol(g, w, 5e-5, 5e-5) for g, w in zip(outs, want)]
+            err, ratio = max(r[0] for r in results), max(r[1] for r in results)
+            if ratio > 1.0:
+                raise AssertionError(f"{entry_name} disagrees with its plain "
+                                     f"version at float32 D {d} ({ratio})")
+            worst[entry_name] = [max(worst[entry_name][0], err),
+                                 max(worst[entry_name][1], ratio)]
+        was_key = {fa.BWD_DQ: "k3", fa.BWD_DKV: "k4"}[old]
+        bound_ms, bound_by = attn_bound(b, t, h, d, 4, kernel)
+        symbol, old_symbol = f"{kernel}_kernel", f"{old}_kernel"
+        entry = result[name] = {
+            "timed_on": f"float32 B{b} T{t} H{h} D{d} causal",
+            "max_abs_err": worst[name][0], "err_over_tol": worst[name][1],
+            "ms": time_ms(run_kernel),
+            "device_ms": device_ms(run_kernel, (symbol,))[symbol],
+            "ms_with_delta_pass": time_ms(lambda: launch(
+                q, k, v, out, dout, lse, None, *args, kernel)),
+            "plain_ms": time_ms(run_plain, groups=5, per_group=3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": served[old]["library_ms"],
+            "library_device_ms": served[old]["library_device_ms"],
+            "library": served[old]["library"],
+            f"{was_key}_ms": served[old]["ms"],
+            f"{was_key}_device_ms": device_ms(run_old, (old_symbol,))[
+                old_symbol],
+        }
+        entry["faster"] = {
+            f"{was_key}_tf32_under_{was_key}": entry["ms"] < entry[
+                f"{was_key}_ms"],
+            f"{was_key}_tf32_device_under_sdpa_device":
+                isinstance(entry["device_ms"], float)
+                and isinstance(entry["library_device_ms"], float)
+                and entry["device_ms"] < entry["library_device_ms"]}
+    run_delta = lambda: fa.flash_bwd_delta(out, dout)
+    run_plain = lambda: fa.flash_bwd_delta_plain(out, dout)
+    err, ratio = over_tol(run_delta(), run_plain(), 2e-5, 2e-5)
+    if ratio > 1.0:
+        raise AssertionError(f"the float32 delta pass disagrees with its "
+                             f"plain version at D {d} ({ratio})")
+    worst[fa.BWD_DELTA_SM90] = [max(worst[fa.BWD_DELTA_SM90][0], err),
+                                max(worst[fa.BWD_DELTA_SM90][1], ratio)]
+    bound_ms, bound_by = attn_bound(b, t, h, d, 4, fa.BWD_DELTA_SM90)
+    symbol = f"{fa.BWD_DELTA_SM90}_kernel"
+    result[fa.BWD_DELTA_SM90] = {
+        "timed_on": f"float32 B{b} T{t} H{h} D{d}", "max_abs_err": err,
+        "err_over_tol": ratio, "ms": time_ms(run_delta),
+        "device_ms": device_ms(run_delta, (symbol,))[symbol],
+        "plain_ms": time_ms(run_plain, groups=5, per_group=3),
+        "bound_ms": bound_ms, "bound_by": bound_by}
+    if d == 64:     # the float32 LM's width: the whole backward and SDPA's
+        result[DKV_TF32[d]]["whole_backward"] = whole_backward(
+            q, k, v, out, dout, lse)
+    return result
+
+
 def narrow_times(dev, worst, d, served):
     """K2', K4' and K3' at D `d` (16 or 32; bf16 B8 T1024 H8, causal): each
     held to its plain version and to itself over two runs; its ms (CUDA
@@ -1541,7 +1676,7 @@ def narrow_times(dev, worst, d, served):
     }
     # K3, which K3' replaces here, on the same inputs
     old_dq = fa.launch_bwd_dq(q, k, v, out, dout, lse, None, True, 0, 0,
-                              False)
+                              fa.BWD_DQ)
     err, ratio = over_tol(old_dq, plain_dq(), *KERNEL_TOL)
     if ratio > 1.0:
         raise AssertionError(f"{fa.BWD_DQ} disagrees with its plain version "
@@ -1589,7 +1724,7 @@ def narrow_times(dev, worst, d, served):
             launch = fa.launch_bwd_dq if old == fa.BWD_DQ else \
                 fa.launch_bwd_dkv
             entry["ms_with_delta_pass"] = time_ms(lambda: launch(
-                q, k, v, out, dout, lse, None, True, 0, 0, True))
+                q, k, v, out, dout, lse, None, True, 0, 0, kernel))
             entry["whole_backward"] = bwd
             entry["faster"]["whole_backward_under_sdpa"] = \
                 bwd["ms"] < bwd["sdpa_ms"]
@@ -1611,10 +1746,10 @@ def served_times(dev, dtype, d):
         fa.FWD: (lambda: fa.launch_fwd(q, k, v, True, 0, 0, fa.FWD),
                  lambda: fa.flash_fwd_plain(q, k, v)),
         fa.BWD_DQ: (lambda: fa.launch_bwd_dq(q, k, v, out, dout, lse, None,
-                                             True, 0, 0, False),
+                                             True, 0, 0, fa.BWD_DQ),
                     lambda: fa.flash_bwd_dq_plain(q, k, v, out, dout, lse)),
         fa.BWD_DKV: (lambda: fa.launch_bwd_dkv(q, k, v, out, dout, lse, None,
-                                               True, 0, 0, False),
+                                               True, 0, 0, fa.BWD_DKV),
                      lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout,
                                                     lse)),
     }
@@ -1654,7 +1789,7 @@ def d128_times(dev, worst):
     delta = fa.flash_bwd_delta(out, dout)
     new = lambda: fa.launch_dkv_sm90(q, k, v, dout, lse, delta, True, 0, 0)
     old = lambda: fa.launch_bwd_dkv(q, k, v, out, dout, lse, None, True, 0,
-                                    0, False)
+                                    0, fa.BWD_DKV)
     plain = lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse)
     (dk, dv), (dk2, dv2), (old_dk, old_dv) = new(), new(), old()
     torch.cuda.synchronize()
@@ -1683,7 +1818,7 @@ def d128_times(dev, worst):
         "ms": time_ms(new),
         "device_ms": device_ms(new, (symbol,))[symbol],
         "ms_with_delta_pass": time_ms(lambda: fa.launch_bwd_dkv(
-            q, k, v, out, dout, lse, None, True, 0, 0, True)),
+            q, k, v, out, dout, lse, None, True, 0, 0, fa.BWD_DKV_SM90)),
         "plain_ms": time_ms(plain, groups=5, per_group=3),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": bwd["sdpa_ms"],
@@ -1718,8 +1853,9 @@ def sdpa_backend(dtype):
 
 
 def whole_backward(q, k, v, out, dout, lse, rounds=7):
-    """The port's whole backward (`flash_bwd`: the delta pass, K3' or K3,
-    and K4') against SDPA's backward (`sdpa_backend`, the same dq, dk and
+    """The port's whole backward (`flash_bwd`, the kernels `route` names:
+    the delta pass, then K3' and K4' or K3-tf32 and K4-tf32) against
+    SDPA's backward (`sdpa_backend`, the same dq, dk and
     dv; the port never calls it) on the same inputs, alternating the two over
     `rounds` rounds: each one's median and spread (ms), its device time
     from the profiler, and the bound of the whole backward."""
@@ -1746,9 +1882,8 @@ def whole_backward(q, k, v, out, dout, lse, rounds=7):
         # B8 T1024 H8 D64 its events read 0.18 to 0.60 ms within one run);
         # its device time is not
         sdpa_dev = device_ms(theirs, ("",))[""]
-    ours_dev = device_ms(ours, ("flash_bwd_delta_sm90_kernel",
-                                "flash_bwd_dq_sm90_kernel",
-                                "flash_bwd_dkv_sm90_kernel"))
+    ours_dev = device_ms(ours, tuple(f"{n}_kernel"
+                                     for n in fa.route(q.dtype, d)[1]))
     bound_ms, bound_by = attn_bound(b, t, h, d, q.element_size(),
                                     "flash_bwd")
     return {
@@ -1802,8 +1937,8 @@ def reset_launches():
 def phase_lm_parity():
     """The small float32 LM on the card against the CPU at each head dim
     of LM_PARITY; returns {D: the flash kernels' launches in its card
-    step} (K2-tf32 forward at D 16 and 32, K2 at D 128; K3 and K4
-    backward: float32 takes the CUDA-core backward)."""
+    step} (K2-tf32, K3-tf32, K4-tf32 and the delta pass at D 16 and 32;
+    K2, K3 and K4 at D 128)."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
     from elasticdl_tpu_torch.training.trainer import Trainer
 
@@ -3367,10 +3502,10 @@ def phase_lm_train_f32(smi):
     """The LM at `lm_train`'s full width (LM_PARAMS: D 64) in float32 on
     `lm_train`'s batch: a warm-up step and LM_F32_STEPS timed train steps,
     eval and predict, as `lm_variant_train` holds them: finite falling
-    losses; K2-tf32, K3 and K4 4 times a train step, K2-tf32 4 times in
-    each of eval and predict, and K2, K2', K3', K4' and the delta pass
-    never. Then its profile, as in `profile`. Returns the flash kernels'
-    launches."""
+    losses; K2-tf32, K3-tf32, K4-tf32 and the delta pass 4 times a train
+    step, K2-tf32 4 times in each of eval and predict, and K2-K4, K2', K3'
+    and K4' never. Then its profile, as in `profile`. Returns the flash
+    kernels' launches."""
     trainer, state, batch, fields, launches = lm_variant_train(
         LM_PARAMS, "lm_train_f32", smi, steps=LM_F32_STEPS, dtype="float32")
     emit("lm_train_f32", **fields, head_dim=head_dim(LM_PARAMS))
@@ -5729,6 +5864,60 @@ def phase_zoo_job(smi):
     return launches
 
 
+def phase_build():
+    """Compile every kernel of the paths (one nvcc per source, all at
+    once) and hold the Hopper library's kernels to their layout: HGMMA in
+    each, no spill where the layout was chosen to avoid one, the delta
+    pass at every width and dtype the backward kernels take."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.ops import native, placement
+
+    built = native.build([placement.KERNEL, fa.LIBRARY, fa.LIBRARY_SM90])
+    seconds = time.perf_counter() - PHASE_T0[0]
+    hgmma = hgmma_counts(built[fa.LIBRARY_SM90]["path"])
+    sm90 = ctypes.CDLL(built[fa.LIBRARY_SM90]["path"])
+    hopper = ([(0, "flash_fwd_sm90_kernel", d) for d in (16, 32, 64, 128)]
+              + [(1, "flash_bwd_dkv_sm90_kernel", d)
+                 for d in (16, 32, 64, 128)]
+              + [(2, "flash_bwd_dq_sm90_kernel", d)
+                 for d in (16, 32, 64, 128)]
+              + [(3, "flash_fwd_tf32_sm90_kernel", d) for d in TF32]
+              + [(4, "flash_bwd_dkv_tf32_sm90_kernel", d) for d in TF32]
+              + [(5, "flash_bwd_dq_tf32_sm90_kernel", d) for d in TF32])
+    shared = {f"{name}<D={d}>": sm90.flash_sm90_shared_bytes(which, d)
+              for which, name, d in hopper}
+    ptxas = {k: ptxas_summary(v["log"]) for k, v in built.items()}
+    emit("build", seconds=seconds,
+         kernels={k: {"path": os.path.relpath(v["path"], REPO),
+                      "seconds": v["seconds"], "ptxas": ptxas[k]}
+                  for k, v in built.items()},
+         hgmma=hgmma, dynamic_shared_bytes=shared)
+    for kernel in shared:
+        if not hgmma.get(kernel):
+            raise AssertionError(f"{kernel} has no HGMMA instruction")
+    # K4' at D 128, K2', K3' and K4' at D 16 and 32, and K2-tf32, K3-tf32
+    # and K4-tf32 are laid out so that ptxas spills nothing; the delta
+    # pass is built at every width and dtype the backward kernels take
+    for kernel in ("flash_bwd_dkv_sm90_kernel<D=128>",
+                   *(f"flash_{k}_tf32_sm90_kernel<D={d}>"
+                     for k in ("fwd", "bwd_dq", "bwd_dkv") for d in TF32),
+                   "flash_fwd_sm90_kernel<D=16>",
+                   "flash_fwd_sm90_kernel<D=32>",
+                   "flash_bwd_dkv_sm90_kernel<D=16>",
+                   "flash_bwd_dkv_sm90_kernel<D=32>",
+                   "flash_bwd_dq_sm90_kernel<D=16>",
+                   "flash_bwd_dq_sm90_kernel<D=32>"):
+        info = ptxas[fa.LIBRARY_SM90].get(kernel, "")
+        if "0 bytes spill stores, 0 bytes spill loads" not in info:
+            raise AssertionError(f"{kernel} spills or was not built: "
+                                 f"{info!r}")
+    for d in (*(f"{d}" for d in (16, 32, 64, 128)),
+              *(f"{d},f32" for d in TF32)):
+        if f"flash_bwd_delta_sm90_kernel<D={d}>" not in ptxas[
+                fa.LIBRARY_SM90]:
+            raise AssertionError(f"the delta pass is not built at D {d}")
+
+
 def main():
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5745,48 +5934,7 @@ def main():
          count=torch.cuda.device_count(), nvidia_smi=smi,
          nvcc=run([native.nvcc(), "--version"]).splitlines()[-1])
 
-    PHASE_T0[0] = t0 = time.perf_counter()
-    built = native.build([placement.KERNEL, fa.LIBRARY, fa.LIBRARY_SM90])
-    seconds = time.perf_counter() - t0
-    hgmma = hgmma_counts(built[fa.LIBRARY_SM90]["path"])
-    sm90 = ctypes.CDLL(built[fa.LIBRARY_SM90]["path"])
-    hopper = ([(0, "flash_fwd_sm90_kernel", d) for d in (16, 32, 64, 128)]
-              + [(1, "flash_bwd_dkv_sm90_kernel", d)
-                 for d in (16, 32, 64, 128)]
-              + [(2, "flash_bwd_dq_sm90_kernel", d)
-                 for d in (16, 32, 64, 128)]
-              + [(3, "flash_fwd_tf32_sm90_kernel", d) for d in TF32])
-    shared = {f"{name}<D={d}>": sm90.flash_sm90_shared_bytes(which, d)
-              for which, name, d in hopper}
-    ptxas = {k: ptxas_summary(v["log"]) for k, v in built.items()}
-    emit("build", seconds=seconds,
-         kernels={k: {"path": os.path.relpath(v["path"], REPO),
-                      "seconds": v["seconds"], "ptxas": ptxas[k]}
-                  for k, v in built.items()},
-         hgmma=hgmma, dynamic_shared_bytes=shared)
-    for kernel in shared:
-        if not hgmma.get(kernel):
-            raise AssertionError(f"{kernel} has no HGMMA instruction")
-    # K4' at D 128, K2', K3' and K4' at D 16 and 32, and K2-tf32 are laid
-    # out so that ptxas spills nothing; the delta pass is built at every
-    # width K3' and K4' take
-    for kernel in ("flash_bwd_dkv_sm90_kernel<D=128>",
-                   *(f"flash_fwd_tf32_sm90_kernel<D={d}>" for d in TF32),
-                   "flash_fwd_sm90_kernel<D=16>",
-                   "flash_fwd_sm90_kernel<D=32>",
-                   "flash_bwd_dkv_sm90_kernel<D=16>",
-                   "flash_bwd_dkv_sm90_kernel<D=32>",
-                   "flash_bwd_dq_sm90_kernel<D=16>",
-                   "flash_bwd_dq_sm90_kernel<D=32>"):
-        info = ptxas[fa.LIBRARY_SM90].get(kernel, "")
-        if "0 bytes spill stores, 0 bytes spill loads" not in info:
-            raise AssertionError(f"{kernel} spills or was not built: "
-                                 f"{info!r}")
-    for d in (16, 32, 64, 128):
-        if f"flash_bwd_delta_sm90_kernel<D={d}>" not in ptxas[
-                fa.LIBRARY_SM90]:
-            raise AssertionError(f"the delta pass is not built at D {d}")
-    PHASE_WALLS.append(["build", time.perf_counter() - t0])
+    timed("build", phase_build)
 
     k1 = timed("kernel", phase_kernel, dev)
     zoo_streams = timed("zoo_kernel", phase_zoo_kernel, dev)
@@ -5835,6 +5983,12 @@ def main():
     f32_lm = (fa.FWD, fa.BWD_DQ, fa.BWD_DKV)
     f32_lm_launches = {name: sum(c[name] for c in parity_launches.values())
                        for name in fa.launches}
+    # the float32 LMs' steps: the small ones at D 16 and 32 (lm_parity),
+    # the full-width one at D 64 (lm_train_f32)
+    tf32_launches = {d: (parity_launches[d] if d in parity_launches
+                         else f32_launches) for d in TF32}
+    tf32_in = {d: (f"lm_parity_d{d}" if d in parity_launches
+                   else "lm_train_f32") for d in TF32}
     print(json.dumps({"kernels": [{
         "name": placement.KERNEL,
         "route": "cuda",
@@ -5891,8 +6045,8 @@ def main():
         "route": "cuda",
         "source": ATTN_KERNELS[name][0],
         "replaces": ATTN_KERNELS[name][1],
-        # K2-K4 serve the float32 LMs' steps (lm_parity: K2 at D 128, K3
-        # and K4 at D 16, 32 and 128); the Hopper kernels the
+        # K2-K4 serve the float32 LM's steps at D 128 (lm_parity); the
+        # Hopper kernels the
         # bf16 LM's train, eval and predict steps (lm_train), and those of
         # the MoE and pipelined LMs, the MoE job, the in-process ring and
         # Ulysses (ring_attn), the seq mesh's and ring LM's steps
@@ -5901,14 +6055,14 @@ def main():
         "launches": (f32_lm_launches[name] if name in f32_lm
                      else lm_launches[name]),
         "launches_in": "lm_parity" if name in f32_lm else "lm_train",
-        # the bf16 LMs with 16- and 32-wide heads: the delta pass beside
-        # K2', K3' and K4' (entries of their own below)
+        # the bf16 LMs with 16- and 32-wide heads and the float32 LMs: the
+        # delta pass beside K2', K3', K4', K3-tf32 and K4-tf32 (entries of
+        # their own below)
         **({"lm_train_d16_launches": d16_launches[name],
-            "lm_train_d32_launches": d32_launches[name]}
+            "lm_train_d32_launches": d32_launches[name],
+            "lm_train_f32_launches": f32_launches[name],
+            "lm_parity_launches": f32_lm_launches[name]}
            if name == fa.BWD_DELTA_SM90 else {}),
-        # the full-width float32 LM's backward (lm_train_f32)
-        **({"lm_train_f32_launches": f32_launches[name]}
-           if name in (fa.BWD_DQ, fa.BWD_DKV) else {}),
         **({} if name in f32_lm else
            {"lm_train_d128_launches": d128_launches[name],
             "lm_job_launches": lm_job_launches[name],
@@ -5945,18 +6099,19 @@ def main():
     } for d, launches in ((16, d16_launches), (32, d32_launches))
         for entry, kernel in zip(NARROW[d], (fa.FWD_SM90, fa.BWD_DKV_SM90,
                                              fa.BWD_DQ_SM90))] + [{
-        "name": TF32[d],
+        "name": entries[d],
         "route": "cuda",
-        "source": ATTN_KERNELS[TF32[d]][0],
-        "replaces": ATTN_KERNELS[TF32[d]][1],
-        # K2-tf32 comes from the float32 LMs: the small ones at D 16 and 32
-        # (lm_parity), the full-width one at D 64 (train, eval, predict)
-        "launches": (parity_launches[d][fa.FWD_TF32] if d in parity_launches
-                     else f32_launches[fa.FWD_TF32]),
-        "launches_in": (f"lm_parity_d{d}" if d in parity_launches
-                        else "lm_train_f32"),
-        **attn[TF32[d]],
-    } for d in TF32]}), flush=True)
+        "source": ATTN_KERNELS[entries[d]][0],
+        "replaces": ATTN_KERNELS[entries[d]][1],
+        # K2-tf32, K3-tf32 and K4-tf32 come from the float32 LMs: the
+        # small ones at D 16 and 32 (lm_parity), the full-width one at D 64
+        # (train, eval, predict)
+        "launches": tf32_launches[d][kernel],
+        "launches_in": tf32_in[d],
+        **attn[entries[d]],
+    } for entries, kernel in ((TF32, fa.FWD_TF32), (DQ_TF32, fa.BWD_DQ_TF32),
+                              (DKV_TF32, fa.BWD_DKV_TF32))
+        for d in TF32]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

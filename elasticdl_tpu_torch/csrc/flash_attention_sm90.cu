@@ -1,13 +1,14 @@
 // Flash attention on Hopper's tensor cores: the forward (K2'), dQ (K3') and
 // dK/dV (K4') for bfloat16 with D = 16, 32, 64 or 128, the pass that
-// writes the delta K3' and K4' read, and the forward for float32 with
-// D = 16, 32 or 64 in 3xTF32 products (K2-tf32).
+// writes the delta K3' and K4' read (bfloat16 and float32), and for
+// float32 with D = 16, 32 or 64 the forward (K2-tf32), dQ (K3-tf32) and
+// dK/dV (K4-tf32) in 3xTF32 products.
 //
 // Replaces, for those inputs, elasticdl_tpu/ops/pallas_attention.py
 // `_fwd_kernel` (`pallas_call` at 256), `_bwd_dq_kernel` (`pallas_call` at
 // 404) and `_bwd_dkv_kernel` (`pallas_call` at 433). csrc/flash_attention.cu
-// keeps every other case (the float32 backward, float32 at D 128 and other
-// head dims, bfloat16 at other head dims).
+// keeps every other case (float32 at D 128 and other head dims, bfloat16
+// at other head dims).
 //
 // Contract: that of ops/flash_attention.py, unchanged. q (B, Tq, H, D),
 // k and v (B, Tk, H, D), dout like q, read in place through (b, t, h)
@@ -89,7 +90,8 @@
 //   writer: no atomics, runs are bit-reproducible.
 // - delta = rowsum(dO . O) - g_lse is computed once a row by
 //   flash_bwd_delta_sm90, once a backward, and read by both K3' and K4'
-//   (K3 and K4 recompute it from O in every block).
+//   (bf16 O and dO) or K3-tf32 and K4-tf32 (float32); K3 and K4
+//   recompute it from O in every block.
 // - Causal tiles wholly above the diagonal are not visited: the bounds come
 //   from the runtime offsets. K2' and K3' start the blocks with the most
 //   tiles first.
@@ -129,6 +131,25 @@
 //   plus a constant. Shared memory at D 64: Q hi + lo 64 KB, a stage
 //   5 x 16 KB, two stages: 224 KB of 227 (D 128 would need 5 x 32 KB a
 //   stage and stays on K2).
+// - K4-tf32 and K3-tf32, K4' and K3' for float32, with K2-tf32's split
+//   and producer warpgroup. K4-tf32: S^T = K.Q^T and dP^T = V.dO^T with K
+//   and V as A and the streamed Q and dO as B, all K-major as TMA lands
+//   them (hi in place, lo beside); dV += P^T.dO and dK += dS^T.Q with P^T
+//   and dS^T as register A fragments taken as the accumulator lies, and
+//   dO^T and Q^T written transposed and split, q in `pv_slot` order
+//   (`split_and_transpose`). K3-tf32: S = Q.K^T and dP = dO.V^T the same
+//   way, dQ += dS.K with K^T written as dO^T is. Every product is 3xTF32,
+//   13 a k8 step pair where K4' runs 4 bf16 ones. Shared memory binds:
+//   at D 64 a 64-row float32 tile is 16 KB, and a 64-row stage of K4-tf32
+//   (Q, dO, their lo, Q^T and dO^T hi and lo) would be 128 KB beside 64 KB
+//   of resident K and V. So both stream 32-row tiles (64 KB a K4-tf32
+//   stage, 48 KB a K3-tf32 one, two stages) past consumer warpgroups of
+//   64 resident rows and the producer warpgroup. K4-tf32 has one consumer
+//   (256 threads, for which ptxas allows 255 registers at D 32 and 64: dK
+//   and dV take 2 x 32 floats at D 64, the split fragments 64 words), in
+//   two blocks a SM at D 16; K3-tf32 two, which share each K/V stage's
+//   split and overlap each other's softmax (`DkvTf32Shape`,
+//   `DqTf32Shape`). They read the float32 delta pass's delta.
 // Tensor maps are built on the host over each tensor's strides; the
 // encoder comes from the CUDA runtime's entry-point lookup (no -lcuda).
 
@@ -731,6 +752,24 @@ __device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
+// d (64 x 32) = A (64 x 8) . B (8 x 32) + d in TF32: A and B from shared
+// memory, both K-major (K3-tf32's S and dP, K4-tf32's S^T and dP^T over a
+// 32-row tile).
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t a,
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 // d (64 x 16) += A (64 x 8) . B (8 x 16) in TF32: A from registers (a
 // k8 fragment), B from shared memory, K-major (TF32 has no transpose bit).
 __device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[8],
@@ -792,7 +831,7 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[kD / 2],
                                               const uint32_t (&a)[4],
                                               uint64_t b) {
   static_assert(kD == 16 || kD == 32 || kD == 64,
-                "K2-tf32 is built at D 16, 32 and 64");
+                "the TF32 kernels are built at D 16, 32 and 64");
   if constexpr (kD == 16) {
     wgmma_tf32_rs_n16(d, a, b);
   } else if constexpr (kD == 32) {
@@ -1130,16 +1169,18 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ------------------------------------------------------------------ delta
 
-// delta = rowsum(dO . O) - g_lse of every (b, i, h) row, kD / 8 threads a
-// row, 16 bytes each; rows in (b, i, h) order, as contiguous tensors lie.
-template <int kD>
+// delta = rowsum(dO . O) - g_lse of every (b, i, h) row of bfloat16 or
+// float32 `T`, 16 bytes a thread (8 bf16 or 4 floats), so kD / 8 or kD / 4
+// threads a row; rows in (b, i, h) order, as contiguous tensors lie.
+template <int kD, typename T>
 __global__ void __launch_bounds__(256)
-flash_bwd_delta_sm90_kernel(const __nv_bfloat16* __restrict__ o,
-                            const __nv_bfloat16* __restrict__ dout,
+flash_bwd_delta_sm90_kernel(const T* __restrict__ o,
+                            const T* __restrict__ dout,
                             const float* __restrict__ glse,
                             float* __restrict__ delta, Strides so,
                             Strides sdo, int H, int Tq, long long rows) {
-  constexpr int kLanes = kD / 8;
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+  constexpr int kLanes = kD / kPer;
   const long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const long long row = g / kLanes;
@@ -1152,18 +1193,26 @@ flash_bwd_delta_sm90_kernel(const __nv_bfloat16* __restrict__ o,
     i = rest / H;
     h = rest - i * H;
     const uint4 x = *reinterpret_cast<const uint4*>(
-        o + b * so.b + static_cast<long long>(i) * so.t + h * so.h + 8 * part);
+        o + b * so.b + static_cast<long long>(i) * so.t + h * so.h +
+        kPer * part);
     const uint4 y = *reinterpret_cast<const uint4*>(
         dout + b * sdo.b + static_cast<long long>(i) * sdo.t + h * sdo.h +
-        8 * part);
-    const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
-    const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+        kPer * part);
+    if constexpr (kPer == 8) {
+      const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 a = __bfloat1622float2(xs[e]);
-      const float2 c = __bfloat1622float2(ys[e]);
-      acc = fmaf(c.x, a.x, acc);
-      acc = fmaf(c.y, a.y, acc);
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = __bfloat1622float2(xs[e]);
+        const float2 c = __bfloat1622float2(ys[e]);
+        acc = fmaf(c.x, a.x, acc);
+        acc = fmaf(c.y, a.y, acc);
+      }
+    } else {
+      acc = fmaf(__uint_as_float(y.x), __uint_as_float(x.x), acc);
+      acc = fmaf(__uint_as_float(y.y), __uint_as_float(x.y), acc);
+      acc = fmaf(__uint_as_float(y.z), __uint_as_float(x.z), acc);
+      acc = fmaf(__uint_as_float(y.w), __uint_as_float(x.w), acc);
     }
   }
 #pragma unroll
@@ -1602,6 +1651,585 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------------------- K4-tf32, K3-tf32
+
+// The float32 backward's block: `consumers` warpgroups of 64 resident rows
+// each (kv rows in K4-tf32, q rows in K3-tf32) and a producer warpgroup
+// (warp 0 loads by TMA, warps 1-3 split) over streamed tiles of
+// kStreamRows, and the blocks a SM that ptxas must fit in registers.
+template <int consumers, int blocks>
+struct Tf32Shape {
+  static constexpr int kConsumers = consumers;
+  static constexpr int kMinBlocks = blocks;
+  static constexpr int kThreads = 128 * (consumers + 1);
+  static constexpr int kRows = 64 * consumers;
+};
+constexpr int kStreamRows = 32;
+
+// K4-tf32: one consumer warpgroup of 64 kv rows, in two blocks a SM at D
+// 16 (116 registers) and one at D 32 and 64, where 256 threads may take
+// 255 (dK and dV take 2 x 32 floats at D 64, the split fragments 64
+// words). At D 32 two blocks ran 0.306 against one's 0.404 device ms (B8
+// T1024 H8 on an H100) but spilled 184 bytes at ptxas's 128 registers
+// (none before `cw` was folded at compile time), and two warpgroups ran
+// 0.297 with 24 bytes of spill at a 384-thread block's 168; at D 16 two
+// warpgroups ran 9% slower; at D 64 they would hold 128 kv rows of K and
+// V, hi and lo (128 KB), beside two 64 KB stages, past a block's 227 KB
+// (sm90_layouts.py).
+template <int kD>
+using DkvTf32Shape = Tf32Shape<1, (kD == 16 ? 2 : 1)>;
+// K3-tf32: two consumer warpgroups of 64 q rows share each K/V stage and
+// its split, and overlap each other's softmax: 0.290 against one
+// warpgroup's 0.374 device ms at D 64, within 6% of one warpgroup in two
+// blocks a SM at D 16 and 32. 230,464 bytes of shared memory at D 64, as
+// K2-tf32.
+template <int kD>
+using DqTf32Shape = Tf32Shape<2, 1>;
+
+// K4-tf32's and K3-tf32's shared memory at head dim kD with kRows resident
+// rows (tiles laid out as K2-tf32's, `Tf32Layout`): the resident rows of
+// two tensors, each as hi (split in place) and lo, then a ring of kRing
+// stages of the streamed tiles, each 32 rows of kD floats or, transposed,
+// kD rows of 32 floats (128-byte rows, Cols<64>).
+template <int kD, int kRows>
+struct BwdTf32Layout {
+  using C = Cols<2 * kD>;
+  // two stages: a third would take K4-tf32 at D 64 past the block's
+  // 232,448 bytes (198,208 with two)
+  static constexpr int kRing = 2;
+  static constexpr int kResBytes = kRows * kD * 4;        // each of four
+  static constexpr int kTileBytes = kStreamRows * kD * 4;
+  static constexpr int kBars = 2 + 3 * kRing;
+  // K4-tf32's stage: Q and dO (split to hi in place), Q lo, dO lo, Q^T hi
+  // and lo, dO^T hi and lo; lse and delta of each stage's q rows after the
+  // ring
+  static constexpr int kDkvStage = 8 * kTileBytes;
+  static constexpr int kDkvBytes = 1024 + 4 * kResBytes +
+                                   kRing * (kDkvStage + 2 * kStreamRows * 4) +
+                                   8 * kBars;
+  // K3-tf32's stage: K and V (split to hi in place), K lo, V lo, K^T hi
+  // and lo
+  static constexpr int kDqStage = 6 * kTileBytes;
+  static constexpr int kDqBytes =
+      1024 + 4 * kResBytes + kRing * kDqStage + 8 * kBars;
+};
+static_assert(BwdTf32Layout<64, DkvTf32Shape<64>::kRows>::kDkvBytes <=
+                  232448,
+              "K4-tf32 at D 64 must fit a block's 227 KB");
+static_assert(BwdTf32Layout<64, DqTf32Shape<64>::kRows>::kDqBytes <= 232448,
+              "K3-tf32 at D 64 must fit a block's 227 KB");
+
+// A streamed tile (32 rows of kD floats as TMA landed it, Cols<2 kD>) split
+// as split_in_place splits it (hi in place, lo at the same offsets of
+// `lo`), and written transposed and split into `th` and `tl`: kD rows of
+// the tile's 32 values, 128 bytes each in the 128-byte swizzle, K-major
+// for a TF32 B operand whose K is the tile's rows, which sit in `pv_slot`
+// order. A warp takes the 32 rows of one 16-byte chunk, as
+// split_transposed does, so neither its reads nor its writes conflict on a
+// bank.
+template <int kD>
+__device__ __forceinline__ void split_and_transpose(uint8_t* x, uint8_t* lo,
+                                                    uint8_t* th, uint8_t* tl,
+                                                    int t) {
+  using C = Cols<2 * kD>;
+  constexpr int kChunks = kStreamRows * kD / 4;
+  for (int c = t; c < kChunks; c += kSplitThreads) {
+    const int row = c % kStreamRows;
+    const int col = 16 * (c / kStreamRows);  // byte of the row: dims col / 4..
+    const uint32_t at =
+        (col / C::kRowBytes) * kStreamRows * C::kRowBytes +
+        swizzled<C::kRowBytes>(row * C::kRowBytes + col % C::kRowBytes);
+    const uint4 v = *reinterpret_cast<const uint4*>(x + at);
+    const uint32_t xs[4] = {v.x, v.y, v.z, v.w};
+    uint32_t hs[4], ls[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {   // row col / 4 + e of the transpose
+      split_tf32(__uint_as_float(xs[e]), hs[e], ls[e]);
+      const uint32_t o = swizzled<128>((col / 4 + e) * 128 + 4 * pv_slot(row));
+      *reinterpret_cast<uint32_t*>(th + o) = hs[e];
+      *reinterpret_cast<uint32_t*>(tl + o) = ls[e];
+    }
+    *reinterpret_cast<uint4*>(x + at) = make_uint4(hs[0], hs[1], hs[2], hs[3]);
+    *reinterpret_cast<uint4*>(lo + at) = make_uint4(ls[0], ls[1], ls[2], ls[3]);
+  }
+}
+
+// The 64 x 32 float32 tile x, in the accumulator layout, as the register A
+// fragments of four k8 TF32 steps, split into hi and lo: step kk's are
+// elements 4 kk, 4 kk + 2, 4 kk + 1 and 4 kk + 3 (rows r0, r0 + 8 at
+// column 2t; rows r0, r0 + 8 at 2t + 1), so the B operand's K sits in
+// `pv_slot` order.
+__device__ __forceinline__ void split_tf32_fragments(const float (&x)[16],
+                                                     uint32_t (&hi)[4][4],
+                                                     uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    split_tf32(x[4 * kk], hi[kk][0], lo[kk][0]);
+    split_tf32(x[4 * kk + 2], hi[kk][1], lo[kk][1]);
+    split_tf32(x[4 * kk + 1], hi[kk][2], lo[kk][2]);
+    split_tf32(x[4 * kk + 3], hi[kk][3], lo[kk][3]);
+  }
+}
+
+// d (64 x kD) += A (64 x 32) . B (32 x kD) in 3xTF32: A as split register
+// fragments, B transposed and split at descriptor `b_hi`, its lo `b_lo`
+// descriptor units past it; four k8 steps.
+template <int kD>
+__device__ __forceinline__ void wgmma_tf32_rs_3x(float (&d)[kD / 2],
+                                                 const uint32_t (&hi)[4][4],
+                                                 const uint32_t (&lo)[4][4],
+                                                 uint64_t b_hi,
+                                                 uint64_t b_lo) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t bh = b_hi + kstep_desc<64>(kD, kk);
+    wgmma_tf32_rs<kD>(d, lo[kk], bh);
+    wgmma_tf32_rs<kD>(d, hi[kk], bh + b_lo);
+    wgmma_tf32_rs<kD>(d, hi[kk], bh);
+  }
+}
+
+// d (64 x 32) += A (64 x kD) . B (kD x 32) in 3xTF32: A (64 of a tile's
+// kARows rows) and B (32 rows) K-major in Cols<2 kD> at descriptors a_hi
+// and b_hi, their lo a_lo and b_lo descriptor units past them; kD / 8 k8
+// steps.
+template <int kD, int kARows>
+__device__ __forceinline__ void wgmma_tf32_ss_3x(float (&d)[16],
+                                                 uint64_t a_hi, uint64_t a_lo,
+                                                 uint64_t b_hi,
+                                                 uint64_t b_lo) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 8; ++kk) {
+    const uint64_t a = a_hi + kstep_desc<2 * kD>(kARows, kk);
+    const uint64_t b = b_hi + kstep_desc<2 * kD>(kStreamRows, kk);
+    wgmma_tf32_ss_n32(d, a + a_lo, b);
+    wgmma_tf32_ss_n32(d, a, b + b_lo);
+    wgmma_tf32_ss_n32(d, a, b);
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(DkvTf32Shape<kD>::kThreads,
+                                  DkvTf32Shape<kD>::kMinBlocks)
+flash_bwd_dkv_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               float* __restrict__ dk, float* __restrict__ dv,
+                               Strides sdk, Strides sdv, int H, int Tq,
+                               int Tk, int q_off, int kv_off, bool causal,
+                               float scale) {
+  using S = DkvTf32Shape<kD>;
+  using L = BwdTf32Layout<kD, S::kRows>;
+  using C = typename L::C;
+  constexpr int kT = L::kTileBytes;
+  constexpr int kBlockRows = S::kRows;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ksm = align_1024(smem_raw);  // K, then its hi; K lo; V; V lo
+  uint8_t* vsm = ksm + 2 * L::kResBytes;
+  uint8_t* stages = vsm + 2 * L::kResBytes;
+  float* lse_s = reinterpret_cast<float*>(stages + L::kRing * L::kDkvStage);
+  float* delta_s = lse_s + L::kRing * kStreamRows;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(delta_s + L::kRing * kStreamRows);
+  uint64_t* kv_bar = bars;        // K and V landed
+  uint64_t* kv_split = bars + 1;  // ... and split
+  uint64_t* loaded = bars + 2;    // a stage's Q and dO landed
+  uint64_t* full = bars + 2 + L::kRing;  // ... split, lse and delta beside
+  uint64_t* empty = bars + 2 + 2 * L::kRing;
+
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y - b * H;
+  const int kv0 = blockIdx.x * kBlockRows;
+  // the first q tile that sees this block's first kv row
+  int i_start = 0;
+  if (causal) {
+    const long long first = static_cast<long long>(kv_off) + kv0 - q_off;
+    i_start = static_cast<int>(max(0LL, min(static_cast<long long>(Tq), first)));
+    i_start -= i_start % kStreamRows;
+  }
+  const int n_tiles = (Tq - i_start + kStreamRows - 1) / kStreamRows;
+  const long long lse_row = static_cast<long long>(blockIdx.y) * Tq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_bar, 1);
+    mbar_init(kv_split, kSplitThreads / 32);
+#pragma unroll
+    for (int s = 0; s < L::kRing; ++s) {
+      mbar_init(&loaded[s], 1);
+      mbar_init(&full[s], kSplitThreads / 32);
+      mbar_init(&empty[s], 4 * S::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  if (wg == S::kConsumers) {  // the producer warpgroup
+    if (n_tiles == 0) return;
+    const int t = static_cast<int>(threadIdx.x % 128) - 32;  // warps 1-3
+    if (t < 0) {  // warp 0: one thread starts the loads
+      if (lane != 0) return;
+      mbar_expect_tx(kv_bar, 2 * L::kResBytes);
+#pragma unroll
+      for (int a = 0; a < C::kBlocks; ++a) {
+        const int at = a * kBlockRows * C::kRowBytes;
+        tma_load(ksm + at, &tk, kv_bar, C::kRowBytes / 4 * a, kv0, h, b);
+        tma_load(vsm + at, &tv, kv_bar, C::kRowBytes / 4 * a, kv0, h, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % L::kRing;
+        uint8_t* st = stages + s * L::kDkvStage;
+        if (j >= L::kRing) mbar_wait(&empty[s], (j / L::kRing - 1) & 1);
+        const int i0 = i_start + j * kStreamRows;
+        mbar_expect_tx(&loaded[s], 2 * kT);
+#pragma unroll
+        for (int a = 0; a < C::kBlocks; ++a) {
+          const int at = a * kStreamRows * C::kRowBytes;
+          tma_load(st + at, &tq, &loaded[s], C::kRowBytes / 4 * a, i0, h, b);
+          tma_load(st + 2 * kT + at, &tdo, &loaded[s], C::kRowBytes / 4 * a,
+                   i0, h, b);
+        }
+      }
+      return;
+    }
+    // warps 1-3 split what landed: K and V once, then Q and dO a stage at
+    // a time, with the stage's lse and delta
+    mbar_wait(kv_bar, 0);
+    split_in_place(ksm, ksm + L::kResBytes, L::kResBytes / 16, t);
+    split_in_place(vsm, vsm + L::kResBytes, L::kResBytes / 16, t);
+    fence_async_smem();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(kv_split);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % L::kRing;
+      uint8_t* st = stages + s * L::kDkvStage;
+      mbar_wait(&loaded[s], (j / L::kRing) & 1);
+      split_and_transpose<kD>(st, st + kT, st + 4 * kT, st + 5 * kT, t);
+      split_and_transpose<kD>(st + 2 * kT, st + 3 * kT, st + 6 * kT,
+                              st + 7 * kT, t);
+      const int i0 = i_start + j * kStreamRows;
+      for (int c = t; c < kStreamRows; c += kSplitThreads) {
+        const bool in = i0 + c < Tq;
+        lse_s[s * kStreamRows + c] = in ? lse[lse_row + i0 + c] : 0.0f;
+        delta_s[s * kStreamRows + c] = in ? delta[lse_row + i0 + c] : 0.0f;
+      }
+      fence_async_smem();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // a consumer warpgroup: kv rows kv_row0 .. kv_row0 + 63, at byte `mine`
+  // of each column block of K's and V's hi and lo
+  const int r0 = ((threadIdx.x % 128) / 32) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const int cw = S::kConsumers == 1 ? 0 : wg;  // 0 at compile time for one
+  const int mine = cw * 64 * C::kRowBytes;
+  const int kv_row0 = kv0 + cw * 64;
+  const long long kvpos = static_cast<long long>(kv_off) + kv_row0 + r0;
+  const uint64_t k_hi = desc<2 * kD>(ksm + mine, 16);
+  const uint64_t v_hi = desc<2 * kD>(vsm + mine, 16);
+  constexpr uint64_t kResLo = L::kResBytes >> 4, kLo = kT >> 4;
+
+  float dk_acc[kD / 2], dv_acc[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+  if (n_tiles > 0) mbar_wait(kv_split, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % L::kRing;
+    mbar_wait(&full[s], (j / L::kRing) & 1);
+    const uint8_t* st = stages + s * L::kDkvStage;
+    const int i0 = i_start + j * kStreamRows;
+    // a block's first q tile sees its first kv row (`i_start`), so one
+    // warpgroup's every tile is live
+    const bool live =
+        S::kConsumers == 1 ||
+        (kv_row0 < Tk &&
+         (!causal || static_cast<long long>(q_off) + i0 + kStreamRows - 1 >=
+                         static_cast<long long>(kv_off) + kv_row0));
+    if (live) {
+      // S^T = K.Q^T and dP^T = V.dO^T, each lo.hi + hi.lo + hi.hi
+      float sc[16], dp[16];
+  #pragma unroll
+      for (int i = 0; i < 16; ++i) sc[i] = dp[i] = 0.0f;
+      pin(sc);
+      pin(dp);
+      wg_fence();
+      wgmma_tf32_ss_3x<kD, kBlockRows>(sc, k_hi, kResLo, desc<2 * kD>(st, 16),
+                                       kLo);
+      wgmma_tf32_ss_3x<kD, kBlockRows>(dp, v_hi, kResLo,
+                                       desc<2 * kD>(st + 2 * kT, 16), kLo);
+      wg_commit();
+      wg_wait_all();
+      pin(sc);
+      pin(dp);
+
+      const bool edge =
+          i0 + kStreamRows > Tq || kv_row0 + 64 > Tk ||
+          (causal && static_cast<long long>(kv_off) + kv_row0 + 63 >
+                         static_cast<long long>(q_off) + i0);
+      const float* ls = lse_s + s * kStreamRows;
+      const float* ds = delta_s + s * kStreamRows;
+  #pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int c = acc_col(i, c0);
+        bool ok = true;
+        if (edge) {
+          ok = i0 + c < Tq && kv_row0 + r0 + 8 * acc_half(i) < Tk &&
+               (!causal || kvpos + 8 * acc_half(i) <=
+                               static_cast<long long>(q_off) + i0 + c);
+        }
+        const float p = ok ? expf(sc[i] * scale - ls[c]) : 0.0f;
+        sc[i] = p;
+        dp[i] = p * (dp[i] - ds[c]);
+      }
+
+      // dV += P^T.dO and dK += dS^T.Q, each lo.hi + hi.lo + hi.hi, over
+      // dO^T and Q^T
+      uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
+      split_tf32_fragments(sc, p_hi, p_lo);
+      split_tf32_fragments(dp, ds_hi, ds_lo);
+      pin(dk_acc);
+      pin(dv_acc);
+      pin(p_hi);
+      pin(p_lo);
+      pin(ds_hi);
+      pin(ds_lo);
+      wg_fence();
+      wgmma_tf32_rs_3x<kD>(dv_acc, p_hi, p_lo, desc<64>(st + 6 * kT, 16), kLo);
+      wgmma_tf32_rs_3x<kD>(dk_acc, ds_hi, ds_lo, desc<64>(st + 4 * kT, 16),
+                           kLo);
+      wg_commit();
+      wg_wait_all();
+      pin(dk_acc);
+      pin(dv_acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long row = kv_row0 + r0 + 8 * r;
+    if (row >= Tk) continue;
+    float* k_dst = dk + b * sdk.b + row * sdk.t + h * sdk.h + c0;
+    float* v_dst = dv + b * sdv.b + row * sdv.t + h * sdv.h + c0;
+#pragma unroll
+    for (int g = 0; g < kD / 8; ++g) {
+      const int i = 4 * g + 2 * r;
+      *reinterpret_cast<float2*>(k_dst + 8 * g) =
+          make_float2(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+      *reinterpret_cast<float2*>(v_dst + 8 * g) =
+          make_float2(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(DqTf32Shape<kD>::kThreads,
+                                  DqTf32Shape<kD>::kMinBlocks)
+flash_bwd_dq_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ dq, Strides sdq, int H,
+                              int Tq, int Tk, int q_off, int kv_off,
+                              bool causal, float scale) {
+  using S = DqTf32Shape<kD>;
+  using L = BwdTf32Layout<kD, S::kRows>;
+  using C = typename L::C;
+  constexpr int kT = L::kTileBytes;
+  constexpr int kBlockRows = S::kRows;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align_1024(smem_raw);  // Q, then its hi; Q lo; dO; dO lo
+  uint8_t* dos = qs + 2 * L::kResBytes;
+  uint8_t* stages = dos + 2 * L::kResBytes;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(stages + L::kRing * L::kDqStage);
+  uint64_t* q_bar = bars;        // Q and dO landed
+  uint64_t* q_split = bars + 1;  // ... and split
+  uint64_t* loaded = bars + 2;   // a stage's K and V landed
+  uint64_t* full = bars + 2 + L::kRing;  // ... and split
+  uint64_t* empty = bars + 2 + 2 * L::kRing;
+
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y - b * H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockRows;
+  const int n_tiles =
+      (kv_rows_seen(min(Tq, q0 + kBlockRows), Tk, q_off, kv_off, causal) +
+       kStreamRows - 1) / kStreamRows;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    mbar_init(q_split, kSplitThreads / 32);
+#pragma unroll
+    for (int s = 0; s < L::kRing; ++s) {
+      mbar_init(&loaded[s], 1);
+      mbar_init(&full[s], kSplitThreads / 32);
+      mbar_init(&empty[s], 4 * S::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  if (wg == S::kConsumers) {  // the producer warpgroup
+    if (n_tiles == 0) return;
+    const int t = static_cast<int>(threadIdx.x % 128) - 32;  // warps 1-3
+    if (t < 0) {  // warp 0: one thread starts the loads
+      if (lane != 0) return;
+      mbar_expect_tx(q_bar, 2 * L::kResBytes);
+#pragma unroll
+      for (int a = 0; a < C::kBlocks; ++a) {
+        const int at = a * kBlockRows * C::kRowBytes;
+        tma_load(qs + at, &tq, q_bar, C::kRowBytes / 4 * a, q0, h, b);
+        tma_load(dos + at, &tdo, q_bar, C::kRowBytes / 4 * a, q0, h, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % L::kRing;
+        uint8_t* st = stages + s * L::kDqStage;
+        if (j >= L::kRing) mbar_wait(&empty[s], (j / L::kRing - 1) & 1);
+        mbar_expect_tx(&loaded[s], 2 * kT);
+#pragma unroll
+        for (int a = 0; a < C::kBlocks; ++a) {
+          const int at = a * kStreamRows * C::kRowBytes;
+          tma_load(st + at, &tk, &loaded[s], C::kRowBytes / 4 * a,
+                   j * kStreamRows, h, b);
+          tma_load(st + 2 * kT + at, &tv, &loaded[s], C::kRowBytes / 4 * a,
+                   j * kStreamRows, h, b);
+        }
+      }
+      return;
+    }
+    // warps 1-3 split what landed: Q and dO once, then K (with K^T) and V
+    // a stage at a time
+    mbar_wait(q_bar, 0);
+    split_in_place(qs, qs + L::kResBytes, L::kResBytes / 16, t);
+    split_in_place(dos, dos + L::kResBytes, L::kResBytes / 16, t);
+    fence_async_smem();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(q_split);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % L::kRing;
+      uint8_t* st = stages + s * L::kDqStage;
+      mbar_wait(&loaded[s], (j / L::kRing) & 1);
+      split_and_transpose<kD>(st, st + kT, st + 4 * kT, st + 5 * kT, t);
+      split_in_place(st + 2 * kT, st + 3 * kT, kT / 16, t);
+      fence_async_smem();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // a consumer warpgroup: q rows row0 .. row0 + 63, at byte `mine` of
+  // each column block of Q's and dO's hi and lo
+  const int r0 = ((threadIdx.x % 128) / 32) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const int mine = wg * 64 * C::kRowBytes;
+  const int row0 = q0 + wg * 64;
+  const long long qpos = static_cast<long long>(q_off) + row0 + r0;
+  const int n_mine =
+      row0 < Tq ? (kv_rows_seen(min(Tq, row0 + 64), Tk, q_off, kv_off,
+                                causal) + kStreamRows - 1) / kStreamRows
+                : 0;
+  // lse and delta of this thread's two rows; rows past Tq are never stored
+  const long long lse_row = static_cast<long long>(blockIdx.y) * Tq;
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r0 + 8 * r;
+    row_lse[r] = row < Tq ? lse[lse_row + row] : 0.0f;
+    row_delta[r] = row < Tq ? delta[lse_row + row] : 0.0f;
+  }
+  const uint64_t q_hi = desc<2 * kD>(qs + mine, 16);
+  const uint64_t do_hi = desc<2 * kD>(dos + mine, 16);
+  constexpr uint64_t kResLo = L::kResBytes >> 4, kLo = kT >> 4;
+
+  float dq_acc[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dq_acc[i] = 0.0f;
+  if (n_tiles > 0) mbar_wait(q_split, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % L::kRing;
+    mbar_wait(&full[s], (j / L::kRing) & 1);
+    if (S::kConsumers == 1 || j < n_mine) {
+      const uint8_t* st = stages + s * L::kDqStage;
+      // S = Q.K^T and dP = dO.V^T, each lo.hi + hi.lo + hi.hi
+      float sc[16], dp[16];
+  #pragma unroll
+      for (int i = 0; i < 16; ++i) sc[i] = dp[i] = 0.0f;
+      pin(sc);
+      pin(dp);
+      wg_fence();
+      wgmma_tf32_ss_3x<kD, kBlockRows>(sc, q_hi, kResLo, desc<2 * kD>(st, 16),
+                                       kLo);
+      wgmma_tf32_ss_3x<kD, kBlockRows>(dp, do_hi, kResLo,
+                                       desc<2 * kD>(st + 2 * kT, 16), kLo);
+      wg_commit();
+      wg_wait_all();
+      pin(sc);
+      pin(dp);
+
+      const int j0 = j * kStreamRows;
+      const bool edge =
+          j0 + kStreamRows > Tk ||
+          (causal && static_cast<long long>(kv_off) + j0 + kStreamRows - 1 >
+                         static_cast<long long>(q_off) + row0);
+  #pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        bool ok = true;
+        if (edge) {
+          const int kv = j0 + acc_col(i, c0);
+          ok = kv < Tk && (!causal || static_cast<long long>(kv_off) + kv <=
+                                          qpos + 8 * acc_half(i));
+        }
+        const float p =
+            ok ? expf(sc[i] * scale - row_lse[acc_half(i)]) : 0.0f;
+        dp[i] = p * (dp[i] - row_delta[acc_half(i)]);
+      }
+
+      // dQ += dS.K, lo.hi + hi.lo + hi.hi over K^T
+      uint32_t ds_hi[4][4], ds_lo[4][4];
+      split_tf32_fragments(dp, ds_hi, ds_lo);
+      pin(dq_acc);
+      pin(ds_hi);
+      pin(ds_lo);
+      wg_fence();
+      wgmma_tf32_rs_3x<kD>(dq_acc, ds_hi, ds_lo, desc<64>(st + 4 * kT, 16),
+                           kLo);
+      wg_commit();
+      wg_wait_all();
+      pin(dq_acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long row = row0 + r0 + 8 * r;
+    if (row >= Tq) continue;
+    float* dst = dq + b * sdq.b + row * sdq.t + h * sdq.h + c0;
+#pragma unroll
+    for (int g = 0; g < kD / 8; ++g) {
+      const int i = 4 * g + 2 * r;
+      *reinterpret_cast<float2*>(dst + 8 * g) =
+          make_float2(dq_acc[i] * scale, dq_acc[i + 1] * scale);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ launch
 
 // Everything a launch needs; pointers a kernel does not take stay null.
@@ -1771,15 +2399,59 @@ cudaError_t run_dq(const Args& a) {
 }
 
 template <int kD>
+cudaError_t run_dkv_tf32(const Args& a) {
+  using S = DkvTf32Shape<kD>;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map<kD, 4>(&mq, a.q, a.at(0), a.B, a.Tq, a.H, kStreamRows) ||
+      !make_map<kD, 4>(&mk, a.k, a.at(1), a.B, a.Tk, a.H, S::kRows) ||
+      !make_map<kD, 4>(&mv, a.v, a.at(2), a.B, a.Tk, a.H, S::kRows) ||
+      !make_map<kD, 4>(&mdo, a.dout, a.at(3), a.B, a.Tq, a.H, kStreamRows)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = flash_bwd_dkv_tf32_sm90_kernel<kD>;
+  constexpr int smem = BwdTf32Layout<kD, S::kRows>::kDkvBytes;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tk + S::kRows - 1) / S::kRows, a.B * a.H);
+  kernel<<<grid, S::kThreads, smem, a.stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<float*>(a.out0),
+      static_cast<float*>(a.out1), a.at(4), a.at(5), a.H, a.Tq, a.Tk,
+      a.q_off, a.kv_off, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <int kD>
+cudaError_t run_dq_tf32(const Args& a) {
+  using S = DqTf32Shape<kD>;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map<kD, 4>(&mq, a.q, a.at(0), a.B, a.Tq, a.H, S::kRows) ||
+      !make_map<kD, 4>(&mk, a.k, a.at(1), a.B, a.Tk, a.H, kStreamRows) ||
+      !make_map<kD, 4>(&mv, a.v, a.at(2), a.B, a.Tk, a.H, kStreamRows) ||
+      !make_map<kD, 4>(&mdo, a.dout, a.at(3), a.B, a.Tq, a.H, S::kRows)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = flash_bwd_dq_tf32_sm90_kernel<kD>;
+  constexpr int smem = BwdTf32Layout<kD, S::kRows>::kDqBytes;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tq + S::kRows - 1) / S::kRows, a.B * a.H);
+  kernel<<<grid, S::kThreads, smem, a.stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<float*>(a.out0),
+      a.at(4), a.H, a.Tq, a.Tk, a.q_off, a.kv_off, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <int kD, typename T>
 cudaError_t run_delta(const Args& a) {
   const long long rows = static_cast<long long>(a.B) * a.Tq * a.H;
-  const long long threads = rows * (kD / 8);
+  const long long threads = rows * (kD * static_cast<int>(sizeof(T)) / 16);
   const int per_block = 256;
-  flash_bwd_delta_sm90_kernel<kD>
+  flash_bwd_delta_sm90_kernel<kD, T>
       <<<static_cast<unsigned>((threads + per_block - 1) / per_block),
          per_block, 0, a.stream>>>(
-          static_cast<const __nv_bfloat16*>(a.o),
-          static_cast<const __nv_bfloat16*>(a.dout),
+          static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
           static_cast<const float*>(a.glse), static_cast<float*>(a.out0),
           a.at(0), a.at(1), a.H, a.Tq, rows);
   return cudaGetLastError();
@@ -1816,8 +2488,9 @@ extern "C" {
 // Each launcher enqueues one kernel on `stream` and returns its
 // cudaError_t (0 on success). `strides` holds the (b, t, h) element
 // strides of the tensors in argument order. dtype must be 1 (bfloat16) and
-// D 16, 32, 64 or 128, or for flash_fwd_tf32_sm90 0 (float32) and D 16, 32
-// or 64; anything else returns cudaErrorInvalidValue.
+// D 16, 32, 64 or 128, or for the *_tf32_sm90 launchers 0 (float32) and D
+// 16, 32 or 64 (the delta pass takes either); anything else returns
+// cudaErrorInvalidValue.
 
 int flash_fwd_sm90(int dtype, const void* q, const void* k, const void* v,
                    void* out, void* lse, const long long* strides, int B,
@@ -1847,7 +2520,9 @@ int flash_fwd_tf32_sm90(int dtype, const void* q, const void* k,
 }
 
 // delta (B, H, Tq) = rowsum(dout . out) - g_lse; glse may be null (0).
-// Strides: out, dout.
+// dtype 1 (bfloat16) at D 16, 32, 64 and 128, for K3' and K4', or 0
+// (float32) at D 16, 32 and 64, for K3-tf32 and K4-tf32. Strides: out,
+// dout.
 int flash_bwd_delta_sm90(int dtype, const void* out, const void* dout,
                          const void* glse, void* delta,
                          const long long* strides, int B, int H, int Tq,
@@ -1855,9 +2530,14 @@ int flash_bwd_delta_sm90(int dtype, const void* out, const void* dout,
   const Args a{nullptr, nullptr, nullptr, out, dout, nullptr, glse, nullptr,
                delta, nullptr, strides, B, H, Tq, 0, D, 0, 0,
                false, 0.0f, static_cast<cudaStream_t>(stream)};
-  static const Built built[] = {{16, run_delta<16>}, {32, run_delta<32>},
-                                 {64, run_delta<64>}, {128, run_delta<128>}};
-  return dispatch(dtype, a, built);
+  static const Built bf16[] = {{16, run_delta<16, __nv_bfloat16>},
+                                {32, run_delta<32, __nv_bfloat16>},
+                                {64, run_delta<64, __nv_bfloat16>},
+                                {128, run_delta<128, __nv_bfloat16>}};
+  static const Built f32[] = {{16, run_delta<16, float>},
+                               {32, run_delta<32, float>},
+                               {64, run_delta<64, float>}};
+  return dtype == 0 ? dispatch(dtype, a, f32, 0) : dispatch(dtype, a, bf16);
 }
 
 // dK, dV from q, k, v, dout, lse and the delta pass's output. Strides: q,
@@ -1890,9 +2570,41 @@ int flash_bwd_dq_sm90(int dtype, const void* q, const void* k, const void* v,
   return dispatch(dtype, a, built);
 }
 
+// K4-tf32: float32 dK, dV from float32 q, k, v, dout, lse and the delta
+// pass's output. Strides: q, k, v, dout, dk, dv.
+int flash_bwd_dkv_tf32_sm90(int dtype, const void* q, const void* k,
+                            const void* v, const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv,
+                            const long long* strides, int B, int H, int Tq,
+                            int Tk, int D, int q_off, int kv_off, int causal,
+                            void* stream) {
+  const Args a{q, k, v, nullptr, dout, lse, nullptr, delta,
+               dk, dv, strides, B, H, Tq, Tk, D, q_off, kv_off,
+               causal != 0, scale_of(D), static_cast<cudaStream_t>(stream)};
+  static const Built built[] = {
+      {16, run_dkv_tf32<16>}, {32, run_dkv_tf32<32>}, {64, run_dkv_tf32<64>}};
+  return dispatch(dtype, a, built, 0);
+}
+
+// K3-tf32: float32 dQ from float32 q, k, v, dout, lse and the delta pass's
+// output. Strides: q, k, v, dout, dq.
+int flash_bwd_dq_tf32_sm90(int dtype, const void* q, const void* k,
+                           const void* v, const void* dout, const void* lse,
+                           const void* delta, void* dq,
+                           const long long* strides, int B, int H, int Tq,
+                           int Tk, int D, int q_off, int kv_off, int causal,
+                           void* stream) {
+  const Args a{q, k, v, nullptr, dout, lse, nullptr, delta,
+               dq, nullptr, strides, B, H, Tq, Tk, D, q_off, kv_off,
+               causal != 0, scale_of(D), static_cast<cudaStream_t>(stream)};
+  static const Built built[] = {
+      {16, run_dq_tf32<16>}, {32, run_dq_tf32<32>}, {64, run_dq_tf32<64>}};
+  return dispatch(dtype, a, built, 0);
+}
+
 // Dynamic shared memory a launch of K2' (kernel 0), K4' (kernel 1), K3'
-// (kernel 2) or K2-tf32 (kernel 3) asks for at head dim D, or -1 where that
-// kernel is not built.
+// (kernel 2), K2-tf32 (kernel 3), K4-tf32 (kernel 4) or K3-tf32 (kernel
+// 5) asks for at head dim D, or -1 where that kernel is not built.
 // ptxas does not report dynamic shared memory; chip_smoke.py prints this
 // beside it.
 int flash_sm90_shared_bytes(int kernel, int D) {
@@ -1911,6 +2623,24 @@ int flash_sm90_shared_bytes(int kernel, int D) {
   if (kernel == 3 && D == 16) return Tf32Layout<16>::kBytes;
   if (kernel == 3 && D == 32) return Tf32Layout<32>::kBytes;
   if (kernel == 3 && D == 64) return Tf32Layout<64>::kBytes;
+  if (kernel == 4 && D == 16) {
+    return BwdTf32Layout<16, DkvTf32Shape<16>::kRows>::kDkvBytes;
+  }
+  if (kernel == 4 && D == 32) {
+    return BwdTf32Layout<32, DkvTf32Shape<32>::kRows>::kDkvBytes;
+  }
+  if (kernel == 4 && D == 64) {
+    return BwdTf32Layout<64, DkvTf32Shape<64>::kRows>::kDkvBytes;
+  }
+  if (kernel == 5 && D == 16) {
+    return BwdTf32Layout<16, DqTf32Shape<16>::kRows>::kDqBytes;
+  }
+  if (kernel == 5 && D == 32) {
+    return BwdTf32Layout<32, DqTf32Shape<32>::kRows>::kDqBytes;
+  }
+  if (kernel == 5 && D == 64) {
+    return BwdTf32Layout<64, DqTf32Shape<64>::kRows>::kDqBytes;
+  }
   return -1;
 }
 

@@ -10,17 +10,19 @@ Counterpart of `elasticdl_tpu/ops/pallas_attention.py`:
 Two CUDA C++ sources hold the kernels (see the notes in each):
 - `csrc/flash_attention_sm90.cu`, on Hopper's tensor cores (`wgmma`, TMA):
   K2' `flash_fwd_sm90`, K3' `flash_bwd_dq_sm90` and K4'
-  `flash_bwd_dkv_sm90` for bfloat16 at D 16, 32, 64 and 128, and the
-  delta pass `flash_bwd_delta_sm90` that K3' and K4' read: the bf16 LM's
-  attention; and K2-tf32 `flash_fwd_tf32_sm90`, the forward for float32
-  at D 16, 32 and 64 in 3xTF32 products: the float32 LM's forward;
+  `flash_bwd_dkv_sm90` for bfloat16 at D 16, 32, 64 and 128: the bf16
+  LM's attention; K2-tf32 `flash_fwd_tf32_sm90`, K3-tf32
+  `flash_bwd_dq_tf32_sm90` and K4-tf32 `flash_bwd_dkv_tf32_sm90` for
+  float32 at D 16, 32 and 64 in 3xTF32 products: the float32 LM's
+  attention; and the delta pass `flash_bwd_delta_sm90` that K3', K4',
+  K3-tf32 and K4-tf32 read;
 - `csrc/flash_attention.cu`, float32 FMAs on the CUDA cores: K2, K3 and K4
-  for every other input (the float32 backward, float32 at other head
-  dims, bfloat16 at other head dims).
+  for every other input (float32 and bfloat16 at other head dims, float32
+  at D 128).
 The route (`route`) is decided by dtype and D alone, before any launch; a
 failed launch raises and is never retried on the other kernels. The
 autograd backward (`flash_bwd`) launches the delta pass once and hands it
-to K3' and K4'.
+to both tensor-core backward kernels.
 
 The contract, shared by kernel and plain version:
 - scores s = (q . k) * D**-0.5 in float32, with the causal mask taken in
@@ -33,19 +35,21 @@ The contract, shared by kernel and plain version:
   the output; q.k and dO.v have bf16 operands on that route and are exact
   as they are. K2-tf32 splits every float32 operand (q, k, v and p) into
   tf32 hi + lo and sums hi.hi + hi.lo + lo.hi: each product to ~2**-21;
+  K3-tf32 and K4-tf32 do the same for q, k, v, dout, p and ds;
 - a masked score gives p = 0. A fully masked row returns 0 with lse ~
   NEG_BIG, whatever the tiling (the Pallas kernel returns the mean of v
   for such a row when it lies in a live block of its tiling);
 - the backward recomputes p = exp(s - lse) and folds the lse cotangent
   into delta = rowsum(dO . O) - g_lse (K3 and K4 compute it themselves,
-  K3' and K4' read it from the delta pass); dq, dk, dv, dp are float32
+  the tensor-core kernels read it from the delta pass); dq, dk, dv, dp
+  are float32
   and rounded to the inputs' dtype once.
 
 Each wrapper runs its plain version for a tensor on the CPU, launches its
 kernel for a CUDA tensor (or raises), and raises for any other device.
 `launches` counts kernel launches by kernel name, not plain-version calls.
-The split computes the same function, so K2', K3' and K4' share K2's,
-K3's and K4's plain versions. The autograd Function's forward calls
+The split computes the same function, so the tensor-core kernels share
+K2's, K3's and K4's plain versions. The autograd Function's forward calls
 `flash_fwd` through the dispatcher op `edl::flash_fwd` (`flash_fwd_op`,
 with a fake rule), so `torch.export` traces it into a serving program
 that launches K2', K2-tf32 or K2 (`training/export.export_saved_model`);
@@ -78,18 +82,25 @@ FWD, BWD_DQ, BWD_DKV = "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"
 FWD_SM90, BWD_DKV_SM90 = "flash_fwd_sm90", "flash_bwd_dkv_sm90"
 BWD_DQ_SM90, BWD_DELTA_SM90 = "flash_bwd_dq_sm90", "flash_bwd_delta_sm90"
 FWD_TF32 = "flash_fwd_tf32_sm90"
+BWD_DQ_TF32, BWD_DKV_TF32 = "flash_bwd_dq_tf32_sm90", "flash_bwd_dkv_tf32_sm90"
 launches = {FWD: 0, BWD_DQ: 0, BWD_DKV: 0, FWD_SM90: 0, BWD_DQ_SM90: 0,
-            BWD_DKV_SM90: 0, BWD_DELTA_SM90: 0, FWD_TF32: 0}
-_SM90_HEAD_DIMS = (16, 32, 64, 128)  # K2', K3', K4' and the delta pass
-_TF32_HEAD_DIMS = (16, 32, 64)       # K2-tf32
+            BWD_DKV_SM90: 0, BWD_DELTA_SM90: 0, FWD_TF32: 0, BWD_DQ_TF32: 0,
+            BWD_DKV_TF32: 0}
+_SM90_HEAD_DIMS = (16, 32, 64, 128)  # K2', K3', K4' (bfloat16)
+_TF32_HEAD_DIMS = (16, 32, 64)       # K2-tf32, K3-tf32, K4-tf32 (float32)
 _KERNELS = {LIBRARY: (FWD, BWD_DQ, BWD_DKV),
             LIBRARY_SM90: (FWD_SM90, BWD_DQ_SM90, BWD_DKV_SM90,
-                           BWD_DELTA_SM90, FWD_TF32)}
+                           BWD_DELTA_SM90, FWD_TF32, BWD_DQ_TF32,
+                           BWD_DKV_TF32)}
 # pointer arguments of each launcher, then the int arguments before the
 # stream: B H Tq Tk D q_off kv_off causal (the delta pass: B H Tq D)
 _SIGNATURES = {FWD: (5, 8), BWD_DQ: (8, 8), BWD_DKV: (9, 8),
                FWD_SM90: (5, 8), BWD_DQ_SM90: (7, 8), BWD_DKV_SM90: (8, 8),
-               BWD_DELTA_SM90: (4, 4), FWD_TF32: (5, 8)}
+               BWD_DELTA_SM90: (4, 4), FWD_TF32: (5, 8), BWD_DQ_TF32: (7, 8),
+               BWD_DKV_TF32: (8, 8)}
+# the tensor-core dQ and dK/dV kernels, which read the delta pass
+_DQ_HOPPER, _DKV_HOPPER = (BWD_DQ_SM90, BWD_DQ_TF32), (BWD_DKV_SM90,
+                                                        BWD_DKV_TF32)
 
 MAX_HEAD_DIM = 256
 MAX_GRID_Y = 65535              # B * H rides on the grid's y dimension
@@ -230,24 +241,19 @@ def _on_card(x: torch.Tensor) -> bool:
     return True
 
 
-def _sm90(dtype, d) -> bool:
-    """True where the bf16 Hopper kernels take the inputs: bfloat16 with
-    head dim 16, 32, 64 or 128, for each of K2', K3' and K4' alike. K3'
-    and K4' read the delta pass."""
-    return dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS
-
-
 def route(dtype, d) -> Tuple[str, Tuple[str, ...]]:
     """The kernels that take inputs of `dtype` and head dim `d` on the
-    card, decided before any launch: (forward, the backward's launches,
-    each once: dQ, dK/dV and, where K3' and K4' read it, the delta pass):
+    card, decided before any launch, the one place that decides them:
+    (forward, the backward's launches, each once: dQ, dK/dV and, where
+    the tensor-core kernels read it, the delta pass):
     - bfloat16 at D 16, 32, 64, 128: K2'; K3', K4' and the delta pass;
-    - float32 at D 16, 32, 64: K2-tf32; K3 and K4;
+    - float32 at D 16, 32, 64: K2-tf32; K3-tf32, K4-tf32 and the delta
+      pass;
     - everything else: K2; K3 and K4."""
-    if _sm90(dtype, d):
+    if dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS:
         return FWD_SM90, (BWD_DQ_SM90, BWD_DKV_SM90, BWD_DELTA_SM90)
     if dtype == torch.float32 and d in _TF32_HEAD_DIMS:
-        return FWD_TF32, (BWD_DQ, BWD_DKV)
+        return FWD_TF32, (BWD_DQ_TF32, BWD_DKV_TF32, BWD_DELTA_SM90)
     return FWD, (BWD_DQ, BWD_DKV)
 
 
@@ -389,26 +395,30 @@ def _check_residuals(q, lse, g_lse):
 
 def flash_bwd_dq(q, k, v, out, dout, lse, g_lse=None, causal=True,
                  q_offset=0, kv_offset=0):
-    """K3 (the delta pass, then K3', for bfloat16 at D 16, 32, 64 or
-    128): dQ in q's dtype. g_lse (B, H, Tq) float32 or None (zero)."""
+    """dQ in q's dtype by `route`: the delta pass, then K3' (bfloat16 at
+    D 16, 32, 64 or 128) or K3-tf32 (float32 at D 16, 32 or 64); K3
+    elsewhere. g_lse (B, H, Tq) float32 or None (zero)."""
     _validate(q, k, v, out, dout)
     _check_residuals(q, lse, g_lse)
     if not _on_card(q):
         return flash_bwd_dq_plain(q, k, v, out, dout, lse, g_lse, causal,
                                   q_offset, kv_offset)
     return launch_bwd_dq(q, k, v, out, dout, lse, g_lse, causal, q_offset,
-                         kv_offset, _sm90(q.dtype, q.shape[3]))
+                         kv_offset, route(q.dtype, q.shape[3])[1][0])
 
 
 def launch_bwd_dq(q, k, v, out, dout, lse, g_lse, causal, q_offset,
-                  kv_offset, hopper: bool):
-    """Launch the delta pass and K3' (`hopper`), or K3, on validated CUDA
-    tensors; see `launch_fwd`."""
-    if hopper:
+                  kv_offset, kernel: str):
+    """Launch dQ's kernel `kernel` on validated CUDA tensors: K3
+    (BWD_DQ), or the delta pass and then K3' (BWD_DQ_SM90) or K3-tf32
+    (BWD_DQ_TF32); see `launch_fwd`."""
+    if kernel in _DQ_HOPPER:
         _check_tma(q, k, v, dout)
         return launch_dq_sm90(q, k, v, dout, lse,
                               _launch_delta(out, dout, g_lse), causal,
-                              q_offset, kv_offset)
+                              q_offset, kv_offset, kernel)
+    if kernel != BWD_DQ:
+        raise ValueError(f"no dQ kernel {kernel!r}")
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     _launch(BWD_DQ, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
@@ -418,12 +428,15 @@ def launch_bwd_dq(q, k, v, out, dout, lse, g_lse, causal, q_offset,
     return dq
 
 
-def launch_dq_sm90(q, k, v, dout, lse, delta, causal, q_offset, kv_offset):
-    """Launch K3' alone on validated CUDA tensors, with `delta` from the
-    delta pass."""
+def launch_dq_sm90(q, k, v, dout, lse, delta, causal, q_offset, kv_offset,
+                   kernel: str = BWD_DQ_SM90):
+    """Launch K3' (or, `kernel` BWD_DQ_TF32, K3-tf32) alone on validated
+    CUDA tensors, with `delta` from the delta pass."""
+    if kernel not in _DQ_HOPPER:
+        raise ValueError(f"no tensor-core dQ kernel {kernel!r}")
     _check_tma(q, k, v, dout)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    _launch(BWD_DQ_SM90, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _launch(kernel, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             _strides(q, k, v, dout, dq),
             *_dims(q, k, causal, q_offset, kv_offset))
@@ -432,42 +445,50 @@ def launch_dq_sm90(q, k, v, dout, lse, delta, causal, q_offset, kv_offset):
 
 def flash_bwd_dkv(q, k, v, out, dout, lse, g_lse=None, causal=True,
                   q_offset=0, kv_offset=0):
-    """K4 (the delta pass, then K4', for bfloat16 at D 16, 32, 64 or 128):
-    (dK, dV) in k's and v's dtypes."""
+    """(dK, dV) in k's and v's dtypes by `route`: the delta pass, then K4'
+    (bfloat16 at D 16, 32, 64 or 128) or K4-tf32 (float32 at D 16, 32 or
+    64); K4 elsewhere."""
     _validate(q, k, v, out, dout)
     _check_residuals(q, lse, g_lse)
     if not _on_card(q):
         return flash_bwd_dkv_plain(q, k, v, out, dout, lse, g_lse, causal,
                                    q_offset, kv_offset)
     return launch_bwd_dkv(q, k, v, out, dout, lse, g_lse, causal, q_offset,
-                          kv_offset, _sm90(q.dtype, q.shape[3]))
+                          kv_offset, route(q.dtype, q.shape[3])[1][1])
 
 
 def launch_bwd_dkv(q, k, v, out, dout, lse, g_lse, causal, q_offset,
-                   kv_offset, hopper: bool):
-    """Launch the delta pass and K4' (`hopper`), or K4, on validated CUDA
-    tensors; see `launch_fwd`."""
-    if not hopper:
-        dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-        dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-        _launch(BWD_DKV, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                None if g_lse is None else g_lse.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), _strides(q, k, v, out, dout, dk, dv),
-                *_dims(q, k, causal, q_offset, kv_offset))
-        return dk, dv
-    _check_tma(q, k, v, dout)
-    return launch_dkv_sm90(q, k, v, dout, lse, _launch_delta(out, dout, g_lse),
-                           causal, q_offset, kv_offset)
+                   kv_offset, kernel: str):
+    """Launch dK/dV's kernel `kernel` on validated CUDA tensors: K4
+    (BWD_DKV), or the delta pass and then K4' (BWD_DKV_SM90) or K4-tf32
+    (BWD_DKV_TF32); see `launch_fwd`."""
+    if kernel in _DKV_HOPPER:
+        _check_tma(q, k, v, dout)
+        return launch_dkv_sm90(q, k, v, dout, lse,
+                               _launch_delta(out, dout, g_lse), causal,
+                               q_offset, kv_offset, kernel)
+    if kernel != BWD_DKV:
+        raise ValueError(f"no dK/dV kernel {kernel!r}")
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    _launch(BWD_DKV, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            None if g_lse is None else g_lse.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), _strides(q, k, v, out, dout, dk, dv),
+            *_dims(q, k, causal, q_offset, kv_offset))
+    return dk, dv
 
 
-def launch_dkv_sm90(q, k, v, dout, lse, delta, causal, q_offset, kv_offset):
-    """Launch K4' alone on validated CUDA tensors, with `delta` from the
-    delta pass."""
+def launch_dkv_sm90(q, k, v, dout, lse, delta, causal, q_offset, kv_offset,
+                    kernel: str = BWD_DKV_SM90):
+    """Launch K4' (or, `kernel` BWD_DKV_TF32, K4-tf32) alone on validated
+    CUDA tensors, with `delta` from the delta pass."""
+    if kernel not in _DKV_HOPPER:
+        raise ValueError(f"no tensor-core dK/dV kernel {kernel!r}")
     _check_tma(q, k, v, dout)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    _launch(BWD_DKV_SM90, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _launch(kernel, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _strides(q, k, v, dout, dk, dv),
             *_dims(q, k, causal, q_offset, kv_offset))
@@ -485,39 +506,44 @@ def _launch_delta(out, dout, g_lse):
 
 
 def flash_bwd_delta(out, dout, g_lse=None):
-    """The delta pass of K3' and K4': rowsum(dO . O) - g_lse, (B, H, Tq)
-    float32. It serves them only, so a CUDA tensor neither takes raises."""
+    """The delta pass of the tensor-core backward kernels: rowsum(dO . O)
+    - g_lse, (B, H, Tq) float32. It serves them only, so a CUDA tensor
+    whose route has no delta pass raises."""
     _validate(out, dout, dout)
     _check_residuals(out, g_lse, None)
     if not _on_card(out):
         return flash_bwd_delta_plain(out, dout, g_lse)
     d = out.shape[3]
-    if not _sm90(out.dtype, d):
-        raise ValueError(f"the delta pass serves K3' and K4' only, which "
-                         f"take bfloat16 at D {_SM90_HEAD_DIMS}; got "
-                         f"{out.dtype} D {d}")
+    if BWD_DELTA_SM90 not in route(out.dtype, d)[1]:
+        raise ValueError(f"the delta pass serves the tensor-core backward "
+                         f"only, which takes bfloat16 at D "
+                         f"{_SM90_HEAD_DIMS} and float32 at D "
+                         f"{_TF32_HEAD_DIMS}; got {out.dtype} D {d}")
     return _launch_delta(out, dout, g_lse)
 
 
 def flash_bwd(q, k, v, out, dout, lse, g_lse=None, causal=True, q_offset=0,
               kv_offset=0):
-    """The whole backward: (dQ, dK, dV). Where K3' and K4' take the inputs
-    the delta pass runs once and both read it; elsewhere K3 and K4 run,
-    each computing its own delta (on the CPU, their plain versions)."""
+    """The whole backward: (dQ, dK, dV) by `route`. Where the tensor-core
+    kernels take the inputs the delta pass runs once and both read it;
+    elsewhere K3 and K4 run, each computing its own delta (on the CPU,
+    their plain versions)."""
     _validate(q, k, v, out, dout)
     _check_residuals(q, lse, g_lse)
     args = (causal, q_offset, kv_offset)
     if not _on_card(q):
         return (flash_bwd_dq_plain(q, k, v, out, dout, lse, g_lse, *args),
                 *flash_bwd_dkv_plain(q, k, v, out, dout, lse, g_lse, *args))
-    if not _sm90(q.dtype, q.shape[3]):
-        return (launch_bwd_dq(q, k, v, out, dout, lse, g_lse, *args, False),
+    dq_kernel, dkv_kernel, *delta_pass = route(q.dtype, q.shape[3])[1]
+    if not delta_pass:
+        return (launch_bwd_dq(q, k, v, out, dout, lse, g_lse, *args,
+                              dq_kernel),
                 *launch_bwd_dkv(q, k, v, out, dout, lse, g_lse, *args,
-                                False))
+                                dkv_kernel))
     _check_tma(q, k, v, dout)
     delta = _launch_delta(out, dout, g_lse)
-    return (launch_dq_sm90(q, k, v, dout, lse, delta, *args),
-            *launch_dkv_sm90(q, k, v, dout, lse, delta, *args))
+    return (launch_dq_sm90(q, k, v, dout, lse, delta, *args, dq_kernel),
+            *launch_dkv_sm90(q, k, v, dout, lse, delta, *args, dkv_kernel))
 
 
 @torch.library.custom_op("edl::flash_bwd", mutates_args=())

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Block layouts of the Hopper flash kernels K2', K3', K4' and K2-tf32 on
-one card.
+"""Block layouts of the Hopper flash kernels K2', K3', K4', K2-tf32,
+K3-tf32 and K4-tf32 on one card.
 
     python3 sm90_layouts.py        # from the repository root, one CUDA card
 
@@ -9,12 +9,13 @@ variants of it made by text substitution (`VARIANTS`: the layouts the
 source does not keep), one nvcc each, all started together. Each build
 is loaded in turn, the source's own first and last, and K2', K3' and K4'
 run at B8 T1024 H8 causal bf16 at D 16, 32 and 64 on the same inputs,
-and K2-tf32 there in float32: each launch held to its plain version
-(`chip_smoke.KERNEL_TOL`; K2-tf32's out and lse to 2e-5), its device
-time from torch.profiler (`chip_smoke.device_ms`). Prints one JSON line
-a build: ptxas's registers and spills of each Hopper kernel at D 16 and
-32 and of K2-tf32 at D 16, 32 and 64, and the times; then the card's
-name and power limit. A layout that spills is not one to keep.
+and K2-tf32, K3-tf32 and K4-tf32 there in float32: each launch held to
+its plain version (`chip_smoke.KERNEL_TOL`; K2-tf32's out and lse to
+2e-5, K3-tf32's and K4-tf32's gradients to 5e-5), its device time from
+torch.profiler (`chip_smoke.device_ms`). Prints one JSON line a build:
+ptxas's registers and spills of each Hopper kernel at D 16 and 32 and of
+the TF32 kernels at D 16, 32 and 64, and the times; then the card's name
+and power limit. A layout that spills is not one to keep.
 """
 
 import ctypes
@@ -32,11 +33,13 @@ FWD_BLOCKS = "static constexpr int kMinBlocks = kD < 64 ? 2 : 1;"
 DKV_SHAPE = ("using DkvShape =\n    BlockShape<(kD == 32 || kD == 64 ? 2 : 1), "
              "(kD == 16 ? 3 : 1)>;")
 DQ_SHAPE = "using DqShape = BlockShape<(kD < 64 ? 1 : 2), (kD < 64 ? 3 : 1)>;"
+DKV_TF32_SHAPE = "using DkvTf32Shape = Tf32Shape<1, (kD == 16 ? 2 : 1)>;"
+DQ_TF32_SHAPE = "using DqTf32Shape = Tf32Shape<2, 1>;"
 
 
 def shape(old, consumers, blocks):
-    name = old.split()[1]
-    return [(old, f"using {name} = BlockShape<({consumers}), ({blocks})>;")]
+    name, kind = old.split()[1], old.split()[3].split("<")[0]
+    return [(old, f"using {name} = {kind}<({consumers}), ({blocks})>;")]
 
 
 def dkv(consumers, blocks):
@@ -71,6 +74,14 @@ VARIANTS = {
     "k2_tf32_one_pv_group": [
         ("static constexpr int kPvSteps = kD == 64 ? 4 : 8;",
          "static constexpr int kPvSteps = 8;")],
+    # K3-tf32 with one consumer warpgroup (256 threads), two blocks a SM at
+    # D 16 and 32
+    "k3_tf32_one_warpgroup": shape(DQ_TF32_SHAPE, 1, "kD < 64 ? 2 : 1"),
+    # K4-tf32 in two blocks a SM at D 32 too (128 registers)
+    "k4_tf32_two_blocks": shape(DKV_TF32_SHAPE, 1, "kD < 64 ? 2 : 1"),
+    # K4-tf32 with two consumer warpgroups at D 16 and 32 (D 64's K and V
+    # would not fit)
+    "k4_tf32_two_warpgroups": shape(DKV_TF32_SHAPE, "kD == 64 ? 1 : 2", "1"),
     # a ring of four stages for K2', K3' and K4' (K2-tf32 keeps its own
     # two: four do not fit its shared memory at D 64)
     "four_stages": [("constexpr int kStages = 2;",
@@ -120,7 +131,7 @@ def measure(name, path, log):
     lib.edl_cuda_error_string.restype = ctypes.c_char_p
     native._loaded[fa.LIBRARY_SM90] = lib
     ptxas = {k: v for k, v in cs.ptxas_summary(log).items()
-             if "fwd_tf32" in k or (
+             if "tf32" in k or (
                  ("fwd_sm90" in k or "dkv_sm90" in k or "dq_sm90" in k)
                  and ("D=16" in k or "D=32" in k))}
     times = {}
@@ -166,6 +177,25 @@ def measure(name, path, log):
         times[f"d{d}"].update({
             "k2_tf32_device_ms": cs.device_ms(tf32, (symbol,))[symbol],
             "k2_tf32_err_over_tol": ratio})
+        dout = torch.randn_like(q)
+        out, lse = tf32()
+        delta = fa.flash_bwd_delta(out, dout)
+        dkv = lambda: fa.launch_dkv_sm90(q, k, v, dout, lse, delta, True, 0,
+                                         0, fa.BWD_DKV_TF32)
+        dq = lambda: fa.launch_dq_sm90(q, k, v, dout, lse, delta, True, 0, 0,
+                                       fa.BWD_DQ_TF32)
+        want = (*fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse),
+                fa.flash_bwd_dq_plain(q, k, v, out, dout, lse))
+        ratio = max(cs.over_tol(got, w, 5e-5, 5e-5)[1]
+                    for got, w in zip((*dkv(), dq()), want))
+        if ratio > 1.0:
+            raise AssertionError(f"{name}: K3-tf32 or K4-tf32 at D {d}: "
+                                 f"{ratio} of the tolerance")
+        times[f"d{d}"]["tf32_backward_err_over_tol"] = ratio
+        for key, fn, symbol in (
+                ("k4_tf32_device_ms", dkv, "flash_bwd_dkv_tf32_sm90_kernel"),
+                ("k3_tf32_device_ms", dq, "flash_bwd_dq_tf32_sm90_kernel")):
+            times[f"d{d}"][key] = cs.device_ms(fn, (symbol,))[symbol]
     print(json.dumps({"layout": name, "ptxas": ptxas, "times": times}),
           flush=True)
 

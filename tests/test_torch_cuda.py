@@ -25,10 +25,11 @@ values in different orders (the kernel in a fixed order of its own,
 sum of the magnitudes of its terms — the scale that summation rounding
 grows with.
 
-Tolerances for the flash kernels (K2-K4, and for bfloat16 the Hopper
-kernels K2', K3' and K4' at D 16, 32, 64 and 128, and the delta pass)
-against their plain
-versions, the reference's own for its kernel against its naive path:
+Tolerances for the flash kernels (K2-K4, for bfloat16 the Hopper
+kernels K2', K3' and K4' at D 16, 32, 64 and 128, for float32 K2-tf32,
+K3-tf32 and K4-tf32 at D 16, 32 and 64, and the delta pass) against
+their plain versions, the reference's own for its kernel against its
+naive path:
 float32 out, lse and delta 2e-5, gradients 5e-5 with atol 5e-5 of the
 largest value (the kernels sum tile by tile, the plain versions whole
 rows). In bfloat16 both sides compute in float32 from the same inputs
@@ -291,8 +292,9 @@ def _close(got, want, what, rtol, atol_of_max=0.0, atol_of_rms=0.0):
 def _route(dtype, d):
     """The launches one forward and one whole backward (`flash_bwd`)
     should add, by `route`: K2', K3', K4' and the delta pass once (read
-    by K3' and K4') on the bf16 Hopper route, K2-tf32, K3 and K4 for
-    float32 at D 16, 32 and 64, K2-K4 elsewhere."""
+    by K3' and K4') on the bf16 Hopper route, K2-tf32, K3-tf32, K4-tf32
+    and the delta pass for float32 at D 16, 32 and 64, K2-K4
+    elsewhere."""
     fwd, bwd = fa.route(dtype, d)
     return {n: int(n == fwd or n in bwd) for n in fa.launches}
 
@@ -416,8 +418,10 @@ def case_k4_prime_at_d128_matches_k4_and_plain(cuda):
         args = (True, q_off, kv_off)
         out, lse = fa.flash_fwd(q, k, v, *args)
         before = dict(fa.launches)
-        new = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args, True)
-        old = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args, False)
+        new = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args,
+                                fa.BWD_DKV_SM90)
+        old = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args,
+                                fa.BWD_DKV)
         torch.cuda.synchronize()
         assert {n: fa.launches[n] - before[n] for n in before
                 if fa.launches[n] != before[n]} == {
@@ -448,13 +452,15 @@ def case_narrow_hopper_kernels_match_k2_k3_k4_and_plain(cuda, d):
         before = dict(fa.launches)
         out, lse = fa.launch_fwd(q, k, v, *args, fa.FWD_SM90)
         old_out, old_lse = fa.launch_fwd(q, k, v, *args, fa.FWD)
-        new = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args, True)
+        new = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args,
+                                fa.BWD_DKV_SM90)
         again = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args,
-                                  True)
-        old = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args, False)
+                                  fa.BWD_DKV_SM90)
+        old = fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args,
+                                fa.BWD_DKV)
         dq, dq_again, old_dq = (
-            fa.launch_bwd_dq(q, k, v, out, dout, lse, glse, *args, hopper)
-            for hopper in (True, True, False))
+            fa.launch_bwd_dq(q, k, v, out, dout, lse, glse, *args, kernel)
+            for kernel in (fa.BWD_DQ_SM90, fa.BWD_DQ_SM90, fa.BWD_DQ))
         torch.cuda.synchronize()
         assert {n: fa.launches[n] - before[n] for n in before
                 if fa.launches[n] != before[n]} == {
@@ -531,6 +537,70 @@ def case_tf32_forward_rejects_strides_tma_cannot_take(cuda, d):
     before = dict(fa.launches)
     with pytest.raises(ValueError, match="TMA"):
         fa.flash_fwd(q, q, q)
+    assert fa.launches == before
+
+
+def case_tf32_backward_matches_k3_k4_and_plain(cuda, d):
+    """K3-tf32 and K4-tf32 at D 16, 32 or 64 against K3 and K4, the
+    CUDA-core kernels they replace there, through their launchers, and
+    against the plain versions, on the same float32 inputs: causal with
+    the lse cotangent, at offsets with tails, not causal with tails, and
+    the fully masked geometry (every gradient 0 and finite); gradients
+    within 5e-5 (atol 5e-5 of the largest value) of the plain version and
+    of K3 and K4, the float32 delta pass within 2e-5 of its plain
+    version, and a rerun bit-identical."""
+    for tq, tk, causal, q_off, kv_off, with_glse in (
+            (256, 256, True, 0, 0, True), (200, 130, True, 70, 0, False),
+            (130, 200, True, 64, 32, True), (100, 230, False, 0, 0, True),
+            (100, 100, True, 0, 1024, False)):
+        q, k, v, dout, glse = _attn_inputs(cuda, 2, tq, tk, 3, d,
+                                           torch.float32, seed=d + tq)
+        glse = glse if with_glse else None
+        args = (causal, q_off, kv_off)
+        out, lse = fa.flash_fwd(q, k, v, *args)
+        before = dict(fa.launches)
+        new, again, old = (
+            fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args, kernel)
+            for kernel in (fa.BWD_DKV_TF32, fa.BWD_DKV_TF32, fa.BWD_DKV))
+        dq, dq_again, old_dq = (
+            fa.launch_bwd_dq(q, k, v, out, dout, lse, glse, *args, kernel)
+            for kernel in (fa.BWD_DQ_TF32, fa.BWD_DQ_TF32, fa.BWD_DQ))
+        torch.cuda.synchronize()
+        assert {n: fa.launches[n] - before[n] for n in before
+                if fa.launches[n] != before[n]} == {
+            fa.BWD_DELTA_SM90: 4, fa.BWD_DKV_TF32: 2, fa.BWD_DKV: 1,
+            fa.BWD_DQ_TF32: 2, fa.BWD_DQ: 1}
+        assert all(torch.equal(a, b) for a, b in zip(new, again))
+        assert torch.equal(dq, dq_again)
+        _close(fa.flash_bwd_delta(out, dout, glse),
+               fa.flash_bwd_delta_plain(out, dout, glse),
+               f"float32 delta D {d}", 2e-5, 2e-5)
+        want = fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse, glse, *args)
+        for name, a, b, w in zip(("dk", "dv"), new, old, want):
+            _close(a, w, f"K4-tf32 {name} D {d}", 5e-5, 5e-5)
+            _close(b, w, f"K4 {name} D {d}", 5e-5, 5e-5)
+            _close(a, b, f"K4-tf32 against K4, {name} D {d}", 5e-5, 5e-5)
+        want_dq = fa.flash_bwd_dq_plain(q, k, v, out, dout, lse, glse, *args)
+        _close(dq, want_dq, f"K3-tf32 dq D {d}", 5e-5, 5e-5)
+        _close(old_dq, want_dq, f"K3 dq D {d}", 5e-5, 5e-5)
+        _close(dq, old_dq, f"K3-tf32 against K3, dq D {d}", 5e-5, 5e-5)
+        if kv_off >= tq + q_off:            # every row fully masked
+            for x in (dq, *new):
+                assert bool((x == 0).all()) and bool(torch.isfinite(x).all())
+
+
+def case_tf32_backward_rejects_strides_tma_cannot_take(cuda, d):
+    """A float32 view whose h stride is d + 1 elements (not a multiple of
+    16 bytes) is on K3-tf32's and K4-tf32's route, which raises before
+    any launch (the delta pass included) rather than falling back to K3
+    and K4: each single-gradient wrapper and the whole backward."""
+    wide = torch.randn((1, 32, 2, d + 1), device=cuda)
+    q = wide[..., :d]
+    out, lse = fa.flash_fwd(*(q.contiguous() for _ in range(3)))
+    before = dict(fa.launches)
+    for backward in (fa.flash_bwd_dkv, fa.flash_bwd_dq, fa.flash_bwd):
+        with pytest.raises(ValueError, match="TMA"):
+            backward(q, q, q, out, out, lse)
     assert fa.launches == before
 
 
@@ -647,10 +717,11 @@ def case_lm_grads_on_the_card_match_cpu(cuda, extra=""):
         loss, grads = tr.compute_grads(state, batch)
         results.append((float(loss), {n: g.cpu() for n, g in grads.items()}))
     torch.cuda.synchronize()
-    if not extra:       # D 16, 2 layers: K2-tf32 forward, K3 and K4
+    if not extra:       # D 16, 2 layers: K2-tf32, K3-tf32, K4-tf32, delta
         assert {n: fa.launches[n] - before[n] for n in before
                 if fa.launches[n] != before[n]} == {
-            fa.FWD_TF32: 2, fa.BWD_DQ: 2, fa.BWD_DKV: 2}
+            fa.FWD_TF32: 2, fa.BWD_DQ_TF32: 2, fa.BWD_DKV_TF32: 2,
+            fa.BWD_DELTA_SM90: 2}
     assert results[1][0] == pytest.approx(results[0][0], rel=5e-5)
     for n, want in results[0][1].items():
         got = results[1][1][n]
@@ -1239,6 +1310,8 @@ def test_kernels_on_the_card(cuda, tmp_path):
     for d in (16, 32, 64):
         case_tf32_forward_matches_k2_and_plain(cuda, d)
         case_tf32_forward_rejects_strides_tma_cannot_take(cuda, d)
+        case_tf32_backward_matches_k3_k4_and_plain(cuda, d)
+        case_tf32_backward_rejects_strides_tma_cannot_take(cuda, d)
     case_k4_prime_at_d128_matches_k4_and_plain(cuda)
     case_bf16_lm_with_16_wide_heads_runs_the_hopper_kernels(cuda)
     case_bf16_lm_with_128_wide_heads_runs_k4_prime(cuda)

@@ -291,21 +291,33 @@ def case_hopper_route_by_dtype_and_head_dim():
     """`route` decides the kernels before any launch, by dtype and D
     alone: K2', K3' and K4' take bfloat16 at D 16, 32, 64 and 128, with
     the delta pass that K3' and K4' read in the backward's launches;
-    K2-tf32 takes the float32 forward at D 16, 32 and 64, with K3 and K4
-    behind it; everything else goes to the CUDA-core kernels K2, K3 and
-    K4."""
+    K2-tf32, K3-tf32 and K4-tf32 take float32 at D 16, 32 and 64, with
+    the delta pass too; everything else (float32 at D 128 among them)
+    goes to the CUDA-core kernels K2, K3 and K4."""
     for dtype in (torch.bfloat16, torch.float32):
         for d in (8, 16, 24, 32, 48, 64, 100, 128, 256):
             bf16 = dtype == torch.bfloat16
             hopper = bf16 and d in (16, 32, 64, 128)
             tf32 = not bf16 and d in (16, 32, 64)
-            assert tflash._sm90(dtype, d) == hopper
             want = ((tflash.FWD_SM90, (tflash.BWD_DQ_SM90,
                                        tflash.BWD_DKV_SM90,
                                        tflash.BWD_DELTA_SM90)) if hopper else
-                    (tflash.FWD_TF32 if tf32 else tflash.FWD,
-                     (tflash.BWD_DQ, tflash.BWD_DKV)))
+                    (tflash.FWD_TF32, (tflash.BWD_DQ_TF32,
+                                       tflash.BWD_DKV_TF32,
+                                       tflash.BWD_DELTA_SM90)) if tf32 else
+                    (tflash.FWD, (tflash.BWD_DQ, tflash.BWD_DKV)))
             assert tflash.route(dtype, d) == want, (dtype, d)
+    for d in (16, 32, 64):
+        assert tflash.route(torch.float32, d)[1][:2] == (
+            tflash.BWD_DQ_TF32, tflash.BWD_DKV_TF32)
+    assert tflash.route(torch.float32, 128) == (
+        tflash.FWD, (tflash.BWD_DQ, tflash.BWD_DKV))
+    # every kernel the route names is a launcher of one of the libraries
+    named = {n for dt in (torch.bfloat16, torch.float32)
+             for d in (16, 32, 64, 128, 256)
+             for n in (tflash.route(dt, d)[0], *tflash.route(dt, d)[1])}
+    assert named == set(tflash.launches) == {
+        n for names in tflash._KERNELS.values() for n in names}
 
 
 def case_whole_backward_is_the_single_wrappers():
@@ -402,6 +414,58 @@ def case_tf32_split_keeps_float32_products():
     return shares
 
 
+def case_tf32_split_keeps_float32_backward():
+    """K4-tf32's and K3-tf32's products in plain torch, at their block (64
+    kv rows over two 32-row q tiles for dK and dV, 64 q rows over two
+    32-row kv tiles for dQ; D 64, causal, float32 inputs): S = Q.K^T,
+    dP = dO.V^T, dV = P^T.dO, dK = dS^T.Q and dQ = dS.K, each operand
+    split into tf32 hi and lo and each product summed as lo.hi + hi.lo +
+    hi.hi, p = exp(s - lse) and ds = p (dp - delta) in float32 between
+    them, as the kernels form them. dK, dV and dQ stay within 5% of the
+    5e-5 bound chip_smoke.py holds the kernels' gradients to (rtol 5e-5,
+    atol 5e-5 of the largest entry) of the same chain in float64; with
+    one TF32 product in place of each split one they do not hold it."""
+    r = np.random.RandomState(18)
+    q, k, v, do = (torch.from_numpy(r.randn(1, 64, 1, 64).astype(np.float32))
+                   for _ in range(4))
+    out, lse = tflash.flash_fwd_plain(q, k, v, causal=True)
+    delta = tflash.flash_bwd_delta_plain(out, do)[0, 0]
+    lse = lse[0, 0]
+    q, k, v, do = (t[0, :, 0] for t in (q, k, v, do))
+    mask = torch.ones(64, 64).tril().bool()
+    scale = 64 ** -0.5
+
+    def split(a, b):
+        a_hi, b_hi = _tf32(a), _tf32(b)
+        a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+        return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+    def single(a, b):
+        return _tf32(a) @ _tf32(b)
+
+    def grads(mm, dt):
+        qq, kk, vv, dd = (t.to(dt) for t in (q, k, v, do))
+        s = mm(qq, kk.T) * scale
+        p = torch.exp(s - lse.to(dt)[:, None]).masked_fill(~mask, 0.0)
+        ds = p * (mm(dd, vv.T) - delta.to(dt)[:, None])
+        return {"dv": mm(p.T, dd), "dk": mm(ds.T, qq) * scale,
+                "dq": mm(ds, kk) * scale}
+
+    def share_of_bound(got, want):
+        tol = 5e-5 * want.abs() + 5e-5 * want.abs().max()
+        return float(((got.double() - want).abs() / tol).max())
+
+    want = grads(lambda a, b: a @ b, torch.float64)
+    shares = {}
+    for name, got in grads(split, torch.float32).items():
+        shares[name] = (share_of_bound(got, want[name]),
+                        share_of_bound(grads(single, torch.float32)[name],
+                                       want[name]))
+        assert shares[name][0] <= 0.05, (name, shares[name])
+        assert shares[name][1] > 1.0, (name, shares[name])
+    return shares
+
+
 def case_float32_forward_at_tf32_widths_against_the_kernel():
     """Float32 at D 32 and 64, widths K2-tf32 takes on the card: the port's
     forward (on the CPU the plain version K2-tf32 is held to there)
@@ -447,4 +511,5 @@ def test_flash_attention_against_the_reference():
         case_whole_backward_is_the_single_wrappers()
         case_hi_lo_split_keeps_float32_p()
         case_tf32_split_keeps_float32_products()
+        case_tf32_split_keeps_float32_backward()
         case_float32_forward_at_tf32_widths_against_the_kernel()

@@ -122,13 +122,15 @@ def case_against_the_reference(d, dtype, tq, tk, causal, q_off, kv_off,
 def case_narrow_widths_take_the_hopper_route():
     """On the card these inputs go to K2', K3' and K4' (one delta pass a
     backward, read by K3' and K4'), as D 64 and 128 do; float32 takes
-    K2-tf32 forward and the CUDA-core K3 and K4 backward."""
+    their 3xTF32 twins K2-tf32, K3-tf32 and K4-tf32, with the delta pass
+    too."""
     for d in (16, 32):
         assert tflash.route(torch.bfloat16, d) == (
             tflash.FWD_SM90, (tflash.BWD_DQ_SM90, tflash.BWD_DKV_SM90,
                               tflash.BWD_DELTA_SM90))
         assert tflash.route(torch.float32, d) == (
-            tflash.FWD_TF32, (tflash.BWD_DQ, tflash.BWD_DKV))
+            tflash.FWD_TF32, (tflash.BWD_DQ_TF32, tflash.BWD_DKV_TF32,
+                              tflash.BWD_DELTA_SM90))
 
 
 def test_narrow_head_dims_against_the_reference():
