@@ -17,8 +17,9 @@ kernels: for its bfloat16 attention at D 64, and at D 128, 16 and 32 in
 the LMs with 128-, 16- and 32-wide heads, the Hopper kernels K2', K3',
 K4' and the delta pass, which runs once a backward; for the float32
 LMs at D 16, 32 and 64 their 3xTF32 twins on the tensor cores, K2-tf32,
-K3-tf32 and K4-tf32, and the float32 delta pass; K2, K3 and K4 for every
-other input, such as the float32 LM at D 128), the trainer's knobs (remat,
+K3-tf32 and K4-tf32, and the float32 delta pass, and at D 128 K2-tf32,
+K4-tf32 and the delta pass beside K3; K2, K3 and K4 for every other
+input), the trainer's knobs (remat,
 gradient accumulation, grouped steps) over both, and the elastic control
 loop over the DeepFM job (the autoscaler's decisions and its drain-first
 eviction, zoo callbacks, the hybrid multi-slice mesh), and the DeepFM job
@@ -38,12 +39,12 @@ caught):
            with ptxas's registers and spills for each kernel, the dynamic
            shared memory each Hopper kernel's launch asks for, and the
            HGMMA (wgmma) instructions in each kernel's SASS (`cuobjdump
-           --dump-sass`): K2', K3' and K4' at D 16, 32, 64 and 128 and
-           K2-tf32, K3-tf32 and K4-tf32 at D 16, 32 and 64 must have
-           some; K4' at D 128, K2', K3' and K4' at D 16 and 32 and
-           K2-tf32, K3-tf32 and K4-tf32 must spill nothing; the delta pass
-           must be built at D 16, 32, 64 and 128 in bf16 and at D 16, 32
-           and 64 in float32.
+           --dump-sass`): K2', K3' and K4' at D 16, 32, 64 and 128,
+           K2-tf32 and K4-tf32 at D 16, 32, 64 and 128 and K3-tf32 at D
+           16, 32 and 64 must have some; K4' at D 128, K2', K3' and K4'
+           at D 16 and 32 and every K2-tf32, K3-tf32 and K4-tf32 must
+           spill nothing; the delta pass must be built at D 16, 32, 64
+           and 128 in bf16 and in float32.
 3. kernel  K1 (`place_sorted_grads`) against its plain version on the card
            over the DeepFM shape (uniform hashed ids, D=17 and 16), a
            stream with 30% of its slots on one id, one with all of them on
@@ -70,9 +71,11 @@ caught):
 7. attn_kernel  the flash kernels against their plain versions on the
            card, each case through the routing wrappers (the forward, then
            the whole backward `flash_bwd`), which must take the Hopper
-           kernels K2', K3' and K4' for bf16 at D 16, 32, 64 and 128 and
+           kernels K2', K3' and K4' for bf16 at D 16, 32, 64 and 128,
            K2-tf32, K3-tf32 and K4-tf32 for float32 at D 16, 32 and 64
-           (one delta pass a backward, no K2-K4), and K2-K4 elsewhere: at the
+           (one delta pass a backward, no K2-K4) and K2-tf32, K3 and
+           K4-tf32 (with the delta pass) at float32 D 128, and K2-K4
+           elsewhere: at the
            LM's full shape (B8 T1024 H8, causal) in bf16 at D 16, 32, 64
            and 128 and in float32 at D 64; on small
            float32 cases at D 16 and
@@ -96,16 +99,18 @@ caught):
            backward against SDPA's backward in turns over 7 rounds. At
            bf16 D 128 the same for K4' (alone and with the delta pass, its
            device time, a bit-identical rerun) beside K4 through its
-           launcher and the whole backward against SDPA's. At bf16 D 16
+           launcher and the whole backward against SDPA's, and for K2'
+           and K3' (held to their plain versions and reruns; ms, device
+           ms, plain ms, bound) beside SDPA's flash forward and whole
+           backward. At bf16 D 16
            (the zoo LM's default head dim) and 32 the same for K2', K3'
            and K4' (each held to its plain version and rerun
            bit-identical; ms, device ms, plain ms, bound; K3' and K4' also
            with the delta pass) beside K2, K3 and K4 through their
            launchers (K3 held to the plain version there too), SDPA's
            device time and the whole backward (the delta pass, K3', K4')
-           against SDPA's. K2, K3 and K4 also on the input they take,
-           float32 at D 128, and through their launchers on float32 at D
-           16, 32 and 64 and bf16 at D 16
+           against SDPA's. K2, K3 and K4 also through their launchers on
+           float32 at D 16, 32, 64 and 128 and bf16 at D 16
            and 32, each against its plain version's time and SDPA's
            forward or backward on the same inputs. SDPA's backend is
            pinned and named: flash for bf16, memory-efficient for
@@ -116,18 +121,22 @@ caught):
            offsets and fully masked) hold out, lse and delta to 2e-5 and
            gradients to 5e-5, reruns bit-identical (forward and backward,
            every case), fully masked rows 0 (gradients too) with lse <=
-           -1e29. At float32 B8 T1024 H8 D 16, 32 and 64 K2-tf32 is held
-           to its plain version and to a rerun, beside K2 through its
-           launcher (held too) and SDPA's memory-efficient forward, and
-           K3-tf32 and K4-tf32 the same (alone and with the delta pass)
-           beside K3 and K4 through their launchers (held too, with their
+           -1e29. Float32 at D 128 takes K2-tf32 and the mixed backward
+           (K3, the delta pass, K4-tf32): the bf16 D 128 cases' float32
+           twins and lm_parity's shape, held the same way. At float32 B8
+           T1024 H8 D 16, 32, 64 and 128 K2-tf32 is held to its plain
+           version and to a rerun, beside K2 through its launcher (held
+           too) and SDPA's memory-efficient forward, and K4-tf32 and (D
+           16, 32, 64) K3-tf32 the same (alone and with the delta pass)
+           beside K4 and K3 through their launchers (held too, with their
            device times) and SDPA's memory-efficient backward; the float32
-           delta pass held to its plain version; at D 64 the whole
-           backward against SDPA's in turns: ms, device ms, plain ms and
-           the bound (float32 products counted as three TF32 products at
-           the TF32 peak, `attn_bound`). K2, K3 and K4 are held to their
-           plain versions at float32 D 128, the input they keep. Each
-           timing line carries the card's name and power limit.
+           delta pass held to its plain version; at D 64 and 128 the
+           whole backward against SDPA's in turns: ms, device ms, plain ms
+           and the bound (float32 products counted as three TF32 products
+           at the TF32 peak, `attn_bound`). K2 and K4 serve no LM's route
+           any more; their float32 D 128 times are the yardstick beside
+           K2-tf32 and K4-tf32. Each timing line carries the card's name
+           and power limit.
 8. lm_parity  a small LM (vocab 64, 2 layers, dim 64, float32, T 32) at
            D 16 (4 heads), 32 (2 heads) and, dim 256, 128 (2 heads), on
            the card and on the CPU from the same weights: loss rtol 5e-5,
@@ -135,7 +144,8 @@ caught):
            (the k biases, 0 in exact arithmetic, within 1e-6 of the
            largest gradient entry of 0). These float32 LMs are the main
            path that launches K2-tf32, K3-tf32, K4-tf32 and the delta pass
-           (D 16, 32) and K2, K3 and K4 (D 128), each twice a step.
+           (D 16, 32), each twice a step; at D 128 they launch K2-tf32,
+           K3, K4-tf32 and the delta pass, as `lm_train_f32_d128` does.
 9. lm_train  the LM at the width bench.py benchmarks it (vocab 8192, 4
            layers, dim 512, 8 heads, bf16, 8 x 1024 random tokens): 20
            train steps (one warm-up), eval_step, predict_step. Losses must
@@ -514,6 +524,14 @@ they ran.
            every train step, K2-tf32 4 times in each of eval and predict,
            and K2-K4, K2', K3' and K4' never. Step ms, host ms, tokens/s,
            peak memory; then its profile, as in 6.
+37. lm_train_f32_d128 (after `lm_train_d128`)  the LM at 34's width (4
+           heads of 128, `LM_D128_PARAMS`) in float32 on 9's batch: 6
+           train steps (one warm-up), eval and predict, as 36. Losses
+           must be finite and fall; K2-tf32, K3, K4-tf32 and the delta
+           pass must each launch 4 times in every train step, K2-tf32 4
+           times in each of eval and predict, and K2, K4, K2', K3', K4'
+           and K3-tf32 never. Step ms, host ms, tokens/s, peak memory;
+           then its profile, as in 6.
 Then the `kernels` line (K1's `launches` are the job's, with the
 `grouped`, `cohort_job`, `manual_shards`, `tier`, `autoscale_job`,
 `callbacks_job`, `hybrid_mesh`, `k8s_job` and `tools` phases' beside
@@ -522,13 +540,15 @@ them; the Hopper kernels' are `lm_train`'s, with `lm_job`'s,
 `seq_train`'s and `seq_mix`'s beside them, and K2''s `serve_export`'s;
 K4' at D 128 is an entry of its own, `lm_train_d128`'s launches, and so
 are K2', K3' and K4' at D 16 and 32, `lm_train_d16`'s and
-`lm_train_d32`'s; K2-tf32, K3-tf32 and K4-tf32 at D 16, 32 and 64 are
-entries of their own, `lm_parity`'s at D 16 and 32 and `lm_train_f32`'s
-at D 64; K2-K4 report float32 at D 128 first, with float32 at D 16, 32
-and 64 and bf16 at D 16, 32 and 64 (and K4 at 128) beside, their
-launches from `lm_parity` at D 128; the delta pass also its launches in
-`lm_train_d16`, `lm_train_d32`, `lm_train_f32` and `lm_parity`, and its
-float32 times), the nvidia-smi line, and last the `ok` line.
+`lm_train_d32`'s, and K2' and K3' at D 128, `lm_train_d128`'s; K2-tf32,
+K3-tf32 and K4-tf32 at each D are entries of their own, `lm_parity`'s at
+D 16 and 32, `lm_train_f32`'s at D 64 and `lm_train_f32_d128`'s at D 128;
+K2-K4 report float32 at D 128 first, with float32 at D 16, 32 and 64 and
+bf16 at D 16, 32 and 64 (and K4 at 128) beside, their launches from
+`lm_train_f32_d128` (K3's; no route takes K2 or K4 there), `lm_parity`'s
+beside; the delta pass also its launches in `lm_train_d16`,
+`lm_train_d32`, `lm_train_f32`, `lm_train_f32_d128` and `lm_parity`, and
+its float32 times), the nvidia-smi line, and last the `ok` line.
 
 It exits non-zero without a result where CUDA is unavailable, and where
 the port's package is absent.
@@ -569,7 +589,7 @@ LM_PARAMS = "vocab=8192;num_layers=4;dim=512;heads=8;max_len=1024"
 LM_LAYERS, LM_BATCH, LM_T, LM_VOCAB, LM_DIM = 4, 8, 1024, 8192, 512
 LM_SMALL = "vocab=64;num_layers=2;dim=64;heads=4;max_len=64"
 # the small float32 LM at D 16 (LM_SMALL), 32 (K2-tf32, K3-tf32, K4-tf32)
-# and 128 (K2, K3 and K4): `lm_parity`'s configurations
+# and 128 (K2-tf32, K3, K4-tf32): `lm_parity`'s configurations
 LM_PARITY = {16: LM_SMALL,
              32: "vocab=64;num_layers=2;dim=64;heads=2;max_len=64",
              128: "vocab=64;num_layers=2;dim=256;heads=2;max_len=64"}
@@ -1007,10 +1027,12 @@ FWD16, FWD32 = "flash_fwd_sm90<D=16>", "flash_fwd_sm90<D=32>"
 DKV16, DKV32 = "flash_bwd_dkv_sm90<D=16>", "flash_bwd_dkv_sm90<D=32>"
 DQ16, DQ32 = "flash_bwd_dq_sm90<D=16>", "flash_bwd_dq_sm90<D=32>"
 NARROW = {16: (FWD16, DKV16, DQ16), 32: (FWD32, DKV32, DQ32)}
+# K2' and K3' at D 128, entries of their own
+FWD128, DQ128 = "flash_fwd_sm90<D=128>", "flash_bwd_dq_sm90<D=128>"
 # K2-tf32, K3-tf32 and K4-tf32 (float32, 3xTF32 products) at each head
-# dim they take
-TF32 = {d: f"flash_fwd_tf32_sm90<D={d}>" for d in (16, 32, 64)}
-DQ_TF32 = {d: f"flash_bwd_dq_tf32_sm90<D={d}>" for d in TF32}
+# dim they take (float32 at D 128: K2-tf32, K3 and K4-tf32)
+TF32 = {d: f"flash_fwd_tf32_sm90<D={d}>" for d in (16, 32, 64, 128)}
+DQ_TF32 = {d: f"flash_bwd_dq_tf32_sm90<D={d}>" for d in (16, 32, 64)}
 DKV_TF32 = {d: f"flash_bwd_dkv_tf32_sm90<D={d}>" for d in TF32}
 # name: (source, the TPU kernel's pallas_call it replaces)
 ATTN_KERNELS = {
@@ -1023,8 +1045,10 @@ ATTN_KERNELS = {
     "flash_bwd_dkv_sm90": (f"{CSRC}/flash_attention_sm90.cu",
                            f"{PALLAS}:433"),
     # K4' at D 128: the same wrapper and source, one consumer warpgroup a
-    # block
+    # block; K2' and K3' at D 128, their N 128 products
     DKV128: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:433"),
+    FWD128: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:256"),
+    DQ128: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:404"),
     # K2' and K4' at D 16 and 32: the same wrappers and source, 32- and
     # 64-byte swizzled rows, N 16 and 32 products into O, dK and dV
     FWD16: (f"{CSRC}/flash_attention_sm90.cu", f"{PALLAS}:256"),
@@ -1217,8 +1241,9 @@ def phase_attn_kernel(dev):
          False),
         ("f32_d64_fully_masked_kv_offset_1024", small[:4] + (64, f32), True,
          0, 1024, False),
-        # K2, K3 and K4 at float32 D 128, the input they keep: the bf16
-        # D 128 cases' twins and lm_parity's shape (B8 T32 H2)
+        # float32 D 128, the mixed route (K2-tf32; K3, the delta pass and
+        # K4-tf32): the bf16 D 128 cases' twins and lm_parity's shape (B8
+        # T32 H2)
         ("f32_d128_offsets_64_32", twin128[:4] + (128, f32), True, 64, 32,
          False),
         ("f32_d128_not_causal_tq100_tk230", (2, 100, 230, 2, 128, f32),
@@ -1260,8 +1285,8 @@ def phase_attn_kernel(dev):
         again = fa.flash_bwd(q, k, v, out, dout, lse, glse, *args)
         torch.cuda.synchronize()
         # bf16 takes K2', K3' and K4' at D 16, 32, 64 and 128, float32
-        # K2-tf32, K3-tf32 and K4-tf32 at D 16, 32 and 64, each backward
-        # with one delta pass
+        # K2-tf32, K3-tf32 and K4-tf32 at D 16, 32 and 64 and K2-tf32, K3
+        # and K4-tf32 at D 128, each backward with one delta pass
         fwd_kernel, bwd_kernels = fa.route(dtype, d)
         dq_kernel, dkv_kernel = bwd_kernels[:2]
         hopper = fwd_kernel == fa.FWD_SM90
@@ -1279,15 +1304,16 @@ def phase_attn_kernel(dev):
         out_tol = (2e-5, 2e-5) if is_f32 else bf16_tol
         grad_tol = (5e-5, 5e-5) if is_f32 else bf16_tol
         # each kernel's entry on the `kernels` line: K2', K3' and K4' at
-        # D 16 and 32, K4' at D 128 and K2-tf32, K3-tf32 and K4-tf32 at
-        # each D have entries of their own
+        # D 16, 32 and 128 and K2-tf32, K3-tf32 and K4-tf32 at each D
+        # have entries of their own (K3 keeps dQ at float32 D 128)
         fwd_entry, dq_entry, dkv = fwd_kernel, dq_kernel, dkv_kernel
         if hopper and d in NARROW:
             fwd_entry, dkv, dq_entry = NARROW[d]
         elif hopper and d == 128:
-            dkv = DKV128
+            fwd_entry, dq_entry, dkv = FWD128, DQ128, DKV128
         elif fwd_kernel == fa.FWD_TF32:
-            fwd_entry, dq_entry, dkv = TF32[d], DQ_TF32[d], DKV_TF32[d]
+            fwd_entry, dkv = TF32[d], DKV_TF32[d]
+            dq_entry = DQ_TF32.get(d, dq_kernel)
         checks = {
             fwd_entry: [over_tol(out, want_out, *out_tol),
                         over_tol(lse, want_lse, 2e-5, 2e-5)],
@@ -1436,7 +1462,7 @@ def attn_times(dev, report, worst, smi):
               for dtype, dim in ((torch.float32, 64), (torch.bfloat16, 16),
                                  (torch.bfloat16, 32), (torch.float32, 16),
                                  (torch.float32, 32), (torch.float32, 128))}
-    d128, k4_d128 = d128_times(dev, worst)
+    d128, k4_d128, d128_fwd_dq = d128_times(dev, worst)
     narrow = {}
     for dim in NARROW:
         narrow.update(narrow_times(dev, worst, dim,
@@ -1450,10 +1476,10 @@ def attn_times(dev, report, worst, smi):
          timed_dtype="bfloat16", kernels=result, whole_backward=bwd,
          faster=faster, served=served, d128=d128, k4_d128=k4_d128,
          narrow=narrow, tf32=tf32, tf32_backward=tf32_bwd)
-    # K2-K4 report first the input they serve, float32 at D 128 (K2-tf32,
-    # K3-tf32 and K4-tf32 take float32 at D 16, 32 and 64); their float32
-    # and bf16 times at the other widths (the tensor-core kernels take
-    # those) beside
+    # K2-K4 report first float32 at D 128 (where K3 serves beside K2-tf32
+    # and K4-tf32, and K2 and K4 are the yardstick: no route takes them on
+    # the LMs' inputs); their float32 and bf16 times at the other widths
+    # (the tensor-core kernels take those) beside
     for kernel in (fa.FWD, fa.BWD_DQ, fa.BWD_DKV):
         on_bf16_d64 = result[kernel]
         result[kernel] = {
@@ -1471,6 +1497,7 @@ def attn_times(dev, report, worst, smi):
         }
     result[fa.BWD_DKV]["on_bfloat16_d128"] = k4_d128
     result[DKV128] = d128
+    result.update(d128_fwd_dq)
     result.update(narrow)
     result.update(tf32)
     for dim, entries in tf32_bwd.items():
@@ -1540,17 +1567,19 @@ def tf32_times(dev, worst, d, served):
 
 
 def tf32_bwd_times(dev, worst, d, served):
-    """K3-tf32 and K4-tf32 at D `d` (float32 B8 T1024 H8, causal): each
-    held to its plain version (gradients 5e-5 with atol 5e-5 of the
-    largest value) and to itself over two runs; its ms (CUDA events, alone
-    and with the delta pass), device ms (profiler), plain ms and bound
-    beside K3 or K4 through its launcher on the same inputs (held to the
-    plain version too; its ms from `served`, `served_times`, and its
-    device ms) and SDPA's memory-efficient backward (dq, dk and dv in one
-    call; its ms and device ms from `served`); and the float32 delta pass
-    held to its plain version (2e-5), its ms, device ms, plain ms and
-    bound. Returns {entry name: its fields}, the delta pass's under
-    BWD_DELTA_SM90."""
+    """K3-tf32 (D 16, 32, 64) and K4-tf32 at D `d` (float32 B8 T1024 H8,
+    causal): each held to its plain version (gradients 5e-5 with atol
+    5e-5 of the largest value) and to itself over two runs; its ms (CUDA
+    events, alone and with the delta pass), device ms (profiler), plain
+    ms and bound beside K3 or K4 through its launcher on the same inputs
+    (held to the plain version too; its ms from `served`,
+    `served_times`, and its device ms) and SDPA's memory-efficient
+    backward (dq, dk and dv in one call; its ms and device ms from
+    `served`); the float32 delta pass held to its plain version (2e-5),
+    its ms, device ms, plain ms and bound; at D 64 and 128 the whole
+    backward (`flash_bwd`: at D 128 K3, the delta pass and K4-tf32)
+    against SDPA's. Returns {entry name: its fields}, the delta pass's
+    under BWD_DELTA_SM90."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
 
     b, t, h = LM_BATCH, LM_T, 8
@@ -1561,24 +1590,24 @@ def tf32_bwd_times(dev, worst, d, served):
     # entry: (its launch, its plain version, its kernel, the CUDA-core
     # kernel it replaces here and that kernel's launch, the launcher that
     # runs the delta pass first)
-    calls = {
-        DQ_TF32[d]: (
+    calls = {}
+    if d in DQ_TF32:            # at D 128 K3 keeps dQ
+        calls[DQ_TF32[d]] = (
             lambda: (fa.launch_dq_sm90(q, k, v, dout, lse, delta, *args,
                                        fa.BWD_DQ_TF32),),
             lambda: (fa.flash_bwd_dq_plain(q, k, v, out, dout, lse),),
             fa.BWD_DQ_TF32, fa.BWD_DQ,
             lambda: (fa.launch_bwd_dq(q, k, v, out, dout, lse, None, *args,
                                       fa.BWD_DQ),),
-            fa.launch_bwd_dq),
-        DKV_TF32[d]: (
-            lambda: fa.launch_dkv_sm90(q, k, v, dout, lse, delta, *args,
-                                       fa.BWD_DKV_TF32),
-            lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse),
-            fa.BWD_DKV_TF32, fa.BWD_DKV,
-            lambda: fa.launch_bwd_dkv(q, k, v, out, dout, lse, None, *args,
-                                      fa.BWD_DKV),
-            fa.launch_bwd_dkv),
-    }
+            fa.launch_bwd_dq)
+    calls[DKV_TF32[d]] = (
+        lambda: fa.launch_dkv_sm90(q, k, v, dout, lse, delta, *args,
+                                   fa.BWD_DKV_TF32),
+        lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse),
+        fa.BWD_DKV_TF32, fa.BWD_DKV,
+        lambda: fa.launch_bwd_dkv(q, k, v, out, dout, lse, None, *args,
+                                  fa.BWD_DKV),
+        fa.launch_bwd_dkv)
     result = {}
     for name, (run_kernel, run_plain, kernel, old, run_old,
                launch) in calls.items():
@@ -1637,7 +1666,7 @@ def tf32_bwd_times(dev, worst, d, served):
         "device_ms": device_ms(run_delta, (symbol,))[symbol],
         "plain_ms": time_ms(run_plain, groups=5, per_group=3),
         "bound_ms": bound_ms, "bound_by": bound_by}
-    if d == 64:     # the float32 LM's width: the whole backward and SDPA's
+    if d in (64, 128):  # the float32 LMs' widths: the whole backward
         result[DKV_TF32[d]]["whole_backward"] = whole_backward(
             q, k, v, out, dout, lse)
     return result
@@ -1779,8 +1808,11 @@ def d128_times(dev, worst):
     and to itself over two runs, its ms (CUDA events, alone and with the
     delta pass), device ms (profiler), plain ms and bound beside SDPA's
     backward (flash) on the same inputs, and the whole backward against
-    SDPA's in turns; and K4 on the same inputs through its launcher, held
-    to the plain version too. Returns (K4''s entry, K4's)."""
+    SDPA's in turns; K4 on the same inputs through its launcher, held to
+    the plain version too; and K2' and K3' on the same inputs the same
+    way (K3' also with the delta pass) beside SDPA's flash forward and
+    whole backward. Returns (K4''s entry, K4's, {K2''s and K3''s entry
+    names: their fields})."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
 
     b, t, h, d = LM_BATCH, LM_T, 8, 128
@@ -1838,7 +1870,50 @@ def d128_times(dev, worst):
         "k4_prime_with_delta_under_k4": entry["ms_with_delta_pass"]
         < k4["ms"],
         "whole_backward_under_sdpa": bwd["ms"] < bwd["sdpa_ms"]}
-    return entry, k4
+    lib_fwd, _, lib_fwd_dev, _ = sdpa_ms(q, k, v, dout)
+    fwd_dq = {}
+    for name, kernel, run_kernel, run_plain in (
+            (FWD128, fa.FWD_SM90,
+             lambda: fa.launch_fwd(q, k, v, True, 0, 0, fa.FWD_SM90),
+             lambda: fa.flash_fwd_plain(q, k, v)),
+            (DQ128, fa.BWD_DQ_SM90,
+             lambda: (fa.launch_dq_sm90(q, k, v, dout, lse, delta, True, 0,
+                                        0),),
+             lambda: (fa.flash_bwd_dq_plain(q, k, v, out, dout, lse),))):
+        got, again = run_kernel(), run_kernel()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{name} differs between two runs")
+        want = run_plain()
+        results = [over_tol(g, w, *KERNEL_TOL) for g, w in zip(got, want)]
+        fwd = name == FWD128
+        if fwd:                         # lse: float32 on both sides
+            results[1] = over_tol(got[1], want[1], 2e-5, 2e-5)
+        err, ratio = max(r[0] for r in results), max(r[1] for r in results)
+        if ratio > 1.0:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at bf16 D 128 ({ratio})")
+        worst[name] = [max(worst[name][0], err), max(worst[name][1], ratio)]
+        bound_ms, bound_by = attn_bound(b, t, h, d, 2, kernel)
+        symbol = f"{kernel}_kernel"
+        fwd_dq[name] = {
+            "timed_on": entry["timed_on"],
+            "max_abs_err": worst[name][0], "err_over_tol": worst[name][1],
+            "ms": time_ms(run_kernel),
+            "device_ms": device_ms(run_kernel, (symbol,))[symbol],
+            "plain_ms": time_ms(run_plain, groups=5, per_group=3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_fwd if fwd else bwd["sdpa_ms"],
+            "library_device_ms": lib_fwd_dev if fwd
+            else bwd["sdpa_device_ms"],
+            "library": "scaled_dot_product_attention forward, flash backend"
+            if fwd else entry["library"],
+        }
+        if not fwd:
+            fwd_dq[name]["ms_with_delta_pass"] = time_ms(
+                lambda: fa.launch_bwd_dq(q, k, v, out, dout, lse, None, True,
+                                         0, 0, fa.BWD_DQ_SM90))
+    return entry, k4, fwd_dq
 
 
 def sdpa_backend(dtype):
@@ -1938,7 +2013,7 @@ def phase_lm_parity():
     """The small float32 LM on the card against the CPU at each head dim
     of LM_PARITY; returns {D: the flash kernels' launches in its card
     step} (K2-tf32, K3-tf32, K4-tf32 and the delta pass at D 16 and 32;
-    K2, K3 and K4 at D 128)."""
+    K2-tf32, K3, K4-tf32 and the delta pass at D 128)."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
     from elasticdl_tpu_torch.training.trainer import Trainer
 
@@ -3510,6 +3585,23 @@ def phase_lm_train_f32(smi):
         LM_PARAMS, "lm_train_f32", smi, steps=LM_F32_STEPS, dtype="float32")
     emit("lm_train_f32", **fields, head_dim=head_dim(LM_PARAMS))
     phase_profile(trainer, state, batch, fields["step_ms"], model="lm_f32")
+    return launches
+
+
+def phase_lm_train_f32_d128(smi):
+    """The LM at `lm_train`'s width with 128-wide heads (LM_D128_PARAMS)
+    in float32 on `lm_train`'s batch: a warm-up step and LM_F32_STEPS
+    timed train steps, eval and predict, as `lm_variant_train` holds
+    them: finite falling losses; K2-tf32, K3, K4-tf32 and the delta pass
+    4 times a train step, K2-tf32 4 times in each of eval and predict,
+    and K2, K4, K2', K3', K4' and K3-tf32 never. Then its profile, as in
+    `profile`. Returns the flash kernels' launches."""
+    trainer, state, batch, fields, launches = lm_variant_train(
+        LM_D128_PARAMS, "lm_train_f32_d128", smi, steps=LM_F32_STEPS,
+        dtype="float32")
+    emit("lm_train_f32_d128", **fields, head_dim=head_dim(LM_D128_PARAMS))
+    phase_profile(trainer, state, batch, fields["step_ms"],
+                  model="lm_f32_d128")
     return launches
 
 
@@ -5882,8 +5974,10 @@ def phase_build():
               + [(2, "flash_bwd_dq_sm90_kernel", d)
                  for d in (16, 32, 64, 128)]
               + [(3, "flash_fwd_tf32_sm90_kernel", d) for d in TF32]
-              + [(4, "flash_bwd_dkv_tf32_sm90_kernel", d) for d in TF32]
-              + [(5, "flash_bwd_dq_tf32_sm90_kernel", d) for d in TF32])
+              + [(4, "flash_bwd_dkv_tf32_sm90_kernel", d)
+                 for d in DKV_TF32]
+              + [(5, "flash_bwd_dq_tf32_sm90_kernel", d)
+                 for d in DQ_TF32])
     shared = {f"{name}<D={d}>": sm90.flash_sm90_shared_bytes(which, d)
               for which, name, d in hopper}
     ptxas = {k: ptxas_summary(v["log"]) for k, v in built.items()}
@@ -5899,8 +5993,8 @@ def phase_build():
     # and K4-tf32 are laid out so that ptxas spills nothing; the delta
     # pass is built at every width and dtype the backward kernels take
     for kernel in ("flash_bwd_dkv_sm90_kernel<D=128>",
-                   *(f"flash_{k}_tf32_sm90_kernel<D={d}>"
-                     for k in ("fwd", "bwd_dq", "bwd_dkv") for d in TF32),
+                   *(f"{name}<D={d}>" for _, name, d in hopper
+                     if "tf32" in name),
                    "flash_fwd_sm90_kernel<D=16>",
                    "flash_fwd_sm90_kernel<D=32>",
                    "flash_bwd_dkv_sm90_kernel<D=16>",
@@ -5949,6 +6043,8 @@ def main():
     lm_launches = timed("lm_train", phase_lm_train, smi)
     f32_launches = timed("lm_train_f32", phase_lm_train_f32, smi)
     d128_launches = timed("lm_train_d128", phase_lm_train_d128, smi)
+    f32_d128_launches = timed("lm_train_f32_d128", phase_lm_train_f32_d128,
+                              smi)
     d16_launches = timed("lm_train_d16", phase_lm_train_narrow, smi,
                          LM_D16_PARAMS)
     d32_launches = timed("lm_train_d32", phase_lm_train_narrow, smi,
@@ -5984,11 +6080,12 @@ def main():
     f32_lm_launches = {name: sum(c[name] for c in parity_launches.values())
                        for name in fa.launches}
     # the float32 LMs' steps: the small ones at D 16 and 32 (lm_parity),
-    # the full-width one at D 64 (lm_train_f32)
-    tf32_launches = {d: (parity_launches[d] if d in parity_launches
-                         else f32_launches) for d in TF32}
-    tf32_in = {d: (f"lm_parity_d{d}" if d in parity_launches
-                   else "lm_train_f32") for d in TF32}
+    # the full-width ones at D 64 (lm_train_f32) and 128
+    # (lm_train_f32_d128)
+    tf32_runs = {16: ("lm_parity_d16", parity_launches[16]),
+                 32: ("lm_parity_d32", parity_launches[32]),
+                 64: ("lm_train_f32", f32_launches),
+                 128: ("lm_train_f32_d128", f32_d128_launches)}
     print(json.dumps({"kernels": [{
         "name": placement.KERNEL,
         "route": "cuda",
@@ -6045,22 +6142,27 @@ def main():
         "route": "cuda",
         "source": ATTN_KERNELS[name][0],
         "replaces": ATTN_KERNELS[name][1],
-        # K2-K4 serve the float32 LM's steps at D 128 (lm_parity); the
+        # K3 serves the float32 LMs' steps at D 128 (lm_train_f32_d128,
+        # beside lm_parity's), where no route takes K2 or K4 any more; the
         # Hopper kernels the
         # bf16 LM's train, eval and predict steps (lm_train), and those of
         # the MoE and pipelined LMs, the MoE job, the in-process ring and
         # Ulysses (ring_attn), the seq mesh's and ring LM's steps
         # (seq_train), and both schedules and the ring LM over head
         # groups (seq_mix)
-        "launches": (f32_lm_launches[name] if name in f32_lm
+        "launches": (f32_d128_launches[name] if name in f32_lm
                      else lm_launches[name]),
-        "launches_in": "lm_parity" if name in f32_lm else "lm_train",
+        "launches_in": "lm_train_f32_d128" if name in f32_lm
+        else "lm_train",
+        **({"lm_parity_launches": f32_lm_launches[name]}
+           if name in f32_lm else {}),
         # the bf16 LMs with 16- and 32-wide heads and the float32 LMs: the
         # delta pass beside K2', K3', K4', K3-tf32 and K4-tf32 (entries of
         # their own below)
         **({"lm_train_d16_launches": d16_launches[name],
             "lm_train_d32_launches": d32_launches[name],
             "lm_train_f32_launches": f32_launches[name],
+            "lm_train_f32_d128_launches": f32_d128_launches[name],
             "lm_parity_launches": f32_lm_launches[name]}
            if name == fa.BWD_DELTA_SM90 else {}),
         **({} if name in f32_lm else
@@ -6078,15 +6180,18 @@ def main():
         **attn[name],
     } for name in (fa.FWD, fa.FWD_SM90, fa.BWD_DQ, fa.BWD_DQ_SM90,
                    fa.BWD_DKV, fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90)] + [{
-        "name": DKV128,
+        "name": entry,
         "route": "cuda",
-        "source": ATTN_KERNELS[DKV128][0],
-        "replaces": ATTN_KERNELS[DKV128][1],
-        # K4' launches at D 128 come from the LM with 128-wide heads only
-        "launches": d128_launches[fa.BWD_DKV_SM90],
+        "source": ATTN_KERNELS[entry][0],
+        "replaces": ATTN_KERNELS[entry][1],
+        # K4', K2' and K3' launches at D 128 come from the bf16 LM with
+        # 128-wide heads only
+        "launches": d128_launches[kernel],
         "launches_in": "lm_train_d128",
-        **attn[DKV128],
-    }] + [{
+        **attn[entry],
+    } for entry, kernel in ((DKV128, fa.BWD_DKV_SM90),
+                            (FWD128, fa.FWD_SM90),
+                            (DQ128, fa.BWD_DQ_SM90))] + [{
         "name": entry,
         "route": "cuda",
         "source": ATTN_KERNELS[entry][0],
@@ -6104,14 +6209,14 @@ def main():
         "source": ATTN_KERNELS[entries[d]][0],
         "replaces": ATTN_KERNELS[entries[d]][1],
         # K2-tf32, K3-tf32 and K4-tf32 come from the float32 LMs: the
-        # small ones at D 16 and 32 (lm_parity), the full-width one at D 64
-        # (train, eval, predict)
-        "launches": tf32_launches[d][kernel],
-        "launches_in": tf32_in[d],
+        # small ones at D 16 and 32 (lm_parity), the full-width ones at D
+        # 64 and 128 (train, eval, predict)
+        "launches": tf32_runs[d][1][kernel],
+        "launches_in": tf32_runs[d][0],
         **attn[entries[d]],
     } for entries, kernel in ((TF32, fa.FWD_TF32), (DQ_TF32, fa.BWD_DQ_TF32),
                               (DKV_TF32, fa.BWD_DKV_TF32))
-        for d in TF32]}), flush=True)
+        for d in entries]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

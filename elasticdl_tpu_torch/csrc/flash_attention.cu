@@ -5,9 +5,10 @@
 // by `_flash_fwd`), `_bwd_dq_kernel` and `_bwd_dkv_kernel` (launched by
 // `_flash_bwd`), the Pallas TPU kernels behind every attention of the
 // transformer LM, for the inputs the tensor-core kernels of
-// csrc/flash_attention_sm90.cu do not take: float32 at any head dim, and
-// bfloat16 at head dims other than 64 and 128. bfloat16 at D 64 (the
-// LM's attention) and D 128 runs K2', K3' and K4' there.
+// csrc/flash_attention_sm90.cu do not take: float32 and bfloat16 at head
+// dims other than 16, 32, 64 and 128, and dQ (K3) for float32 at D 128.
+// bfloat16 at those four runs K2', K3' and K4' there, float32 K2-tf32,
+// K3-tf32 and K4-tf32 (at D 128 K2-tf32 and K4-tf32, beside K3 here).
 //
 // Contract (see ops/flash_attention.py): q (B, Tq, H, D), k and v
 // (B, Tk, H, D), out and dout like q, all float32 or all bfloat16, read in

@@ -1,14 +1,14 @@
 // Flash attention on Hopper's tensor cores: the forward (K2'), dQ (K3') and
 // dK/dV (K4') for bfloat16 with D = 16, 32, 64 or 128, the pass that
 // writes the delta K3' and K4' read (bfloat16 and float32), and for
-// float32 with D = 16, 32 or 64 the forward (K2-tf32), dQ (K3-tf32) and
-// dK/dV (K4-tf32) in 3xTF32 products.
+// float32 the forward (K2-tf32) and dK/dV (K4-tf32) with D = 16, 32, 64
+// or 128 and dQ (K3-tf32) with D = 16, 32 or 64, in 3xTF32 products.
 //
 // Replaces, for those inputs, elasticdl_tpu/ops/pallas_attention.py
 // `_fwd_kernel` (`pallas_call` at 256), `_bwd_dq_kernel` (`pallas_call` at
 // 404) and `_bwd_dkv_kernel` (`pallas_call` at 433). csrc/flash_attention.cu
-// keeps every other case (float32 at D 128 and other head dims, bfloat16
-// at other head dims).
+// keeps every other case (dQ for float32 at D 128, float32 and bfloat16 at
+// other head dims).
 //
 // Contract: that of ops/flash_attention.py, unchanged. q (B, Tq, H, D),
 // k and v (B, Tk, H, D), dout like q, read in place through (b, t, h)
@@ -129,8 +129,11 @@
 //   of 12 products: all of them beside O spilled 64 bytes at 168
 //   registers). Every operand's descriptor is its tile's base descriptor
 //   plus a constant. Shared memory at D 64: Q hi + lo 64 KB, a stage
-//   5 x 16 KB, two stages: 224 KB of 227 (D 128 would need 5 x 32 KB a
-//   stage and stays on K2).
+//   5 x 16 KB, two stages: 224 KB of 227. At D 128 a 64-row stage alone
+//   is 160 KB: the block is one consumer warpgroup of 64 q rows (Q hi +
+//   lo 64 KB) over two stages of 32 kv rows (5 x 16 KB each), 256 threads
+//   for which ptxas allows 255 registers (O is 64 floats a thread); S is
+//   m64n32k8, P.V m64n128k8 over V^T's 128-byte rows (`FwdTf32Shape`).
 // - K4-tf32 and K3-tf32, K4' and K3' for float32, with K2-tf32's split
 //   and producer warpgroup. K4-tf32: S^T = K.Q^T and dP^T = V.dO^T with K
 //   and V as A and the streamed Q and dO as B, all K-major as TMA lands
@@ -149,7 +152,13 @@
 //   and dV take 2 x 32 floats at D 64, the split fragments 64 words), in
 //   two blocks a SM at D 16; K3-tf32 two, which share each K/V stage's
 //   split and overlap each other's softmax (`DkvTf32Shape`,
-//   `DqTf32Shape`). They read the float32 delta pass's delta.
+//   `DqTf32Shape`). They read the float32 delta pass's delta. At D 128
+//   K4-tf32's resident K and V take 128 KB, so it streams one stage of 16
+//   q rows (64 KB): S^T and dP^T are m64n16k8, dV and dK m64n128k8 over
+//   64-byte transposed rows; the next tile's Q and dO land in a 16 KB
+//   buffer beside the stage while this one's products run, and are split
+//   into the stage once it is consumed. K3 keeps dQ there (float32 FMAs,
+//   csrc/flash_attention.cu).
 // Tensor maps are built on the host over each tensor's strides; the
 // encoder comes from the CUDA runtime's entry-point lookup (no -lcuda).
 
@@ -243,8 +252,9 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
 // their layout type (3, 2 or 1: cute's GMMA::LayoutType B32, B64, B128).
 template <int kD>
 struct Cols {
-  static_assert(kD == 16 || kD == 32 || kD == 64 || kD == 128,
-                "the Hopper kernels are built at D 16, 32, 64 and 128");
+  static_assert(kD == 16 || kD == 32 || kD == 64 || kD == 128 || kD == 256,
+                "the Hopper kernels are built at D 16, 32, 64 and 128 (a "
+                "float32 row of D 128 has the bytes of 256 bf16 columns)");
   static constexpr int kCols = kD < 64 ? kD : 64;
   static constexpr int kRowBytes = 2 * kCols;
   static constexpr int kBlocks = kD / kCols;
@@ -723,9 +733,9 @@ __device__ __forceinline__ void fence_async_smem() {
 // index XOR the row group bits 7-9 or 7-8), from a 1024-aligned base.
 template <int kRowBytes>
 __device__ __forceinline__ uint32_t swizzled(uint32_t o) {
-  static_assert(kRowBytes == 64 || kRowBytes == 128,
-                "K2-tf32 reads 64- and 128-byte rows");
-  constexpr uint32_t kMask = kRowBytes == 128 ? 7u : 3u;
+  static_assert(kRowBytes == 32 || kRowBytes == 64 || kRowBytes == 128,
+                "the TMA swizzles are 32, 64 and 128 bytes wide");
+  constexpr uint32_t kMask = kRowBytes / 16 - 1;  // Swizzle<1|2|3,4,3>
   return o ^ (((o >> 7) & kMask) << 4);
 }
 
@@ -768,6 +778,51 @@ __device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t a,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 16) = A (64 x 8) . B (8 x 16) + d in TF32: A and B from shared
+// memory, both K-major (K2-tf32's S and K4-tf32's S^T and dP^T over a
+// 16-row tile).
+__device__ __forceinline__ void wgmma_tf32_ss_n16(float (&d)[8], uint64_t a,
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 8) = A (64 x 8) . B (8 x 8) + d in TF32, as wgmma_tf32_ss_n16
+// (K4-tf32's S^T and dP^T over an 8-row tile).
+__device__ __forceinline__ void wgmma_tf32_ss_n8(float (&d)[4], uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x kN) = A . B + d in TF32, both from shared memory, K-major: the
+// products over a streamed tile of kN rows.
+template <int kN>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[kN / 2], uint64_t a,
+                                              uint64_t b) {
+  static_assert(kN == 8 || kN == 16 || kN == 32 || kN == 64,
+                "wgmma_tf32_ss is written for N = 8, 16, 32 and 64");
+  if constexpr (kN == 8) {
+    wgmma_tf32_ss_n8(d, a, b);
+  } else if constexpr (kN == 16) {
+    wgmma_tf32_ss_n16(d, a, b);
+  } else if constexpr (kN == 32) {
+    wgmma_tf32_ss_n32(d, a, b);
+  } else {
+    wgmma_tf32_ss_n64(d, a, b);
+  }
 }
 
 // d (64 x 16) += A (64 x 8) . B (8 x 16) in TF32: A from registers (a
@@ -825,19 +880,57 @@ __device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// d (64 x kD) += A . B in TF32 with N = kD: the products into O.
+// d (64 x 128) += A (64 x 8) . B (8 x 128) in TF32, as wgmma_tf32_rs_n16.
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x kD) += A . B in TF32 with N = kD: the products into O, dQ, dK
+// and dV.
 template <int kD>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[kD / 2],
                                               const uint32_t (&a)[4],
                                               uint64_t b) {
-  static_assert(kD == 16 || kD == 32 || kD == 64,
-                "the TF32 kernels are built at D 16, 32 and 64");
+  static_assert(kD == 16 || kD == 32 || kD == 64 || kD == 128,
+                "the TF32 kernels are built at D 16, 32, 64 and 128");
   if constexpr (kD == 16) {
     wgmma_tf32_rs_n16(d, a, b);
   } else if constexpr (kD == 32) {
     wgmma_tf32_rs_n32(d, a, b);
-  } else {
+  } else if constexpr (kD == 64) {
     wgmma_tf32_rs_n64(d, a, b);
+  } else {
+    wgmma_tf32_rs_n128(d, a, b);
   }
 }
 
@@ -858,28 +951,52 @@ __device__ __forceinline__ int pv_slot(int kv) {
   return (kv & ~7) | ((kv & 1) << 2) | ((kv & 7) >> 1);
 }
 
-constexpr int kTf32Threads = 128 * (kConsumers + 1);  // + a producer wg
 constexpr int kSplitThreads = 96;  // the producer wg's warps 1-3
+
+// K2-tf32's block: `consumers` warpgroups of 64 q rows and a producer
+// warpgroup (warp 0 loads by TMA, warps 1-3 split) over K/V tiles of
+// `stream` rows, in a ring of `ring` stages.
+template <int consumers, int stream, int ring>
+struct FwdTf32Block {
+  static constexpr int kConsumers = consumers;
+  static constexpr int kStream = stream;
+  static constexpr int kRing = ring;
+  static constexpr int kThreads = 128 * (consumers + 1);
+  static constexpr int kRows = 64 * consumers;
+};
+
+// D 16, 32 and 64: two consumer warpgroups over 64-row tiles, two stages
+// (384 threads, 168 registers a thread). D 128: one consumer warpgroup
+// over 32-row tiles, two stages (256 threads, for which ptxas allows 255
+// registers: O alone is 64 floats a thread), in 230,464 bytes; two
+// warpgroups over one 32-row stage or two 16-row stages fit too
+// (214,056 and 214,080 bytes; sm90_layouts.py times them).
+template <int kD>
+using FwdTf32Shape =
+    FwdTf32Block<(kD == 128 ? 1 : 2), (kD == 128 ? 32 : 64), 2>;
 
 // K2-tf32's shared memory at head dim kD. A float32 row of kD dims has the
 // bytes of a bf16 row of 2 kD, so Cols<2 kD> lays out Q, K and V as TMA
 // lands them (D 16: one 64-byte row in the 64-byte swizzle; D 32 one
-// 128-byte row; D 64 two 128-byte column blocks), and one k8 TF32 step is
-// 32 bytes, as one k16 bf16 step is. V^T (kD rows of 64 kv floats) is
-// Cols<128>: two 128-byte column blocks of 32 kv.
+// 128-byte row; D 64 two 128-byte column blocks, D 128 four), and one k8
+// TF32 step is 32 bytes, as one k16 bf16 step is. V^T (kD rows of the
+// tile's kStream kv floats) is Cols<2 kStream>: at 64 kv two 128-byte
+// column blocks of 32 kv, at 32 one, at 16 one 64-byte row.
 template <int kD>
 struct Tf32Layout {
+  using S = FwdTf32Shape<kD>;
   using C = Cols<2 * kD>;
-  // k8 steps of P.V a commit group: all eight at D 16 and 32; at D 64 four
-  // twice, so that p's hi and lo fragments of one group (32 registers, not
-  // 64) beside O's 32 fit 168 registers without a spill
-  static constexpr int kPvSteps = kD == 64 ? 4 : 8;
-  // its ring depth, pinned at two: two stages fill 230,464 of the 232,448
-  // bytes a block may take at D 64, which leaves no room for a third
-  // (another 81,920 bytes)
-  static constexpr int kRing = 2;
-  static constexpr int kQBytes = kBlockRows * kD * 4;     // each of hi, lo
-  static constexpr int kTileBytes = kTileRows * kD * 4;   // each of five
+  // k8 steps of P.V a commit group: all of a tile's at D 16 and 32; at D
+  // 64 four of eight, so that p's hi and lo fragments of one group (32
+  // registers, not 64) beside O's 32 fit 168 registers without a spill
+  static constexpr int kPvGroup = kD >= 64 ? 4 : 8;
+  static constexpr int kPvSteps =
+      kPvGroup < S::kStream / 8 ? kPvGroup : S::kStream / 8;
+  // its ring depth: two stages fill 230,464 of the 232,448 bytes a block
+  // may take at D 64 and 128, which leaves no room for a third
+  static constexpr int kRing = S::kRing;
+  static constexpr int kQBytes = S::kRows * kD * 4;      // each of hi, lo
+  static constexpr int kTileBytes = S::kStream * kD * 4;  // each of five
   // a stage: K (split to hi in place), K lo, V as loaded, V^T hi, V^T lo
   static constexpr int kStageBytes = 5 * kTileBytes;
   static constexpr int kBars = 2 + 3 * kRing;
@@ -888,6 +1005,8 @@ struct Tf32Layout {
 };
 static_assert(Tf32Layout<64>::kBytes <= 232448,
               "K2-tf32 at D 64 must fit a block's 227 KB");
+static_assert(Tf32Layout<128>::kBytes <= 232448,
+              "K2-tf32 at D 128 must fit a block's 227 KB");
 
 // Split the `chunks` 16-byte chunks at `hi` into tf32 hi (in place) and lo
 // (at the same offsets of `lo`): an elementwise map, so the TMA swizzle
@@ -906,39 +1025,68 @@ __device__ __forceinline__ void split_in_place(uint8_t* hi, uint8_t* lo,
   }
 }
 
-// V (64 kv rows of kD floats, as TMA landed it) into V^T hi and lo: kD
-// rows of 64 kv, K-major for the TF32 B operand, kv in `pv_slot` order, in
-// Cols<128>'s swizzle. A warp takes 32 neighbouring kv rows of one 16-byte
-// chunk: its reads hit 8 swizzled chunks a quarter-warp and its 4-byte
-// writes 32 words of one row, so neither conflicts on a bank.
-template <int kD>
+// Word e of a 16-byte chunk held as four, e known at run time (selects,
+// not a local-memory array).
+__device__ __forceinline__ uint32_t pick(const uint32_t (&x)[4], int e) {
+  return e == 0 ? x[0] : e == 1 ? x[1] : e == 2 ? x[2] : x[3];
+}
+
+// Store the split values hs and ls of dims d0 .. d0 + 3 of streamed row
+// `row` (of kRows) into the transposed tiles th and tl: kD rows of kRows
+// values, K-major for a TF32 B operand whose K is the streamed rows, which
+// sit in `pv_slot` order, in Cols<2 kRows>'s column blocks and swizzle.
+// A warp takes 32 rows of one chunk (kRows 32 and 64: its 4-byte writes
+// are 32 words of one row) or all kRows rows of 32 / kRows chunks; then
+// the chunks take the four dims in turns, so that the transposed rows a
+// warp writes at once lie in different banks (rows 4 apart of 64- or
+// 32-byte rows share them).
+template <int kD, int kRows>
+__device__ __forceinline__ void store_transposed(uint8_t* th, uint8_t* tl,
+                                                 int row, int d0, int chunk,
+                                                 const uint32_t (&hs)[4],
+                                                 const uint32_t (&ls)[4]) {
+  using T = Cols<2 * kRows>;
+  constexpr int kTCols = T::kRowBytes / 4;  // values a transposed row block
+  const int slot = pv_slot(row);
+  const int rot = kRows >= 32 ? 0 : chunk & (32 / kRows - 1);
+#pragma unroll
+  for (int e0 = 0; e0 < 4; ++e0) {
+    const int e = (e0 + rot) & 3;
+    const uint32_t o =
+        (slot / kTCols) * kD * T::kRowBytes +
+        swizzled<T::kRowBytes>((d0 + e) * T::kRowBytes + 4 * (slot % kTCols));
+    *reinterpret_cast<uint32_t*>(th + o) = pick(hs, e);
+    *reinterpret_cast<uint32_t*>(tl + o) = pick(ls, e);
+  }
+}
+
+// V (kRows kv rows of kD floats, as TMA landed it) into V^T hi and lo
+// (`store_transposed`). A quarter-warp's 16-byte reads hit 8 swizzled
+// chunks, so they do not conflict on a bank.
+template <int kD, int kRows>
 __device__ __forceinline__ void split_transposed(const uint8_t* v,
                                                  uint8_t* th, uint8_t* tl,
                                                  int t) {
   using C = Cols<2 * kD>;
-  constexpr int kChunks = kTileRows * kD / 4;
+  constexpr int kChunks = kRows * kD / 4;
   for (int c = t; c < kChunks; c += kSplitThreads) {
-    const int kv = c % kTileRows;
-    const int col = 16 * (c / kTileRows);  // byte of the row: dims col / 4..
+    const int kv = c % kRows;
+    const int col = 16 * (c / kRows);  // byte of the row: dims col / 4..
     const uint4 x = *reinterpret_cast<const uint4*>(
-        v + (col / C::kRowBytes) * kTileRows * C::kRowBytes +
+        v + (col / C::kRowBytes) * kRows * C::kRowBytes +
         swizzled<C::kRowBytes>(kv * C::kRowBytes + col % C::kRowBytes));
-    const int slot = pv_slot(kv);
     const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+    uint32_t hs[4], ls[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {   // V^T row col / 4 + e, column `slot`
-      const uint32_t o = (slot / 32) * kD * 128 +
-                         swizzled<128>((col / 4 + e) * 128 + 4 * (slot % 32));
-      uint32_t h, l;
-      split_tf32(__uint_as_float(xs[e]), h, l);
-      *reinterpret_cast<uint32_t*>(th + o) = h;
-      *reinterpret_cast<uint32_t*>(tl + o) = l;
+    for (int e = 0; e < 4; ++e) {
+      split_tf32(__uint_as_float(xs[e]), hs[e], ls[e]);
     }
+    store_transposed<kD, kRows>(th, tl, kv, col / 4, c / kRows, hs, ls);
   }
 }
 
 template <int kD>
-__global__ void __launch_bounds__(kTf32Threads, 1)
+__global__ void __launch_bounds__(FwdTf32Shape<kD>::kThreads, 1)
 flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
@@ -946,9 +1094,11 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                            Strides so, int H, int Tq, int Tk, int q_off,
                            int kv_off, bool causal, float scale) {
   using L = Tf32Layout<kD>;
+  using S = typename L::S;
   using C = typename L::C;
+  constexpr int kRows = S::kRows, kStream = S::kStream;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* qs = align_1024(smem_raw);  // Q, then its hi: kBlocks x [128][..]
+  uint8_t* qs = align_1024(smem_raw);  // Q, then its hi: kBlocks x [rows][..]
   uint8_t* q_lo = qs + L::kQBytes;
   uint8_t* stages = q_lo + L::kQBytes;
   uint64_t* bars =
@@ -961,10 +1111,10 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int b = blockIdx.y / H;
   const int h = blockIdx.y - b * H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockRows;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
   const int n_tiles =
-      (kv_rows_seen(min(Tq, q0 + kBlockRows), Tk, q_off, kv_off, causal) +
-       kTileRows - 1) / kTileRows;
+      (kv_rows_seen(min(Tq, q0 + kRows), Tk, q_off, kv_off, causal) +
+       kStream - 1) / kStream;
 
   if (threadIdx.x == 0) {
     mbar_init(q_bar, 1);
@@ -973,7 +1123,7 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     for (int s = 0; s < L::kRing; ++s) {
       mbar_init(&loaded[s], 1);
       mbar_init(&full[s], kSplitThreads / 32);
-      mbar_init(&empty[s], 4 * kConsumers);
+      mbar_init(&empty[s], 4 * S::kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -981,7 +1131,7 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
-  if (wg == kConsumers) {  // the producer warpgroup
+  if (wg == S::kConsumers) {  // the producer warpgroup
     if (n_tiles == 0) return;
     const int t = threadIdx.x % 128 - 32;
     if (t < 0) {  // warp 0: one thread starts the loads
@@ -989,7 +1139,7 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_expect_tx(q_bar, L::kQBytes);
 #pragma unroll
       for (int a = 0; a < C::kBlocks; ++a) {
-        tma_load(qs + a * kBlockRows * C::kRowBytes, &tq, q_bar,
+        tma_load(qs + a * kRows * C::kRowBytes, &tq, q_bar,
                  C::kRowBytes / 4 * a, q0, h, b);
       }
       for (int j = 0; j < n_tiles; ++j) {
@@ -1001,11 +1151,11 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_expect_tx(&loaded[s], 2 * L::kTileBytes);
 #pragma unroll
         for (int a = 0; a < C::kBlocks; ++a) {
-          const int at = a * kTileRows * C::kRowBytes;
+          const int at = a * kStream * C::kRowBytes;
           tma_load(st + at, &tk, &loaded[s], C::kRowBytes / 4 * a,
-                   j * kTileRows, h, b);
+                   j * kStream, h, b);
           tma_load(st + 2 * L::kTileBytes + at, &tv, &loaded[s],
-                   C::kRowBytes / 4 * a, j * kTileRows, h, b);
+                   C::kRowBytes / 4 * a, j * kStream, h, b);
         }
       }
       return;
@@ -1021,8 +1171,9 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       uint8_t* st = stages + s * L::kStageBytes;
       mbar_wait(&loaded[s], (j / L::kRing) & 1);
       split_in_place(st, st + L::kTileBytes, L::kTileBytes / 16, t);
-      split_transposed<kD>(st + 2 * L::kTileBytes, st + 3 * L::kTileBytes,
-                           st + 4 * L::kTileBytes, t);
+      split_transposed<kD, kStream>(st + 2 * L::kTileBytes,
+                                    st + 3 * L::kTileBytes,
+                                    st + 4 * L::kTileBytes, t);
       fence_async_smem();
       __syncwarp();
       if (lane == 0) mbar_arrive(&full[s]);
@@ -1033,14 +1184,15 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   // a consumer warpgroup: q rows row0 .. row0 + 63, at byte `mine` of each
   // column block of Q's hi and lo
   const int tw = threadIdx.x % 128;
-  const int mine = wg * 64 * C::kRowBytes;
+  const int cw = S::kConsumers == 1 ? 0 : wg;  // 0 at compile time for one
+  const int mine = cw * 64 * C::kRowBytes;
   const int r0 = (tw / 32) * 16 + lane / 4;
   const int c0 = 2 * (lane % 4);
-  const int row0 = q0 + wg * 64;
+  const int row0 = q0 + cw * 64;
   const long long qpos = static_cast<long long>(q_off) + row0 + r0;
   const int n_mine =
       row0 < Tq ? (kv_rows_seen(min(Tq, row0 + 64), Tk, q_off, kv_off,
-                                causal) + kTileRows - 1) / kTileRows
+                                causal) + kStream - 1) / kStream
                 : 0;
 
   const uint64_t q_hi = desc<2 * kD>(qs + mine, 16);
@@ -1058,35 +1210,35 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       // descriptors of K hi and V^T hi; K lo and V^T lo lie one and two
       // tiles past them, Q lo one Q past Q hi
       const uint64_t k_hi = desc<2 * kD>(st, 16);
-      const uint64_t vt_hi = desc<128>(st + 3 * L::kTileBytes, 16);
+      const uint64_t vt_hi = desc<2 * kStream>(st + 3 * L::kTileBytes, 16);
       constexpr uint64_t kLo = L::kTileBytes >> 4, kQLo = L::kQBytes >> 4;
       // S = Q.K^T as Q_lo.K_hi + Q_hi.K_lo + Q_hi.K_hi, k8 steps
-      float sc[32];
+      float sc[kStream / 2];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+      for (int i = 0; i < kStream / 2; ++i) sc[i] = 0.0f;
       pin(sc);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kD / 8; ++kk) {
-        const uint64_t qh = q_hi + kstep_desc<2 * kD>(kBlockRows, kk);
-        const uint64_t kh = k_hi + kstep_desc<2 * kD>(kTileRows, kk);
-        wgmma_tf32_ss_n64(sc, qh + kQLo, kh);
-        wgmma_tf32_ss_n64(sc, qh, kh + kLo);
-        wgmma_tf32_ss_n64(sc, qh, kh);
+        const uint64_t qh = q_hi + kstep_desc<2 * kD>(kRows, kk);
+        const uint64_t kh = k_hi + kstep_desc<2 * kD>(kStream, kk);
+        wgmma_tf32_ss<kStream>(sc, qh + kQLo, kh);
+        wgmma_tf32_ss<kStream>(sc, qh, kh + kLo);
+        wgmma_tf32_ss<kStream>(sc, qh, kh);
       }
       wg_commit();
       wg_wait_all();
       pin(sc);
 
-      const int j0 = j * kTileRows;
+      const int j0 = j * kStream;
       const bool edge =
-          j0 + kTileRows > Tk ||
-          (causal && static_cast<long long>(kv_off) + j0 + kTileRows - 1 >
+          j0 + kStream > Tk ||
+          (causal && static_cast<long long>(kv_off) + j0 + kStream - 1 >
                          static_cast<long long>(q_off) + row0);
       unsigned valid = 0xffffffffu;
       float mt[2] = {kNegBig, kNegBig};
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < kStream / 2; ++i) {
         sc[i] *= scale;
         if (edge) {
           const int kv = j0 + acc_col(i, c0);
@@ -1105,7 +1257,7 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         m[r] = m_new;
       }
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < kStream / 2; ++i) {
         sc[i] = ((valid >> i) & 1u) ? __expf(sc[i] - m[acc_half(i)]) : 0.0f;
         ls[acc_half(i)] += sc[i];
       }
@@ -1120,7 +1272,7 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       // 4 kk + 3 (rows r0, r0 + 8 at kv 2t; rows r0, r0 + 8 at kv 2t + 1)
       constexpr int kPv = L::kPvSteps;
 #pragma unroll
-      for (int k0 = 0; k0 < 8; k0 += kPv) {
+      for (int k0 = 0; k0 < kStream / 8; k0 += kPv) {
         uint32_t hi[kPv][4], lo[kPv][4];
 #pragma unroll
         for (int kk = 0; kk < kPv; ++kk) {
@@ -1136,7 +1288,7 @@ flash_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < kPv; ++kk) {
-          const uint64_t vh = vt_hi + kstep_desc<128>(kD, k0 + kk);
+          const uint64_t vh = vt_hi + kstep_desc<2 * kStream>(kD, k0 + kk);
           wgmma_tf32_rs<kD>(o, lo[kk], vh);
           wgmma_tf32_rs<kD>(o, hi[kk], vh + kLo);
           wgmma_tf32_rs<kD>(o, hi[kk], vh);
@@ -1655,16 +1807,18 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
 // The float32 backward's block: `consumers` warpgroups of 64 resident rows
 // each (kv rows in K4-tf32, q rows in K3-tf32) and a producer warpgroup
-// (warp 0 loads by TMA, warps 1-3 split) over streamed tiles of
-// kStreamRows, and the blocks a SM that ptxas must fit in registers.
-template <int consumers, int blocks>
+// (warp 0 loads by TMA, warps 1-3 split) over streamed tiles of `stream`
+// rows in a ring of `ring` stages, and the blocks a SM that ptxas must fit
+// in registers.
+template <int consumers, int blocks, int stream = 32, int ring = 2>
 struct Tf32Shape {
   static constexpr int kConsumers = consumers;
   static constexpr int kMinBlocks = blocks;
+  static constexpr int kStream = stream;
+  static constexpr int kRing = ring;
   static constexpr int kThreads = 128 * (consumers + 1);
   static constexpr int kRows = 64 * consumers;
 };
-constexpr int kStreamRows = 32;
 
 // K4-tf32: one consumer warpgroup of 64 kv rows, in two blocks a SM at D
 // 16 (116 registers) and one at D 32 and 64, where 256 threads may take
@@ -1675,9 +1829,16 @@ constexpr int kStreamRows = 32;
 // 0.297 with 24 bytes of spill at a 384-thread block's 168; at D 16 two
 // warpgroups ran 9% slower; at D 64 they would hold 128 kv rows of K and
 // V, hi and lo (128 KB), beside two 64 KB stages, past a block's 227 KB
-// (sm90_layouts.py).
+// (sm90_layouts.py). At D 128 K and V of 64 kv rows, hi and lo, take
+// 131,072 bytes, and a 32-row stage (eight tiles) another 131,072: the
+// stage is one of 16 rows, whose products are m64n16k8, beside a landing
+// buffer for the next tile's Q and dO (214,192 bytes). At B8 T1024 H8 on
+// an H100 that ran 1.56 device ms against 1.68 without the buffer (the
+// load then waits for the products) and 2.08 over two 8-row stages
+// (197,824 bytes, m64n8k8). dK and dV take 2 x 64 floats a thread.
 template <int kD>
-using DkvTf32Shape = Tf32Shape<1, (kD == 16 ? 2 : 1)>;
+using DkvTf32Shape = Tf32Shape<1, (kD == 16 ? 2 : 1), (kD == 128 ? 16 : 32),
+                               (kD == 128 ? 1 : 2)>;
 // K3-tf32: two consumer warpgroups of 64 q rows share each K/V stage and
 // its split, and overlap each other's softmax: 0.290 against one
 // warpgroup's 0.374 device ms at D 64, within 6% of one warpgroup in two
@@ -1686,84 +1847,88 @@ using DkvTf32Shape = Tf32Shape<1, (kD == 16 ? 2 : 1)>;
 template <int kD>
 using DqTf32Shape = Tf32Shape<2, 1>;
 
-// K4-tf32's and K3-tf32's shared memory at head dim kD with kRows resident
-// rows (tiles laid out as K2-tf32's, `Tf32Layout`): the resident rows of
-// two tensors, each as hi (split in place) and lo, then a ring of kRing
-// stages of the streamed tiles, each 32 rows of kD floats or, transposed,
-// kD rows of 32 floats (128-byte rows, Cols<64>).
-template <int kD, int kRows>
+// K4-tf32's and K3-tf32's shared memory at head dim kD in block shape S
+// (tiles laid out as K2-tf32's, `Tf32Layout`): the resident rows of two
+// tensors, each as hi (split in place) and lo, then a ring of S::kRing
+// stages of the streamed tiles, each S::kStream rows of kD floats or,
+// transposed, kD rows of S::kStream floats (Cols<2 S::kStream>: 128-,
+// 64- or 32-byte rows).
+template <int kD, typename S>
 struct BwdTf32Layout {
   using C = Cols<2 * kD>;
-  // two stages: a third would take K4-tf32 at D 64 past the block's
-  // 232,448 bytes (198,208 with two)
-  static constexpr int kRing = 2;
-  static constexpr int kResBytes = kRows * kD * 4;        // each of four
-  static constexpr int kTileBytes = kStreamRows * kD * 4;
-  static constexpr int kBars = 2 + 3 * kRing;
-  // K4-tf32's stage: Q and dO (split to hi in place), Q lo, dO lo, Q^T hi
-  // and lo, dO^T hi and lo; lse and delta of each stage's q rows after the
-  // ring
+  // two stages at D 16-64: a third would take K4-tf32 at D 64 past the
+  // block's 232,448 bytes (198,208 with two)
+  static constexpr int kRing = S::kRing;
+  static constexpr int kResBytes = S::kRows * kD * 4;     // each of four
+  static constexpr int kTileBytes = S::kStream * kD * 4;
+  // with one stage K4-tf32 lands the next tile's Q and dO beside it, so
+  // that their load overlaps this tile's products
+  static constexpr bool kLand = kRing == 1;
+  static constexpr int kLandBytes = kLand ? 2 * kTileBytes : 0;
+  static constexpr int kBars = 2 + 3 * kRing + (kLand ? 1 : 0);
+  // K4-tf32's stage: Q and dO (split to hi in place, or from the landing
+  // buffer), Q lo, dO lo, Q^T hi and lo, dO^T hi and lo; the landing
+  // buffer, then lse and delta of each stage's q rows after the ring
   static constexpr int kDkvStage = 8 * kTileBytes;
   static constexpr int kDkvBytes = 1024 + 4 * kResBytes +
-                                   kRing * (kDkvStage + 2 * kStreamRows * 4) +
-                                   8 * kBars;
+                                   kRing * (kDkvStage + 2 * S::kStream * 4) +
+                                   kLandBytes + 8 * kBars;
   // K3-tf32's stage: K and V (split to hi in place), K lo, V lo, K^T hi
   // and lo
   static constexpr int kDqStage = 6 * kTileBytes;
   static constexpr int kDqBytes =
       1024 + 4 * kResBytes + kRing * kDqStage + 8 * kBars;
 };
-static_assert(BwdTf32Layout<64, DkvTf32Shape<64>::kRows>::kDkvBytes <=
-                  232448,
+static_assert(BwdTf32Layout<64, DkvTf32Shape<64>>::kDkvBytes <= 232448,
               "K4-tf32 at D 64 must fit a block's 227 KB");
-static_assert(BwdTf32Layout<64, DqTf32Shape<64>::kRows>::kDqBytes <= 232448,
+static_assert(BwdTf32Layout<128, DkvTf32Shape<128>>::kDkvBytes <= 232448,
+              "K4-tf32 at D 128 must fit a block's 227 KB");
+static_assert(BwdTf32Layout<64, DqTf32Shape<64>>::kDqBytes <= 232448,
               "K3-tf32 at D 64 must fit a block's 227 KB");
 
-// A streamed tile (32 rows of kD floats as TMA landed it, Cols<2 kD>) split
-// as split_in_place splits it (hi in place, lo at the same offsets of
-// `lo`), and written transposed and split into `th` and `tl`: kD rows of
-// the tile's 32 values, 128 bytes each in the 128-byte swizzle, K-major
-// for a TF32 B operand whose K is the tile's rows, which sit in `pv_slot`
-// order. A warp takes the 32 rows of one 16-byte chunk, as
-// split_transposed does, so neither its reads nor its writes conflict on a
-// bank.
-template <int kD>
-__device__ __forceinline__ void split_and_transpose(uint8_t* x, uint8_t* lo,
+// A streamed tile (kRows rows of kD floats as TMA landed it at `x`,
+// Cols<2 kD>) split as split_in_place splits it (hi at the same offsets
+// of `hi`, which may be `x`, lo of `lo`), and written transposed and split
+// into `th` and `tl` (`store_transposed`: kD rows of the tile's kRows
+// values, in `pv_slot` order).
+template <int kD, int kRows>
+__device__ __forceinline__ void split_and_transpose(const uint8_t* x,
+                                                    uint8_t* hi, uint8_t* lo,
                                                     uint8_t* th, uint8_t* tl,
                                                     int t) {
+  static_assert(kRows <= 32, "one column block of transposed rows");
   using C = Cols<2 * kD>;
-  constexpr int kChunks = kStreamRows * kD / 4;
+  constexpr int kChunks = kRows * kD / 4;
   for (int c = t; c < kChunks; c += kSplitThreads) {
-    const int row = c % kStreamRows;
-    const int col = 16 * (c / kStreamRows);  // byte of the row: dims col / 4..
+    const int row = c % kRows;
+    const int col = 16 * (c / kRows);  // byte of the row: dims col / 4..
     const uint32_t at =
-        (col / C::kRowBytes) * kStreamRows * C::kRowBytes +
+        (col / C::kRowBytes) * kRows * C::kRowBytes +
         swizzled<C::kRowBytes>(row * C::kRowBytes + col % C::kRowBytes);
     const uint4 v = *reinterpret_cast<const uint4*>(x + at);
     const uint32_t xs[4] = {v.x, v.y, v.z, v.w};
     uint32_t hs[4], ls[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {   // row col / 4 + e of the transpose
+    for (int e = 0; e < 4; ++e) {
       split_tf32(__uint_as_float(xs[e]), hs[e], ls[e]);
-      const uint32_t o = swizzled<128>((col / 4 + e) * 128 + 4 * pv_slot(row));
-      *reinterpret_cast<uint32_t*>(th + o) = hs[e];
-      *reinterpret_cast<uint32_t*>(tl + o) = ls[e];
     }
-    *reinterpret_cast<uint4*>(x + at) = make_uint4(hs[0], hs[1], hs[2], hs[3]);
+    store_transposed<kD, kRows>(th, tl, row, col / 4, c / kRows, hs, ls);
+    *reinterpret_cast<uint4*>(hi + at) = make_uint4(hs[0], hs[1], hs[2], hs[3]);
     *reinterpret_cast<uint4*>(lo + at) = make_uint4(ls[0], ls[1], ls[2], ls[3]);
   }
 }
 
-// The 64 x 32 float32 tile x, in the accumulator layout, as the register A
-// fragments of four k8 TF32 steps, split into hi and lo: step kk's are
-// elements 4 kk, 4 kk + 2, 4 kk + 1 and 4 kk + 3 (rows r0, r0 + 8 at
-// column 2t; rows r0, r0 + 8 at 2t + 1), so the B operand's K sits in
-// `pv_slot` order.
-__device__ __forceinline__ void split_tf32_fragments(const float (&x)[16],
-                                                     uint32_t (&hi)[4][4],
-                                                     uint32_t (&lo)[4][4]) {
+// The 64 x (8 kSteps) float32 tile x, in the accumulator layout, as the
+// register A fragments of kSteps k8 TF32 steps, split into hi and lo:
+// step kk's are elements 4 kk, 4 kk + 2, 4 kk + 1 and 4 kk + 3 (rows r0,
+// r0 + 8 at column 2t; rows r0, r0 + 8 at 2t + 1), so the B operand's K
+// sits in `pv_slot` order.
+template <int kSteps>
+__device__ __forceinline__ void split_tf32_fragments(
+    const float (&x)[4 * kSteps], uint32_t (&hi)[kSteps][4],
+    uint32_t (&lo)[kSteps][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < kSteps; ++kk) {
     split_tf32(x[4 * kk], hi[kk][0], lo[kk][0]);
     split_tf32(x[4 * kk + 2], hi[kk][1], lo[kk][1]);
     split_tf32(x[4 * kk + 1], hi[kk][2], lo[kk][2]);
@@ -1771,40 +1936,39 @@ __device__ __forceinline__ void split_tf32_fragments(const float (&x)[16],
   }
 }
 
-// d (64 x kD) += A (64 x 32) . B (32 x kD) in 3xTF32: A as split register
-// fragments, B transposed and split at descriptor `b_hi`, its lo `b_lo`
-// descriptor units past it; four k8 steps.
-template <int kD>
-__device__ __forceinline__ void wgmma_tf32_rs_3x(float (&d)[kD / 2],
-                                                 const uint32_t (&hi)[4][4],
-                                                 const uint32_t (&lo)[4][4],
-                                                 uint64_t b_hi,
-                                                 uint64_t b_lo) {
+// d (64 x kD) += A (64 x 8 kSteps) . B (8 kSteps x kD) in 3xTF32: A as
+// split register fragments, B transposed and split at descriptor `b_hi`
+// (Cols<16 kSteps>), its lo `b_lo` descriptor units past it; kSteps k8
+// steps.
+template <int kD, int kSteps>
+__device__ __forceinline__ void wgmma_tf32_rs_3x(
+    float (&d)[kD / 2], const uint32_t (&hi)[kSteps][4],
+    const uint32_t (&lo)[kSteps][4], uint64_t b_hi, uint64_t b_lo) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t bh = b_hi + kstep_desc<64>(kD, kk);
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const uint64_t bh = b_hi + kstep_desc<16 * kSteps>(kD, kk);
     wgmma_tf32_rs<kD>(d, lo[kk], bh);
     wgmma_tf32_rs<kD>(d, hi[kk], bh + b_lo);
     wgmma_tf32_rs<kD>(d, hi[kk], bh);
   }
 }
 
-// d (64 x 32) += A (64 x kD) . B (kD x 32) in 3xTF32: A (64 of a tile's
-// kARows rows) and B (32 rows) K-major in Cols<2 kD> at descriptors a_hi
+// d (64 x kN) += A (64 x kD) . B (kD x kN) in 3xTF32: A (64 of a tile's
+// kARows rows) and B (kN rows) K-major in Cols<2 kD> at descriptors a_hi
 // and b_hi, their lo a_lo and b_lo descriptor units past them; kD / 8 k8
 // steps.
-template <int kD, int kARows>
-__device__ __forceinline__ void wgmma_tf32_ss_3x(float (&d)[16],
+template <int kD, int kARows, int kN>
+__device__ __forceinline__ void wgmma_tf32_ss_3x(float (&d)[kN / 2],
                                                  uint64_t a_hi, uint64_t a_lo,
                                                  uint64_t b_hi,
                                                  uint64_t b_lo) {
 #pragma unroll
   for (int kk = 0; kk < kD / 8; ++kk) {
     const uint64_t a = a_hi + kstep_desc<2 * kD>(kARows, kk);
-    const uint64_t b = b_hi + kstep_desc<2 * kD>(kStreamRows, kk);
-    wgmma_tf32_ss_n32(d, a + a_lo, b);
-    wgmma_tf32_ss_n32(d, a, b + b_lo);
-    wgmma_tf32_ss_n32(d, a, b);
+    const uint64_t b = b_hi + kstep_desc<2 * kD>(kN, kk);
+    wgmma_tf32_ss<kN>(d, a + a_lo, b);
+    wgmma_tf32_ss<kN>(d, a, b + b_lo);
+    wgmma_tf32_ss<kN>(d, a, b);
   }
 }
 
@@ -1822,15 +1986,17 @@ flash_bwd_dkv_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                                int Tk, int q_off, int kv_off, bool causal,
                                float scale) {
   using S = DkvTf32Shape<kD>;
-  using L = BwdTf32Layout<kD, S::kRows>;
+  using L = BwdTf32Layout<kD, S>;
   using C = typename L::C;
   constexpr int kT = L::kTileBytes;
   constexpr int kBlockRows = S::kRows;
+  constexpr int kStreamRows = S::kStream;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ksm = align_1024(smem_raw);  // K, then its hi; K lo; V; V lo
   uint8_t* vsm = ksm + 2 * L::kResBytes;
   uint8_t* stages = vsm + 2 * L::kResBytes;
-  float* lse_s = reinterpret_cast<float*>(stages + L::kRing * L::kDkvStage);
+  uint8_t* land = stages + L::kRing * L::kDkvStage;  // Q, dO (one stage)
+  float* lse_s = reinterpret_cast<float*>(land + L::kLandBytes);
   float* delta_s = lse_s + L::kRing * kStreamRows;
   uint64_t* bars =
       reinterpret_cast<uint64_t*>(delta_s + L::kRing * kStreamRows);
@@ -1839,6 +2005,7 @@ flash_bwd_dkv_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* loaded = bars + 2;    // a stage's Q and dO landed
   uint64_t* full = bars + 2 + L::kRing;  // ... split, lse and delta beside
   uint64_t* empty = bars + 2 + 2 * L::kRing;
+  uint64_t* land_free = bars + 2 + 3 * L::kRing;  // the landing buffer split
 
   const int b = blockIdx.y / H;
   const int h = blockIdx.y - b * H;
@@ -1862,6 +2029,7 @@ flash_bwd_dkv_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(&full[s], kSplitThreads / 32);
       mbar_init(&empty[s], 4 * S::kConsumers);
     }
+    if (L::kLand) mbar_init(land_free, kSplitThreads / 32);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -1882,16 +2050,21 @@ flash_bwd_dkv_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       }
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % L::kRing;
-        uint8_t* st = stages + s * L::kDkvStage;
-        if (j >= L::kRing) mbar_wait(&empty[s], (j / L::kRing - 1) & 1);
+        // Q and dO land in their stage, or with one stage in the landing
+        // buffer once the previous tile there has been split
+        uint8_t* dst = L::kLand ? land : stages + s * L::kDkvStage;
+        uint8_t* dst_do = dst + (L::kLand ? 1 : 2) * kT;
+        if (j >= L::kRing) {
+          mbar_wait(L::kLand ? land_free : &empty[s], (j / L::kRing - 1) & 1);
+        }
         const int i0 = i_start + j * kStreamRows;
         mbar_expect_tx(&loaded[s], 2 * kT);
 #pragma unroll
         for (int a = 0; a < C::kBlocks; ++a) {
           const int at = a * kStreamRows * C::kRowBytes;
-          tma_load(st + at, &tq, &loaded[s], C::kRowBytes / 4 * a, i0, h, b);
-          tma_load(st + 2 * kT + at, &tdo, &loaded[s], C::kRowBytes / 4 * a,
-                   i0, h, b);
+          tma_load(dst + at, &tq, &loaded[s], C::kRowBytes / 4 * a, i0, h, b);
+          tma_load(dst_do + at, &tdo, &loaded[s], C::kRowBytes / 4 * a, i0,
+                   h, b);
         }
       }
       return;
@@ -1904,18 +2077,34 @@ flash_bwd_dkv_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     fence_async_smem();
     __syncwarp();
     if (lane == 0) mbar_arrive(kv_split);
+    static_assert(kStreamRows <= kSplitThreads, "one q row a thread");
     for (int j = 0; j < n_tiles; ++j) {
       const int s = j % L::kRing;
       uint8_t* st = stages + s * L::kDkvStage;
-      mbar_wait(&loaded[s], (j / L::kRing) & 1);
-      split_and_transpose<kD>(st, st + kT, st + 4 * kT, st + 5 * kT, t);
-      split_and_transpose<kD>(st + 2 * kT, st + 3 * kT, st + 6 * kT,
-                              st + 7 * kT, t);
+      // this tile's lse and delta (thread t's row), read from device
+      // memory while the tile lands: with one stage the stage is busy
+      // until then
       const int i0 = i_start + j * kStreamRows;
-      for (int c = t; c < kStreamRows; c += kSplitThreads) {
-        const bool in = i0 + c < Tq;
-        lse_s[s * kStreamRows + c] = in ? lse[lse_row + i0 + c] : 0.0f;
-        delta_s[s * kStreamRows + c] = in ? delta[lse_row + i0 + c] : 0.0f;
+      const bool in = t < kStreamRows && i0 + t < Tq;
+      const float row_lse = in ? lse[lse_row + i0 + t] : 0.0f;
+      const float row_delta = in ? delta[lse_row + i0 + t] : 0.0f;
+      mbar_wait(&loaded[s], (j / L::kRing) & 1);
+      // from the landing buffer into the stage once its last tile is
+      // consumed, or in place
+      if (L::kLand && j > 0) mbar_wait(&empty[s], (j - 1) & 1);
+      const uint8_t* q_in = L::kLand ? land : st;
+      const uint8_t* do_in = L::kLand ? land + kT : st + 2 * kT;
+      split_and_transpose<kD, kStreamRows>(q_in, st, st + kT, st + 4 * kT,
+                                           st + 5 * kT, t);
+      split_and_transpose<kD, kStreamRows>(do_in, st + 2 * kT, st + 3 * kT,
+                                           st + 6 * kT, st + 7 * kT, t);
+      if (L::kLand) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(land_free);
+      }
+      if (t < kStreamRows) {
+        lse_s[s * kStreamRows + t] = row_lse;
+        delta_s[s * kStreamRows + t] = row_delta;
       }
       fence_async_smem();
       __syncwarp();
@@ -1955,16 +2144,17 @@ flash_bwd_dkv_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          static_cast<long long>(kv_off) + kv_row0));
     if (live) {
       // S^T = K.Q^T and dP^T = V.dO^T, each lo.hi + hi.lo + hi.hi
-      float sc[16], dp[16];
+      constexpr int kN = kStreamRows;  // S^T and dP^T: 64 x kN
+      float sc[kN / 2], dp[kN / 2];
   #pragma unroll
-      for (int i = 0; i < 16; ++i) sc[i] = dp[i] = 0.0f;
+      for (int i = 0; i < kN / 2; ++i) sc[i] = dp[i] = 0.0f;
       pin(sc);
       pin(dp);
       wg_fence();
-      wgmma_tf32_ss_3x<kD, kBlockRows>(sc, k_hi, kResLo, desc<2 * kD>(st, 16),
-                                       kLo);
-      wgmma_tf32_ss_3x<kD, kBlockRows>(dp, v_hi, kResLo,
-                                       desc<2 * kD>(st + 2 * kT, 16), kLo);
+      wgmma_tf32_ss_3x<kD, kBlockRows, kN>(sc, k_hi, kResLo,
+                                           desc<2 * kD>(st, 16), kLo);
+      wgmma_tf32_ss_3x<kD, kBlockRows, kN>(dp, v_hi, kResLo,
+                                           desc<2 * kD>(st + 2 * kT, 16), kLo);
       wg_commit();
       wg_wait_all();
       pin(sc);
@@ -1977,7 +2167,7 @@ flash_bwd_dkv_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       const float* ls = lse_s + s * kStreamRows;
       const float* ds = delta_s + s * kStreamRows;
   #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < kN / 2; ++i) {
         const int c = acc_col(i, c0);
         bool ok = true;
         if (edge) {
@@ -1992,9 +2182,11 @@ flash_bwd_dkv_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
       // dV += P^T.dO and dK += dS^T.Q, each lo.hi + hi.lo + hi.hi, over
       // dO^T and Q^T
-      uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
-      split_tf32_fragments(sc, p_hi, p_lo);
-      split_tf32_fragments(dp, ds_hi, ds_lo);
+      constexpr int kSteps = kN / 8;
+      uint32_t p_hi[kSteps][4], p_lo[kSteps][4];
+      uint32_t ds_hi[kSteps][4], ds_lo[kSteps][4];
+      split_tf32_fragments<kSteps>(sc, p_hi, p_lo);
+      split_tf32_fragments<kSteps>(dp, ds_hi, ds_lo);
       pin(dk_acc);
       pin(dv_acc);
       pin(p_hi);
@@ -2002,9 +2194,10 @@ flash_bwd_dkv_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       pin(ds_hi);
       pin(ds_lo);
       wg_fence();
-      wgmma_tf32_rs_3x<kD>(dv_acc, p_hi, p_lo, desc<64>(st + 6 * kT, 16), kLo);
-      wgmma_tf32_rs_3x<kD>(dk_acc, ds_hi, ds_lo, desc<64>(st + 4 * kT, 16),
-                           kLo);
+      wgmma_tf32_rs_3x<kD, kSteps>(dv_acc, p_hi, p_lo,
+                                   desc<2 * kN>(st + 6 * kT, 16), kLo);
+      wgmma_tf32_rs_3x<kD, kSteps>(dk_acc, ds_hi, ds_lo,
+                                   desc<2 * kN>(st + 4 * kT, 16), kLo);
       wg_commit();
       wg_wait_all();
       pin(dk_acc);
@@ -2044,10 +2237,12 @@ flash_bwd_dq_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                               int Tq, int Tk, int q_off, int kv_off,
                               bool causal, float scale) {
   using S = DqTf32Shape<kD>;
-  using L = BwdTf32Layout<kD, S::kRows>;
+  using L = BwdTf32Layout<kD, S>;
   using C = typename L::C;
   constexpr int kT = L::kTileBytes;
   constexpr int kBlockRows = S::kRows;
+  constexpr int kStreamRows = S::kStream;
+  static_assert(kStreamRows == 32, "K3-tf32's products are over 32 kv rows");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = align_1024(smem_raw);  // Q, then its hi; Q lo; dO; dO lo
   uint8_t* dos = qs + 2 * L::kResBytes;
@@ -2122,7 +2317,8 @@ flash_bwd_dq_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       const int s = j % L::kRing;
       uint8_t* st = stages + s * L::kDqStage;
       mbar_wait(&loaded[s], (j / L::kRing) & 1);
-      split_and_transpose<kD>(st, st + kT, st + 4 * kT, st + 5 * kT, t);
+      split_and_transpose<kD, kStreamRows>(st, st, st + kT, st + 4 * kT,
+                                           st + 5 * kT, t);
       split_in_place(st + 2 * kT, st + 3 * kT, kT / 16, t);
       fence_async_smem();
       __syncwarp();
@@ -2172,10 +2368,10 @@ flash_bwd_dq_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       pin(sc);
       pin(dp);
       wg_fence();
-      wgmma_tf32_ss_3x<kD, kBlockRows>(sc, q_hi, kResLo, desc<2 * kD>(st, 16),
-                                       kLo);
-      wgmma_tf32_ss_3x<kD, kBlockRows>(dp, do_hi, kResLo,
-                                       desc<2 * kD>(st + 2 * kT, 16), kLo);
+      wgmma_tf32_ss_3x<kD, kBlockRows, kStreamRows>(
+          sc, q_hi, kResLo, desc<2 * kD>(st, 16), kLo);
+      wgmma_tf32_ss_3x<kD, kBlockRows, kStreamRows>(
+          dp, do_hi, kResLo, desc<2 * kD>(st + 2 * kT, 16), kLo);
       wg_commit();
       wg_wait_all();
       pin(sc);
@@ -2201,13 +2397,13 @@ flash_bwd_dq_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
       // dQ += dS.K, lo.hi + hi.lo + hi.hi over K^T
       uint32_t ds_hi[4][4], ds_lo[4][4];
-      split_tf32_fragments(dp, ds_hi, ds_lo);
+      split_tf32_fragments<4>(dp, ds_hi, ds_lo);
       pin(dq_acc);
       pin(ds_hi);
       pin(ds_lo);
       wg_fence();
-      wgmma_tf32_rs_3x<kD>(dq_acc, ds_hi, ds_lo, desc<64>(st + 4 * kT, 16),
-                           kLo);
+      wgmma_tf32_rs_3x<kD, 4>(dq_acc, ds_hi, ds_lo,
+                              desc<64>(st + 4 * kT, 16), kLo);
       wg_commit();
       wg_wait_all();
       pin(dq_acc);
@@ -2336,18 +2532,19 @@ cudaError_t run_fwd(const Args& a) {
 
 template <int kD>
 cudaError_t run_fwd_tf32(const Args& a) {
+  using S = FwdTf32Shape<kD>;
   CUtensorMap mq, mk, mv;
-  if (!make_map<kD, 4>(&mq, a.q, a.at(0), a.B, a.Tq, a.H, kBlockRows) ||
-      !make_map<kD, 4>(&mk, a.k, a.at(1), a.B, a.Tk, a.H, kTileRows) ||
-      !make_map<kD, 4>(&mv, a.v, a.at(2), a.B, a.Tk, a.H, kTileRows)) {
+  if (!make_map<kD, 4>(&mq, a.q, a.at(0), a.B, a.Tq, a.H, S::kRows) ||
+      !make_map<kD, 4>(&mk, a.k, a.at(1), a.B, a.Tk, a.H, S::kStream) ||
+      !make_map<kD, 4>(&mv, a.v, a.at(2), a.B, a.Tk, a.H, S::kStream)) {
     return cudaErrorInvalidValue;
   }
   auto kernel = flash_fwd_tf32_sm90_kernel<kD>;
   constexpr int smem = Tf32Layout<kD>::kBytes;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Tq + kBlockRows - 1) / kBlockRows, a.B * a.H);
-  kernel<<<grid, kTf32Threads, smem, a.stream>>>(
+  const dim3 grid((a.Tq + S::kRows - 1) / S::kRows, a.B * a.H);
+  kernel<<<grid, S::kThreads, smem, a.stream>>>(
       mq, mk, mv, static_cast<float*>(a.out0), static_cast<float*>(a.out1),
       a.at(3), a.H, a.Tq, a.Tk, a.q_off, a.kv_off, a.causal, a.scale);
   return cudaGetLastError();
@@ -2402,14 +2599,14 @@ template <int kD>
 cudaError_t run_dkv_tf32(const Args& a) {
   using S = DkvTf32Shape<kD>;
   CUtensorMap mq, mk, mv, mdo;
-  if (!make_map<kD, 4>(&mq, a.q, a.at(0), a.B, a.Tq, a.H, kStreamRows) ||
+  if (!make_map<kD, 4>(&mq, a.q, a.at(0), a.B, a.Tq, a.H, S::kStream) ||
       !make_map<kD, 4>(&mk, a.k, a.at(1), a.B, a.Tk, a.H, S::kRows) ||
       !make_map<kD, 4>(&mv, a.v, a.at(2), a.B, a.Tk, a.H, S::kRows) ||
-      !make_map<kD, 4>(&mdo, a.dout, a.at(3), a.B, a.Tq, a.H, kStreamRows)) {
+      !make_map<kD, 4>(&mdo, a.dout, a.at(3), a.B, a.Tq, a.H, S::kStream)) {
     return cudaErrorInvalidValue;
   }
   auto kernel = flash_bwd_dkv_tf32_sm90_kernel<kD>;
-  constexpr int smem = BwdTf32Layout<kD, S::kRows>::kDkvBytes;
+  constexpr int smem = BwdTf32Layout<kD, S>::kDkvBytes;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Tk + S::kRows - 1) / S::kRows, a.B * a.H);
@@ -2426,13 +2623,13 @@ cudaError_t run_dq_tf32(const Args& a) {
   using S = DqTf32Shape<kD>;
   CUtensorMap mq, mk, mv, mdo;
   if (!make_map<kD, 4>(&mq, a.q, a.at(0), a.B, a.Tq, a.H, S::kRows) ||
-      !make_map<kD, 4>(&mk, a.k, a.at(1), a.B, a.Tk, a.H, kStreamRows) ||
-      !make_map<kD, 4>(&mv, a.v, a.at(2), a.B, a.Tk, a.H, kStreamRows) ||
+      !make_map<kD, 4>(&mk, a.k, a.at(1), a.B, a.Tk, a.H, S::kStream) ||
+      !make_map<kD, 4>(&mv, a.v, a.at(2), a.B, a.Tk, a.H, S::kStream) ||
       !make_map<kD, 4>(&mdo, a.dout, a.at(3), a.B, a.Tq, a.H, S::kRows)) {
     return cudaErrorInvalidValue;
   }
   auto kernel = flash_bwd_dq_tf32_sm90_kernel<kD>;
-  constexpr int smem = BwdTf32Layout<kD, S::kRows>::kDqBytes;
+  constexpr int smem = BwdTf32Layout<kD, S>::kDqBytes;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Tq + S::kRows - 1) / S::kRows, a.B * a.H);
@@ -2489,8 +2686,8 @@ extern "C" {
 // cudaError_t (0 on success). `strides` holds the (b, t, h) element
 // strides of the tensors in argument order. dtype must be 1 (bfloat16) and
 // D 16, 32, 64 or 128, or for the *_tf32_sm90 launchers 0 (float32) and D
-// 16, 32 or 64 (the delta pass takes either); anything else returns
-// cudaErrorInvalidValue.
+// 16, 32, 64 or 128 (K3-tf32: 16, 32 or 64; the delta pass takes either);
+// anything else returns cudaErrorInvalidValue.
 
 int flash_fwd_sm90(int dtype, const void* q, const void* k, const void* v,
                    void* out, void* lse, const long long* strides, int B,
@@ -2514,15 +2711,17 @@ int flash_fwd_tf32_sm90(int dtype, const void* q, const void* k,
   const Args a{q, k, v, nullptr, nullptr, nullptr, nullptr, nullptr,
                out, lse, strides, B, H, Tq, Tk, D, q_off, kv_off,
                causal != 0, scale_of(D), static_cast<cudaStream_t>(stream)};
-  static const Built built[] = {
-      {16, run_fwd_tf32<16>}, {32, run_fwd_tf32<32>}, {64, run_fwd_tf32<64>}};
+  static const Built built[] = {{16, run_fwd_tf32<16>},
+                                 {32, run_fwd_tf32<32>},
+                                 {64, run_fwd_tf32<64>},
+                                 {128, run_fwd_tf32<128>}};
   return dispatch(dtype, a, built, 0);
 }
 
 // delta (B, H, Tq) = rowsum(dout . out) - g_lse; glse may be null (0).
 // dtype 1 (bfloat16) at D 16, 32, 64 and 128, for K3' and K4', or 0
-// (float32) at D 16, 32 and 64, for K3-tf32 and K4-tf32. Strides: out,
-// dout.
+// (float32) at D 16, 32, 64 and 128, for K3-tf32 and K4-tf32. Strides:
+// out, dout.
 int flash_bwd_delta_sm90(int dtype, const void* out, const void* dout,
                          const void* glse, void* delta,
                          const long long* strides, int B, int H, int Tq,
@@ -2536,7 +2735,8 @@ int flash_bwd_delta_sm90(int dtype, const void* out, const void* dout,
                                 {128, run_delta<128, __nv_bfloat16>}};
   static const Built f32[] = {{16, run_delta<16, float>},
                                {32, run_delta<32, float>},
-                               {64, run_delta<64, float>}};
+                               {64, run_delta<64, float>},
+                               {128, run_delta<128, float>}};
   return dtype == 0 ? dispatch(dtype, a, f32, 0) : dispatch(dtype, a, bf16);
 }
 
@@ -2581,8 +2781,10 @@ int flash_bwd_dkv_tf32_sm90(int dtype, const void* q, const void* k,
   const Args a{q, k, v, nullptr, dout, lse, nullptr, delta,
                dk, dv, strides, B, H, Tq, Tk, D, q_off, kv_off,
                causal != 0, scale_of(D), static_cast<cudaStream_t>(stream)};
-  static const Built built[] = {
-      {16, run_dkv_tf32<16>}, {32, run_dkv_tf32<32>}, {64, run_dkv_tf32<64>}};
+  static const Built built[] = {{16, run_dkv_tf32<16>},
+                                 {32, run_dkv_tf32<32>},
+                                 {64, run_dkv_tf32<64>},
+                                 {128, run_dkv_tf32<128>}};
   return dispatch(dtype, a, built, 0);
 }
 
@@ -2623,23 +2825,27 @@ int flash_sm90_shared_bytes(int kernel, int D) {
   if (kernel == 3 && D == 16) return Tf32Layout<16>::kBytes;
   if (kernel == 3 && D == 32) return Tf32Layout<32>::kBytes;
   if (kernel == 3 && D == 64) return Tf32Layout<64>::kBytes;
+  if (kernel == 3 && D == 128) return Tf32Layout<128>::kBytes;
   if (kernel == 4 && D == 16) {
-    return BwdTf32Layout<16, DkvTf32Shape<16>::kRows>::kDkvBytes;
+    return BwdTf32Layout<16, DkvTf32Shape<16>>::kDkvBytes;
   }
   if (kernel == 4 && D == 32) {
-    return BwdTf32Layout<32, DkvTf32Shape<32>::kRows>::kDkvBytes;
+    return BwdTf32Layout<32, DkvTf32Shape<32>>::kDkvBytes;
   }
   if (kernel == 4 && D == 64) {
-    return BwdTf32Layout<64, DkvTf32Shape<64>::kRows>::kDkvBytes;
+    return BwdTf32Layout<64, DkvTf32Shape<64>>::kDkvBytes;
+  }
+  if (kernel == 4 && D == 128) {
+    return BwdTf32Layout<128, DkvTf32Shape<128>>::kDkvBytes;
   }
   if (kernel == 5 && D == 16) {
-    return BwdTf32Layout<16, DqTf32Shape<16>::kRows>::kDqBytes;
+    return BwdTf32Layout<16, DqTf32Shape<16>>::kDqBytes;
   }
   if (kernel == 5 && D == 32) {
-    return BwdTf32Layout<32, DqTf32Shape<32>::kRows>::kDqBytes;
+    return BwdTf32Layout<32, DqTf32Shape<32>>::kDqBytes;
   }
   if (kernel == 5 && D == 64) {
-    return BwdTf32Layout<64, DqTf32Shape<64>::kRows>::kDqBytes;
+    return BwdTf32Layout<64, DqTf32Shape<64>>::kDqBytes;
   }
   return -1;
 }

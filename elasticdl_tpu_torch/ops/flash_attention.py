@@ -13,16 +13,18 @@ Two CUDA C++ sources hold the kernels (see the notes in each):
   `flash_bwd_dkv_sm90` for bfloat16 at D 16, 32, 64 and 128: the bf16
   LM's attention; K2-tf32 `flash_fwd_tf32_sm90`, K3-tf32
   `flash_bwd_dq_tf32_sm90` and K4-tf32 `flash_bwd_dkv_tf32_sm90` for
-  float32 at D 16, 32 and 64 in 3xTF32 products: the float32 LM's
-  attention; and the delta pass `flash_bwd_delta_sm90` that K3', K4',
-  K3-tf32 and K4-tf32 read;
+  float32 in 3xTF32 products, K2-tf32 and K4-tf32 at D 16, 32, 64 and
+  128, K3-tf32 at D 16, 32 and 64: the float32 LM's attention; and the
+  delta pass `flash_bwd_delta_sm90` that K3', K4', K3-tf32 and K4-tf32
+  read;
 - `csrc/flash_attention.cu`, float32 FMAs on the CUDA cores: K2, K3 and K4
-  for every other input (float32 and bfloat16 at other head dims, float32
-  at D 128).
+  for every other input (float32 and bfloat16 at other head dims), and K3
+  for float32 at D 128.
 The route (`route`) is decided by dtype and D alone, before any launch; a
 failed launch raises and is never retried on the other kernels. The
 autograd backward (`flash_bwd`) launches the delta pass once and hands it
-to both tensor-core backward kernels.
+to the tensor-core backward kernels of its route (at float32 D 128 to
+K4-tf32 only, beside K3, which computes its own).
 
 The contract, shared by kernel and plain version:
 - scores s = (q . k) * D**-0.5 in float32, with the causal mask taken in
@@ -87,7 +89,10 @@ launches = {FWD: 0, BWD_DQ: 0, BWD_DKV: 0, FWD_SM90: 0, BWD_DQ_SM90: 0,
             BWD_DKV_SM90: 0, BWD_DELTA_SM90: 0, FWD_TF32: 0, BWD_DQ_TF32: 0,
             BWD_DKV_TF32: 0}
 _SM90_HEAD_DIMS = (16, 32, 64, 128)  # K2', K3', K4' (bfloat16)
-_TF32_HEAD_DIMS = (16, 32, 64)       # K2-tf32, K3-tf32, K4-tf32 (float32)
+# float32 on the tensor cores, kernel by kernel (elsewhere K2, K3 or K4)
+_FWD_TF32_HEAD_DIMS = (16, 32, 64, 128)  # K2-tf32
+_DQ_TF32_HEAD_DIMS = (16, 32, 64)        # K3-tf32
+_DKV_TF32_HEAD_DIMS = (16, 32, 64, 128)  # K4-tf32
 _KERNELS = {LIBRARY: (FWD, BWD_DQ, BWD_DKV),
             LIBRARY_SM90: (FWD_SM90, BWD_DQ_SM90, BWD_DKV_SM90,
                            BWD_DELTA_SM90, FWD_TF32, BWD_DQ_TF32,
@@ -244,17 +249,23 @@ def _on_card(x: torch.Tensor) -> bool:
 def route(dtype, d) -> Tuple[str, Tuple[str, ...]]:
     """The kernels that take inputs of `dtype` and head dim `d` on the
     card, decided before any launch, the one place that decides them:
-    (forward, the backward's launches, each once: dQ, dK/dV and, where
-    the tensor-core kernels read it, the delta pass):
+    (forward, the backward's launches, each once: dQ, dK/dV and, where a
+    tensor-core kernel reads it, the delta pass):
     - bfloat16 at D 16, 32, 64, 128: K2'; K3', K4' and the delta pass;
     - float32 at D 16, 32, 64: K2-tf32; K3-tf32, K4-tf32 and the delta
       pass;
+    - float32 at D 128: K2-tf32; K3, K4-tf32 and the delta pass (which
+      K4-tf32 reads; K3 computes its own delta);
     - everything else: K2; K3 and K4."""
     if dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS:
         return FWD_SM90, (BWD_DQ_SM90, BWD_DKV_SM90, BWD_DELTA_SM90)
-    if dtype == torch.float32 and d in _TF32_HEAD_DIMS:
-        return FWD_TF32, (BWD_DQ_TF32, BWD_DKV_TF32, BWD_DELTA_SM90)
-    return FWD, (BWD_DQ, BWD_DKV)
+    f32 = dtype == torch.float32
+    fwd = FWD_TF32 if f32 and d in _FWD_TF32_HEAD_DIMS else FWD
+    dq = BWD_DQ_TF32 if f32 and d in _DQ_TF32_HEAD_DIMS else BWD_DQ
+    dkv = BWD_DKV_TF32 if f32 and d in _DKV_TF32_HEAD_DIMS else BWD_DKV
+    delta = (BWD_DELTA_SM90,) if (dq in _DQ_HOPPER
+                                  or dkv in _DKV_HOPPER) else ()
+    return fwd, (dq, dkv, *delta)
 
 
 def _check_head_dim(t: torch.Tensor) -> None:
@@ -309,8 +320,8 @@ def _dims(q, k, causal, q_offset, kv_offset):
 
 def flash_fwd(q, k, v, causal=True, q_offset=0, kv_offset=0):
     """The forward by `route`: K2' (bfloat16 at D 16, 32, 64 or 128),
-    K2-tf32 (float32 at D 16, 32 or 64) or K2: (out in q's dtype, lse
-    (B, H, Tq) float32)."""
+    K2-tf32 (float32 at D 16, 32, 64 or 128) or K2: (out in q's dtype,
+    lse (B, H, Tq) float32)."""
     _validate(q, k, v)
     if not _on_card(q):
         return flash_fwd_plain(q, k, v, causal, q_offset, kv_offset)
@@ -446,8 +457,8 @@ def launch_dq_sm90(q, k, v, dout, lse, delta, causal, q_offset, kv_offset,
 def flash_bwd_dkv(q, k, v, out, dout, lse, g_lse=None, causal=True,
                   q_offset=0, kv_offset=0):
     """(dK, dV) in k's and v's dtypes by `route`: the delta pass, then K4'
-    (bfloat16 at D 16, 32, 64 or 128) or K4-tf32 (float32 at D 16, 32 or
-    64); K4 elsewhere."""
+    (bfloat16 at D 16, 32, 64 or 128) or K4-tf32 (float32 at D 16, 32, 64
+    or 128); K4 elsewhere."""
     _validate(q, k, v, out, dout)
     _check_residuals(q, lse, g_lse)
     if not _on_card(q):
@@ -518,16 +529,17 @@ def flash_bwd_delta(out, dout, g_lse=None):
         raise ValueError(f"the delta pass serves the tensor-core backward "
                          f"only, which takes bfloat16 at D "
                          f"{_SM90_HEAD_DIMS} and float32 at D "
-                         f"{_TF32_HEAD_DIMS}; got {out.dtype} D {d}")
+                         f"{_DKV_TF32_HEAD_DIMS}; got {out.dtype} D {d}")
     return _launch_delta(out, dout, g_lse)
 
 
 def flash_bwd(q, k, v, out, dout, lse, g_lse=None, causal=True, q_offset=0,
               kv_offset=0):
-    """The whole backward: (dQ, dK, dV) by `route`. Where the tensor-core
-    kernels take the inputs the delta pass runs once and both read it;
-    elsewhere K3 and K4 run, each computing its own delta (on the CPU,
-    their plain versions)."""
+    """The whole backward: (dQ, dK, dV) by `route`. Where a tensor-core
+    kernel takes the inputs the delta pass runs once and each such kernel
+    reads it; K3 and K4, where they run, compute their own delta (float32
+    at D 128: K3 beside the delta pass and K4-tf32). On the CPU, the plain
+    versions."""
     _validate(q, k, v, out, dout)
     _check_residuals(q, lse, g_lse)
     args = (causal, q_offset, kv_offset)
@@ -542,8 +554,14 @@ def flash_bwd(q, k, v, out, dout, lse, g_lse=None, causal=True, q_offset=0,
                                 dkv_kernel))
     _check_tma(q, k, v, dout)
     delta = _launch_delta(out, dout, g_lse)
-    return (launch_dq_sm90(q, k, v, dout, lse, delta, *args, dq_kernel),
-            *launch_dkv_sm90(q, k, v, dout, lse, delta, *args, dkv_kernel))
+    dq = (launch_dq_sm90(q, k, v, dout, lse, delta, *args, dq_kernel)
+          if dq_kernel in _DQ_HOPPER else
+          launch_bwd_dq(q, k, v, out, dout, lse, g_lse, *args, dq_kernel))
+    dk, dv = (launch_dkv_sm90(q, k, v, dout, lse, delta, *args, dkv_kernel)
+              if dkv_kernel in _DKV_HOPPER else
+              launch_bwd_dkv(q, k, v, out, dout, lse, g_lse, *args,
+                             dkv_kernel))
+    return dq, dk, dv
 
 
 @torch.library.custom_op("edl::flash_bwd", mutates_args=())

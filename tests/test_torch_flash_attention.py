@@ -292,26 +292,31 @@ def case_hopper_route_by_dtype_and_head_dim():
     alone: K2', K3' and K4' take bfloat16 at D 16, 32, 64 and 128, with
     the delta pass that K3' and K4' read in the backward's launches;
     K2-tf32, K3-tf32 and K4-tf32 take float32 at D 16, 32 and 64, with
-    the delta pass too; everything else (float32 at D 128 among them)
-    goes to the CUDA-core kernels K2, K3 and K4."""
+    the delta pass too; float32 at D 128 takes K2-tf32 and the mixed
+    backward, K3 beside the delta pass and K4-tf32; everything else goes
+    to the CUDA-core kernels K2, K3 and K4."""
     for dtype in (torch.bfloat16, torch.float32):
         for d in (8, 16, 24, 32, 48, 64, 100, 128, 256):
             bf16 = dtype == torch.bfloat16
             hopper = bf16 and d in (16, 32, 64, 128)
             tf32 = not bf16 and d in (16, 32, 64)
+            mixed = not bf16 and d == 128
             want = ((tflash.FWD_SM90, (tflash.BWD_DQ_SM90,
                                        tflash.BWD_DKV_SM90,
                                        tflash.BWD_DELTA_SM90)) if hopper else
                     (tflash.FWD_TF32, (tflash.BWD_DQ_TF32,
                                        tflash.BWD_DKV_TF32,
                                        tflash.BWD_DELTA_SM90)) if tf32 else
+                    (tflash.FWD_TF32, (tflash.BWD_DQ, tflash.BWD_DKV_TF32,
+                                       tflash.BWD_DELTA_SM90)) if mixed else
                     (tflash.FWD, (tflash.BWD_DQ, tflash.BWD_DKV)))
             assert tflash.route(dtype, d) == want, (dtype, d)
     for d in (16, 32, 64):
         assert tflash.route(torch.float32, d)[1][:2] == (
             tflash.BWD_DQ_TF32, tflash.BWD_DKV_TF32)
     assert tflash.route(torch.float32, 128) == (
-        tflash.FWD, (tflash.BWD_DQ, tflash.BWD_DKV))
+        tflash.FWD_TF32, (tflash.BWD_DQ, tflash.BWD_DKV_TF32,
+                          tflash.BWD_DELTA_SM90))
     # every kernel the route names is a launcher of one of the libraries
     named = {n for dt in (torch.bfloat16, torch.float32)
              for d in (16, 32, 64, 128, 256)
@@ -320,11 +325,15 @@ def case_hopper_route_by_dtype_and_head_dim():
         n for names in tflash._KERNELS.values() for n in names}
 
 
-def case_whole_backward_is_the_single_wrappers():
+def case_whole_backward_is_the_single_wrappers(d=D):
     """`flash_bwd`, the autograd backward, gives on the CPU what
-    `flash_bwd_dq` and `flash_bwd_dkv` give, launching nothing."""
-    q, k, v = _torch(*_qkv(seed=12))
-    do = _torch(np.random.RandomState(13).randn(B, T, H, D)
+    `flash_bwd_dq` and `flash_bwd_dkv` give, launching nothing: at D 16
+    and at D 128, where the card's route is the mixed one (K3, the delta
+    pass, K4-tf32)."""
+    r = np.random.RandomState(12)
+    q, k, v = _torch(*(r.randn(B, T, H, d).astype(np.float32)
+                       for _ in range(3)))
+    do = _torch(np.random.RandomState(13).randn(B, T, H, d)
                 .astype(np.float32))[0]
     g_lse = torch.from_numpy(np.random.RandomState(14).randn(B, H, T)
                              .astype(np.float32))
@@ -380,18 +389,18 @@ def _tf32(x):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def case_tf32_split_keeps_float32_products():
-    """K2-tf32's split in plain torch, at its tile (64 q rows, 64 kv rows,
-    D 64, float32 inputs): every operand of Q.K^T and P.V (p from
-    `flash_fwd_plain`'s own lse) split into hi = tf32(x) and lo =
+def case_tf32_split_keeps_float32_products(d=64, kv=64, seed=16):
+    """K2-tf32's split in plain torch, at its tile (64 q rows; 64 kv rows
+    at D 64, 32 at D 128; float32 inputs): every operand of Q.K^T and P.V
+    (p from `flash_fwd_plain`'s own lse) split into hi = tf32(x) and lo =
     tf32(x - hi), and the product summed as lo.hi + hi.lo + hi.hi, each
     term exact in float32 (11-bit significands). Both products stay
     within 5% of the 2e-5 bound chip_smoke.py holds out and lse to
     (rtol 2e-5, atol 2e-5 of the largest entry) of the float64 product;
     one TF32 product, for contrast, does not hold the bound."""
-    r = np.random.RandomState(16)
-    q, k, v = (torch.from_numpy(r.randn(1, 64, 1, 64).astype(np.float32))
-               for _ in range(3))
+    r = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(r.randn(1, rows, 1, d).astype(np.float32))
+               for rows in (64, kv, kv))
     _, lse = tflash.flash_fwd_plain(q, k, v, causal=True)
     p = tflash._p_and_ds(q, k, v, q, q, lse, None, True, 0, 0)[0][0, 0]
     q32, k32, v32 = (t[0, :, 0] for t in (q, k, v))
@@ -414,26 +423,27 @@ def case_tf32_split_keeps_float32_products():
     return shares
 
 
-def case_tf32_split_keeps_float32_backward():
-    """K4-tf32's and K3-tf32's products in plain torch, at their block (64
-    kv rows over two 32-row q tiles for dK and dV, 64 q rows over two
-    32-row kv tiles for dQ; D 64, causal, float32 inputs): S = Q.K^T,
-    dP = dO.V^T, dV = P^T.dO, dK = dS^T.Q and dQ = dS.K, each operand
+def case_tf32_split_keeps_float32_backward(d=64, q_tile=64, seed=18):
+    """K4-tf32's and K3-tf32's products in plain torch, at their block
+    (D 64: 64 kv rows for dK and dV, 64 q rows for dQ; D 128: K4-tf32's
+    64 kv rows over four 16-row q tiles, dV and dK summed tile by tile in
+    float32; causal, float32 inputs): S = Q.K^T, dP = dO.V^T, dV = P^T.dO,
+    dK = dS^T.Q and (D 64; K3 keeps dQ at D 128) dQ = dS.K, each operand
     split into tf32 hi and lo and each product summed as lo.hi + hi.lo +
     hi.hi, p = exp(s - lse) and ds = p (dp - delta) in float32 between
-    them, as the kernels form them. dK, dV and dQ stay within 5% of the
+    them, as the kernels form them. The gradients stay within 5% of the
     5e-5 bound chip_smoke.py holds the kernels' gradients to (rtol 5e-5,
     atol 5e-5 of the largest entry) of the same chain in float64; with
     one TF32 product in place of each split one they do not hold it."""
-    r = np.random.RandomState(18)
-    q, k, v, do = (torch.from_numpy(r.randn(1, 64, 1, 64).astype(np.float32))
+    r = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(r.randn(1, 64, 1, d).astype(np.float32))
                    for _ in range(4))
     out, lse = tflash.flash_fwd_plain(q, k, v, causal=True)
     delta = tflash.flash_bwd_delta_plain(out, do)[0, 0]
     lse = lse[0, 0]
     q, k, v, do = (t[0, :, 0] for t in (q, k, v, do))
     mask = torch.ones(64, 64).tril().bool()
-    scale = 64 ** -0.5
+    scale = d ** -0.5
 
     def split(a, b):
         a_hi, b_hi = _tf32(a), _tf32(b)
@@ -448,8 +458,12 @@ def case_tf32_split_keeps_float32_backward():
         s = mm(qq, kk.T) * scale
         p = torch.exp(s - lse.to(dt)[:, None]).masked_fill(~mask, 0.0)
         ds = p * (mm(dd, vv.T) - delta.to(dt)[:, None])
-        return {"dv": mm(p.T, dd), "dk": mm(ds.T, qq) * scale,
-                "dq": mm(ds, kk) * scale}
+        tiles = [slice(i, i + q_tile) for i in range(0, 64, q_tile)]
+        out = {"dv": sum(mm(p[t].T, dd[t]) for t in tiles),
+               "dk": sum(mm(ds[t].T, qq[t]) for t in tiles) * scale}
+        if d in tflash._DQ_TF32_HEAD_DIMS:
+            out["dq"] = mm(ds, kk) * scale
+        return out
 
     def share_of_bound(got, want):
         tol = 5e-5 * want.abs() + 5e-5 * want.abs().max()
@@ -467,13 +481,13 @@ def case_tf32_split_keeps_float32_backward():
 
 
 def case_float32_forward_at_tf32_widths_against_the_kernel():
-    """Float32 at D 32 and 64, widths K2-tf32 takes on the card: the port's
-    forward (on the CPU the plain version K2-tf32 is held to there)
-    against the interpret-mode kernel at B1 T128 H2 with 64-row blocks,
-    causal at offsets (0, 0) and (64, 32), out and lse within 2e-5. (D 16
-    is the other cases' width.)"""
+    """Float32 at D 32, 64 and 128, widths K2-tf32 takes on the card: the
+    port's forward (on the CPU the plain version K2-tf32 is held to
+    there) against the interpret-mode kernel at B1 T128 H2 with 64-row
+    blocks, causal at offsets (0, 0) and (64, 32), out and lse within
+    2e-5. (D 16 is the other cases' width.)"""
     r = np.random.RandomState(17)
-    for d in (32, 64):
+    for d in (32, 64, 128):
         q, k, v = (r.randn(1, 128, 2, d).astype(np.float32)
                    for _ in range(3))
         for q_off, kv_off in ((0, 0), (64, 32)):
@@ -508,8 +522,11 @@ def test_flash_attention_against_the_reference():
         for dtype in ("float32", "bfloat16"):
             case_materialized_path_matches_the_reference(dtype)
         case_hopper_route_by_dtype_and_head_dim()
-        case_whole_backward_is_the_single_wrappers()
+        for d in (D, 128):
+            case_whole_backward_is_the_single_wrappers(d)
         case_hi_lo_split_keeps_float32_p()
-        case_tf32_split_keeps_float32_products()
-        case_tf32_split_keeps_float32_backward()
+        for d, kv, seed in ((64, 64, 16), (128, 32, 19)):
+            case_tf32_split_keeps_float32_products(d, kv, seed)
+        for d, q_tile, seed in ((64, 64, 18), (128, 16, 20)):
+            case_tf32_split_keeps_float32_backward(d, q_tile, seed)
         case_float32_forward_at_tf32_widths_against_the_kernel()
