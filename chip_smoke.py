@@ -16,10 +16,9 @@ routing over (data, seq) blocks (flash-attention
 kernels: for its bfloat16 attention at D 64, and at D 128, 16 and 32 in
 the LMs with 128-, 16- and 32-wide heads, the Hopper kernels K2', K3',
 K4' and the delta pass, which runs once a backward; for the float32
-LMs at D 16, 32 and 64 their 3xTF32 twins on the tensor cores, K2-tf32,
-K3-tf32 and K4-tf32, and the float32 delta pass, and at D 128 K2-tf32,
-K4-tf32 and the delta pass beside K3; K2, K3 and K4 for every other
-input), the trainer's knobs (remat,
+LMs at D 16, 32, 64 and 128 their 3xTF32 twins on the tensor cores,
+K2-tf32, K3-tf32 and K4-tf32, and the float32 delta pass; K2, K3 and K4
+for every other input), the trainer's knobs (remat,
 gradient accumulation, grouped steps) over both, and the elastic control
 loop over the DeepFM job (the autoscaler's decisions and its drain-first
 eviction, zoo callbacks, the hybrid multi-slice mesh), and the DeepFM job
@@ -39,10 +38,10 @@ caught):
            with ptxas's registers and spills for each kernel, the dynamic
            shared memory each Hopper kernel's launch asks for, and the
            HGMMA (wgmma) instructions in each kernel's SASS (`cuobjdump
-           --dump-sass`): K2', K3' and K4' at D 16, 32, 64 and 128,
-           K2-tf32 and K4-tf32 at D 16, 32, 64 and 128 and K3-tf32 at D
-           16, 32 and 64 must have some; K4' at D 128, K2', K3' and K4'
-           at D 16 and 32 and every K2-tf32, K3-tf32 and K4-tf32 must
+           --dump-sass`): K2', K3' and K4' and K2-tf32, K3-tf32 and
+           K4-tf32 at D 16, 32, 64 and 128 must have some; K4' at D
+           128, K2', K3' and K4' at D 16 and 32 and every K2-tf32,
+           K3-tf32 and K4-tf32 must
            spill nothing; the delta pass must be built at D 16, 32, 64
            and 128 in bf16 and in float32.
 3. kernel  K1 (`place_sorted_grads`) against its plain version on the card
@@ -71,11 +70,9 @@ caught):
 7. attn_kernel  the flash kernels against their plain versions on the
            card, each case through the routing wrappers (the forward, then
            the whole backward `flash_bwd`), which must take the Hopper
-           kernels K2', K3' and K4' for bf16 at D 16, 32, 64 and 128,
-           K2-tf32, K3-tf32 and K4-tf32 for float32 at D 16, 32 and 64
-           (one delta pass a backward, no K2-K4) and K2-tf32, K3 and
-           K4-tf32 (with the delta pass) at float32 D 128, and K2-K4
-           elsewhere: at the
+           kernels K2', K3' and K4' for bf16 at D 16, 32, 64 and 128 and
+           K2-tf32, K3-tf32 and K4-tf32 for float32 at the same D (one
+           delta pass a backward, no K2-K4), and K2-K4 elsewhere: at the
            LM's full shape (B8 T1024 H8, causal) in bf16 at D 16, 32, 64
            and 128 and in float32 at D 64; on small
            float32 cases at D 16 and
@@ -114,29 +111,28 @@ caught):
            and 32, each against its plain version's time and SDPA's
            forward or backward on the same inputs. SDPA's backend is
            pinned and named: flash for bf16, memory-efficient for
-           float32 (flash takes no float32). Float32 at D 16, 32 and 64
-           takes K2-tf32, K3-tf32, K4-tf32 and the float32 delta pass:
-           its cases (the small float32 ones at D 16; a full float32 case
-           at D 16 and 64; D 32 with a tail, offsets and g_lse, D 64 with
-           offsets and fully masked) hold out, lse and delta to 2e-5 and
-           gradients to 5e-5, reruns bit-identical (forward and backward,
-           every case), fully masked rows 0 (gradients too) with lse <=
-           -1e29. Float32 at D 128 takes K2-tf32 and the mixed backward
-           (K3, the delta pass, K4-tf32): the bf16 D 128 cases' float32
-           twins and lm_parity's shape, held the same way. At float32 B8
-           T1024 H8 D 16, 32, 64 and 128 K2-tf32 is held to its plain
-           version and to a rerun, beside K2 through its launcher (held
-           too) and SDPA's memory-efficient forward, and K4-tf32 and (D
-           16, 32, 64) K3-tf32 the same (alone and with the delta pass)
-           beside K4 and K3 through their launchers (held too, with their
-           device times) and SDPA's memory-efficient backward; the float32
-           delta pass held to its plain version; at D 64 and 128 the
-           whole backward against SDPA's in turns: ms, device ms, plain ms
-           and the bound (float32 products counted as three TF32 products
-           at the TF32 peak, `attn_bound`). K2 and K4 serve no LM's route
-           any more; their float32 D 128 times are the yardstick beside
-           K2-tf32 and K4-tf32. Each timing line carries the card's name
-           and power limit.
+           float32 (flash takes no float32). Float32 at D 16, 32, 64 and
+           128 takes K2-tf32, K3-tf32, K4-tf32 and the float32 delta
+           pass: its cases (the small float32 ones at D 16; a full
+           float32 case at D 16 and 64; D 32 with a tail, offsets and
+           g_lse, D 64 with offsets and fully masked; at D 128 the bf16
+           D 128 cases' float32 twins and lm_parity's shape) hold out,
+           lse and delta to 2e-5 and gradients to 5e-5, reruns
+           bit-identical (forward and backward, every case), fully masked
+           rows 0 (gradients too) with lse <= -1e29. At float32 B8 T1024
+           H8 D 16, 32, 64 and 128 K2-tf32 is held to its plain version
+           and to a rerun, beside K2 through its launcher (held too) and
+           SDPA's memory-efficient forward, and K3-tf32 and K4-tf32 the
+           same (alone and with the delta pass) beside K3 and K4 through
+           their launchers (held too, with their device times) and SDPA's
+           memory-efficient backward; the float32 delta pass held to its
+           plain version; at D 64 and 128 the whole backward against
+           SDPA's in turns: ms, device ms, plain ms and the bound
+           (float32 products counted as three TF32 products at the TF32
+           peak, `attn_bound`). K2, K3 and K4 serve no LM's route any
+           more; their float32 D 128 times are the yardstick beside
+           K2-tf32, K3-tf32 and K4-tf32. Each timing line carries the
+           card's name and power limit.
 8. lm_parity  a small LM (vocab 64, 2 layers, dim 64, float32, T 32) at
            D 16 (4 heads), 32 (2 heads) and, dim 256, 128 (2 heads), on
            the card and on the CPU from the same weights: loss rtol 5e-5,
@@ -144,8 +140,8 @@ caught):
            (the k biases, 0 in exact arithmetic, within 1e-6 of the
            largest gradient entry of 0). These float32 LMs are the main
            path that launches K2-tf32, K3-tf32, K4-tf32 and the delta pass
-           (D 16, 32), each twice a step; at D 128 they launch K2-tf32,
-           K3, K4-tf32 and the delta pass, as `lm_train_f32_d128` does.
+           (D 16, 32), each twice a step; at D 128 they launch the same
+           four, as `lm_train_f32_d128` does.
 9. lm_train  the LM at the width bench.py benchmarks it (vocab 8192, 4
            layers, dim 512, 8 heads, bf16, 8 x 1024 random tokens): 20
            train steps (one warm-up), eval_step, predict_step. Losses must
@@ -527,10 +523,10 @@ they ran.
 37. lm_train_f32_d128 (after `lm_train_d128`)  the LM at 34's width (4
            heads of 128, `LM_D128_PARAMS`) in float32 on 9's batch: 6
            train steps (one warm-up), eval and predict, as 36. Losses
-           must be finite and fall; K2-tf32, K3, K4-tf32 and the delta
-           pass must each launch 4 times in every train step, K2-tf32 4
-           times in each of eval and predict, and K2, K4, K2', K3', K4'
-           and K3-tf32 never. Step ms, host ms, tokens/s, peak memory;
+           must be finite and fall; K2-tf32, K3-tf32, K4-tf32 and the
+           delta pass must each launch 4 times in every train step,
+           K2-tf32 4 times in each of eval and predict, and K2-K4, K2',
+           K3' and K4' never. Step ms, host ms, tokens/s, peak memory;
            then its profile, as in 6.
 Then the `kernels` line (K1's `launches` are the job's, with the
 `grouped`, `cohort_job`, `manual_shards`, `tier`, `autoscale_job`,
@@ -545,7 +541,7 @@ K3-tf32 and K4-tf32 at each D are entries of their own, `lm_parity`'s at
 D 16 and 32, `lm_train_f32`'s at D 64 and `lm_train_f32_d128`'s at D 128;
 K2-K4 report float32 at D 128 first, with float32 at D 16, 32 and 64 and
 bf16 at D 16, 32 and 64 (and K4 at 128) beside, their launches from
-`lm_train_f32_d128` (K3's; no route takes K2 or K4 there), `lm_parity`'s
+`lm_train_f32_d128` (0: no LM's route takes them), `lm_parity`'s
 beside; the delta pass also its launches in `lm_train_d16`,
 `lm_train_d32`, `lm_train_f32`, `lm_train_f32_d128` and `lm_parity`, and
 its float32 times), the nvidia-smi line, and last the `ok` line.
@@ -588,8 +584,8 @@ TF32_FLOPS = 495e12              # H100 SXM dense TF32 (tensor cores)
 LM_PARAMS = "vocab=8192;num_layers=4;dim=512;heads=8;max_len=1024"
 LM_LAYERS, LM_BATCH, LM_T, LM_VOCAB, LM_DIM = 4, 8, 1024, 8192, 512
 LM_SMALL = "vocab=64;num_layers=2;dim=64;heads=4;max_len=64"
-# the small float32 LM at D 16 (LM_SMALL), 32 (K2-tf32, K3-tf32, K4-tf32)
-# and 128 (K2-tf32, K3, K4-tf32): `lm_parity`'s configurations
+# the small float32 LM at D 16 (LM_SMALL), 32 and 128 (K2-tf32, K3-tf32,
+# K4-tf32 each): `lm_parity`'s configurations
 LM_PARITY = {16: LM_SMALL,
              32: "vocab=64;num_layers=2;dim=64;heads=2;max_len=64",
              128: "vocab=64;num_layers=2;dim=256;heads=2;max_len=64"}
@@ -1030,9 +1026,9 @@ NARROW = {16: (FWD16, DKV16, DQ16), 32: (FWD32, DKV32, DQ32)}
 # K2' and K3' at D 128, entries of their own
 FWD128, DQ128 = "flash_fwd_sm90<D=128>", "flash_bwd_dq_sm90<D=128>"
 # K2-tf32, K3-tf32 and K4-tf32 (float32, 3xTF32 products) at each head
-# dim they take (float32 at D 128: K2-tf32, K3 and K4-tf32)
+# dim they take
 TF32 = {d: f"flash_fwd_tf32_sm90<D={d}>" for d in (16, 32, 64, 128)}
-DQ_TF32 = {d: f"flash_bwd_dq_tf32_sm90<D={d}>" for d in (16, 32, 64)}
+DQ_TF32 = {d: f"flash_bwd_dq_tf32_sm90<D={d}>" for d in TF32}
 DKV_TF32 = {d: f"flash_bwd_dkv_tf32_sm90<D={d}>" for d in TF32}
 # name: (source, the TPU kernel's pallas_call it replaces)
 ATTN_KERNELS = {
@@ -1241,9 +1237,8 @@ def phase_attn_kernel(dev):
          False),
         ("f32_d64_fully_masked_kv_offset_1024", small[:4] + (64, f32), True,
          0, 1024, False),
-        # float32 D 128, the mixed route (K2-tf32; K3, the delta pass and
-        # K4-tf32): the bf16 D 128 cases' twins and lm_parity's shape (B8
-        # T32 H2)
+        # float32 D 128 (K2-tf32; the delta pass, K3-tf32 and K4-tf32):
+        # the bf16 D 128 cases' twins and lm_parity's shape (B8 T32 H2)
         ("f32_d128_offsets_64_32", twin128[:4] + (128, f32), True, 64, 32,
          False),
         ("f32_d128_not_causal_tq100_tk230", (2, 100, 230, 2, 128, f32),
@@ -1285,8 +1280,8 @@ def phase_attn_kernel(dev):
         again = fa.flash_bwd(q, k, v, out, dout, lse, glse, *args)
         torch.cuda.synchronize()
         # bf16 takes K2', K3' and K4' at D 16, 32, 64 and 128, float32
-        # K2-tf32, K3-tf32 and K4-tf32 at D 16, 32 and 64 and K2-tf32, K3
-        # and K4-tf32 at D 128, each backward with one delta pass
+        # K2-tf32, K3-tf32 and K4-tf32 there, each backward with one delta
+        # pass
         fwd_kernel, bwd_kernels = fa.route(dtype, d)
         dq_kernel, dkv_kernel = bwd_kernels[:2]
         hopper = fwd_kernel == fa.FWD_SM90
@@ -1305,15 +1300,14 @@ def phase_attn_kernel(dev):
         grad_tol = (5e-5, 5e-5) if is_f32 else bf16_tol
         # each kernel's entry on the `kernels` line: K2', K3' and K4' at
         # D 16, 32 and 128 and K2-tf32, K3-tf32 and K4-tf32 at each D
-        # have entries of their own (K3 keeps dQ at float32 D 128)
+        # have entries of their own
         fwd_entry, dq_entry, dkv = fwd_kernel, dq_kernel, dkv_kernel
         if hopper and d in NARROW:
             fwd_entry, dkv, dq_entry = NARROW[d]
         elif hopper and d == 128:
             fwd_entry, dq_entry, dkv = FWD128, DQ128, DKV128
         elif fwd_kernel == fa.FWD_TF32:
-            fwd_entry, dkv = TF32[d], DKV_TF32[d]
-            dq_entry = DQ_TF32.get(d, dq_kernel)
+            fwd_entry, dq_entry, dkv = TF32[d], DQ_TF32[d], DKV_TF32[d]
         checks = {
             fwd_entry: [over_tol(out, want_out, *out_tol),
                         over_tol(lse, want_lse, 2e-5, 2e-5)],
@@ -1476,10 +1470,10 @@ def attn_times(dev, report, worst, smi):
          timed_dtype="bfloat16", kernels=result, whole_backward=bwd,
          faster=faster, served=served, d128=d128, k4_d128=k4_d128,
          narrow=narrow, tf32=tf32, tf32_backward=tf32_bwd)
-    # K2-K4 report first float32 at D 128 (where K3 serves beside K2-tf32
-    # and K4-tf32, and K2 and K4 are the yardstick: no route takes them on
-    # the LMs' inputs); their float32 and bf16 times at the other widths
-    # (the tensor-core kernels take those) beside
+    # K2-K4 report first float32 at D 128 (the yardstick beside K2-tf32,
+    # K3-tf32 and K4-tf32: no route takes K2-K4 on the LMs' inputs); their
+    # float32 and bf16 times at the other widths (the tensor-core kernels
+    # take those) beside
     for kernel in (fa.FWD, fa.BWD_DQ, fa.BWD_DKV):
         on_bf16_d64 = result[kernel]
         result[kernel] = {
@@ -1567,8 +1561,8 @@ def tf32_times(dev, worst, d, served):
 
 
 def tf32_bwd_times(dev, worst, d, served):
-    """K3-tf32 (D 16, 32, 64) and K4-tf32 at D `d` (float32 B8 T1024 H8,
-    causal): each held to its plain version (gradients 5e-5 with atol
+    """K3-tf32 and K4-tf32 at D `d` (float32 B8 T1024 H8, causal): each
+    held to its plain version (gradients 5e-5 with atol
     5e-5 of the largest value) and to itself over two runs; its ms (CUDA
     events, alone and with the delta pass), device ms (profiler), plain
     ms and bound beside K3 or K4 through its launcher on the same inputs
@@ -1577,8 +1571,8 @@ def tf32_bwd_times(dev, worst, d, served):
     backward (dq, dk and dv in one call; its ms and device ms from
     `served`); the float32 delta pass held to its plain version (2e-5),
     its ms, device ms, plain ms and bound; at D 64 and 128 the whole
-    backward (`flash_bwd`: at D 128 K3, the delta pass and K4-tf32)
-    against SDPA's. Returns {entry name: its fields}, the delta pass's
+    backward (`flash_bwd`: the delta pass, K3-tf32 and K4-tf32) against
+    SDPA's. Returns {entry name: its fields}, the delta pass's
     under BWD_DELTA_SM90."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
 
@@ -1590,24 +1584,23 @@ def tf32_bwd_times(dev, worst, d, served):
     # entry: (its launch, its plain version, its kernel, the CUDA-core
     # kernel it replaces here and that kernel's launch, the launcher that
     # runs the delta pass first)
-    calls = {}
-    if d in DQ_TF32:            # at D 128 K3 keeps dQ
-        calls[DQ_TF32[d]] = (
+    calls = {
+        DQ_TF32[d]: (
             lambda: (fa.launch_dq_sm90(q, k, v, dout, lse, delta, *args,
                                        fa.BWD_DQ_TF32),),
             lambda: (fa.flash_bwd_dq_plain(q, k, v, out, dout, lse),),
             fa.BWD_DQ_TF32, fa.BWD_DQ,
             lambda: (fa.launch_bwd_dq(q, k, v, out, dout, lse, None, *args,
                                       fa.BWD_DQ),),
-            fa.launch_bwd_dq)
-    calls[DKV_TF32[d]] = (
-        lambda: fa.launch_dkv_sm90(q, k, v, dout, lse, delta, *args,
-                                   fa.BWD_DKV_TF32),
-        lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse),
-        fa.BWD_DKV_TF32, fa.BWD_DKV,
-        lambda: fa.launch_bwd_dkv(q, k, v, out, dout, lse, None, *args,
-                                  fa.BWD_DKV),
-        fa.launch_bwd_dkv)
+            fa.launch_bwd_dq),
+        DKV_TF32[d]: (
+            lambda: fa.launch_dkv_sm90(q, k, v, dout, lse, delta, *args,
+                                       fa.BWD_DKV_TF32),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse),
+            fa.BWD_DKV_TF32, fa.BWD_DKV,
+            lambda: fa.launch_bwd_dkv(q, k, v, out, dout, lse, None, *args,
+                                      fa.BWD_DKV),
+            fa.launch_bwd_dkv)}
     result = {}
     for name, (run_kernel, run_plain, kernel, old, run_old,
                launch) in calls.items():
@@ -2012,8 +2005,7 @@ def reset_launches():
 def phase_lm_parity():
     """The small float32 LM on the card against the CPU at each head dim
     of LM_PARITY; returns {D: the flash kernels' launches in its card
-    step} (K2-tf32, K3-tf32, K4-tf32 and the delta pass at D 16 and 32;
-    K2-tf32, K3, K4-tf32 and the delta pass at D 128)."""
+    step} (K2-tf32, K3-tf32, K4-tf32 and the delta pass at each D)."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
     from elasticdl_tpu_torch.training.trainer import Trainer
 
@@ -3592,9 +3584,9 @@ def phase_lm_train_f32_d128(smi):
     """The LM at `lm_train`'s width with 128-wide heads (LM_D128_PARAMS)
     in float32 on `lm_train`'s batch: a warm-up step and LM_F32_STEPS
     timed train steps, eval and predict, as `lm_variant_train` holds
-    them: finite falling losses; K2-tf32, K3, K4-tf32 and the delta pass
-    4 times a train step, K2-tf32 4 times in each of eval and predict,
-    and K2, K4, K2', K3', K4' and K3-tf32 never. Then its profile, as in
+    them: finite falling losses; K2-tf32, K3-tf32, K4-tf32 and the delta
+    pass 4 times a train step, K2-tf32 4 times in each of eval and
+    predict, and K2-K4, K2', K3' and K4' never. Then its profile, as in
     `profile`. Returns the flash kernels' launches."""
     trainer, state, batch, fields, launches = lm_variant_train(
         LM_D128_PARAMS, "lm_train_f32_d128", smi, steps=LM_F32_STEPS,
@@ -6142,9 +6134,9 @@ def main():
         "route": "cuda",
         "source": ATTN_KERNELS[name][0],
         "replaces": ATTN_KERNELS[name][1],
-        # K3 serves the float32 LMs' steps at D 128 (lm_train_f32_d128,
-        # beside lm_parity's), where no route takes K2 or K4 any more; the
-        # Hopper kernels the
+        # K2-K4 report their launches in the float32 LMs' steps at D 128
+        # (lm_train_f32_d128, beside lm_parity's): 0, since no LM's route
+        # takes them; the Hopper kernels the
         # bf16 LM's train, eval and predict steps (lm_train), and those of
         # the MoE and pipelined LMs, the MoE job, the in-process ring and
         # Ulysses (ring_attn), the seq mesh's and ring LM's steps
@@ -6210,9 +6202,11 @@ def main():
         "replaces": ATTN_KERNELS[entries[d]][1],
         # K2-tf32, K3-tf32 and K4-tf32 come from the float32 LMs: the
         # small ones at D 16 and 32 (lm_parity), the full-width ones at D
-        # 64 and 128 (train, eval, predict)
+        # 64 and 128 (train, eval, predict), lm_parity's D 128 LM beside
         "launches": tf32_runs[d][1][kernel],
         "launches_in": tf32_runs[d][0],
+        **({"lm_parity_launches": parity_launches[128][kernel]}
+           if d == 128 else {}),
         **attn[entries[d]],
     } for entries, kernel in ((TF32, fa.FWD_TF32), (DQ_TF32, fa.BWD_DQ_TF32),
                               (DKV_TF32, fa.BWD_DKV_TF32))

@@ -1,14 +1,13 @@
 // Flash attention on Hopper's tensor cores: the forward (K2'), dQ (K3') and
 // dK/dV (K4') for bfloat16 with D = 16, 32, 64 or 128, the pass that
 // writes the delta K3' and K4' read (bfloat16 and float32), and for
-// float32 the forward (K2-tf32) and dK/dV (K4-tf32) with D = 16, 32, 64
-// or 128 and dQ (K3-tf32) with D = 16, 32 or 64, in 3xTF32 products.
+// float32 the forward (K2-tf32), dQ (K3-tf32) and dK/dV (K4-tf32) with
+// D = 16, 32, 64 or 128, in 3xTF32 products.
 //
 // Replaces, for those inputs, elasticdl_tpu/ops/pallas_attention.py
 // `_fwd_kernel` (`pallas_call` at 256), `_bwd_dq_kernel` (`pallas_call` at
 // 404) and `_bwd_dkv_kernel` (`pallas_call` at 433). csrc/flash_attention.cu
-// keeps every other case (dQ for float32 at D 128, float32 and bfloat16 at
-// other head dims).
+// keeps every other case (float32 and bfloat16 at other head dims).
 //
 // Contract: that of ops/flash_attention.py, unchanged. q (B, Tq, H, D),
 // k and v (B, Tk, H, D), dout like q, read in place through (b, t, h)
@@ -157,8 +156,10 @@
 //   q rows (64 KB): S^T and dP^T are m64n16k8, dV and dK m64n128k8 over
 //   64-byte transposed rows; the next tile's Q and dO land in a 16 KB
 //   buffer beside the stage while this one's products run, and are split
-//   into the stage once it is consumed. K3 keeps dQ there (float32 FMAs,
-//   csrc/flash_attention.cu).
+//   into the stage once it is consumed. K3-tf32 at D 128 has Q and dO of
+//   64 q rows, hi and lo, resident (128 KB) in one consumer warpgroup,
+//   over two stages of 16 kv rows (48 KB each, 230,464 bytes in all): S
+//   and dP are m64n16k8, dQ m64n128k8 over K^T's 64-byte rows.
 // Tensor maps are built on the host over each tensor's strides; the
 // encoder comes from the CUDA runtime's entry-point lookup (no -lcuda).
 
@@ -1843,9 +1844,16 @@ using DkvTf32Shape = Tf32Shape<1, (kD == 16 ? 2 : 1), (kD == 128 ? 16 : 32),
 // its split, and overlap each other's softmax: 0.290 against one
 // warpgroup's 0.374 device ms at D 64, within 6% of one warpgroup in two
 // blocks a SM at D 16 and 32. 230,464 bytes of shared memory at D 64, as
-// K2-tf32.
+// K2-tf32. At D 128 Q and dO of 64 q rows, hi and lo, take 131,072
+// bytes (two warpgroups' would take 262,144): one consumer warpgroup, 256
+// threads (ptxas allows 255 registers; dQ takes 64 floats a thread; it
+// takes 220, no spill), over two stages of 16 kv rows, six 8 KB tiles
+// each (230,464 bytes). At B8 T1024 H8 on an H100 that ran 0.844 device
+// ms against 0.852 over one 32-row stage (sm90_layouts.py) and 1.102 over
+// one 16-row stage beside a landing buffer as K4-tf32's, whose split
+// waits for the products (PERF.md).
 template <int kD>
-using DqTf32Shape = Tf32Shape<2, 1>;
+using DqTf32Shape = Tf32Shape<(kD == 128 ? 1 : 2), 1, (kD == 128 ? 16 : 32)>;
 
 // K4-tf32's and K3-tf32's shared memory at head dim kD in block shape S
 // (tiles laid out as K2-tf32's, `Tf32Layout`): the resident rows of two
@@ -1885,6 +1893,8 @@ static_assert(BwdTf32Layout<128, DkvTf32Shape<128>>::kDkvBytes <= 232448,
               "K4-tf32 at D 128 must fit a block's 227 KB");
 static_assert(BwdTf32Layout<64, DqTf32Shape<64>>::kDqBytes <= 232448,
               "K3-tf32 at D 64 must fit a block's 227 KB");
+static_assert(BwdTf32Layout<128, DqTf32Shape<128>>::kDqBytes <= 232448,
+              "K3-tf32 at D 128 must fit a block's 227 KB");
 
 // A streamed tile (kRows rows of kD floats as TMA landed it at `x`,
 // Cols<2 kD>) split as split_in_place splits it (hi at the same offsets
@@ -2242,7 +2252,6 @@ flash_bwd_dq_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int kT = L::kTileBytes;
   constexpr int kBlockRows = S::kRows;
   constexpr int kStreamRows = S::kStream;
-  static_assert(kStreamRows == 32, "K3-tf32's products are over 32 kv rows");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = align_1024(smem_raw);  // Q, then its hi; Q lo; dO; dO lo
   uint8_t* dos = qs + 2 * L::kResBytes;
@@ -2362,16 +2371,17 @@ flash_bwd_dq_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     if (S::kConsumers == 1 || j < n_mine) {
       const uint8_t* st = stages + s * L::kDqStage;
       // S = Q.K^T and dP = dO.V^T, each lo.hi + hi.lo + hi.hi
-      float sc[16], dp[16];
+      constexpr int kN = kStreamRows;  // S and dP: 64 x kN
+      float sc[kN / 2], dp[kN / 2];
   #pragma unroll
-      for (int i = 0; i < 16; ++i) sc[i] = dp[i] = 0.0f;
+      for (int i = 0; i < kN / 2; ++i) sc[i] = dp[i] = 0.0f;
       pin(sc);
       pin(dp);
       wg_fence();
-      wgmma_tf32_ss_3x<kD, kBlockRows, kStreamRows>(
-          sc, q_hi, kResLo, desc<2 * kD>(st, 16), kLo);
-      wgmma_tf32_ss_3x<kD, kBlockRows, kStreamRows>(
-          dp, do_hi, kResLo, desc<2 * kD>(st + 2 * kT, 16), kLo);
+      wgmma_tf32_ss_3x<kD, kBlockRows, kN>(sc, q_hi, kResLo,
+                                           desc<2 * kD>(st, 16), kLo);
+      wgmma_tf32_ss_3x<kD, kBlockRows, kN>(dp, do_hi, kResLo,
+                                           desc<2 * kD>(st + 2 * kT, 16), kLo);
       wg_commit();
       wg_wait_all();
       pin(sc);
@@ -2383,7 +2393,7 @@ flash_bwd_dq_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           (causal && static_cast<long long>(kv_off) + j0 + kStreamRows - 1 >
                          static_cast<long long>(q_off) + row0);
   #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < kN / 2; ++i) {
         bool ok = true;
         if (edge) {
           const int kv = j0 + acc_col(i, c0);
@@ -2396,14 +2406,15 @@ flash_bwd_dq_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       }
 
       // dQ += dS.K, lo.hi + hi.lo + hi.hi over K^T
-      uint32_t ds_hi[4][4], ds_lo[4][4];
-      split_tf32_fragments<4>(dp, ds_hi, ds_lo);
+      constexpr int kSteps = kN / 8;
+      uint32_t ds_hi[kSteps][4], ds_lo[kSteps][4];
+      split_tf32_fragments<kSteps>(dp, ds_hi, ds_lo);
       pin(dq_acc);
       pin(ds_hi);
       pin(ds_lo);
       wg_fence();
-      wgmma_tf32_rs_3x<kD, 4>(dq_acc, ds_hi, ds_lo,
-                              desc<64>(st + 4 * kT, 16), kLo);
+      wgmma_tf32_rs_3x<kD, kSteps>(dq_acc, ds_hi, ds_lo,
+                                   desc<2 * kN>(st + 4 * kT, 16), kLo);
       wg_commit();
       wg_wait_all();
       pin(dq_acc);
@@ -2686,8 +2697,8 @@ extern "C" {
 // cudaError_t (0 on success). `strides` holds the (b, t, h) element
 // strides of the tensors in argument order. dtype must be 1 (bfloat16) and
 // D 16, 32, 64 or 128, or for the *_tf32_sm90 launchers 0 (float32) and D
-// 16, 32, 64 or 128 (K3-tf32: 16, 32 or 64; the delta pass takes either);
-// anything else returns cudaErrorInvalidValue.
+// 16, 32, 64 or 128 (the delta pass takes either); anything else returns
+// cudaErrorInvalidValue.
 
 int flash_fwd_sm90(int dtype, const void* q, const void* k, const void* v,
                    void* out, void* lse, const long long* strides, int B,
@@ -2799,8 +2810,10 @@ int flash_bwd_dq_tf32_sm90(int dtype, const void* q, const void* k,
   const Args a{q, k, v, nullptr, dout, lse, nullptr, delta,
                dq, nullptr, strides, B, H, Tq, Tk, D, q_off, kv_off,
                causal != 0, scale_of(D), static_cast<cudaStream_t>(stream)};
-  static const Built built[] = {
-      {16, run_dq_tf32<16>}, {32, run_dq_tf32<32>}, {64, run_dq_tf32<64>}};
+  static const Built built[] = {{16, run_dq_tf32<16>},
+                                 {32, run_dq_tf32<32>},
+                                 {64, run_dq_tf32<64>},
+                                 {128, run_dq_tf32<128>}};
   return dispatch(dtype, a, built, 0);
 }
 
@@ -2846,6 +2859,9 @@ int flash_sm90_shared_bytes(int kernel, int D) {
   }
   if (kernel == 5 && D == 64) {
     return BwdTf32Layout<64, DqTf32Shape<64>>::kDqBytes;
+  }
+  if (kernel == 5 && D == 128) {
+    return BwdTf32Layout<128, DqTf32Shape<128>>::kDqBytes;
   }
   return -1;
 }

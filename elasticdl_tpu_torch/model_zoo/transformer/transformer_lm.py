@@ -5,9 +5,9 @@ Each block's attention goes through `ops.attention.
 sequence_parallel_attention`, which without a `seq` axis is
 `full_attention`: on the card, for bfloat16 at head dim 16, 32, 64 or
 128, the Hopper kernels of `csrc/flash_attention_sm90.cu` (K2' forward,
-K3' and K4' backward after one delta pass), for float32 at 16, 32 or 64
-their 3xTF32 twins there (K2-tf32, K3-tf32 and K4-tf32, after a float32
-delta pass), and for every other input K2, K3 and K4 of
+K3' and K4' backward after one delta pass), for float32 at the same
+head dims their 3xTF32 twins there (K2-tf32, K3-tf32 and K4-tf32, after
+a float32 delta pass), and for every other input K2, K3 and K4 of
 `csrc/flash_attention.cu` (`ops/flash_attention.route` decides).
 The zoo's default configuration (bf16, dim 128, 8 heads) has D 16. The q/k/v/proj/MLP products and the lm_head
 are plain matmuls, as in the reference.

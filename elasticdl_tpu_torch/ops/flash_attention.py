@@ -8,23 +8,19 @@ Counterpart of `elasticdl_tpu/ops/pallas_attention.py`:
 - K4 `flash_bwd_dkv` replaces `_bwd_dkv_kernel`: dK and dV.
 
 Two CUDA C++ sources hold the kernels (see the notes in each):
-- `csrc/flash_attention_sm90.cu`, on Hopper's tensor cores (`wgmma`, TMA):
-  K2' `flash_fwd_sm90`, K3' `flash_bwd_dq_sm90` and K4'
-  `flash_bwd_dkv_sm90` for bfloat16 at D 16, 32, 64 and 128: the bf16
-  LM's attention; K2-tf32 `flash_fwd_tf32_sm90`, K3-tf32
-  `flash_bwd_dq_tf32_sm90` and K4-tf32 `flash_bwd_dkv_tf32_sm90` for
-  float32 in 3xTF32 products, K2-tf32 and K4-tf32 at D 16, 32, 64 and
-  128, K3-tf32 at D 16, 32 and 64: the float32 LM's attention; and the
-  delta pass `flash_bwd_delta_sm90` that K3', K4', K3-tf32 and K4-tf32
-  read;
+- `csrc/flash_attention_sm90.cu`, on Hopper's tensor cores (`wgmma`, TMA),
+  at D 16, 32, 64 and 128: K2' `flash_fwd_sm90`, K3' `flash_bwd_dq_sm90`
+  and K4' `flash_bwd_dkv_sm90` for bfloat16, the bf16 LM's attention;
+  K2-tf32 `flash_fwd_tf32_sm90`, K3-tf32 `flash_bwd_dq_tf32_sm90` and
+  K4-tf32 `flash_bwd_dkv_tf32_sm90` for float32 in 3xTF32 products, the
+  float32 LM's attention; and the delta pass `flash_bwd_delta_sm90` that
+  K3', K4', K3-tf32 and K4-tf32 read;
 - `csrc/flash_attention.cu`, float32 FMAs on the CUDA cores: K2, K3 and K4
-  for every other input (float32 and bfloat16 at other head dims), and K3
-  for float32 at D 128.
+  for every other input (float32 and bfloat16 at other head dims).
 The route (`route`) is decided by dtype and D alone, before any launch; a
 failed launch raises and is never retried on the other kernels. The
 autograd backward (`flash_bwd`) launches the delta pass once and hands it
-to the tensor-core backward kernels of its route (at float32 D 128 to
-K4-tf32 only, beside K3, which computes its own).
+to both tensor-core backward kernels of its route.
 
 The contract, shared by kernel and plain version:
 - scores s = (q . k) * D**-0.5 in float32, with the causal mask taken in
@@ -88,11 +84,12 @@ BWD_DQ_TF32, BWD_DKV_TF32 = "flash_bwd_dq_tf32_sm90", "flash_bwd_dkv_tf32_sm90"
 launches = {FWD: 0, BWD_DQ: 0, BWD_DKV: 0, FWD_SM90: 0, BWD_DQ_SM90: 0,
             BWD_DKV_SM90: 0, BWD_DELTA_SM90: 0, FWD_TF32: 0, BWD_DQ_TF32: 0,
             BWD_DKV_TF32: 0}
-_SM90_HEAD_DIMS = (16, 32, 64, 128)  # K2', K3', K4' (bfloat16)
-# float32 on the tensor cores, kernel by kernel (elsewhere K2, K3 or K4)
-_FWD_TF32_HEAD_DIMS = (16, 32, 64, 128)  # K2-tf32
-_DQ_TF32_HEAD_DIMS = (16, 32, 64)        # K3-tf32
-_DKV_TF32_HEAD_DIMS = (16, 32, 64, 128)  # K4-tf32
+# the head dims of the tensor-core kernels; each dtype's kernels there:
+# (forward, (dQ, dK/dV, the delta pass both read))
+_HOPPER_HEAD_DIMS = (16, 32, 64, 128)
+_HOPPER_ROUTES = {
+    torch.bfloat16: (FWD_SM90, (BWD_DQ_SM90, BWD_DKV_SM90, BWD_DELTA_SM90)),
+    torch.float32: (FWD_TF32, (BWD_DQ_TF32, BWD_DKV_TF32, BWD_DELTA_SM90))}
 _KERNELS = {LIBRARY: (FWD, BWD_DQ, BWD_DKV),
             LIBRARY_SM90: (FWD_SM90, BWD_DQ_SM90, BWD_DKV_SM90,
                            BWD_DELTA_SM90, FWD_TF32, BWD_DQ_TF32,
@@ -104,8 +101,8 @@ _SIGNATURES = {FWD: (5, 8), BWD_DQ: (8, 8), BWD_DKV: (9, 8),
                BWD_DELTA_SM90: (4, 4), FWD_TF32: (5, 8), BWD_DQ_TF32: (7, 8),
                BWD_DKV_TF32: (8, 8)}
 # the tensor-core dQ and dK/dV kernels, which read the delta pass
-_DQ_HOPPER, _DKV_HOPPER = (BWD_DQ_SM90, BWD_DQ_TF32), (BWD_DKV_SM90,
-                                                        BWD_DKV_TF32)
+_DQ_HOPPER = tuple(bwd[0] for _, bwd in _HOPPER_ROUTES.values())
+_DKV_HOPPER = tuple(bwd[1] for _, bwd in _HOPPER_ROUTES.values())
 
 MAX_HEAD_DIM = 256
 MAX_GRID_Y = 65535              # B * H rides on the grid's y dimension
@@ -249,23 +246,15 @@ def _on_card(x: torch.Tensor) -> bool:
 def route(dtype, d) -> Tuple[str, Tuple[str, ...]]:
     """The kernels that take inputs of `dtype` and head dim `d` on the
     card, decided before any launch, the one place that decides them:
-    (forward, the backward's launches, each once: dQ, dK/dV and, where a
-    tensor-core kernel reads it, the delta pass):
+    (forward, the backward's launches, each once: dQ, dK/dV and, where the
+    tensor-core kernels read it, the delta pass):
     - bfloat16 at D 16, 32, 64, 128: K2'; K3', K4' and the delta pass;
-    - float32 at D 16, 32, 64: K2-tf32; K3-tf32, K4-tf32 and the delta
-      pass;
-    - float32 at D 128: K2-tf32; K3, K4-tf32 and the delta pass (which
-      K4-tf32 reads; K3 computes its own delta);
-    - everything else: K2; K3 and K4."""
-    if dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS:
-        return FWD_SM90, (BWD_DQ_SM90, BWD_DKV_SM90, BWD_DELTA_SM90)
-    f32 = dtype == torch.float32
-    fwd = FWD_TF32 if f32 and d in _FWD_TF32_HEAD_DIMS else FWD
-    dq = BWD_DQ_TF32 if f32 and d in _DQ_TF32_HEAD_DIMS else BWD_DQ
-    dkv = BWD_DKV_TF32 if f32 and d in _DKV_TF32_HEAD_DIMS else BWD_DKV
-    delta = (BWD_DELTA_SM90,) if (dq in _DQ_HOPPER
-                                  or dkv in _DKV_HOPPER) else ()
-    return fwd, (dq, dkv, *delta)
+    - float32 at D 16, 32, 64, 128: K2-tf32; K3-tf32, K4-tf32 and the
+      delta pass;
+    - everything else: K2; K3 and K4, each computing its own delta."""
+    if d in _HOPPER_HEAD_DIMS and dtype in _HOPPER_ROUTES:
+        return _HOPPER_ROUTES[dtype]
+    return FWD, (BWD_DQ, BWD_DKV)
 
 
 def _check_head_dim(t: torch.Tensor) -> None:
@@ -407,7 +396,7 @@ def _check_residuals(q, lse, g_lse):
 def flash_bwd_dq(q, k, v, out, dout, lse, g_lse=None, causal=True,
                  q_offset=0, kv_offset=0):
     """dQ in q's dtype by `route`: the delta pass, then K3' (bfloat16 at
-    D 16, 32, 64 or 128) or K3-tf32 (float32 at D 16, 32 or 64); K3
+    D 16, 32, 64 or 128) or K3-tf32 (float32 at D 16, 32, 64 or 128); K3
     elsewhere. g_lse (B, H, Tq) float32 or None (zero)."""
     _validate(q, k, v, out, dout)
     _check_residuals(q, lse, g_lse)
@@ -527,18 +516,16 @@ def flash_bwd_delta(out, dout, g_lse=None):
     d = out.shape[3]
     if BWD_DELTA_SM90 not in route(out.dtype, d)[1]:
         raise ValueError(f"the delta pass serves the tensor-core backward "
-                         f"only, which takes bfloat16 at D "
-                         f"{_SM90_HEAD_DIMS} and float32 at D "
-                         f"{_DKV_TF32_HEAD_DIMS}; got {out.dtype} D {d}")
+                         f"only, which takes bfloat16 and float32 at D "
+                         f"{_HOPPER_HEAD_DIMS}; got {out.dtype} D {d}")
     return _launch_delta(out, dout, g_lse)
 
 
 def flash_bwd(q, k, v, out, dout, lse, g_lse=None, causal=True, q_offset=0,
               kv_offset=0):
-    """The whole backward: (dQ, dK, dV) by `route`. Where a tensor-core
-    kernel takes the inputs the delta pass runs once and each such kernel
-    reads it; K3 and K4, where they run, compute their own delta (float32
-    at D 128: K3 beside the delta pass and K4-tf32). On the CPU, the plain
+    """The whole backward: (dQ, dK, dV) by `route`. Where the tensor-core
+    kernels take the inputs the delta pass runs once and both read it;
+    elsewhere K3 and K4 compute their own delta. On the CPU, the plain
     versions."""
     _validate(q, k, v, out, dout)
     _check_residuals(q, lse, g_lse)
@@ -554,14 +541,8 @@ def flash_bwd(q, k, v, out, dout, lse, g_lse=None, causal=True, q_offset=0,
                                 dkv_kernel))
     _check_tma(q, k, v, dout)
     delta = _launch_delta(out, dout, g_lse)
-    dq = (launch_dq_sm90(q, k, v, dout, lse, delta, *args, dq_kernel)
-          if dq_kernel in _DQ_HOPPER else
-          launch_bwd_dq(q, k, v, out, dout, lse, g_lse, *args, dq_kernel))
-    dk, dv = (launch_dkv_sm90(q, k, v, dout, lse, delta, *args, dkv_kernel)
-              if dkv_kernel in _DKV_HOPPER else
-              launch_bwd_dkv(q, k, v, out, dout, lse, g_lse, *args,
-                             dkv_kernel))
-    return dq, dk, dv
+    return (launch_dq_sm90(q, k, v, dout, lse, delta, *args, dq_kernel),
+            *launch_dkv_sm90(q, k, v, dout, lse, delta, *args, dkv_kernel))
 
 
 @torch.library.custom_op("edl::flash_bwd", mutates_args=())

@@ -11,7 +11,7 @@ the command line: the layouts the source does not keep), one nvcc each,
 all started together. Each build is loaded in turn, the source's own
 first and last, and K2', K3' and K4' run at B8 T1024 H8 causal bf16 at D
 16, 32 and 64 on the same inputs, and K2-tf32, K3-tf32 and K4-tf32 there
-in float32, K2-tf32 and K4-tf32 at D 128 too: each launch held to its
+and at D 128 in float32: each launch held to its
 plain version (`chip_smoke.KERNEL_TOL`; K2-tf32's out and lse to 2e-5,
 K3-tf32's and K4-tf32's gradients to 5e-5), its device time from
 torch.profiler (`chip_smoke.device_ms`). Prints one JSON line a build:
@@ -38,7 +38,8 @@ DQ_SHAPE = "using DqShape = BlockShape<(kD < 64 ? 1 : 2), (kD < 64 ? 3 : 1)>;"
 DKV_TF32_SHAPE = ("using DkvTf32Shape = Tf32Shape<1, (kD == 16 ? 2 : 1), "
                   "(kD == 128 ? 16 : 32),\n                               "
                   "(kD == 128 ? 1 : 2)>;")
-DQ_TF32_SHAPE = "using DqTf32Shape = Tf32Shape<2, 1>;"
+DQ_TF32_SHAPE = ("using DqTf32Shape = Tf32Shape<(kD == 128 ? 1 : 2), 1, "
+                 "(kD == 128 ? 16 : 32)>;")
 # K4-tf32's streamed rows and ring stages, as the source sets them
 DKV_TF32_STREAM = ("kD == 128 ? 16 : 32", "kD == 128 ? 1 : 2")
 FWD_TF32_SHAPE = ("using FwdTf32Shape =\n    FwdTf32Block<(kD == 128 ? 1 : 2), "
@@ -111,7 +112,13 @@ VARIANTS = {
         DKV_TF32_SHAPE, 1, "kD == 16 ? 2 : 1", "kD == 128 ? 8 : 32", "2"),
     # K3-tf32 with one consumer warpgroup (256 threads), two blocks a SM at
     # D 16 and 32
-    "k3_tf32_one_warpgroup": shape(DQ_TF32_SHAPE, 1, "kD < 64 ? 2 : 1"),
+    "k3_tf32_one_warpgroup": shape(DQ_TF32_SHAPE, 1, "kD < 64 ? 2 : 1",
+                                   "kD == 128 ? 16 : 32"),
+    # K3-tf32 at D 128 over one 32-row K/V stage (230,448 bytes; m64n32k8
+    # products for S and dP, 128-byte K^T rows): the next tile's load
+    # waits for this one's products
+    "k3_tf32_d128_one_32_row_stage": shape(
+        DQ_TF32_SHAPE, "kD == 128 ? 1 : 2", 1, 32, "kD == 128 ? 1 : 2"),
     # K4-tf32 in two blocks a SM at D 32 too (128 registers)
     "k4_tf32_two_blocks": shape(DKV_TF32_SHAPE, 1, "kD < 64 ? 2 : 1",
                                 *DKV_TF32_STREAM),
@@ -175,7 +182,7 @@ def measure(name, path, log):
     b, t, h = cs.LM_BATCH, cs.LM_T, 8
     for d in (16, 32, 64, 128):
         times[f"d{d}"] = {}
-        if d == 128:    # float32 only: K2-tf32 and K4-tf32
+        if d == 128:    # float32 only: K2-tf32, K3-tf32 and K4-tf32
             tf32_times(name, fa, cs, times["d128"], b, t, h, d)
             continue
         q, k, v, dout, _ = cs.attn_inputs("cuda", b, t, t, h, d,
@@ -212,8 +219,8 @@ def measure(name, path, log):
 
 
 def tf32_times(name, fa, cs, times, b, t, h, d):
-    """K2-tf32, K4-tf32 and (D 16, 32, 64) K3-tf32 at float32 B`b` T`t`
-    H`h` D`d` causal, each held to its plain version, into `times`."""
+    """K2-tf32, K3-tf32 and K4-tf32 at float32 B`b` T`t` H`h` D`d`
+    causal, each held to its plain version, into `times`."""
     q, k, v, _, _ = cs.attn_inputs("cuda", b, t, t, h, d, torch.float32, 0)
     tf32 = lambda: fa.launch_fwd(q, k, v, True, 0, 0, fa.FWD_TF32)
     ratio = max(cs.over_tol(got, w, 2e-5, 2e-5)[1]
@@ -228,17 +235,17 @@ def tf32_times(name, fa, cs, times, b, t, h, d):
     dout = torch.randn_like(q)
     out, lse = tf32()
     delta = fa.flash_bwd_delta(out, dout)
-    calls = {"k4_tf32_device_ms": (
-        lambda: fa.launch_dkv_sm90(q, k, v, dout, lse, delta, True, 0, 0,
-                                   fa.BWD_DKV_TF32),
-        lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse),
-        "flash_bwd_dkv_tf32_sm90_kernel")}
-    if d in fa._DQ_TF32_HEAD_DIMS:
-        calls["k3_tf32_device_ms"] = (
+    calls = {
+        "k4_tf32_device_ms": (
+            lambda: fa.launch_dkv_sm90(q, k, v, dout, lse, delta, True, 0,
+                                       0, fa.BWD_DKV_TF32),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, out, dout, lse),
+            "flash_bwd_dkv_tf32_sm90_kernel"),
+        "k3_tf32_device_ms": (
             lambda: (fa.launch_dq_sm90(q, k, v, dout, lse, delta, True, 0,
                                        0, fa.BWD_DQ_TF32),),
             lambda: (fa.flash_bwd_dq_plain(q, k, v, out, dout, lse),),
-            "flash_bwd_dq_tf32_sm90_kernel")
+            "flash_bwd_dq_tf32_sm90_kernel")}
     ratio = max(cs.over_tol(got, w, 5e-5, 5e-5)[1]
                 for run, plain, _ in calls.values()
                 for got, w in zip(run(), plain()))

@@ -26,9 +26,8 @@ sum of the magnitudes of its terms — the scale that summation rounding
 grows with.
 
 Tolerances for the flash kernels (K2-K4, for bfloat16 the Hopper
-kernels K2', K3' and K4' at D 16, 32, 64 and 128, for float32 K2-tf32
-and K4-tf32 at D 16, 32, 64 and 128 and K3-tf32 at D 16, 32 and 64, and
-the delta pass) against
+kernels K2', K3' and K4' at D 16, 32, 64 and 128, for float32 K2-tf32,
+K3-tf32 and K4-tf32 at the same D, and the delta pass) against
 their plain versions, the reference's own for its kernel against its
 naive path:
 float32 out, lse and delta 2e-5, gradients 5e-5 with atol 5e-5 of the
@@ -294,8 +293,7 @@ def _route(dtype, d):
     """The launches one forward and one whole backward (`flash_bwd`)
     should add, by `route`: K2', K3', K4' and the delta pass once (read
     by K3' and K4') on the bf16 Hopper route, K2-tf32, K3-tf32, K4-tf32
-    and the delta pass for float32 at D 16, 32 and 64, K2-tf32, K3,
-    K4-tf32 and the delta pass at float32 D 128, K2-K4 elsewhere."""
+    and the delta pass for float32 at the same D, K2-K4 elsewhere."""
     fwd, bwd = fa.route(dtype, d)
     return {n: int(n == fwd or n in bwd) for n in fa.launches}
 
@@ -542,18 +540,14 @@ def case_tf32_forward_rejects_strides_tma_cannot_take(cuda, d):
 
 
 def case_tf32_backward_matches_k3_k4_and_plain(cuda, d):
-    """K3-tf32 and K4-tf32 at D 16, 32 or 64, and K4-tf32 at D 128 with
-    K3 (which keeps dQ there) beside it, against K3 and K4, the CUDA-core
-    kernels they replace, through their launchers, and against the plain
-    versions, on the same float32 inputs: causal with the lse cotangent,
-    at offsets with tails, not causal with tails, and the fully masked
-    geometry (every gradient 0 and finite); gradients within 5e-5 (atol
-    5e-5 of the largest value) of the plain version and of K3 and K4, the
-    float32 delta pass within 2e-5 of its plain version, and a rerun
-    bit-identical."""
-    tf32_dq = d in fa._DQ_TF32_HEAD_DIMS
-    dq_kernels = ((fa.BWD_DQ_TF32, fa.BWD_DQ_TF32, fa.BWD_DQ) if tf32_dq
-                  else (fa.BWD_DQ, fa.BWD_DQ))
+    """K3-tf32 and K4-tf32 at D 16, 32, 64 or 128 against K3 and K4, the
+    CUDA-core kernels they replace, through their launchers, and against
+    the plain versions, on the same float32 inputs: causal with the lse
+    cotangent, at offsets with tails, not causal with tails, and the
+    fully masked geometry (every gradient 0 and finite); gradients within
+    5e-5 (atol 5e-5 of the largest value) of the plain version and of K3
+    and K4, the float32 delta pass within 2e-5 of its plain version, and
+    a rerun bit-identical."""
     for tq, tk, causal, q_off, kv_off, with_glse in (
             (256, 256, True, 0, 0, True), (200, 130, True, 70, 0, False),
             (130, 200, True, 64, 32, True), (100, 230, False, 0, 0, True),
@@ -567,17 +561,14 @@ def case_tf32_backward_matches_k3_k4_and_plain(cuda, d):
         new, again, old = (
             fa.launch_bwd_dkv(q, k, v, out, dout, lse, glse, *args, kernel)
             for kernel in (fa.BWD_DKV_TF32, fa.BWD_DKV_TF32, fa.BWD_DKV))
-        dq, dq_again, *old_dq = (
+        dq, dq_again, old_dq = (
             fa.launch_bwd_dq(q, k, v, out, dout, lse, glse, *args, kernel)
-            for kernel in dq_kernels)
-        old_dq = old_dq[0] if tf32_dq else dq
+            for kernel in (fa.BWD_DQ_TF32, fa.BWD_DQ_TF32, fa.BWD_DQ))
         torch.cuda.synchronize()
         assert {n: fa.launches[n] - before[n] for n in before
-                if fa.launches[n] != before[n]} == (
-            {fa.BWD_DELTA_SM90: 4, fa.BWD_DKV_TF32: 2, fa.BWD_DKV: 1,
-             fa.BWD_DQ_TF32: 2, fa.BWD_DQ: 1} if tf32_dq else
-            {fa.BWD_DELTA_SM90: 2, fa.BWD_DKV_TF32: 2, fa.BWD_DKV: 1,
-             fa.BWD_DQ: 2})
+                if fa.launches[n] != before[n]} == {
+            fa.BWD_DELTA_SM90: 4, fa.BWD_DKV_TF32: 2, fa.BWD_DKV: 1,
+            fa.BWD_DQ_TF32: 2, fa.BWD_DQ: 1}
         assert all(torch.equal(a, b) for a, b in zip(new, again))
         assert torch.equal(dq, dq_again)
         _close(fa.flash_bwd_delta(out, dout, glse),
@@ -589,7 +580,7 @@ def case_tf32_backward_matches_k3_k4_and_plain(cuda, d):
             _close(b, w, f"K4 {name} D {d}", 5e-5, 5e-5)
             _close(a, b, f"K4-tf32 against K4, {name} D {d}", 5e-5, 5e-5)
         want_dq = fa.flash_bwd_dq_plain(q, k, v, out, dout, lse, glse, *args)
-        _close(dq, want_dq, f"{dq_kernels[0]} dq D {d}", 5e-5, 5e-5)
+        _close(dq, want_dq, f"K3-tf32 dq D {d}", 5e-5, 5e-5)
         _close(old_dq, want_dq, f"K3 dq D {d}", 5e-5, 5e-5)
         _close(dq, old_dq, f"K3-tf32 against K3, dq D {d}", 5e-5, 5e-5)
         if kv_off >= tq + q_off:            # every row fully masked
@@ -599,43 +590,42 @@ def case_tf32_backward_matches_k3_k4_and_plain(cuda, d):
 
 def case_tf32_backward_rejects_strides_tma_cannot_take(cuda, d):
     """A float32 view whose h stride is d + 1 elements (not a multiple of
-    16 bytes) is on K3-tf32's and K4-tf32's route (at D 128 K4-tf32's,
-    dQ there being K3's, which reads any strides), which raises before
+    16 bytes) is on K3-tf32's and K4-tf32's route, which raises before
     any launch (the delta pass included) rather than falling back to K3
-    and K4: each single-gradient wrapper on the route and the whole
-    backward."""
+    and K4: each single-gradient wrapper and the whole backward."""
     wide = torch.randn((1, 32, 2, d + 1), device=cuda)
     q = wide[..., :d]
     out, lse = fa.flash_fwd(*(q.contiguous() for _ in range(3)))
     before = dict(fa.launches)
-    backwards = (fa.flash_bwd_dkv, fa.flash_bwd)
-    if d in fa._DQ_TF32_HEAD_DIMS:
-        backwards += (fa.flash_bwd_dq,)
-    for backward in backwards:
+    for backward in (fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd):
         with pytest.raises(ValueError, match="TMA"):
             backward(q, q, q, out, out, lse)
     assert fa.launches == before
 
 
-def case_mixed_route_at_float32_d128(cuda):
-    """`flash_bwd` at float32 D 128 takes the mixed route: K3 (dQ, with
-    its own delta), the delta pass and K4-tf32 (dK, dV) once each and
-    nothing else, at offsets with tails and a live g_lse; its dQ, dK and
-    dV equal, bit for bit, those of K3's launcher and of K4-tf32's
-    launcher over the delta pass's output."""
+def case_tensor_core_route_at_float32_d128(cuda):
+    """Float32 at D 128 runs on the tensor cores alone: the forward
+    launches K2-tf32 once, and `flash_bwd` the delta pass, K3-tf32 and
+    K4-tf32 once each and no K3 (nor anything else), at offsets with
+    tails and a live g_lse; its dQ, dK and dV equal, bit for bit, those
+    of K3-tf32's and K4-tf32's launchers over the delta pass's output."""
     q, k, v, dout, glse = _attn_inputs(cuda, 2, 200, 130, 3, 128,
                                        torch.float32, seed=7)
     args = (True, 70, 0)
+    before = dict(fa.launches)
     out, lse = fa.flash_fwd(q, k, v, *args)
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in before
+            if fa.launches[n] != before[n]} == {fa.FWD_TF32: 1}
     before = dict(fa.launches)
     dq, dk, dv = fa.flash_bwd(q, k, v, out, dout, lse, glse, *args)
     torch.cuda.synchronize()
     assert {n: fa.launches[n] - before[n] for n in before
             if fa.launches[n] != before[n]} == {
-        fa.BWD_DQ: 1, fa.BWD_DELTA_SM90: 1, fa.BWD_DKV_TF32: 1}
-    want_dq = fa.launch_bwd_dq(q, k, v, out, dout, lse, glse, *args,
-                               fa.BWD_DQ)
+        fa.BWD_DELTA_SM90: 1, fa.BWD_DQ_TF32: 1, fa.BWD_DKV_TF32: 1}
     delta = fa.flash_bwd_delta(out, dout, glse)
+    want_dq = fa.launch_dq_sm90(q, k, v, dout, lse, delta, *args,
+                                fa.BWD_DQ_TF32)
     want_dk, want_dv = fa.launch_dkv_sm90(q, k, v, dout, lse, delta, *args,
                                           fa.BWD_DKV_TF32)
     torch.cuda.synchronize()
@@ -1351,7 +1341,7 @@ def test_kernels_on_the_card(cuda, tmp_path):
         case_tf32_forward_rejects_strides_tma_cannot_take(cuda, d)
         case_tf32_backward_matches_k3_k4_and_plain(cuda, d)
         case_tf32_backward_rejects_strides_tma_cannot_take(cuda, d)
-    case_mixed_route_at_float32_d128(cuda)
+    case_tensor_core_route_at_float32_d128(cuda)
     case_k4_prime_at_d128_matches_k4_and_plain(cuda)
     case_bf16_lm_with_16_wide_heads_runs_the_hopper_kernels(cuda)
     case_bf16_lm_with_128_wide_heads_runs_k4_prime(cuda)

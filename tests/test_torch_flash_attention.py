@@ -291,31 +291,27 @@ def case_hopper_route_by_dtype_and_head_dim():
     """`route` decides the kernels before any launch, by dtype and D
     alone: K2', K3' and K4' take bfloat16 at D 16, 32, 64 and 128, with
     the delta pass that K3' and K4' read in the backward's launches;
-    K2-tf32, K3-tf32 and K4-tf32 take float32 at D 16, 32 and 64, with
-    the delta pass too; float32 at D 128 takes K2-tf32 and the mixed
-    backward, K3 beside the delta pass and K4-tf32; everything else goes
-    to the CUDA-core kernels K2, K3 and K4."""
+    K2-tf32, K3-tf32 and K4-tf32 take float32 at the same D, with the
+    delta pass too; everything else goes to the CUDA-core kernels K2, K3
+    and K4. No route mixes CUDA-core and tensor-core backward kernels."""
+    cuda_core = {tflash.FWD, tflash.BWD_DQ, tflash.BWD_DKV}
     for dtype in (torch.bfloat16, torch.float32):
         for d in (8, 16, 24, 32, 48, 64, 100, 128, 256):
             bf16 = dtype == torch.bfloat16
             hopper = bf16 and d in (16, 32, 64, 128)
-            tf32 = not bf16 and d in (16, 32, 64)
-            mixed = not bf16 and d == 128
+            tf32 = not bf16 and d in (16, 32, 64, 128)
             want = ((tflash.FWD_SM90, (tflash.BWD_DQ_SM90,
                                        tflash.BWD_DKV_SM90,
                                        tflash.BWD_DELTA_SM90)) if hopper else
                     (tflash.FWD_TF32, (tflash.BWD_DQ_TF32,
                                        tflash.BWD_DKV_TF32,
                                        tflash.BWD_DELTA_SM90)) if tf32 else
-                    (tflash.FWD_TF32, (tflash.BWD_DQ, tflash.BWD_DKV_TF32,
-                                       tflash.BWD_DELTA_SM90)) if mixed else
                     (tflash.FWD, (tflash.BWD_DQ, tflash.BWD_DKV)))
-            assert tflash.route(dtype, d) == want, (dtype, d)
-    for d in (16, 32, 64):
-        assert tflash.route(torch.float32, d)[1][:2] == (
-            tflash.BWD_DQ_TF32, tflash.BWD_DKV_TF32)
+            got = tflash.route(dtype, d)
+            assert got == want, (dtype, d)
+            assert len({n in cuda_core for n in (got[0], *got[1])}) == 1
     assert tflash.route(torch.float32, 128) == (
-        tflash.FWD_TF32, (tflash.BWD_DQ, tflash.BWD_DKV_TF32,
+        tflash.FWD_TF32, (tflash.BWD_DQ_TF32, tflash.BWD_DKV_TF32,
                           tflash.BWD_DELTA_SM90))
     # every kernel the route names is a launcher of one of the libraries
     named = {n for dt in (torch.bfloat16, torch.float32)
@@ -328,8 +324,7 @@ def case_hopper_route_by_dtype_and_head_dim():
 def case_whole_backward_is_the_single_wrappers(d=D):
     """`flash_bwd`, the autograd backward, gives on the CPU what
     `flash_bwd_dq` and `flash_bwd_dkv` give, launching nothing: at D 16
-    and at D 128, where the card's route is the mixed one (K3, the delta
-    pass, K4-tf32)."""
+    and at D 128, the widest head dim of the card's tensor-core route."""
     r = np.random.RandomState(12)
     q, k, v = _torch(*(r.randn(B, T, H, d).astype(np.float32)
                        for _ in range(3)))
@@ -423,18 +418,20 @@ def case_tf32_split_keeps_float32_products(d=64, kv=64, seed=16):
     return shares
 
 
-def case_tf32_split_keeps_float32_backward(d=64, q_tile=64, seed=18):
+def case_tf32_split_keeps_float32_backward(d=64, q_tile=64, kv_tile=64,
+                                           seed=18):
     """K4-tf32's and K3-tf32's products in plain torch, at their block
     (D 64: 64 kv rows for dK and dV, 64 q rows for dQ; D 128: K4-tf32's
     64 kv rows over four 16-row q tiles, dV and dK summed tile by tile in
-    float32; causal, float32 inputs): S = Q.K^T, dP = dO.V^T, dV = P^T.dO,
-    dK = dS^T.Q and (D 64; K3 keeps dQ at D 128) dQ = dS.K, each operand
-    split into tf32 hi and lo and each product summed as lo.hi + hi.lo +
-    hi.hi, p = exp(s - lse) and ds = p (dp - delta) in float32 between
-    them, as the kernels form them. The gradients stay within 5% of the
-    5e-5 bound chip_smoke.py holds the kernels' gradients to (rtol 5e-5,
-    atol 5e-5 of the largest entry) of the same chain in float64; with
-    one TF32 product in place of each split one they do not hold it."""
+    float32, and K3-tf32's 64 q rows over four 16-row kv tiles, dQ summed
+    the same way; causal, float32 inputs): S = Q.K^T, dP = dO.V^T, dV =
+    P^T.dO, dK = dS^T.Q and dQ = dS.K, each operand split into tf32 hi
+    and lo and each product summed as lo.hi + hi.lo + hi.hi, p = exp(s -
+    lse) and ds = p (dp - delta) in float32 between them, as the kernels
+    form them. The gradients stay within 5% of the 5e-5 bound
+    chip_smoke.py holds the kernels' gradients to (rtol 5e-5, atol 5e-5
+    of the largest entry) of the same chain in float64; with one TF32
+    product in place of each split one they do not hold it."""
     r = np.random.RandomState(seed)
     q, k, v, do = (torch.from_numpy(r.randn(1, 64, 1, d).astype(np.float32))
                    for _ in range(4))
@@ -459,11 +456,10 @@ def case_tf32_split_keeps_float32_backward(d=64, q_tile=64, seed=18):
         p = torch.exp(s - lse.to(dt)[:, None]).masked_fill(~mask, 0.0)
         ds = p * (mm(dd, vv.T) - delta.to(dt)[:, None])
         tiles = [slice(i, i + q_tile) for i in range(0, 64, q_tile)]
-        out = {"dv": sum(mm(p[t].T, dd[t]) for t in tiles),
-               "dk": sum(mm(ds[t].T, qq[t]) for t in tiles) * scale}
-        if d in tflash._DQ_TF32_HEAD_DIMS:
-            out["dq"] = mm(ds, kk) * scale
-        return out
+        kv_tiles = [slice(j, j + kv_tile) for j in range(0, 64, kv_tile)]
+        return {"dv": sum(mm(p[t].T, dd[t]) for t in tiles),
+                "dk": sum(mm(ds[t].T, qq[t]) for t in tiles) * scale,
+                "dq": sum(mm(ds[:, t], kk[t]) for t in kv_tiles) * scale}
 
     def share_of_bound(got, want):
         tol = 5e-5 * want.abs() + 5e-5 * want.abs().max()
@@ -527,6 +523,7 @@ def test_flash_attention_against_the_reference():
         case_hi_lo_split_keeps_float32_p()
         for d, kv, seed in ((64, 64, 16), (128, 32, 19)):
             case_tf32_split_keeps_float32_products(d, kv, seed)
-        for d, q_tile, seed in ((64, 64, 18), (128, 16, 20)):
-            case_tf32_split_keeps_float32_backward(d, q_tile, seed)
+        for d, q_tile, kv_tile, seed in ((64, 64, 64, 18),
+                                         (128, 16, 16, 20)):
+            case_tf32_split_keeps_float32_backward(d, q_tile, kv_tile, seed)
         case_float32_forward_at_tf32_widths_against_the_kernel()
