@@ -57,7 +57,17 @@ caught):
 4. parity  a small DeepFM (field_vocab=1000, hidden=32,32, float32
            compute) on the card and on the CPU from the same weights:
            loss rtol 1e-5, every gradient rtol 1e-5 with atol 1e-6 of its
-           largest value. This checks K1 inside autograd.
+           largest value. This checks K1 inside autograd. Then the card's
+           optimizer update (`update`): that DeepFM (capturable Adam),
+           the small float32 LM of 8 (capturable AdamW) and ResNet-20
+           (fused SGD, momentum 0.9, nesterov), each two captured train
+           steps on the card against two on the CPU in the plain flavour
+           from the same weights and batch, the second after a
+           `set_learning_rate` on both: losses within the gradient
+           checks' loss bound (1e-5, the LM's 5e-5), parameters and the
+           optimizer's slots rtol 1e-4 with atol 1e-5, the LM's k biases
+           (gradient 0 in exact arithmetic) within the two steps' rates
+           of 0 on both.
 5. train   the main path at DeepFM's full width (2,605,056 x 17 table,
            hidden 400,400, bf16 tower, batch 8192): JobConfig -> ModelSpec
            -> Trainer (device defaulted, so the GPU) -> init_state ->
@@ -528,6 +538,32 @@ they ran.
            K2-tf32 4 times in each of eval and predict, and K2-K4, K2',
            K3' and K4' never. Step ms, host ms, tokens/s, peak memory;
            then its profile, as in 6.
+38. graph_step (after `lm_parity`)  the trainer's captured path
+           (`training/step_graph.py`): DeepFM at 5's width, the bf16 LM
+           at 9's and the float32 LM at 36's, each with a trainer that
+           captures its steps as CUDA
+           graphs and an eager twin from the same weights and seed: 10
+           train steps each way (the captured trainer's first call
+           captures, every call replays), then a `train_many` group of 4
+           (one graph of the 4 steps) against 4 eager steps. Losses,
+           parameters and Adam's slots must be equal bit for bit, the
+           train step's graph replayed 10 times and the group's once,
+           and torch.profiler over one replay must name K1's two kernels
+           (DeepFM), K2', K3', K4' and the delta pass (the bf16 LM) or
+           K2-tf32, K3-tf32, K4-tf32 and the delta pass (the float32
+           LM), each as many times as the launches the capture recorded
+           and each replay credits to the kernel's counter (K1's zero and
+           placement passes together equal its count, PASSES a call).
+           Prints host ms a step (the call's own time, no wait) and
+           wall ms a step eager and replayed, one step's device ms and
+           kernels each way and the busy share, the capture's and the
+           warm-up's seconds, each graph's pool bytes and its kernels'
+           launches a replay. The other phases' trainers capture too, where the
+           trainer's rule says so (`Trainer.capture_reason`, on their
+           lines as `steps`); the kernels' counters count a replay's
+           launches and leave the capture warm-ups' out
+           (`step_graph.warmup_launches`, each kernel's on the `kernels`
+           line as `warmup_launches`).
 Then the `kernels` line (K1's `launches` are the job's, with the
 `grouped`, `cohort_job`, `manual_shards`, `tier`, `autoscale_job`,
 `callbacks_job`, `hybrid_mesh`, `k8s_job` and `tools` phases' beside
@@ -843,8 +879,94 @@ def phase_parity():
             raise AssertionError(f"gradient of {k} differs between cuda and cpu")
     if abs(gpu_loss - cpu_loss) > 1e-5 * abs(cpu_loss):
         raise AssertionError(f"loss {gpu_loss} on cuda vs {cpu_loss} on cpu")
+    lm = lm_batch(21, b=8, t=32, vocab=64)
+    update = {
+        "deepfm_adam": update_parity(
+            "field_vocab=1000;hidden=32,32", batch, 5e-4, 1e-5),
+        "lm_adamw": update_parity(LM_SMALL, lm, 1e-4, 5e-5, LM_DEF),
+        "resnet20_sgd": update_parity(
+            "depth=20", {"features": np.random.RandomState(6).rand(
+                16, 32, 32, 3).astype(np.float32),
+                "labels": np.arange(16, dtype=np.int32) % 10},
+            0.05, 1e-5, "cifar10.resnet.custom_model")}
     emit("parity", loss_cuda=gpu_loss, loss_cpu=cpu_loss,
-         params=len(cpu_grads), worst_grad_err_over_tol=worst)
+         params=len(cpu_grads), worst_grad_err_over_tol=worst,
+         update=update)
+
+
+def update_parity(params, batch, lr2, loss_rtol,
+                  model_def="deepfm.deepfm.custom_model"):
+    """The card's optimizer update against the CPU's plain one (the
+    `update` of phase 4): two train steps of `model_def` in float32 on
+    the card, captured, over the zoo optimizer's card flavour, and two on
+    the CPU in the plain flavour, from the same weights and batch, the
+    second after `set_learning_rate(lr2)` on both. Losses within
+    `loss_rtol`; parameters and slots rtol 1e-4, atol 1e-5; k biases
+    within the two rates of 0. Returns the fields to emit."""
+    from elasticdl_tpu_torch.training import lr_modulation, step_graph
+    from elasticdl_tpu_torch.training.trainer import Trainer
+
+    runs, weights = [], None
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(load_spec(params, "float32", model_def), device=dev)
+        state = tr.init_state(batch)
+        if weights is None:
+            weights = {k: v.detach().clone()
+                       for k, v in tr.model.state_dict().items()}
+        tr.model.load_state_dict(weights)
+        lr1 = lr_modulation.get_learning_rate(state.optimizer)
+        losses = []
+        for i in range(2):
+            if i:
+                tr.set_learning_rate(state, lr2)
+            state, logs = tr.train_step(state, batch)
+            losses.append(float(logs["loss"]))
+        runs.append((tr, state, losses))
+    (_, cs, cpu_losses), (card, gs, card_losses) = runs
+    graphs = [g for g in card._train_step.graphs() if g.bound_to(card, gs)]
+    if (card.capture_reason is not None or len(graphs) != 1
+            or not isinstance(graphs[0], step_graph.CapturedGraph)
+            or graphs[0].replays != 2):
+        raise AssertionError(f"{model_def}: the card's steps were not two "
+                             f"replays of one graph ({card.capture_reason})")
+    flavour = {k: v for k, v in gs.optimizer.defaults.items()
+               if k in ("capturable", "fused") and v}
+    if not flavour or not isinstance(gs.optimizer.param_groups[0]["lr"],
+                                     torch.Tensor):
+        raise AssertionError(f"{model_def}: the card's optimizer is not its "
+                             f"card flavour: {gs.optimizer.defaults}")
+    for got, want in zip(card_losses, cpu_losses):
+        if abs(got - want) > loss_rtol * abs(want):
+            raise AssertionError(f"{model_def}: losses {card_losses} on the "
+                                 f"card vs {cpu_losses} on the cpu")
+    worst, slots_held = 0.0, 0
+    for n, p in cs.params.items():
+        q = gs.params[n]
+        if n.endswith(".k.bias"):
+            if max(float(p.detach().abs().max()),
+                   float(q.detach().abs().max())) > lr1 + lr2:
+                raise AssertionError(f"{n} moved past the learning rate")
+            continue
+        pairs = [(n, q, p)] + [
+            (f"{n} {k}", gs.optimizer.state[q][k], v)
+            for k, v in cs.optimizer.state[p].items()]
+        if cs.optimizer.state[p].keys() != gs.optimizer.state[q].keys():
+            raise AssertionError(f"{n}: slots {list(gs.optimizer.state[q])} "
+                                 f"on the card, "
+                                 f"{list(cs.optimizer.state[p])} on the cpu")
+        slots_held += len(pairs) - 1
+        for what, got, want in pairs:
+            got, want = got.detach().cpu().double(), want.detach().double()
+            ratio = float(((got - want).abs()
+                           / (1e-5 + 1e-4 * want.abs())).max())
+            worst = max(worst, ratio)
+            if ratio > 1.0:
+                raise AssertionError(f"{model_def}: {what} differs between "
+                                     f"the card and the cpu ({ratio} of its "
+                                     "tolerance)")
+    return dict(flavour=flavour, lr=[lr1, lr2], losses_cuda=card_losses,
+                losses_cpu=cpu_losses, slots_held=slots_held,
+                worst_err_over_tol=worst)
 
 
 def phase_train(smi):
@@ -893,6 +1015,7 @@ def phase_train(smi):
     if tuple(preds.shape) != (BATCH,) or not bool(torch.isfinite(preds).all()):
         raise AssertionError(f"predictions {tuple(preds.shape)} not finite")
     emit("train", table=list(table.shape), batch=BATCH, steps=STEPS,
+         step_mode=step_mode(trainer),
          losses=losses, step_ms=step_ms,
          host_step_ms=host_s * 1e3 / (STEPS - 1),
          samples_per_s=BATCH / (step_ms / 1e3),
@@ -945,10 +1068,16 @@ def phase_profile(trainer, state, batch, step_ms, steps=3, **labels):
 
 def kernel_counts():
     """Every kernel's launch count: K1's and each flash kernel's."""
-    from elasticdl_tpu_torch.ops import flash_attention as fa
-    from elasticdl_tpu_torch.ops import placement
+    from elasticdl_tpu_torch.training import step_graph
 
-    return {placement.KERNEL: placement.launches, **fa.launches}
+    return step_graph.launch_counts()
+
+
+def step_mode(trainer):
+    """How `trainer` runs its steps: "captured" (CUDA graphs) or why it
+    runs them eagerly (`Trainer.capture_reason`)."""
+    reason = trainer.capture_reason
+    return "captured" if reason is None else f"eager: {reason}"
 
 
 def state_tensors(state):
@@ -2124,6 +2253,7 @@ def phase_lm_train(smi):
             torch.isfinite(preds).all()):
         raise AssertionError(f"predictions {tuple(preds.shape)} not finite")
     emit("lm_train", params=LM_PARAMS, batch=[LM_BATCH, LM_T],
+         step_mode=step_mode(trainer),
          compute_dtype="bfloat16", steps=STEPS, losses=losses,
          step_ms=step_ms, host_step_ms=host_s * 1e3 / (STEPS - 1),
          tokens_per_s=LM_BATCH * LM_T / (step_ms / 1e3),
@@ -2727,6 +2857,7 @@ def phase_knobs():
     report, params, grads = {}, {}, {}
     for name, knobs, fwd, bwd in KNOB_VARIANTS:
         trainer, state = _variant_trainer(weights, **knobs)
+        mode = step_mode(trainer)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -2758,7 +2889,7 @@ def phase_knobs():
         if launches != want:
             raise AssertionError(f"knobs {name}: flash launches {launches}, "
                                  f"want {want}")
-        report[name] = {"knobs": knobs, "loss": loss,
+        report[name] = {"knobs": knobs, "loss": loss, "step_mode": mode,
                         "first_step_ms": first_ms, "step_ms": step_ms,
                         "peak_mem_gib": peak / 2**30,
                         "launches": {k: v for k, v in launches.items() if v}}
@@ -3209,6 +3340,7 @@ def phase_grouped():
         timed[g].append(ms)
     emit("grouped", params=f"field_vocab={FIELD_VOCAB};hidden=400,400",
          batch=BATCH, steps=8, group=4, losses=group_losses,
+         step_mode=step_mode(paths[True][0]),
          first_host_ms_per_step={"train_step": checked[False][2],
                                  "train_many": checked[True][2]},
          host_ms_per_step={"train_step": timed[False],
@@ -3217,6 +3349,205 @@ def phase_grouped():
     del paths, states, single, group
     gc.collect()
     return group_k1
+
+
+# ------------------------------------------------------------- graph_step
+
+GRAPH_STEPS, GRAPH_GROUP = 10, 4
+# each model's hand-written kernels, by a part of their symbols, that a
+# replay of its train step must launch
+GRAPH_KERNELS = {
+    "deepfm": K1_SYMBOLS,
+    "lm": ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
+           "flash_bwd_dkv_sm90_kernel", "flash_bwd_delta_sm90_kernel"),
+    "lm_f32": ("flash_fwd_tf32_sm90_kernel", "flash_bwd_dq_tf32_sm90_kernel",
+               "flash_bwd_dkv_tf32_sm90_kernel",
+               "flash_bwd_delta_sm90_kernel"),
+}
+
+
+def graph_of(program, trainer, state):
+    """The captured graph `program` holds for `trainer` and `state`."""
+    from elasticdl_tpu_torch.training import step_graph
+
+    graphs = [g for g in program.graphs() if g.bound_to(trainer, state)
+              and isinstance(g, step_graph.CapturedGraph)]
+    if len(graphs) != 1:
+        raise AssertionError(f"{len(graphs)} captured {program.kind} graphs "
+                             "for one state")
+    return graphs[0]
+
+
+def step_kernels(step, names, tries=3):
+    """torch.profiler over one call of `step`: (the device kernels it
+    ran, their device ms summed, how many of each of `names` are among
+    them), traced again, at most `tries` times in all, while one of
+    `names` is missing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        kernels = [e.name for e in events
+                   if not e.name.startswith(("Memcpy", "Memset"))]
+        device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+        found = {n: sum(n in k for k in kernels) for n in names}
+        if all(found.values()):
+            break
+    return len(kernels), device_ms, found
+
+
+def graph_run(name, spec_fn, batch, smi):
+    """`spec_fn()`'s model on the card: a trainer whose steps are captured
+    and an eager twin (the same seed, its weights loaded), GRAPH_STEPS
+    train steps each from the same state, then a `train_many` group of
+    GRAPH_GROUP against as many eager steps. Returns the fields to emit."""
+    from elasticdl_tpu_torch.ops import placement
+    from elasticdl_tpu_torch.training.trainer import Trainer, stack_batches
+
+    graph = Trainer(spec_fn())                  # device defaulted: the GPU
+    if graph.capture_reason is not None:
+        raise AssertionError(f"{name}: the trainer does not capture: "
+                             f"{graph.capture_reason}")
+    eager = Trainer(spec_fn())
+    gs, es = graph.init_state(None), eager.init_state(None)
+    eager.model.load_state_dict(graph.model.state_dict())
+    args = graph._device_args(batch)
+    stacked = stack_batches([batch] * GRAPH_GROUP, graph.device)
+
+    def host_loop(step, n):
+        """n calls of `step`: host ms a call (no wait between calls), and
+        wall ms a call up to the device's last."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = 0.0
+        out = []
+        for _ in range(n):
+            t1 = time.perf_counter()
+            out.append(step())
+            host += time.perf_counter() - t1
+        torch.cuda.synchronize()
+        return out, host * 1e3 / n, (time.perf_counter() - t0) * 1e3 / n
+
+    def eager_step():
+        loss = eager._train_body(es, args)
+        es.step += 1
+        return loss
+
+    t0 = time.perf_counter()
+    first = graph.train_step(gs, args)[1]["loss"]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    step_graph_ = graph_of(graph._train_step, graph, gs)
+    replayed, replay_host, replay_wall = host_loop(
+        lambda: graph.train_step(gs, args)[1]["loss"], GRAPH_STEPS - 1)
+    eager_losses, eager_host, eager_wall = host_loop(eager_step,
+                                                     GRAPH_STEPS)
+    losses = [first] + replayed
+    if step_graph_.replays != GRAPH_STEPS:
+        raise AssertionError(f"{name}: {step_graph_.replays} replays in "
+                             f"{GRAPH_STEPS} train steps")
+    group = graph.train_many(gs, stacked)[1]["loss"]
+    group_graph = graph_of(graph._train_many, graph, gs)
+    group_eager = torch.stack([eager_step() for _ in range(GRAPH_GROUP)])
+    torch.cuda.synchronize()
+    if group_graph.replays != 1:
+        raise AssertionError(f"{name}: {group_graph.replays} replays for "
+                             "one train_many group")
+    loss_equal = (torch.equal(torch.stack(losses), torch.stack(eager_losses))
+                  and torch.equal(group, group_eager))
+    differ = [n for n in gs.params
+              if not torch.equal(gs.params[n], es.params[n])]
+    slots_differ = [
+        n for n, p in gs.params.items()
+        for k, v in gs.optimizer.state[p].items()
+        if isinstance(v, torch.Tensor)
+        and not torch.equal(v, es.optimizer.state[es.params[n]][k])]
+    if not loss_equal or differ or slots_differ:
+        raise AssertionError(
+            f"{name}: captured steps differ from the eager body: losses "
+            f"{[float(x) for x in losses]} vs "
+            f"{[float(x) for x in eager_losses]}, params {differ[:4]}, "
+            f"slots {slots_differ[:4]}")
+    replays = {"train_step": step_graph_.replays,
+               "train_many": group_graph.replays}
+    kernels, replay_device, found = step_kernels(
+        lambda: graph.train_step(gs, args), GRAPH_KERNELS[name])
+    # what the profiler saw in one replay, by counter: K1's two passes
+    # together are its count (PASSES a call), a flash kernel's symbol is
+    # its counter's name and "_kernel"
+    profiled = ({placement.KERNEL: sum(found.values())} if name == "deepfm"
+                else {n[:-len("_kernel")]: c for n, c in found.items()})
+    if profiled != step_graph_.launches:
+        raise AssertionError(f"{name}: one replay ran {found} in "
+                             f"torch.profiler, and its capture credits "
+                             f"{step_graph_.launches} a replay")
+    eager_kernels, eager_device, _ = step_kernels(eager_step, ())
+    return dict(
+        card=smi, steps=GRAPH_STEPS, group=GRAPH_GROUP,
+        losses=[float(x) for x in losses],
+        group_losses=[float(x) for x in group], bit_equal=True,
+        first_call_s=first_s,
+        capture_s={"train_step": step_graph_.capture_s,
+                   "train_many": group_graph.capture_s},
+        warmup_s={"train_step": step_graph_.warmup_s,
+                  "train_many": group_graph.warmup_s},
+        pool_bytes={"train_step": step_graph_.pool_bytes,
+                    "train_many": group_graph.pool_bytes},
+        host_ms_per_step={"eager": eager_host, "replay": replay_host},
+        wall_ms_per_step={"eager": eager_wall, "replay": replay_wall},
+        device_ms_per_step={"eager": eager_device, "replay": replay_device},
+        device_busy_share={"eager": eager_device / eager_wall,
+                           "replay": replay_device / replay_wall},
+        kernels_per_step={"eager": eager_kernels, "replay": kernels},
+        replays=replays,
+        launches_per_replay={"train_step": step_graph_.launches,
+                             "train_many": group_graph.launches},
+        replay_named=found)
+
+
+def phase_graph_step(smi):
+    """The trainer's captured path on the card (`training/step_graph.py`):
+    DeepFM at `train`'s width, the bf16 LM at `lm_train`'s and the
+    float32 LM at `lm_train_f32`'s, each
+    GRAPH_STEPS captured train steps against as many eager bodies from
+    the same state and a `train_many` group against GRAPH_GROUP eager
+    steps: losses, parameters and Adam's slots equal bit for bit, one
+    replay a step and one a group, and K1 (DeepFM), K2', K3', K4' and
+    the delta pass (the bf16 LM) or K2-tf32, K3-tf32, K4-tf32 and the
+    delta pass (the float32 LM) among a replay's kernels in
+    torch.profiler. Prints host and wall ms a step eager and replayed,
+    the device ms and kernels of one step each way (torch.profiler) and
+    the device's busy share (device ms over wall ms), the capture's and
+    the warm-up's seconds, and each graph's pool bytes. Returns the
+    kernels' launches over the phase (replays credited, warm-ups not)."""
+    from elasticdl_tpu_torch.ops import placement
+
+    placement.launches = 0
+    reset_launches()
+    deepfm = graph_run(
+        "deepfm", lambda: load_spec(f"field_vocab={FIELD_VOCAB};"
+                                    "hidden=400,400"),
+        {**criteo_batch(400), "mask": np.ones((BATCH,), np.float32)}, smi)
+    gc.collect()
+    lm = graph_run("lm", lambda: load_spec(LM_PARAMS, model_def=LM_DEF),
+                   lm_batch(400), smi)
+    gc.collect()
+    lm_f32 = graph_run(
+        "lm_f32", lambda: load_spec(LM_PARAMS, "float32", model_def=LM_DEF),
+        lm_batch(401), smi)
+    gc.collect()
+    counts = kernel_counts()
+    emit("graph_step", deepfm=deepfm, lm=lm, lm_f32=lm_f32,
+         launches={k: v for k, v in counts.items() if v})
+    return counts
 
 
 # ---------------------------------------------------------------- lm_job
@@ -3464,6 +3795,7 @@ def lm_variant_train(params, name, smi, steps=STEPS, dtype="bfloat16"):
                              "not finite")
     fields = dict(
         card=smi, params=params, batch=[LM_BATCH, LM_T],
+        step_mode=step_mode(trainer),
         compute_dtype=dtype, steps=steps, losses=losses,
         first_loss=losses[0], last_loss=losses[-1], step_ms=step_ms,
         host_step_ms=host_s * 1e3 / steps,
@@ -5525,8 +5857,10 @@ def phase_callbacks_job(smi):
         raise AssertionError("callbacks_job: " + "; ".join(problems))
     emit("callbacks_job", card=smi, wall_s=wall_s, counts=counts,
          eval=results, train_steps=steps, k1_launches=launches,
-         pushed_lr=plateau.lr, param_group_lrs=[g["lr"] for g in groups],
-         checkpoint_lrs=saved_lrs, plateau=evals, stop=stops[0])
+         pushed_lr=plateau.lr,
+         param_group_lrs=[float(g["lr"]) for g in groups],
+         checkpoint_lrs=[float(lr) for lr in saved_lrs], plateau=evals,
+         stop=stops[0])
     return launches
 
 
@@ -5781,6 +6115,7 @@ def phase_zoo_train(smi):
         torch.cuda.synchronize()
         losses = [float(x) for x in losses]
         entry = {"batch": b, "params": params, "steps": ZOO_STEPS,
+                 "step_mode": step_mode(trainer),
                  "losses": losses, "step_ms": step_ms,
                  "host_ms_per_step": host_s * 1e3 / (ZOO_STEPS - 1),
                  "samples_per_s": b / (step_ms / 1e3),
@@ -6011,6 +6346,7 @@ def main():
         return 1
     from elasticdl_tpu_torch.ops import flash_attention as fa
     from elasticdl_tpu_torch.ops import native, placement
+    from elasticdl_tpu_torch.training import step_graph
 
     dev = torch.device("cuda")
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6031,6 +6367,7 @@ def main():
     ring_launches = timed("ring_attn", phase_ring_attn, dev, smi)
     timed("parity", phase_parity)
     parity_launches = timed("lm_parity", phase_lm_parity)
+    graph_launches = timed("graph_step", phase_graph_step, smi)
     launches = timed("train", phase_train, smi)
     lm_launches = timed("lm_train", phase_lm_train, smi)
     f32_launches = timed("lm_train_f32", phase_lm_train_f32, smi)
@@ -6089,6 +6426,11 @@ def main():
         "launches_in": "job",
         "train_launches": launches,
         "grouped_launches": grouped_launches,
+        # the captured DeepFM steps' replays (graph_step), and the
+        # launches of every capture's warm-up in this run, which no
+        # counter above holds
+        "graph_step_launches": graph_launches[placement.KERNEL],
+        "warmup_launches": step_graph.warmup_launches[placement.KERNEL],
         # the one-member NCCL cohort's job (both its processes), and the
         # per-rank backward of the manual schedule, 2 and 4 shards
         "cohort_launches": cohort_launches,
@@ -6169,6 +6511,10 @@ def main():
         # the exported bf16 LM's forward (serve_export): K2' once a layer
         **({"serve_export_launches": serve_launches[name]}
            if name == fa.FWD_SM90 else {}),
+        # the captured LM steps' replays (graph_step), and every
+        # capture warm-up's launches in this run
+        "graph_step_launches": graph_launches[name],
+        "warmup_launches": step_graph.warmup_launches[name],
         **attn[name],
     } for name in (fa.FWD, fa.FWD_SM90, fa.BWD_DQ, fa.BWD_DQ_SM90,
                    fa.BWD_DKV, fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90)] + [{
@@ -6207,6 +6553,11 @@ def main():
         "launches_in": tf32_runs[d][0],
         **({"lm_parity_launches": parity_launches[128][kernel]}
            if d == 128 else {}),
+        # the captured float32 LM's replays (graph_step, D 64), and the
+        # kernel's capture warm-ups in this run at every D
+        **({"graph_step_launches": graph_launches[kernel],
+            "warmup_launches": step_graph.warmup_launches[kernel]}
+           if d == 64 else {}),
         **attn[entries[d]],
     } for entries, kernel in ((TF32, fa.FWD_TF32), (DQ_TF32, fa.BWD_DQ_TF32),
                               (DKV_TF32, fa.BWD_DKV_TF32))

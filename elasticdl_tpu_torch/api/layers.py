@@ -523,6 +523,11 @@ class MoE(nn.Module):
     overwrite semantics (the reference sows it into its `losses`
     collection), never from a remat recompute."""
 
+    # read by the trainer, which then runs the steps eagerly on the card
+    host_sync = ("ops.moe.switch_moe gathers the kept rows by a "
+                 "data-dependent count (torch.nonzero), a host sync a "
+                 "layer (ROADMAP P8)")
+
     def __init__(self, features: int, num_experts: int, hidden_dim: int,
                  capacity_factor: float = 1.25, residual: bool = True):
         super().__init__()

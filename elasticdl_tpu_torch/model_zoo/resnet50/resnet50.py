@@ -139,6 +139,10 @@ class WarmupCosineSGD(torch.optim.Optimizer):
     worker logs and ignores it, as the reference does with an optimizer
     that is not `modulated`."""
 
+    # read by the trainer, which then runs the steps eagerly on the card
+    host_sync = ("computes lr(count) on the host from a param-group count, "
+                 "which a captured step would freeze")
+
     def __init__(self, params, peak_lr: float, warmup_steps: int,
                  decay_steps: int, momentum: float = 0.9,
                  nesterov: bool = True, weight_decay: float = 0.0):

@@ -46,7 +46,7 @@ PASSES = 2             # kernels a call launches: zero pass, placement
 # CHUNK_ROWS-aligned chunks by the zero pass
 SPLIT_ROWS, CHUNK_ROWS = 32, 256
 launches = 0
-_launches_lock = threading.Lock()
+launches_lock = threading.Lock()
 
 _INT_MAX = 2**31 - 1
 
@@ -109,7 +109,7 @@ def place_sorted_grads(sorted_ids: torch.Tensor, rows: torch.Tensor,
             sorted_ids.data_ptr(), rows.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), n, num_rows, d, stream)
     native.check(lib, code, KERNEL)
-    with _launches_lock:
+    with launches_lock:
         launches += PASSES
     return out
 

@@ -74,6 +74,10 @@ from elasticdl_tpu_torch.parallel import mesh as mesh_lib
 
 logger = default_logger(__name__)
 
+# an optimizer's flavour: how it computes, not what it holds, so a
+# restore keeps the live optimizer's
+_OPTIMIZER_FLAVOUR = ("capturable", "fused", "foreach")
+
 _reg = default_registry()
 _CKPT_SAVES = _reg.counter(
     "edl_ckpt_saves_total", "checkpoint saves initiated")
@@ -445,12 +449,40 @@ class CheckpointManager:
 
     @staticmethod
     def _apply(state, payload: Dict[str, Any]) -> None:
+        """Write the payload into the live state in place: a step program
+        captured over the state (`training/step_graph.py`) reads its
+        parameters, buffers, optimizer slots and tensor hyperparameters
+        where they are, so each keeps its storage. The optimizer keeps its
+        own flavour (`capturable`, `fused`, `foreach`), whatever the
+        saving optimizer's was."""
         with torch.no_grad():
             for name, p in state.params.items():
                 p.copy_(payload["params"][name])
             for name, b in state.buffers.items():
                 b.copy_(payload["buffers"][name])
-        state.optimizer.load_state_dict(payload["optimizer"])
+        opt = state.optimizer
+        saved = dict(payload["optimizer"])
+        saved["param_groups"] = [
+            {**group, **{k: live[k] for k in _OPTIMIZER_FLAVOUR if k in live}}
+            for group, live in zip(saved["param_groups"], opt.param_groups)]
+        held = [{k: v for k, v in g.items() if isinstance(v, torch.Tensor)}
+                for g in opt.param_groups]
+        slots = {p: dict(s) for p, s in opt.state.items()}
+        opt.load_state_dict(saved)
+        with torch.no_grad():
+            for group, tensors in zip(opt.param_groups, held):
+                for k, t in tensors.items():
+                    t.copy_(torch.as_tensor(group[k], dtype=t.dtype))
+                    group[k] = t
+            for p, old in slots.items():
+                new = opt.state.get(p, {})
+                for k, t in old.items():
+                    v = new.get(k)
+                    if (isinstance(t, torch.Tensor)
+                            and isinstance(v, torch.Tensor)
+                            and v.shape == t.shape):
+                        t.copy_(v)
+                        new[k] = t
         state.generator.set_state(payload["generator"])
         state.step = int(payload["step"])
 

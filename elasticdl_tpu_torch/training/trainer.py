@@ -3,17 +3,39 @@ device.
 
 Counterpart of `elasticdl_tpu/training/trainer.py`. The reference jits
 forward, loss, backward and the optax update into one XLA program and
-donates the state; here the same step runs eagerly, and the parameters
-and optimizer slots update in place where the reference donates. The
-embedding backward goes through the hand-written placement kernel (see
-`ops/embedding.py`).
+donates the state; here the parameters and optimizer slots update in
+place where the reference donates. The embedding backward goes through
+the hand-written placement kernel (see `ops/embedding.py`).
+
+Each step kind (`train_step`, `train_many`, `eval_step`,
+`predict_step`) is a program resolved through the trainer's
+`CompileCache` under the reference's program key (`_program_key`: the
+cache token, the kind, the mesh's fingerprint, the remat knobs, the
+accumulation and the aux-loss weight; `_ensure`). A program
+(`training/step_graph.py`) captures its body as a CUDA graph on the
+card, one for each model, state and batch signature, and replays it once
+a call; `train_many`'s program is one graph of the K steps of a stacked
+group, the counterpart of the reference's `lax.scan`. `aot_compile_*`
+captures that same graph ahead of the first step, so a step finds it
+through its program: the reference's separate AOT dispatch, and its
+fallback from an AOT executable that rejects its inputs, have nothing to
+choose between here.
+On the CPU, and for a configuration that must stay eager, a program runs
+its body eagerly. The trainer decides at construction, from the device,
+the mesh, the model and the optimizer (`capture_reason`), and logs the
+decision: on the card a mesh of more than one rank (its collectives), a
+layer or optimizer that declares a `host_sync` (the MoE's index route,
+ResNet-50's host-side schedule) and an optimizer that is not
+`lr_modulation.modulated` stay eager. Remat captures: the graph records
+its rewind of the generator (`_forward`). A capture or a replay that
+fails raises; nothing on the card runs the eager body in place of a
+program.
 
 Batches arrive as `{"features", "labels", "mask"}` of numpy arrays (or
 tensors) and move to the trainer's device — the counterpart of the
 reference's `shard_batch`. `stack_batches` stacks K of them for
 `train_many`, `eval_many` and `predict_many`, the counterpart of
-`shard_batch_stack`; the reference's `lax.scan` over the group is a
-Python loop here.
+`shard_batch_stack`; `eval_many` and `predict_many` loop over their step.
 
 The HBM knobs are the reference's: `grad_accum` splits a train step's
 batch into strided micro-batches with one micro-batch's activations live
@@ -70,7 +92,6 @@ routing. A weight of 0 skips all of it.
 
 from __future__ import annotations
 
-import copy
 import functools
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -91,6 +112,7 @@ from elasticdl_tpu_torch.training import compile_cache
 from elasticdl_tpu_torch.training import lr_modulation
 from elasticdl_tpu_torch.training import metrics as metrics_lib
 from elasticdl_tpu_torch.training import step_cost
+from elasticdl_tpu_torch.training import step_graph
 from elasticdl_tpu_torch.training.model_spec import ModelSpec
 
 logger = default_logger(__name__)
@@ -260,43 +282,6 @@ def _group_size(stacked: Dict[str, Any]) -> int:
     return int(leaf.shape[0])
 
 
-class _StateCopy:
-    """What a train step changes in a `TrainState`, copied, so that
-    `restore` puts the state back bit for bit: the parameters and their
-    gradients, the buffers, the optimizer's slots and hyperparameters,
-    the step and the generator's state."""
-
-    @torch.no_grad()
-    def __init__(self, state: TrainState):
-        self.params = {n: p.detach().clone() for n, p in state.params.items()}
-        self.grads = {n: p.grad for n, p in state.params.items()}
-        self.buffers = {n: b.clone() for n, b in state.buffers.items()}
-        opt = state.optimizer
-        self.slots = {p: copy.deepcopy(s) for p, s in opt.state.items()}
-        self.groups = [{k: copy.deepcopy(v) for k, v in g.items()
-                        if k != "params"} for g in opt.param_groups]
-        self.step = state.step
-        self.generator = state.generator.get_state()
-
-    @torch.no_grad()
-    def restore(self, state: TrainState) -> None:
-        for n, p in state.params.items():
-            p.copy_(self.params[n])
-            p.grad = self.grads[n]
-        for n, b in state.buffers.items():
-            b.copy_(self.buffers[n])
-        opt = state.optimizer
-        for p in [p for p in opt.state if p not in self.slots]:
-            del opt.state[p]
-        for p, slots in self.slots.items():
-            opt.state[p].clear()
-            opt.state[p].update(slots)
-        for group, saved in zip(opt.param_groups, self.groups):
-            group.update(saved)
-        state.step = self.step
-        state.generator.set_state(self.generator)
-
-
 def _check_mesh(mesh: mesh_lib.Mesh, partition) -> None:
     """Refuse what the port does not run under a mesh: a batch partition
     that does not lead with the data axis or that cuts a later dimension
@@ -323,6 +308,33 @@ def _check_mesh(mesh: mesh_lib.Mesh, partition) -> None:
                 f"cuts only the second dimension, over {MeshAxis.SEQ!r}")
 
 
+# why `aot_compile_*(abstract=True)` raises
+_ABSTRACT = (
+    "an ahead-of-time program for a world this process cannot run is not "
+    "ported: a CUDA graph is captured over the memory of a state this "
+    "process holds (ROADMAP item 19, under 'Differences of design')")
+
+
+def _create_state(trainer: "Trainer") -> TrainState:
+    """The init program: move the trainer's model to its device, draw its
+    parameters there from a generator seeded with its seed, and build the
+    optimizer over them."""
+    model = trainer.model.to(trainer.device)
+    generator = torch.Generator(device=trainer.device)
+    generator.manual_seed(trainer.seed)
+    if hasattr(model, "reset_parameters"):
+        model.reset_parameters(generator)
+    params = dict(model.named_parameters())
+    optimizer = trainer.spec.optimizer(list(params.values()))
+    return TrainState(
+        step=0, params=params, optimizer=optimizer, generator=generator,
+        buffers=dict(model.named_buffers()), mesh=trainer.mesh,
+        row_shards={f"{name}.{leaf}": rows
+                    for name, m in model.named_modules()
+                    if hasattr(m, "shards")
+                    for leaf, rows in m.shards().items()})
+
+
 class Trainer:
     """Runs the train/eval/predict steps of one ModelSpec on one device.
 
@@ -334,15 +346,23 @@ class Trainer:
     mesh: a `parallel.mesh.Mesh` of this process's world; with more than
     one rank the steps are data-parallel (module docstring). Collective:
     every rank of the mesh runs the same steps on the same batches.
+    cache_token, cache: the programs' identity and store, as in the
+    reference: job entry points pass `compile_cache.job_cache_token(cfg)`
+    and share the process-wide cache, so a trainer rebuilt at the same
+    shape finds its programs; a trainer without a token keeps a private
+    cache.
     """
 
     def __init__(self, spec: ModelSpec, device: runtime.DeviceLike = None,
                  seed: int = 0, grad_accum: int = 1, remat: bool = False,
                  remat_policy: str = "",
-                 mesh: Optional[mesh_lib.Mesh] = None):
+                 mesh: Optional[mesh_lib.Mesh] = None,
+                 cache_token: str = "",
+                 cache: Optional[compile_cache.CompileCache] = None):
         # the knobs first: a bad name or count fails at construction, not
         # at the first train step of a running job
         self.remat = remat or bool(remat_policy)
+        self.remat_policy = remat_policy
         self._remat_context = (resolve_remat_policy(remat_policy)
                                or ckpt.noop_context_fn)
         if grad_accum < 1:
@@ -362,8 +382,139 @@ class Trainer:
         self.metrics: Dict[str, metrics_lib.Metric] = (
             dict(spec.eval_metrics_fn()) if spec.eval_metrics_fn else {}
         )
+        # the programs' identity and store (see the class docstring)
+        self.cache_token = cache_token or compile_cache.instance_token()
+        if cache is not None:
+            self._cache = cache
+        elif cache_token:
+            self._cache = compile_cache.global_cache()
+        else:
+            self._cache = compile_cache.CompileCache()
+        self._train_step = self._train_many = None
+        self._eval_step = self._predict_step = None
+        # why the steps run eagerly, or None when the card captures them
+        self.capture_reason = self._eager_reason()
+        if self.capture_reason is None:
+            logger.info("%s: steps captured as CUDA graphs on %s",
+                        spec.module_name, self.device)
+        else:
+            logger.info("%s: steps run eagerly on %s: %s", spec.module_name,
+                        self.device, self.capture_reason)
         # `train_step_cost`'s results by the (state, batch) signature
         self._cost_cache: Dict[Tuple, Dict[str, float]] = {}
+
+    def _eager_reason(self) -> Optional[str]:
+        """Why this trainer's steps run eagerly, or None when the card
+        captures them: decided once, from the device and
+        `_graph_blocker`."""
+        if self.device.type != "cuda":
+            return (f"the {self.device.type} runs the step's body, the "
+                    "kernels' plain versions")
+        return self._graph_blocker()
+
+    def _graph_blocker(self) -> Optional[str]:
+        """What in this configuration a CUDA graph cannot hold, or None:
+        the mesh, what the model's layers declare (`host_sync`) and the
+        optimizer."""
+        if self.mesh is not None:
+            return (f"a mesh of {self.mesh.size} ranks: its collectives "
+                    "run eagerly")
+        for module in self.model.modules():
+            reason = getattr(module, "host_sync", None)
+            if reason:
+                return f"{type(module).__name__}: {reason}"
+        return lr_modulation.capture_blocker(self.spec.optimizer)
+
+    # ------------------------------------------------------------------ #
+    # Programs (the reference's executable-cache plumbing)
+
+    def _program_key(self, kind: str) -> Tuple:
+        """Identity of one step program: the cache token, the kind, the
+        mesh's fingerprint and every trainer knob that changes the body,
+        as in the reference."""
+        return (
+            self.cache_token,
+            kind,
+            compile_cache.mesh_fingerprint(self.mesh),
+            self.remat,
+            self.remat_policy,
+            self.grad_accum,
+            float(self.spec.aux_loss_weight or 0.0),
+        )
+
+    def _ensure(self, attr: str, kind: str, build,
+                speculative: bool = False) -> step_graph.Program:
+        """Resolve the program for `kind` through the cache and pin it on
+        the trainer: one counted lookup per trainer per kind
+        (speculative resolutions count as speculative, not as misses)."""
+        program = getattr(self, attr)
+        if program is None:
+            program = self._cache.get_or_build(
+                self._program_key(kind), build, speculative=speculative)
+            setattr(self, attr, program)
+        return program
+
+    def compile_stats(self) -> Dict[str, float]:
+        """Hit/miss/speculative counters of the trainer's program cache."""
+        return self._cache.stats()
+
+    def _aot_compile(self, attr: str, kind: str, build, state: TrainState,
+                     args, speculative: bool = False):
+        """Capture the program for `state` and these exact inputs now (on
+        the CPU, or for a configuration left eager, the eager body bound
+        to them) and return the graph. Idempotent per state and batch
+        signature. The state is left as it was: the capture's warm-up
+        puts it back.
+
+        The steps reach the graph through the program, by (model, state,
+        signature). The cache's AOT entry is the program itself: it counts
+        as the reference's executable does (`entries`, `aot_generation`,
+        `speculative_compiles`) and keeps no graph alive past its state."""
+        program = self._ensure(attr, kind, build, speculative=speculative)
+        sig = step_graph.batch_signature(args)
+        graph = program.graph_for(self, state, args, sig)
+        self._cache.store_aot(self._program_key(kind) + ("aot", sig),
+                              program, speculative=speculative)
+        return graph
+
+    def aot_compile_train_step(self, state: TrainState, batch,
+                               speculative: bool = False,
+                               abstract: bool = False):
+        if abstract:
+            raise NotImplementedError(_ABSTRACT)
+        return self._aot_compile("_train_step", "train_step",
+                                 self._build_train_step, state,
+                                 self._device_args(batch),
+                                 speculative=speculative)
+
+    def aot_compile_eval_step(self, state: TrainState, batch,
+                              speculative: bool = False,
+                              abstract: bool = False):
+        if abstract:
+            raise NotImplementedError(_ABSTRACT)
+        return self._aot_compile("_eval_step", "eval_step",
+                                 self._build_eval_step, state,
+                                 self._device_args(batch),
+                                 speculative=speculative)
+
+    def aot_compile_predict_step(self, state: TrainState, batch,
+                                 speculative: bool = False,
+                                 abstract: bool = False):
+        if abstract:
+            raise NotImplementedError(_ABSTRACT)
+        return self._aot_compile("_predict_step", "predict_step",
+                                 self._build_predict_step, state,
+                                 self._device_args(batch),
+                                 speculative=speculative)
+
+    def aot_compile_train_many(self, state: TrainState, stacked_batch,
+                               speculative: bool = False):
+        """The ahead-of-time twin of `train_many`'s program, for a stacked
+        batch from `stack_batches`."""
+        return self._aot_compile("_train_many", "train_many",
+                                 self._build_train_many, state,
+                                 self._to_device(stacked_batch),
+                                 speculative=speculative)
 
     # ------------------------------------------------------------------ #
     # Batches
@@ -380,34 +531,37 @@ class Trainer:
     def _device_batch(self, batch: Dict[str, Any]):
         return tuple(self._to_device(x) for x in _split_batch(batch))
 
+    def _device_args(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """A step's device inputs: features, labels and mask."""
+        return dict(zip(("features", "labels", "mask"),
+                        self._device_batch(batch)))
+
     # ------------------------------------------------------------------ #
     # State creation
 
     def init_state(self, example_batch: Dict[str, Any]) -> TrainState:
         """Move the model to the device and draw its parameters there from
-        a generator seeded with `seed`, then build the optimizer over them.
+        a generator seeded with `seed`, then build the optimizer over them:
+        the init program, resolved through the cache as the reference's
+        is (keyed by the example features' signature).
 
         A torch module knows its parameter shapes from its constructor, so
-        `example_batch` (which flax needs to infer them) only keeps the
-        reference's signature."""
-        del example_batch
-        model = self.model.to(self.device)
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(self.seed)
-        if hasattr(model, "reset_parameters"):
-            model.reset_parameters(generator)
-        params = dict(model.named_parameters())
-        optimizer = self.spec.optimizer(list(params.values()))
-        n = sum(p.numel() for p in params.values())
+        `example_batch` (which flax needs to infer them) only keys the
+        program."""
+        features = (None if example_batch is None
+                    else _split_batch(example_batch)[0])
+        # the value is always `_create_state`: the lookup is here so that
+        # `compile_stats()` counts as the reference's does, init included
+        # (tests/test_torch_compiled_step.py holds the two equal)
+        create = self._cache.get_or_build(
+            self._program_key("init")
+            + (compile_cache.aval_signature(features),),
+            lambda: _create_state)
+        state = create(self)
+        n = sum(p.numel() for p in state.params.values())
         logger.info("Initialized model %s: %.3fM params on %s",
                     self.spec.module_name, n / 1e6, self.device)
-        return TrainState(
-            step=0, params=params, optimizer=optimizer, generator=generator,
-            buffers=dict(model.named_buffers()), mesh=self.mesh,
-            row_shards={f"{name}.{leaf}": rows
-                        for name, m in model.named_modules()
-                        if hasattr(m, "shards")
-                        for leaf, rows in m.shards().items()})
+        return state
 
     # ------------------------------------------------------------------ #
     # Steps
@@ -597,39 +751,64 @@ class Trainer:
             offset += g.numel()
         return bucket[offset]
 
-    def train_step(self, state: TrainState, batch: Dict[str, Any]):
-        """One optimizer step. Updates `state` in place (the reference
-        donates it) and returns (state, {"loss": 0-d float32 tensor on the
-        device})."""
-        loss, _ = self.compute_grads(state, batch)
+    def _train_body(self, state: TrainState, args) -> torch.Tensor:
+        """One optimizer step on the device inputs `args`: the train
+        program's body. Returns the loss, a 0-d float32 tensor."""
+        loss, _ = self.compute_grads(state, args)
         state.optimizer.step()
+        return loss.to(torch.float32)
+
+    def _train_many_body(self, state: TrainState, stacked) -> torch.Tensor:
+        """`_train_body` over each step of a stacked group: the
+        `train_many` program's body. Returns the (K,) losses."""
+        return torch.stack([self._train_body(state, _unstack(stacked, i))
+                            for i in range(_group_size(stacked))])
+
+    def _build_train_step(self) -> step_graph.Program:
+        return step_graph.Program("train_step", Trainer._train_body)
+
+    def _build_train_many(self) -> step_graph.Program:
+        return step_graph.Program("train_many", Trainer._train_many_body)
+
+    def train_step(self, state: TrainState, batch: Dict[str, Any]):
+        """One optimizer step through the train program (on the card, one
+        replay of its graph). Updates `state` in place (the reference
+        donates it) and returns (state, {"loss": 0-d float32 tensor on
+        the device})."""
+        program = self._ensure("_train_step", "train_step",
+                               self._build_train_step)
+        loss = program(self, state, self._device_args(batch))
         state.step += 1
-        return state, {"loss": loss.to(torch.float32)}
+        return state, {"loss": loss}
 
     def train_many(self, state: TrainState, stacked_batch):
         """K train steps over a stacked batch (leaves (K, B, ...), from
-        `stack_batches`): the counterpart of the reference's `lax.scan` of
-        the step, as a Python loop. A group not yet on the device goes
-        there in one copy a leaf, and each step's loss stays there:
-        returns (state, {"loss": (K,) float32 tensor on the device}), read
-        back once a group."""
+        `stack_batches`) in one program: the counterpart of the
+        reference's `lax.scan` of the step, on the card one replay of one
+        graph of the K steps. A group not yet on the device goes there in
+        one copy a leaf, and each step's loss stays there: returns
+        (state, {"loss": (K,) float32 tensor on the device}), read back
+        once a group."""
         stacked = self._to_device(stacked_batch)
-        losses = []
-        for i in range(_group_size(stacked)):
-            state, logs = self.train_step(state, _unstack(stacked, i))
-            losses.append(logs["loss"])
-        return state, {"loss": torch.stack(losses)}
+        program = self._ensure("_train_many", "train_many",
+                               self._build_train_many)
+        losses = program(self, state, stacked)
+        state.step += _group_size(stacked)
+        return state, {"loss": losses}
 
     def train_step_cost(self, state: TrainState,
                         batch: Dict[str, Any]) -> Dict[str, float]:
         """{'flops', 'bytes accessed'} of ONE train step (`train_step`,
         the body `train_many` runs K times) on `batch`, under the
         trainer's knobs: the counterpart of the reference's cost analysis
-        of its lowered step. It runs that step once under
-        `training.step_cost.StepCost` and then puts `state` back as it
-        was, bit for bit: the parameters, their gradients, the buffers,
-        the optimizer's slots and hyperparameters, the step and the
-        generator. So it costs one step's time (on the card its kernels
+        of its lowered step. It runs that step's eager body once under
+        `training.step_cost.StepCost` (a graph's replay dispatches no op
+        the mode could see) and then puts `state` back as it was, bit for
+        bit and in place (`step_graph.StateCopy`): the parameters, their
+        gradients, the buffers, the optimizer's slots and
+        hyperparameters, the step and the generator, every tensor a
+        captured program holds keeping its storage. So it costs one
+        step's time (on the card its kernels
         launch and count in their `launches`) and a second copy of the
         parameters and slots while it runs. Memoized by the (state,
         batch) shapes and dtypes, as the reference's `_cost_cache` is.
@@ -646,11 +825,12 @@ class Trainer:
         key = compile_cache.aval_signature(
             (state.params, state.buffers, features, labels, mask))
         if key not in self._cost_cache:
-            saved = _StateCopy(state)
+            saved = step_graph.StateCopy(state)
             try:
                 with step_cost.StepCost() as cost:
-                    self.train_step(state, {"features": features,
-                                            "labels": labels, "mask": mask})
+                    self._train_body(state, {"features": features,
+                                             "labels": labels,
+                                             "mask": mask})
             finally:
                 saved.restore(state)
             self._cost_cache[key] = {"flops": float(cost.flops),
@@ -658,22 +838,49 @@ class Trainer:
         return dict(self._cost_cache[key])
 
     @torch.no_grad()
-    def eval_step(self, state: TrainState, batch, metric_states):
-        """Update the streaming metric states (numpy float32 arrays, as
-        the master merges them) and the `_loss` [sum, count] pair."""
-        features, labels, mask = self._device_batch(batch)
+    def _eval_body(self, state: TrainState, args):
+        """The eval program's body: the outputs in eval mode and the
+        masked loss's [sum, count] pair, on the device."""
+        del state
+        features, labels, mask = _split_batch(args)
         self.model.eval()
         outputs = self._eval_outputs(features)
+        loss_value = _masked_scalar_loss(self.spec.loss, labels, outputs, mask)
+        count = (torch.sum(mask.to(torch.float32)) if mask is not None
+                 else torch.full((), float(labels.reshape(-1).shape[0]),
+                                 device=outputs.device))
+        return outputs, torch.stack([loss_value * count, count])
+
+    @torch.no_grad()
+    def _predict_body(self, state: TrainState, args) -> torch.Tensor:
+        del state
+        self.model.eval()
+        return self._eval_outputs(args["features"])
+
+    def _build_eval_step(self) -> step_graph.Program:
+        # the outputs are consumed by the metric updates before the next
+        # replay, in stream order: no copy
+        return step_graph.Program("eval_step", Trainer._eval_body,
+                                  clone_outputs=False)
+
+    def _build_predict_step(self) -> step_graph.Program:
+        return step_graph.Program("predict_step", Trainer._predict_body)
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch, metric_states):
+        """Update the streaming metric states (numpy float32 arrays, as
+        the master merges them) and the `_loss` [sum, count] pair: the
+        eval program's outputs, then each metric's update on them."""
+        args = self._device_args(batch)
+        program = self._ensure("_eval_step", "eval_step",
+                               self._build_eval_step)
+        outputs, loss_pair = program(self, state, args)
         new_states = dict(metric_states)
         for name, metric in self.metrics.items():
             new_states[name] = metric.update(
-                metric_states[name], labels, outputs, mask)
-        loss_value = _masked_scalar_loss(self.spec.loss, labels, outputs, mask)
-        count = (torch.sum(mask.to(torch.float32)) if mask is not None
-                 else torch.tensor(float(labels.reshape(-1).shape[0]),
-                                   device=self.device))
-        new_states["_loss"] = metric_states["_loss"] + torch.stack(
-            [loss_value * count, count]).to("cpu", torch.float32).numpy()
+                metric_states[name], args["labels"], outputs, args["mask"])
+        new_states["_loss"] = metric_states["_loss"] + loss_pair.to(
+            "cpu", torch.float32).numpy()
         return new_states
 
     def eval_many(self, state: TrainState, stacked_batch, metric_states):
@@ -700,11 +907,12 @@ class Trainer:
         return mesh_lib.all_gather(self.mesh, mesh_lib.data_axis(self.mesh),
                                    out)
 
-    @torch.no_grad()
     def predict_step(self, state: TrainState, batch) -> torch.Tensor:
-        features, _, _ = self._device_batch(batch)
-        self.model.eval()
-        return self._eval_outputs(features)
+        """The model's outputs for `batch` in eval mode, through the
+        predict program."""
+        program = self._ensure("_predict_step", "predict_step",
+                               self._build_predict_step)
+        return program(self, state, self._device_args(batch))
 
     def predict_many(self, state: TrainState, stacked_batch):
         """K predict steps over a stacked batch; the outputs come back
@@ -717,7 +925,9 @@ class Trainer:
     # Control
 
     def set_learning_rate(self, state: TrainState, lr: float) -> TrainState:
-        """Runtime LR change; the optimizer's param groups carry it."""
+        """Runtime LR change; the optimizer's param groups carry it (on the
+        card as a device tensor, written in place, which a captured step
+        reads at its next replay)."""
         lr_modulation.set_learning_rate(state.optimizer, lr)
         return state
 

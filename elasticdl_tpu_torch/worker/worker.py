@@ -303,12 +303,17 @@ class Worker:
         self._trainer = self._make_trainer()
 
     def _make_trainer(self):
+        """The one trainer construction path, the cohort's too: the
+        config-derived cache token lets a trainer rebuilt in this process
+        at the same shape find its programs (`training/compile_cache.py`)."""
+        from elasticdl_tpu_torch.training import compile_cache
         from elasticdl_tpu_torch.training.trainer import Trainer
 
         return Trainer(self._spec, device=self.device,
                        seed=self.cfg.shuffle_seed, remat=self.cfg.remat,
                        remat_policy=self.cfg.remat_policy,
-                       grad_accum=self.cfg.grad_accum_steps, mesh=self._mesh)
+                       grad_accum=self.cfg.grad_accum_steps, mesh=self._mesh,
+                       cache_token=compile_cache.job_cache_token(self.cfg))
 
     def _data_service(self, task_type: int) -> TaskDataService:
         if task_type not in self._services:
@@ -661,18 +666,21 @@ class Worker:
         """One line a training task: its steps, records and time in
         steps, the step profiler's per-step data wait and h2d, and the
         embedding-gradient kernel's launches in this process so far (K1,
-        `ops/placement.py`)."""
+        `ops/placement.py`), and those the step programs' capture
+        warm-ups made beside them (`training/step_graph.py`)."""
         from elasticdl_tpu_torch.ops import placement
+        from elasticdl_tpu_torch.training import step_graph
 
         prof = profile_lib.get_profiler().snapshot(update_memory=False)
         logger.info(
             "%s %d: %d steps, %d records, %.6f s in steps, "
-            "data_wait %.3f ms and h2d %.3f ms a step, %s launches %d",
+            "data_wait %.3f ms and h2d %.3f ms a step, %s launches %d "
+            "(and %d in capture warm-ups)",
             self._task_line, task.task_id, int(stats["loss_count"]),
             int(stats["records_done"]), stats["step_time_sum"],
             prof.get("phase_data_wait_ms", 0.0),
             prof.get("phase_h2d_ms", 0.0), placement.KERNEL,
-            placement.launches)
+            placement.launches, step_graph.warmup_launches[placement.KERNEL])
 
     def _run_training_task(self, task: pb.Task) -> Dict[str, float]:
         """Run a training task in groups of k = --steps_per_dispatch

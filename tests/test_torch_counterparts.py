@@ -42,9 +42,11 @@ NOT_PORTED = {
     "common/runtime.py:configure_jax_runtime":
         "JAX's flags; the port's is runtime.configure_torch_runtime",
     "parallel/mesh.py:abstract_batch":
-        "ShapeDtypeStructs for XLA's AOT compiles; the port compiles nothing",
+        "ShapeDtypeStructs for XLA's AOT compiles; the port captures only "
+        "over a state this process holds (item 19)",
     "parallel/mesh.py:abstract_batch_stack":
-        "ShapeDtypeStructs for XLA's AOT compiles; the port compiles nothing",
+        "ShapeDtypeStructs for XLA's AOT compiles; the port captures only "
+        "over a state this process holds (item 19)",
     "parallel/mesh.py:batch_key_spec":
         "a PartitionSpec per batch key; the port cuts by the model's "
         "partition in parallel.mesh.shard_batch",
@@ -87,28 +89,12 @@ NOT_PORTED = {
     "ops/moe.py:expert_partition_names":
         "the port's is ops.moe.expert_range",
     "training/trainer.py:Trainer.abstract_train_state":
-        "ShapeDtypeStructs for XLA's AOT compiles; the port compiles nothing",
-    "training/trainer.py:Trainer.aot_compile_train_step":
-        "an XLA AOT executable; the port's steps run eagerly",
-    "training/trainer.py:Trainer.aot_compile_train_many":
-        "an XLA AOT executable; the port's steps run eagerly",
-    "training/trainer.py:Trainer.aot_compile_eval_step":
-        "an XLA AOT executable; the port's steps run eagerly",
-    "training/trainer.py:Trainer.aot_compile_predict_step":
-        "an XLA AOT executable; the port's steps run eagerly",
-    "training/trainer.py:Trainer.compile_stats":
-        "the counters of the trainer's executable cache; the port's "
-        "trainer caches no program",
-    "training/compile_cache.py:CompileCache.aot_generation":
-        f"AOT entries of the speculative compiler, item 19: {QUEUE3}",
-    "training/compile_cache.py:CompileCache.store_aot":
-        f"AOT entries of the speculative compiler, item 19: {QUEUE3}",
+        "ShapeDtypeStructs for AOT compiles for a world this process cannot "
+        "run; a CUDA graph is captured over a state this process holds, "
+        f"item 19: {QUEUE3}",
     "training/compile_cache.py:SpeculativeCompiler.*":
         f"item 19, whose class the port keeps as a stub that raises: "
         f"{QUEUE3}",
-    "training/compile_cache.py:instance_token":
-        "the cache token of a trainer built outside a job; the port's "
-        "trainer caches no program",
 }
 
 

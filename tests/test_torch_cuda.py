@@ -10,9 +10,15 @@ unsplit attention (also over tensor-parallel head groups, each launch
 against its plain version), a ResNet-20 step (convolutions, BatchNorm), a device-mode
 embedding-tier store (K1 on every push), zoo callbacks whose pushed
 learning rate lands in the worker's optimizer on the card, an LM's
-serving export, whose program launches K2' or K2, and `train_step_cost`,
-whose FLOPs on the card equal the CPU's. They skip where no CUDA device
-is present.
+serving export, whose program launches K2' or K2, `train_step_cost`,
+whose FLOPs on the card equal the CPU's, and the trainer's captured
+steps (CUDA graphs: DeepFM, the LM with dropout, also under remat, and
+MNIST with dropout under deterministic cuDNN, equal to the eager body
+bit for bit over 5 steps and a group of 4, an LR set after capture
+reaching the next replay, the generator rewind that remat records
+inside a capture, and the card flavours of the zoo's optimizers, two
+captured steps and an LR change, against the CPU's plain flavour). They
+skip where no CUDA device is present.
 
 This file imports torch and the port only, so it also runs on a GPU
 machine without JAX:
@@ -1085,6 +1091,200 @@ def case_grouped_deepfm_on_the_card(cuda):
         assert torch.equal(a.params[n], b.params[n]), n
 
 
+def _captured_and_eager(model_def, params, dtype, batch, **knobs):
+    """A trainer that captures its steps and an eager twin from the same
+    weights and seed, on the card."""
+    graph = _card_trainer(model_def, params, dtype, **knobs)
+    eager = _card_trainer(model_def, params, dtype, **knobs)
+    assert graph.capture_reason is None, graph.capture_reason
+    gs, es = graph.init_state(batch), eager.init_state(batch)
+    eager.model.load_state_dict(graph.model.state_dict())
+    return graph, gs, eager, es
+
+
+def case_captured_steps_equal_eager(cuda, model_def, params, dtype, batch,
+                                    kernels, **knobs):
+    """A captured `train_step` and a `train_many` of 4 on the card equal
+    the eager body bit for bit over 5 steps and a group (losses,
+    parameters, optimizer slots, the generator), with one replay a step
+    and one a group, and each replay credits the launches its capture
+    recorded of `kernels` (the kernels' counters count none in the
+    capture or its warm-up)."""
+    from elasticdl_tpu_torch.training import step_graph
+    from elasticdl_tpu_torch.training.trainer import stack_batches
+
+    graph, gs, eager, es = _captured_and_eager(model_def, params, dtype,
+                                               batch, **knobs)
+    args = graph._device_args(batch)
+    before = step_graph.launch_counts()
+    losses = [graph.train_step(gs, args)[1]["loss"] for _ in range(5)]
+    torch.cuda.synchronize()
+    (g,) = [x for x in graph._train_step.graphs() if x.bound_to(graph, gs)]
+    assert isinstance(g, step_graph.CapturedGraph) and g.replays == 5
+    counted = step_graph.launch_counts()
+    for name in kernels:
+        assert g.launches.get(name, 0) > 0, (name, g.launches)
+        assert counted[name] - before[name] == 5 * g.launches[name], name
+    assert g.pool_bytes > 0 and g.capture_s > 0
+    want = []
+    for _ in range(5):
+        want.append(eager._train_body(es, args))
+        es.step += 1
+    group = graph.train_many(gs, stack_batches([batch] * 4, cuda))[1]
+    (gm,) = [x for x in graph._train_many.graphs()
+             if x.bound_to(graph, gs)]
+    assert gm.replays == 1
+    for _ in range(4):
+        want.append(eager._train_body(es, args))
+        es.step += 1
+    got = torch.cat([torch.stack(losses), group["loss"]])
+    assert torch.equal(got, torch.stack(want)), (got, want)
+    assert gs.step == es.step == 9
+    for n, p in gs.params.items():
+        assert torch.equal(p, es.params[n]), n
+        for k, v in gs.optimizer.state[p].items():
+            assert torch.equal(v, es.optimizer.state[es.params[n]][k]), (n, k)
+    assert torch.equal(gs.generator.get_state(), es.generator.get_state())
+
+
+def case_captured_lr_change_reaches_the_replay(cuda):
+    """An LR set after capture reaches the next replay: the zoo's Adam on
+    the card holds its rate as a device tensor (`capturable`), which
+    `set_learning_rate` writes in place; at rate 0 a replay moves no
+    parameter, and the eager twin at the same rates agrees bit for bit."""
+    r = np.random.RandomState(13)
+    batch = {
+        "features": {"dense": r.rand(64, 13).astype(np.float32),
+                     "cat": r.randint(0, 1 << 30, (64, 26)).astype(np.int32)},
+        "labels": r.randint(0, 2, 64).astype(np.int32),
+        "mask": np.ones((64,), np.float32)}
+    graph, gs, eager, es = _captured_and_eager(
+        "deepfm.deepfm.custom_model", "field_vocab=1000;hidden=32,32",
+        "float32", batch)
+    (group,) = gs.optimizer.param_groups
+    assert group["capturable"] and isinstance(group["lr"], torch.Tensor)
+    assert group["lr"].device.type == "cuda"
+    graph.train_step(gs, batch)
+    eager._train_body(es, eager._device_args(batch))
+    lr = group["lr"]
+    for t, s in ((graph, gs), (eager, es)):
+        t.set_learning_rate(s, 0.0)
+    assert group["lr"] is lr
+    before = {n: p.detach().clone() for n, p in gs.params.items()}
+    graph.train_step(gs, batch)
+    eager._train_body(es, eager._device_args(batch))
+    for n, p in gs.params.items():
+        assert torch.equal(p, before[n]), n
+        assert torch.equal(p, es.params[n]), n
+    for t, s in ((graph, gs), (eager, es)):
+        t.set_learning_rate(s, 1e-2)
+    graph.train_step(gs, batch)
+    eager._train_body(es, eager._device_args(batch))
+    assert any(not torch.equal(p, before[n]) for n, p in gs.params.items())
+    for n, p in gs.params.items():
+        assert torch.equal(p, es.params[n]), n
+
+
+def case_capture_rewinds_the_generator(cuda):
+    """What lets remat capture: it rewinds the step's generator on the
+    host (`get_state`, then `set_state` before the recompute) so that the
+    recompute draws the forward's masks again. Inside a capture the
+    rewind is recorded too: a replay draws the same values twice, and
+    the next replay draws new ones, as the eager calls do."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        entry = gen.get_state()
+        a = torch.rand(64, generator=gen, device=cuda)
+        gen.set_state(entry)
+        b = torch.rand(64, generator=gen, device=cuda)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    twin = torch.Generator(device=cuda)
+    twin.manual_seed(0)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        entry = twin.get_state()
+        want = torch.rand(64, generator=twin, device=cuda)
+        twin.set_state(entry)
+        torch.rand(64, generator=twin, device=cuda)
+        assert torch.equal(a, want) and torch.equal(b, want)
+    assert torch.equal(gen.get_state(), twin.get_state())
+
+
+def case_card_update_matches_cpu(cuda, model_def, params, batch, lr2,
+                                 loss_rtol):
+    """The card's optimizer update against the CPU's plain one: two train
+    steps of `model_def` in float32 on the card (the captured step over
+    the zoo optimizer's card flavour: capturable Adam or AdamW with a
+    device learning rate, or fused SGD) and on the CPU (the flavour the
+    CPU tests hold against optax), from the same weights and batch, the
+    second after `set_learning_rate(lr2)` on both. Losses within
+    `loss_rtol` (the card-against-CPU gradient tests' loss bound);
+    parameters and the optimizer's slots (Adam's step, moments and
+    momentum buffers) rtol 1e-4, atol 1e-5, tests/test_torch_trainer.py's
+    bound after Adam steps. An LM's k biases are held apart as there:
+    their gradient is 0 in exact arithmetic, so each side's Adam step
+    normalizes rounding noise and moves them by up to the learning rate,
+    and both sides stay within the two steps' rates of their initial 0."""
+    from elasticdl_tpu_torch.training import lr_modulation, step_graph
+
+    runs, weights = [], None
+    for dev in ("cpu", None):
+        tr = _card_trainer(model_def, params, "float32", device=dev)
+        state = tr.init_state(batch)
+        if weights is None:
+            weights = {k: v.detach().clone()
+                       for k, v in tr.model.state_dict().items()}
+        tr.model.load_state_dict(weights)
+        lr1 = lr_modulation.get_learning_rate(state.optimizer)
+        losses = []
+        for i in range(2):
+            if i:
+                tr.set_learning_rate(state, lr2)
+            state, logs = tr.train_step(state, batch)
+            losses.append(float(logs["loss"]))
+        runs.append((tr, state, losses))
+    (_, cs, cpu_losses), (card, gs, card_losses) = runs
+    assert card.capture_reason is None, card.capture_reason
+    (graph,) = [g for g in card._train_step.graphs() if g.bound_to(card, gs)]
+    assert isinstance(graph, step_graph.CapturedGraph) and graph.replays == 2
+    flavour = {k: gs.optimizer.defaults.get(k) for k in ("capturable",
+                                                          "fused")}
+    assert True in flavour.values(), flavour
+    assert isinstance(gs.optimizer.param_groups[0]["lr"], torch.Tensor)
+    assert not any(cs.optimizer.defaults.get(k) for k in flavour)
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=loss_rtol)
+    for n, p in cs.params.items():
+        q = gs.params[n]
+        if n.endswith(".k.bias"):
+            for x in (p, q):
+                assert float(x.detach().abs().max()) <= lr1 + lr2, n
+            continue
+        np.testing.assert_allclose(q.detach().cpu().numpy(),
+                                   p.detach().numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=n)
+        slots, card_slots = cs.optimizer.state[p], gs.optimizer.state[q]
+        assert slots.keys() == card_slots.keys(), n
+        for k, v in slots.items():
+            np.testing.assert_allclose(
+                card_slots[k].detach().cpu().numpy(), v.detach().numpy(),
+                rtol=1e-4, atol=1e-5, err_msg=f"{n} {k}")
+
+
+def _lm_batch(b=4, t=64, vocab=64, seed=17):
+    r = np.random.RandomState(seed)
+    toks = r.randint(0, vocab, (b, t + 1)).astype(np.int32)
+    return {"features": toks[:, :-1], "labels": toks[:, 1:],
+            "mask": np.ones((b,), np.float32)}
+
+
 def case_job_on_the_card(cuda, tmp):
     """The job path at a small width: the port's master and worker in this
     process (the worker on a thread, device defaulted: the card), K1
@@ -1358,6 +1558,56 @@ def test_kernels_on_the_card(cuda, tmp_path):
     case_lm_knobs_on_the_card(cuda)
     case_step_cost_on_the_card_matches_cpu(cuda)
     case_grouped_deepfm_on_the_card(cuda)
+    r = np.random.RandomState(11)
+    deepfm_batch = {
+        "features": {"dense": r.rand(256, 13).astype(np.float32),
+                     "cat": r.randint(0, 1 << 30, (256, 26)).astype(np.int32)},
+        "labels": r.randint(0, 2, 256).astype(np.int32),
+        "mask": np.ones((256,), np.float32)}
+    case_captured_steps_equal_eager(
+        cuda, "deepfm.deepfm.custom_model", "field_vocab=1000;hidden=32,32",
+        "bfloat16", deepfm_batch, (placement.KERNEL,))
+    case_captured_steps_equal_eager(
+        cuda, "transformer.transformer_lm.custom_model",
+        "vocab=64;num_layers=2;dim=128;heads=8;max_len=64;dropout=0.1",
+        "bfloat16", _lm_batch(),
+        (fa.FWD_SM90, fa.BWD_DQ_SM90, fa.BWD_DKV_SM90, fa.BWD_DELTA_SM90))
+    for knobs in ({"remat_policy": "dots"}, {"remat": True, "grad_accum": 2}):
+        case_captured_steps_equal_eager(
+            cuda, "transformer.transformer_lm.custom_model",
+            "vocab=64;num_layers=2;dim=128;heads=8;max_len=64;dropout=0.1",
+            "bfloat16", _lm_batch(),
+            (fa.FWD_SM90, fa.BWD_DQ_SM90, fa.BWD_DKV_SM90,
+             fa.BWD_DELTA_SM90), **knobs)
+    # cuDNN's default convolution backward sums in no fixed order, so two
+    # eager runs differ in the last bits too: deterministic cuDNN, as
+    # chip_smoke's remat_equal runs ResNet-50
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        case_captured_steps_equal_eager(
+            cuda, "mnist.mnist_cnn.custom_model", "", "float32", {
+                "features": r.rand(16, 28, 28, 1).astype(np.float32),
+                "labels": r.randint(0, 10, 16).astype(np.int32),
+                "mask": np.ones((16,), np.float32)}, ())
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+    case_captured_lr_change_reaches_the_replay(cuda)
+    case_capture_rewinds_the_generator(cuda)
+    case_card_update_matches_cpu(
+        cuda, "deepfm.deepfm.custom_model", "field_vocab=1000;hidden=32,32",
+        deepfm_batch, 5e-4, 1e-5)
+    case_card_update_matches_cpu(
+        cuda, "transformer.transformer_lm.custom_model",
+        "vocab=64;num_layers=2;dim=64;heads=4;max_len=64", _lm_batch(),
+        1e-4, 5e-5)
+    case_card_update_matches_cpu(
+        cuda, "cifar10.resnet.custom_model", "depth=20", {
+            "features": r.rand(16, 32, 32, 3).astype(np.float32),
+            "labels": r.randint(0, 10, 16).astype(np.int32)}, 0.05, 1e-5)
     case_job_on_the_card(cuda, str(tmp_path))
     case_callbacks_lr_lands_on_the_card(cuda, str(tmp_path))
     case_tier_store_on_the_card(cuda)
